@@ -1,0 +1,255 @@
+"""EPS — linear eigenproblem solver front-end (``slepc_tpu/eps/base.py``).
+
+The subset the Hermitian Krylov-Schur slice needs: the constructor and
+options (``nev ncv tol max_it which problem_type``, ``-eps_cheb_degree``,
+monitors), ``solve``, ``nconv``, ``get_eigenpair``, ``compute_error`` and
+``error_view``.  Eigenvectors stay on the operator's device as the rows of
+a (nconv, n) tensor.  Other solvers, problem types, spectral
+transformations and options raise NotImplementedError naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..mat.linop import LinearOperator
+from ..st.st import STShift
+from ..sys.monitor import ConvMonitor, Monitor, monitor_all, monitor_first
+from ..sys.options import Options, get_global_options
+from ..sys.sort import SortCriterion, Which
+
+
+class ProblemType(enum.Enum):
+    HEP = "hep"  # Hermitian
+    GHEP = "ghep"  # generalized Hermitian, B > 0
+    NHEP = "nhep"  # non-Hermitian
+    GNHEP = "gnhep"  # generalized non-Hermitian
+    PGNHEP = "pgnhep"  # gen. non-Hermitian with positive-definite B
+    GHIEP = "ghiep"  # gen. Hermitian-indefinite
+    BSE = "bse"  # structured Bethe-Salpeter
+
+
+class EPSConvergedReason(enum.IntEnum):
+    CONVERGED_TOL = 1
+    CONVERGED_USER = 2
+    DIVERGED_ITS = -1
+    DIVERGED_BREAKDOWN = -2
+    DIVERGED_SYMMETRY_LOST = -3
+    ITERATING = 0
+
+
+class EPSError(RuntimeError):
+    pass
+
+
+_DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5}
+_TODO_SOLVERS = ("only EPS 'krylovschur' on Hermitian (hep) problems is "
+                 "ported; {} is still to be ported (ROADMAP.md, queue 1, "
+                 "item 11)")
+
+
+class EPS:
+    """Linear eigensolver: A x = lambda x (standard Hermitian problems)."""
+
+    def __init__(self, A: Optional[LinearOperator] = None,
+                 B: Optional[LinearOperator] = None, *,
+                 problem_type: Optional[str | ProblemType] = None,
+                 which: str | Which = Which.LARGEST_MAGNITUDE,
+                 nev: int = 1, ncv: Optional[int] = None, mpd: Optional[int] = None,
+                 tol: Optional[float] = None, max_it: Optional[int] = None,
+                 solver: str = "krylovschur",
+                 options: Optional[Options] = None, prefix: str = "eps_"):
+        if B is not None:
+            raise NotImplementedError(_TODO_SOLVERS.format(
+                "the generalized problem A x = lambda B x"))
+        self.A = A
+        self.problem_type = ProblemType(problem_type) if problem_type else None
+        self.which = Which(which) if not isinstance(which, Which) else which
+        self.nev = nev
+        self.ncv = ncv
+        self.mpd = mpd
+        self.tol = tol
+        self.max_it = max_it
+        self.solver_name = solver
+        self.st: Optional[STShift] = None
+        self.monitor = Monitor()
+        self.stopping: Optional[Callable] = None
+        # Krylov-Schur fast-path settings (the attributes ks_hep_solve
+        # reads; slepc_tpu/eps/ks_jit.py:1139-1148, 1220-1235)
+        self.reorth = "full"
+        self.rot_mode = "exact"
+        self.block_size = 1
+        self.cheb_degree = 0
+        self.cheb_keep_den = 2
+        self.cheb_rot_mode = "exact"
+        self.cheb_reorth = "full"
+        self.cheb_block = 1
+        self.cheb_budget_s = None
+        self.cheb_stats = None
+        # solve state
+        self.nconv = 0
+        self.its = 0
+        self.reason = EPSConvergedReason.ITERATING
+        self.eigenvalues: np.ndarray = np.array([])
+        self.errests: np.ndarray = np.array([])
+        self._eigenvectors: Optional[torch.Tensor] = None
+        opts = options if options is not None else get_global_options()
+        self.options = opts.child(prefix) if opts.prefix == "" else opts
+        self._apply_options()
+        self._setup_done = False
+
+    # -- configuration ----------------------------------------------------
+    def _apply_options(self):
+        o = self.options
+        self.nev = int(o.get("nev", self.nev))
+        if "ncv" in o:
+            self.ncv = int(o["ncv"])
+        if "mpd" in o:
+            self.mpd = int(o["mpd"])
+        if "tol" in o:
+            self.tol = float(o["tol"])
+        if "max_it" in o:
+            self.max_it = int(o["max_it"])
+        if "type" in o:
+            self.solver_name = str(o["type"])
+        for w in Which:
+            if f"{w.value}" == o.get("which"):
+                self.which = w
+            if o.get(w.value, False) is True:  # -eps_largest_real style
+                self.which = w
+        for pt in ProblemType:
+            if o.get(pt.value, False) is True:
+                self.problem_type = pt
+        if "lanczos_reorthog" in o:
+            self.set_reorthogonalization(str(o["lanczos_reorthog"]))
+        if "block_size" in o:
+            self.block_size = int(o["block_size"])
+        if "cheb_degree" in o:  # Chebyshev-amplified smallest-end path
+            self.cheb_degree = int(o["cheb_degree"])
+        # monitors (reference -eps_monitor / _all / _conv, epsmon.c)
+        if o.get("monitor", False) is True:
+            self.monitor.add(monitor_first)
+        if o.get("monitor_all", False) is True:
+            self.monitor.add(monitor_all)
+        if o.get("monitor_conv", False) is True:
+            self.monitor.add(ConvMonitor())
+
+    def set_reorthogonalization(self, kind: str):
+        """Orthogonalization policy of the Krylov-Schur fast path: 'full'
+        (CGS2 every column; 'delayed' maps to it).  The light policies are
+        still to be ported."""
+        if kind not in ("full", "delayed"):
+            raise NotImplementedError(
+                f"reorthogonalization {kind!r} is not ported yet; only "
+                f"'full' is (ROADMAP.md, queue 1, 'Krylov-Schur cycle "
+                f"remainder')")
+        self.reorth = kind
+        return self
+
+    # -- derived defaults --------------------------------------------------
+    @property
+    def n(self) -> int:
+        return self.A.shape[0]
+
+    def _default_dims(self):
+        """ncv = min(n, max(2 nev, nev+15)), mpd cap for large nev
+        (reference: EPSSetDimensions_Default, epssetup.c:654-678)."""
+        n, nev = self.n, self.nev
+        if self.ncv is None:
+            if self.mpd is not None:
+                self.ncv = min(n, nev + self.mpd)
+            elif nev < 500:
+                self.ncv = min(n, max(2 * nev, nev + 15))
+            else:
+                self.mpd = 500
+                self.ncv = min(n, nev + self.mpd)
+        if self.mpd is None:
+            self.mpd = self.ncv
+        self.ncv = max(self.ncv, self.nev + 1) if self.ncv < n else self.ncv
+        self.ncv = min(self.ncv, n)
+        self.mpd = min(self.mpd, self.ncv)
+
+    def _default_tol(self):
+        if self.tol is None:
+            self.tol = _DEFAULT_TOL.get(self.A.dtype, 1e-8)
+        if self.max_it is None:
+            self.max_it = max(100, 2 * self.n // max(self.ncv, 1))
+
+    def sort_criterion(self) -> SortCriterion:
+        return SortCriterion(which=self.which, target=0.0)
+
+    # -- solve -------------------------------------------------------------
+    def setup(self):
+        if self.A is None:
+            raise EPSError("operators not set")
+        if self.problem_type is None:
+            # conservative default, as the reference requires the user to
+            # declare Hermitian structure (EPSSetProblemType)
+            self.problem_type = ProblemType.NHEP
+        self._default_dims()
+        self._default_tol()
+        if self.st is None:
+            self.st = STShift([self.A], sigma=0.0)
+        self._setup_done = True
+        return self
+
+    def solve(self):
+        """Run the configured solver (reference: EPSSolve, epssolve.c:119)."""
+        from .krylovschur import KrylovSchur
+
+        if self.solver_name != "krylovschur":
+            raise NotImplementedError(_TODO_SOLVERS.format(
+                f"solver {self.solver_name!r}"))
+        if not self._setup_done:
+            self.setup()
+        self.its = 0
+        self.nconv = 0
+        self.reason = EPSConvergedReason.ITERATING
+        KrylovSchur().solve(self)
+        if self.reason == EPSConvergedReason.ITERATING:
+            self.reason = (EPSConvergedReason.CONVERGED_TOL
+                           if self.nconv >= self.nev else EPSConvergedReason.DIVERGED_ITS)
+        # best-first ordering of converged pairs
+        if self.nconv > 1 and self._eigenvectors is not None:
+            perm = self.sort_criterion().argsort(self.eigenvalues[: self.nconv])
+            self.eigenvalues[: self.nconv] = self.eigenvalues[perm]
+            self.errests[: self.nconv] = self.errests[perm]
+            self._eigenvectors = self._eigenvectors[
+                torch.from_numpy(perm).to(self._eigenvectors.device)]
+        return self
+
+    # -- results -----------------------------------------------------------
+    def get_eigenvalue(self, i: int):
+        if i >= self.nconv:
+            raise EPSError(f"only {self.nconv} converged pairs")
+        return self.eigenvalues[i]
+
+    def get_eigenpair(self, i: int):
+        """(lambda_i, x_i) with x_i a tensor on the operator's device."""
+        lam = self.get_eigenvalue(i)
+        return lam, self._eigenvectors[i]
+
+    def compute_error(self, i: int, error_type: str = "relative") -> float:
+        """Explicit residual ||A x - lambda x|| (/|lambda| if relative),
+        computed with the operator's own SpMV (reference: EPSComputeError)."""
+        lam, x = self.get_eigenpair(i)
+        r = self.A.mult(x) - float(lam) * x
+        res = float(torch.linalg.vector_norm(r)) / max(
+            float(torch.linalg.vector_norm(x)), 1e-300)
+        if error_type == "relative":
+            return res / max(abs(lam), 1e-300)
+        return res
+
+    def error_view(self):
+        lines = [f"nconv={self.nconv} reason={self.reason.name} its={self.its}"]
+        for i in range(self.nconv):
+            lam = self.eigenvalues[i]
+            lines.append(f"  lambda[{i}] = {lam:.9g}  rel.err = {self.compute_error(i):.3e}")
+        s = "\n".join(lines)
+        print(s)
+        return s

@@ -1,0 +1,109 @@
+"""Test/benchmark matrix generators (``slepc_tpu/mat/generators.py:17-160``).
+
+The discrete Laplacians are DIA operators whose diagonals are built with
+torch ops directly on ``device``: at 10M rows the 3-D Laplacian materializes
+on the card in milliseconds, with no host array and no upload (the role of
+slepc_tpu's ``laplacian_3d_device``).  The closed-form spectra are numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .linop import DIAOperator
+
+
+def _neighbor(cond: torch.Tensor, dtype) -> torch.Tensor:
+    return torch.where(cond, -1.0, 0.0).to(dtype)
+
+
+def laplacian_1d(n: int, dtype=torch.float64, device="cpu") -> DIAOperator:
+    """Tridiagonal 1-D Laplacian, eigenvalues 2-2cos(k*pi/(n+1)).
+
+    Reference analog: src/eps/tutorials/ex1.c.
+    """
+    i = torch.arange(n, device=device)
+    main = torch.full((n,), 2.0, dtype=dtype, device=device)
+    lo = _neighbor(i > 0, dtype)  # entry A[i, i-1] stored at row i
+    hi = _neighbor(i < n - 1, dtype)  # entry A[i, i+1] stored at row i
+    return DIAOperator((-1, 0, 1), torch.stack([lo, main, hi]))
+
+
+def laplacian_2d(nx: int, ny: int | None = None, dtype=torch.float64,
+                 device="cpu") -> DIAOperator:
+    """5-point 2-D Laplacian on an nx x ny grid (row-major x fastest).
+
+    Reference analog: src/eps/tutorials/ex2.c.
+    """
+    if ny is None:
+        ny = nx
+    n = nx * ny
+    i = torch.arange(n, device=device)
+    ix = i % nx
+    main = torch.full((n,), 4.0, dtype=dtype, device=device)
+    east = _neighbor(ix < nx - 1, dtype)
+    west = _neighbor(ix > 0, dtype)
+    north = _neighbor(i < n - nx, dtype)
+    south = _neighbor(i >= nx, dtype)
+    return DIAOperator((-nx, -1, 0, 1, nx),
+                       torch.stack([south, west, main, east, north]))
+
+
+def laplacian_3d(nx: int, ny: int | None = None, nz: int | None = None,
+                 dtype=torch.float64, device="cpu") -> DIAOperator:
+    """7-point 3-D Laplacian (x fastest, then y, then z)."""
+    if ny is None:
+        ny = nx
+    if nz is None:
+        nz = nx
+    n = nx * ny * nz
+    i = torch.arange(n, device=device)
+    ix = i % nx
+    iy = (i // nx) % ny
+    iz = i // (nx * ny)
+    main = torch.full((n,), 6.0, dtype=dtype, device=device)
+    diags = torch.stack([
+        _neighbor(iz > 0, dtype), _neighbor(iy > 0, dtype),
+        _neighbor(ix > 0, dtype), main, _neighbor(ix < nx - 1, dtype),
+        _neighbor(iy < ny - 1, dtype), _neighbor(iz < nz - 1, dtype)])
+    return DIAOperator((-nx * ny, -nx, -1, 0, 1, nx, nx * ny), diags)
+
+
+def laplacian_1d_eigs(n: int, k: int | None = None) -> np.ndarray:
+    """Closed-form eigenvalues of laplacian_1d, ascending."""
+    j = np.arange(1, n + 1)
+    ev = 2.0 - 2.0 * np.cos(j * np.pi / (n + 1))
+    return ev if k is None else ev[:k]
+
+
+def laplacian_2d_eigs(nx: int, ny: int | None = None, k: int | None = None) -> np.ndarray:
+    """Closed-form eigenvalues of laplacian_2d, ascending."""
+    if ny is None:
+        ny = nx
+    ex = 2.0 - 2.0 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+    ey = 2.0 - 2.0 * np.cos(np.arange(1, ny + 1) * np.pi / (ny + 1))
+    ev = np.sort((ex[:, None] + ey[None, :]).ravel())
+    return ev if k is None else ev[:k]
+
+
+def laplacian_3d_eigs(nx: int, ny: int | None = None, nz: int | None = None,
+                      k: int | None = None) -> np.ndarray:
+    """Closed-form eigenvalues of the 7-point 3-D Laplacian, ascending.
+
+    For small k only the low-index corner of the (i,j,l) lattice can
+    contain the smallest combinations (eigenvalues are monotone in each
+    index), so the outer sum is truncated per axis."""
+    if ny is None:
+        ny = nx
+    if nz is None:
+        nz = nx
+    mx = nx if k is None else min(k + 1, nx)
+    my = ny if k is None else min(k + 1, ny)
+    mz = nz if k is None else min(k + 1, nz)
+    ex = 2.0 - 2.0 * np.cos(np.arange(1, mx + 1) * np.pi / (nx + 1))
+    ey = 2.0 - 2.0 * np.cos(np.arange(1, my + 1) * np.pi / (ny + 1))
+    ez = 2.0 - 2.0 * np.cos(np.arange(1, mz + 1) * np.pi / (nz + 1))
+    ev = np.sort((ex[:, None, None] + ey[None, :, None]
+                  + ez[None, None, :]).ravel())
+    return ev if k is None else ev[:k]

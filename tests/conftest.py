@@ -28,3 +28,6 @@ def pytest_configure(config):
     # `pytest -m "not slow"` (~5 min); CI/driver runs the full suite.
     config.addinivalue_line(
         "markers", "slow: multi-minute test (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips "
+        "without one")
