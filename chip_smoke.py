@@ -8,19 +8,35 @@ Phases (each failing check raises; the script then exits non-zero):
      kernels from slepc_tpu_torch/csrc and report the build time;
   1. each kernel against its plain PyTorch version on the card, at the
      flagship shapes (200x225x230 3-D Laplacian, 10.35M rows): error and
-     CUDA-event times (median of 20) of kernel and plain version;
+     CUDA-event times (median of 20) of kernel and plain version.  The CSR
+     kernel K6 runs on the flagship built as a scipy CSR matrix and
+     reordered with reverse Cuthill-McKee (an irregular pattern), and on
+     that matrix plus seeded symmetric random entries (rows past 32
+     entries); the un-permuted CSR must route to the DIA kernel;
   2. the plain Krylov-Schur cycle through EPS on laplacian_2d(95, 97),
-     nev=6, ncv=28, in f64 (tol 1e-9) and f32 (tol 1e-5);
+     nev=6, ncv=28, in f64 (tol 1e-9) and f32 (tol 1e-5), as a DIA
+     operator and as its RCM-ordered CSR matrix;
   3. the flagship through EPS: the k=20 smallest eigenpairs of the
      200x225x230 Laplacian in f64 to tol 1e-8, Chebyshev degree 450,
-     ncv 48, certified against the closed-form spectrum.
+     ncv 48, certified against the closed-form spectrum;
+  4. the same solve on the RCM-ordered CSR flagship through
+     ``from_scipy``: the general-sparsity (AIJ) path on K6.
 
-Launch counters are reset before phase 2 and read after each of phases 2
-and 3; every kernel of the path must have launched.  The last three lines
+    python3 chip_smoke.py --profile
+
+adds, after phase 4, a lane sweep of K6 (every lane count the kernel is
+built for, natural and RCM order, f64 and f32, beside the DIA kernel on the
+same matrix) and a torch.profiler split of one more phase-4 solve by
+kernel.  Its launches are not counted.
+
+Launch counters are reset to 0 before phase 2 and read after phase 3 (the
+DIA path), and reset again before phase 4 and read after it (the AIJ
+path); every kernel of each path must have launched.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
 
+import argparse
 import json
 import logging
 import subprocess
@@ -28,10 +44,14 @@ import sys
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
+from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 import slepc_tpu_torch as stt
 from slepc_tpu_torch.ops import _build
+from slepc_tpu_torch.ops.csr import (csr_spmv, csr_spmv_ref, lanes_for,
+                                     row_of_entry)
 from slepc_tpu_torch.ops.bv import (panel_dots, panel_dots_ref, panel_update,
                                     panel_update_dots, panel_update_dots_ref,
                                     panel_update_ref)
@@ -53,6 +73,8 @@ KERNELS = {
     "panel_update_dots_f64": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:160"),
     "rotate_f32": ("K4", SRC + "rotate.cu", "slepc_tpu/ops/rotate_pallas.py:100"),
     "rotate_f64": ("K4", SRC + "rotate.cu", "slepc_tpu/ops/rotate_pallas.py:100"),
+    "csr_spmv_f32": ("K6", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
+    "csr_spmv_f64": ("K6", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
 }
 
 
@@ -165,52 +187,149 @@ def phase1(dev, table):
         torch.cuda.empty_cache()
 
 
-def family_counts(counts, tag):
-    return {"K1/K2": counts[f"dia_spmv_{tag}"],
+def rcm_order(L):
+    """L reordered with reverse Cuthill-McKee (PETSc's MATORDERINGRCM)."""
+    perm = reverse_cuthill_mckee(L, symmetric_mode=True)
+    return L[perm][:, perm].tocsr()
+
+
+def with_random_entries(A, seed=5):
+    """A plus seeded symmetric random entries in ~5% of the rows, within
+    +-2000 columns; 2000 of those rows get 40 each, past 32 entries (the
+    gather-tier case of the JAX package's bench.py:260-272)."""
+    rng = np.random.default_rng(seed)
+    n = A.shape[0]
+    picked = rng.choice(n, n // 20, replace=False)
+    k = rng.integers(1, 6, picked.size)
+    k[:2000] = 40
+    rows = np.repeat(picked, k)
+    cols = np.clip(rows + rng.integers(-2000, 2001, rows.size), 0, n - 1)
+    B = sp.csr_matrix((0.01 * rng.standard_normal(rows.size), (rows, cols)),
+                      shape=A.shape)
+    return (A + B + B.T).tocsr()
+
+
+def pattern(op):
+    """(bandwidth, distinct diagonal offsets, longest row) of a CSR operator."""
+    off = op.cols.to(torch.int64) - row_of_entry(op.rowptr)
+    return (int(off.abs().max()), int(torch.unique(off).numel()),
+            int(op.rowptr.diff().max()))
+
+
+def phase1_csr(dev, table, host):
+    print("phase 1: K6 (CSR SpMV) vs plain PyTorch on the RCM-ordered "
+          "flagship CSR", flush=True)
+    t0 = time.perf_counter()
+    L = stt.laplacian_3d(*FLAGSHIP).to_scipy()  # built on the host CPU
+    host["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = rcm_order(L)
+    host["rcm_s"] = time.perf_counter() - t0
+    print(f"  host CSR: build {host['build_s']:.3f} s, RCM + permutation "
+          f"{host['rcm_s']:.3f} s; n={A.shape[0]} nnz={A.nnz}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ops = {"rcm": A, "rcm+random": with_random_entries(A)}
+    for dt, tol in ((torch.float64, 1e-13), (torch.float32, 2e-6)):
+        name = f"csr_spmv_{TAG[dt]}"
+        worst_abs = worst_rel = 0.0
+        for label, M in ops.items():
+            op = stt.from_scipy(M, dtype=dt, device=dev)
+            if dt == torch.float64:
+                bw, noff, longest = pattern(op)
+                print(f"  {label}: nnz={op.nnz} bandwidth={bw} "
+                      f"distinct offsets={noff} longest row={longest}",
+                      flush=True)
+            x = torch.randn(op.shape[1], generator=gen, dtype=dt, device=dev)
+            rows = row_of_entry(op.rowptr)
+            y = csr_spmv(op.rowptr, op.cols, op.vals, x, op.shape[1])
+            y_ref = csr_spmv_ref(op.rowptr, op.cols, op.vals, x, rows)
+            err = float((y - y_ref).abs().max())
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / float(y_ref.abs().max()))
+            if label == "rcm":  # time the flagship operator itself
+                ms = cuda_ms(lambda: csr_spmv(op.rowptr, op.cols, op.vals, x,
+                                              op.shape[1]))
+                plain = cuda_ms(lambda: csr_spmv_ref(op.rowptr, op.cols,
+                                                     op.vals, x, rows))
+                elt = x.element_size()
+                nbytes = (op.nnz * (elt + 4) + (op.shape[0] + 1) * 8
+                          + 2 * op.shape[0] * elt)
+            del op, x, rows, y, y_ref
+        record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes)
+    del ops
+    torch.cuda.empty_cache()
+
+    print("phase 1: routing: the un-permuted flagship CSR must run on the DIA "
+          "kernel", flush=True)
+    op = stt.from_scipy(L, device=dev)
+    fast = op.fast_form()
+    x = torch.randn(op.shape[1], generator=gen, dtype=torch.float64, device=dev)
+    before = stt.launch_counts()
+    y = fast.mult(x)
+    counts = stt.launch_counts()
+    delta = {k: counts[k] - before[k] for k in ("dia_spmv_f64", "csr_spmv_f64")}
+    y6 = csr_spmv(op.rowptr, op.cols, op.vals, x, op.shape[1])
+    err = float((y - y6).abs().max() / y.abs().max())
+    print(f"  routed to {type(fast).__name__} offsets={fast.offsets}; one "
+          f"SpMV launched {delta}; differs from K6 on the same CSR by "
+          f"{err:.3e}", flush=True)
+    check(isinstance(fast, stt.DIAOperator), "un-permuted CSR not routed to DIA")
+    check(delta == {"dia_spmv_f64": 1, "csr_spmv_f64": 0},
+          f"routed SpMV launched {delta}")
+    check(err <= 1e-14, f"DIA route vs K6: {err:.3e}")
+    del op, fast, x, y, y6
+    torch.cuda.empty_cache()
+    return L, A
+
+
+def family_counts(counts, tag, spmv="dia_spmv"):
+    return {"SpMV": counts[f"{spmv}_{tag}"],
             "K3": min(counts[f"panel_dots_{tag}"], counts[f"panel_update_{tag}"],
                       counts[f"panel_update_dots_{tag}"]),
             "K4": counts[f"rotate_{tag}"]}
 
 
 def phase2(dev):
-    print("phase 2: plain Krylov-Schur through EPS, laplacian_2d(95, 97)",
-          flush=True)
+    print("phase 2: plain Krylov-Schur through EPS, laplacian_2d(95, 97), as "
+          "DIA (K1/K2) and as RCM-ordered CSR (K6)", flush=True)
     exact = stt.laplacian_2d_eigs(95, 97, k=6)
-    for dt, tol in ((torch.float64, 1e-9), (torch.float32, 1e-5)):
-        before = stt.launch_counts()
-        A = stt.laplacian_2d(95, 97, dtype=dt, device=dev)
-        eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
-                      ncv=28, tol=tol, max_it=400, options=stt.Options())
-        t0 = time.perf_counter()
-        eps.solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        lam = np.sort(np.asarray(eps.eigenvalues[:6], np.float64))
-        err = np.abs(lam - exact)
-        counts = stt.launch_counts()
-        delta = {k: counts[k] - before[k] for k in counts}
-        fam = family_counts(delta, TAG[dt])
-        print(f"  {TAG[dt]}: nconv={eps.nconv} its={eps.its} wall={wall:.3f} s "
-              f"max|lam-exact|={err.max():.3e} rel={np.max(err / exact):.3e} "
-              f"launches={fam}", flush=True)
-        check(eps.nconv >= 6, f"phase 2 {TAG[dt]}: nconv {eps.nconv} < 6")
-        if dt == torch.float64:
-            check(err.max() <= 1e-9, f"phase 2 f64: |lam - exact| {err.max():.3e}")
-        else:
-            check(np.max(err / exact) <= 1e-4,
-                  f"phase 2 f32: relative error {np.max(err / exact):.3e}")
-        check(all(v > 0 for v in fam.values()),
-              f"phase 2 {TAG[dt]}: a kernel did not launch: {fam}")
+    csr = rcm_order(stt.laplacian_2d(95, 97).to_scipy())
+    for kind, spmv in (("DIA", "dia_spmv"), ("CSR", "csr_spmv")):
+        for dt, tol in ((torch.float64, 1e-9), (torch.float32, 1e-5)):
+            before = stt.launch_counts()
+            A = (stt.laplacian_2d(95, 97, dtype=dt, device=dev) if kind == "DIA"
+                 else stt.from_scipy(csr, dtype=dt, device=dev))
+            eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
+                          ncv=28, tol=tol, max_it=400, options=stt.Options())
+            t0 = time.perf_counter()
+            eps.solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lam = np.sort(np.asarray(eps.eigenvalues[:6], np.float64))
+            err = np.abs(lam - exact)
+            counts = stt.launch_counts()
+            delta = {k: counts[k] - before[k] for k in counts}
+            fam = family_counts(delta, TAG[dt], spmv)
+            where = f"{kind} {TAG[dt]}"
+            print(f"  {where}: nconv={eps.nconv} its={eps.its} wall={wall:.3f} s "
+                  f"max|lam-exact|={err.max():.3e} rel={np.max(err / exact):.3e} "
+                  f"launches={fam}", flush=True)
+            check(eps.nconv >= 6, f"phase 2 {where}: nconv {eps.nconv} < 6")
+            if dt == torch.float64:
+                check(err.max() <= 1e-9,
+                      f"phase 2 {where}: |lam - exact| {err.max():.3e}")
+            else:
+                check(np.max(err / exact) <= 1e-4,
+                      f"phase 2 {where}: relative error {np.max(err / exact):.3e}")
+            check(all(v > 0 for v in fam.values()),
+                  f"phase 2 {where}: a kernel did not launch: {fam}")
 
 
-def phase3(dev):
-    print("phase 3: flagship through EPS: 200x225x230 3-D Laplacian, k=20, "
-          "tol 1e-8, f64, Chebyshev degree 450, ncv 48", flush=True)
+def flagship_solve(A, where, spmv):
+    """The flagship EPS solve on operator A; checks the certification gates
+    and that the path's kernels launched (counts read as deltas)."""
+    dev = A.device
     before = stt.launch_counts()
-    t0 = time.perf_counter()
-    A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=20,
                   tol=1e-8, options=stt.Options.from_cli(
                       "-eps_ncv 48 -eps_cheb_degree 450"))
@@ -229,26 +348,118 @@ def phase3(dev):
     eig_err = np.abs(lam - exact[:k])
     counts = stt.launch_counts()
     delta = {key: counts[key] - before[key] for key in counts}
-    fam = family_counts(delta, "f64")
-    print(f"  operator built on the card in {build_s:.3f} s; n={A.shape[0]}",
-          flush=True)
+    fam = family_counts(delta, "f64", spmv)
     print(f"  nconv={eps.nconv} wall={wall:.3f} s cycles={st['cycles']} "
           f"cols={st['cols']} adaptations={st['adaptations']} "
           f"certs={st['certs']} polish_rounds={st.get('polish_rounds', 0)} "
           f"cert_s={st.get('cert_s', 0.0):.3f} probe_s={st['probe_s']:.3f} "
-          f"peak_mem={peak / 1e9:.2f} GB", flush=True)
+          f"hi={st['hi']:.6g} peak_mem={peak / 1e9:.2f} GB", flush=True)
     print(f"  max true rel resid={resid.max() if k else np.inf:.3e} "
           f"max|lam-exact|={eig_err.max() if k else np.inf:.3e}", flush=True)
     print(f"  launches={delta}", flush=True)
-    check(eps.nconv == 20, f"phase 3: nconv {eps.nconv} != 20")
-    check(resid.max() <= 1e-8, f"phase 3: true residual {resid.max():.3e}")
-    check(eig_err.max() <= 1e-9, f"phase 3: |lam - exact| {eig_err.max():.3e}")
+    check(eps.nconv == 20, f"{where}: nconv {eps.nconv} != 20")
+    check(resid.max() <= 1e-8, f"{where}: true residual {resid.max():.3e}")
+    check(eig_err.max() <= 1e-9, f"{where}: |lam - exact| {eig_err.max():.3e}")
     check(all(v > 0 for v in fam.values()),
-          f"phase 3: a kernel did not launch: {fam}")
+          f"{where}: a kernel did not launch: {fam}")
+    return wall, delta
+
+
+def phase3(dev):
+    print("phase 3: flagship through EPS: 200x225x230 3-D Laplacian, k=20, "
+          "tol 1e-8, f64, Chebyshev degree 450, ncv 48", flush=True)
+    t0 = time.perf_counter()
+    A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    print(f"  operator built on the card in {time.perf_counter() - t0:.3f} s; "
+          f"n={A.shape[0]}", flush=True)
+    return flagship_solve(A, "phase 3", "dia_spmv")[0]
+
+
+def phase4(dev, A_csr, host):
+    print("phase 4: the AIJ flagship through EPS: the RCM-ordered CSR of the "
+          "same Laplacian from from_scipy, same settings", flush=True)
+    t0 = time.perf_counter()
+    A = stt.from_scipy(A_csr, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    print(f"  host CSR build {host['build_s']:.3f} s, RCM + permutation "
+          f"{host['rcm_s']:.3f} s, from_scipy upload {upload_s:.3f} s; "
+          f"n={A.shape[0]} nnz={A.nnz}", flush=True)
+    wall, delta = flagship_solve(A, "phase 4", "csr_spmv")
+    check(delta["dia_spmv_f64"] == 0,
+          f"phase 4: the DIA kernel ran {delta['dia_spmv_f64']} times")
     return wall
 
 
+def csr_spmv_at(op, x, lanes):
+    """K6 on op's CSR at a given lane count: the library entry itself, which
+    the wrapper csr_spmv calls with lanes_for (uncounted; for the sweep)."""
+    y = torch.empty(op.shape[0], dtype=x.dtype, device=x.device)
+    rc = _build.load().slepc_csr_spmv(
+        _build.dtype_code(x), lanes, op.rowptr.data_ptr(), op.cols.data_ptr(),
+        op.vals.data_ptr(), x.data_ptr(), y.data_ptr(), op.shape[0],
+        _build.stream_handle(x))
+    _build.check(rc, "csr_spmv")
+    return y
+
+
+def lane_sweep(dev, L, A):
+    print("profile: K6 at each lane count (ms, CUDA events, median of 20), "
+          "natural and RCM order, beside the DIA kernel", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for dt, tol in ((torch.float64, 1e-13), (torch.float32, 2e-6)):
+        for label, M in (("natural", L), ("RCM", A)):
+            op = stt.from_scipy(M, dtype=dt, device=dev)
+            x = torch.randn(op.shape[1], generator=gen, dtype=dt, device=dev)
+            y = csr_spmv(op.rowptr, op.cols, op.vals, x, op.shape[1])
+            times = []
+            for lanes in (2, 4, 8, 16, 32):
+                err = float((csr_spmv_at(op, x, lanes) - y).abs().max()
+                            / y.abs().max())
+                check(err <= tol, f"K6 at {lanes} lanes: {err:.3e}")
+                ms = cuda_ms(lambda: csr_spmv_at(op, x, lanes))
+                times.append(f"L{lanes}={ms:.4f}")
+            fast = op.fast_form()
+            if isinstance(fast, stt.DIAOperator):
+                times.append(f"DIA={cuda_ms(lambda: fast.mult(x)):.4f}")
+            print(f"  {label} {TAG[dt]}: {' '.join(times)} (lanes_for picks "
+                  f"{lanes_for(op.shape[0], op.nnz)})", flush=True)
+            del op, x, y, fast
+            torch.cuda.empty_cache()
+
+
+def profile_solve(dev, A_csr):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print("profile: torch.profiler over one phase-4 solve", flush=True)
+    A = stt.from_scipy(A_csr, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = flagship_solve(A, "profiled phase 4", "csr_spmv")
+    rows = sorted((e for e in prof.key_averages()
+                   if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    # device-side rows only: an aten op's row repeats its kernels' time
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("Command Buffer Full")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  profiled wall {wall:.3f} s; device rows sum to {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}% of the wall)", flush=True)
+    for e in rows[:16]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  {ms:10.1f} ms {e.count:7d} calls {ms / e.count:8.4f} ms/call "
+              f"{100 * ms / (wall * 1e3):5.1f}% {e.device_type.name:<5} "
+              f"{e.key[:90]}", flush=True)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="after phase 4: K6 lane sweep and a "
+                             "torch.profiler split of a phase-4 solve")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -274,12 +485,23 @@ def main():
         if "registers" in line or "spill" in line:
             print("   ", line.strip())
 
-    table = {}
+    table, host = {}, {}
     phase1(dev, table)
-    stt.reset_launch_counts()  # the comparisons above do not count
+    L_csr, A_csr = phase1_csr(dev, table, host)
+    if not args.profile:
+        del L_csr
+    # the comparisons above do not count: each path is read from zero
+    stt.reset_launch_counts()
     phase2(dev)
     wall = phase3(dev)
-    counts = stt.launch_counts()
+    dia_path = stt.launch_counts()
+    stt.reset_launch_counts()
+    wall_aij = phase4(dev, A_csr, host)
+    aij_path = stt.launch_counts()
+    if args.profile:
+        lane_sweep(dev, L_csr, A_csr)
+        profile_solve(dev, A_csr)
+    counts = {k: dia_path[k] + aij_path[k] for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
     kernels = []
@@ -290,7 +512,8 @@ def main():
                         "launches": counts[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"]})
-    print(f"flagship wall {wall:.3f} s on {smi_line}", flush=True)
+    print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6) on "
+          f"{smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 
 One restart cycle = basis extension (SpMV + CGS2 per column), projected
 eigh, convergence count, restart rotation.  PyTorch runs eagerly, so the
-cycle is host-orchestrated: the SpMV (DIA kernel K1/K2), the CGS2 sweeps
-(panel kernel K3) and the rotation (kernel K4) run on the basis' device,
-and the host reads back one small vector per column (the projection
+cycle is host-orchestrated: the SpMV (DIA kernel K1/K2 or CSR kernel K6,
+or a shell operator's own ``mult``), the CGS2 sweeps (panel kernel K3) and
+the rotation (kernel K4) run on the basis' device, and the host reads back one small vector per column (the projection
 coefficients and the new column's norm) and solves the ncv x ncv projected
 problem with LAPACK.
 
@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mat.linop import DIAOperator
+from ..mat.linop import AIJOperator
 from ..ops.bv import panel_dots, panel_update, panel_update_dots
 from ..ops.rotate import rotate
 from ..sys.events import log_event
@@ -206,14 +206,13 @@ def get_ks_hep_cycle(op, gen, ncv: int, which: str = "smallest",
 
 
 def _prepare_fast_operator(op):
-    """The port's operators are kernel-backed as they are: a DIA operator's
-    ``mult`` is the DIA kernel on a CUDA device.  Other operator types are
-    still to be ported."""
-    if not isinstance(op, DIAOperator):
-        raise NotImplementedError(
-            f"the Krylov-Schur fast path is ported for DIA operators only, "
-            f"not {type(op).__name__} (ROADMAP.md, queue 1, 'Remainders of "
-            f"items 1-7')")
+    """The operator form the cycle runs (reference ``_prepare_fast_operator``,
+    ks_jit.py:1042-1115): an AIJ operator goes to its routed form (a DIA
+    operator on K1/K2 when it is a few dense diagonals, else CSR on K6);
+    a DIA operator, or any other operator with a ``mult`` on its device,
+    runs as it is.  Vectors stay flat (n,): there is no padded layout."""
+    if isinstance(op, AIJOperator):
+        return op.fast_form()
     return op
 
 

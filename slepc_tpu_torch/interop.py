@@ -7,6 +7,8 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
 * :func:`dia_from_slepc_tpu`: a slepc_tpu ``DIAOperator`` (offsets, diags),
   ``DIAPaddedOperator`` (prepared ``dp``) or ``DIAPaddedOperatorDS``
   (``dph + dpl`` joined in f64) becomes a port :class:`DIAOperator`.
+* :func:`aij_from_slepc_tpu`: a slepc_tpu ``AIJOperator`` (through its host
+  CSR, ``to_scipy()``) becomes a port :class:`AIJOperator`.
 * :func:`dia_to_padded_ds`: a port f64 operator as the (offsets, dph, dpl, n)
   arguments of ``DIAPaddedOperatorDS``.
 * :func:`basis_from_padded` / :func:`basis_to_padded`: a padded basis
@@ -20,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mat.linop import DIAOperator
+from .mat.linop import AIJOperator, DIAOperator
 
 LANES = 512  # lane width of slepc_tpu's padded 2-D layout
 
@@ -41,6 +43,10 @@ def dia_from_slepc_tpu(op, device="cpu") -> DIAOperator:
     else:
         d = np.asarray(op.diags)
     return DIAOperator(op.offsets, torch.from_numpy(np.array(d)), device=device)
+
+
+def aij_from_slepc_tpu(op, device="cpu") -> AIJOperator:
+    return AIJOperator.from_scipy(op.to_scipy(), device=device)
 
 
 def _prepare(d: np.ndarray, n: int, block_rows: int) -> np.ndarray:

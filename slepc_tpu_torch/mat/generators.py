@@ -1,9 +1,12 @@
-"""Test/benchmark matrix generators (``slepc_tpu/mat/generators.py:17-160``).
+"""Test/benchmark matrix generators (``slepc_tpu/mat/generators.py:17-223``).
 
 The discrete Laplacians are DIA operators whose diagonals are built with
 torch ops directly on ``device``: at 10M rows the 3-D Laplacian materializes
 on the card in milliseconds, with no host array and no upload (the role of
 slepc_tpu's ``laplacian_3d_device``).  The closed-form spectra are numpy.
+General sparse input comes in through :func:`from_scipy` (an AIJOperator
+in CSR on ``device``) and :func:`random_sparse`; ``markov`` waits for the
+non-Hermitian solvers.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .linop import DIAOperator
+from .linop import AIJOperator, DenseOperator, DIAOperator, as_torch_dtype
 
 
 def _neighbor(cond: torch.Tensor, dtype) -> torch.Tensor:
@@ -107,3 +110,29 @@ def laplacian_3d_eigs(nx: int, ny: int | None = None, nz: int | None = None,
     ev = np.sort((ex[:, None, None] + ey[None, :, None]
                   + ez[None, None, :]).ravel())
     return ev if k is None else ev[:k]
+
+
+def from_scipy(A, dtype=None, device="cpu") -> AIJOperator:
+    """A scipy sparse matrix as an AIJOperator (CSR) on ``device``."""
+    return AIJOperator.from_scipy(A, dtype=dtype, device=device)
+
+
+def from_dense(A, device=None) -> DenseOperator:
+    return DenseOperator(A, device=device)
+
+
+def random_sparse(n: int, m: int | None = None, density: float = 0.01,
+                  seed: int = 0, dtype=np.float64, symmetric: bool = False,
+                  device="cpu") -> AIJOperator:
+    """Random sparse test matrix (deterministic at fixed seed; the same
+    matrix as slepc_tpu's ``random_sparse`` for the same arguments)."""
+    import scipy.sparse as sp
+
+    m = n if m is None else m
+    rng = np.random.default_rng(seed)
+    np_dtype = torch.empty((), dtype=as_torch_dtype(dtype)).numpy().dtype
+    A = sp.random(n, m, density=density, random_state=rng,
+                  dtype=np.float64).astype(np_dtype)
+    if symmetric:
+        A = (A + A.T) * 0.5
+    return AIJOperator.from_scipy(sp.csr_matrix(A), device=device)

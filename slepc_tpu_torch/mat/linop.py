@@ -1,26 +1,51 @@
-"""Linear operators — the Mat tier on PyTorch tensors.
+"""Linear operators — the Mat tier on PyTorch tensors
+(``slepc_tpu/mat/linop.py``).
 
-Ported so far: the abstract :class:`LinearOperator` and the diagonal-offset
-:class:`DIAOperator` (``slepc_tpu/mat/linop.py:40,183``).  An operator's
-tensors live on one device, and its ``mult`` runs there: a CUDA tensor goes
-to the hand-written DIA kernel (``ops/dia.py``), a CPU tensor to its plain
-PyTorch version.  The dense, AIJ, shell and algebra operators are still to
-be ported (ROADMAP.md, queue 1, "Remainders of items 1-7").
+An operator's tensors live on one device, and its ``mult`` / ``mult_h``
+take and return flat ``(n,)`` vectors there.  Formats:
+
+  * :class:`DIAOperator` — diagonal-offset storage for stencil / banded
+    matrices; ``mult`` is the DIA kernel K1/K2 (``ops/dia.py``).
+  * :class:`AIJOperator` — general sparsity as plain CSR on the device;
+    ``mult`` is the CSR kernel K6 (``ops/csr.py``).  The reference's padded
+    ELL and hybrid diagonal/gather packs are TPU layouts and are not ported;
+    :meth:`AIJOperator.fast_form` keeps only their routing: a matrix that is
+    a few dense diagonals runs as a DIAOperator.
+  * :class:`DenseOperator`, :class:`IdentityOperator`,
+    :class:`DiagonalOperator` and :class:`ShellOperator` (user callbacks,
+    the MATSHELL analog), plus the algebra ``+ - * @``, ``.H`` and
+    ``shifted`` (Scaled / Sum / Product / Adjoint operators).  These are
+    plain tensor code, as in the reference, where they run outside any
+    Pallas kernel.
+
+A CUDA tensor goes to a kernel or raises; only a tensor on the CPU takes a
+kernel's plain PyTorch version.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.csr import csr_spmv, row_of_entry
 from ..ops.dia import dia_spmv
 
 
+def as_torch_dtype(dtype) -> Optional[torch.dtype]:
+    """A torch dtype from a torch or numpy dtype (None stays None)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
 class LinearOperator:
-    """Abstract operator A: R^n -> R^m; ``mult(x)`` computes A @ x for a
-    vector ``x`` of shape (n,) on the operator's device."""
+    """Abstract operator A: R^n -> R^m on one device.
+
+    ``mult(x)``   computes A @ x for a vector x of shape (n,).
+    ``mult_h(x)`` computes A^H @ x.
+    """
 
     shape: Tuple[int, int]
     dtype: torch.dtype
@@ -42,8 +67,97 @@ class LinearOperator:
     def mult(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def mult_h(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
     def __call__(self, x):
         return self.mult(x)
+
+    # ---- operator algebra ----------------------------------------------
+    def __add__(self, other: "LinearOperator") -> "LinearOperator":
+        return SumOperator((self, other), (1.0, 1.0))
+
+    def __sub__(self, other: "LinearOperator") -> "LinearOperator":
+        return SumOperator((self, other), (1.0, -1.0))
+
+    def __mul__(self, alpha) -> "LinearOperator":
+        return ScaledOperator(self, alpha)
+
+    __rmul__ = __mul__
+
+    def __neg__(self) -> "LinearOperator":
+        return ScaledOperator(self, -1.0)
+
+    def __matmul__(self, other: "LinearOperator") -> "LinearOperator":
+        return ProductOperator((self, other))
+
+    @property
+    def H(self) -> "LinearOperator":
+        return AdjointOperator(self)
+
+    def shifted(self, sigma, B: Optional["LinearOperator"] = None) -> "LinearOperator":
+        """A - sigma*B (B=None ≙ identity): the ST building block."""
+        if sigma == 0:
+            return self
+        if B is None:
+            B = IdentityOperator(self.n, self.dtype, self.device)
+        return SumOperator((self, B), (1.0, -sigma))
+
+    def norm_estimate(self) -> float:
+        """Cheap Frobenius-norm estimate (backward-error weights)."""
+        if self.shape[0] > 4096:
+            return norm_estimate_randomized(self)
+        return float(torch.linalg.norm(self.to_dense()))
+
+    # ---- conversions ----------------------------------------------------
+    def to_dense(self) -> torch.Tensor:
+        """Materialize as a dense (m, n) tensor, one ``mult`` per column
+        (testing / small problems only)."""
+        eye = torch.eye(self.n, dtype=self.dtype, device=self.device)
+        return torch.stack([self.mult(eye[j]) for j in range(self.n)], dim=1)
+
+    def to_scipy(self):
+        """Host scipy sparse view if available, else a dense ndarray."""
+        return self.to_dense().cpu().numpy()
+
+
+class DenseOperator(LinearOperator):
+    """A dense matrix; ``mult`` is a matrix-vector product."""
+
+    def __init__(self, A, device=None):
+        A = A if torch.is_tensor(A) else torch.from_numpy(np.array(A))
+        self.A = A.to(device) if device is not None else A
+        self.shape = tuple(self.A.shape)
+        self.dtype = self.A.dtype
+        self.device = self.A.device
+
+    def mult(self, x):
+        return self.A @ x
+
+    def mult_h(self, x):
+        return self.A.mH @ x
+
+    def to_dense(self):
+        return self.A
+
+    def to_scipy(self):
+        return self.A.cpu().numpy()
+
+
+class IdentityOperator(LinearOperator):
+    def __init__(self, n: int, dtype=torch.float64, device="cpu"):
+        self.shape = (n, n)
+        self.dtype = as_torch_dtype(dtype)
+        self.device = torch.device(device)
+
+    @property
+    def nnz(self):
+        return self.n
+
+    def mult(self, x):
+        return x
+
+    mult_h = mult
 
 
 class DIAOperator(LinearOperator):
@@ -75,5 +189,302 @@ class DIAOperator(LinearOperator):
         n = self.shape[0]
         return int(sum(n - abs(o) for o in self.offsets))
 
+    def norm_estimate(self) -> float:
+        return float(torch.linalg.vector_norm(self.diags))
+
     def mult(self, x: torch.Tensor) -> torch.Tensor:
         return dia_spmv(self.offsets, self.diags, x)
+
+    def mult_h(self, x: torch.Tensor) -> torch.Tensor:
+        """(A^H x)[i + off] += conj(d[i]) x[i]: slice updates, as the
+        reference's rolls (no kernel there either)."""
+        n = self.shape[0]
+        y = torch.zeros_like(x)
+        for k, off in enumerate(self.offsets):
+            lo, hi = max(0, -off), min(n, n - off)
+            if hi > lo:
+                y[lo + off:hi + off] += self.diags[k, lo:hi].conj() * x[lo:hi]
+        return y
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        n = self.shape[0]
+        d = self.diags.cpu().numpy()
+        # scipy dia_matrix uses data[k, i] = A[i - offset[k], i] (column i)
+        data = np.zeros_like(d)
+        for k, off in enumerate(self.offsets):
+            if off >= 0:
+                data[k, off:] = d[k, : n - off] if off else d[k]
+            else:
+                data[k, :off] = d[k, -off:]
+        return sp.dia_matrix((data, np.array(self.offsets)),
+                             shape=self.shape).tocsr()
+
+
+class AIJOperator(LinearOperator):
+    """General sparse matrix in CSR on one device.
+
+    ``rowptr`` int64 (m+1), ``cols`` int32 (nnz), ``vals`` (nnz).  ``mult``
+    is the CSR kernel K6; ``mult_h`` runs the same kernel on the CSR of A^H,
+    built on the device at the first ``mult_h`` call (a Hermitian solve
+    never pays for it).  The reference's PETSc MPIAIJ MatMult role.
+    """
+
+    def __init__(self, rowptr, cols, vals, shape):
+        self.rowptr = rowptr.to(torch.int64).contiguous()
+        self.cols = cols.to(torch.int32).contiguous()
+        self.vals = vals.contiguous()
+        self.shape = (int(shape[0]), int(shape[1]))
+        self.dtype = self.vals.dtype
+        self.device = self.vals.device
+        self._adjoint = None  # CSR of A^H
+        self._fast = None     # routed form (fast_form)
+
+    @classmethod
+    def from_scipy(cls, A, dtype=None, device="cpu") -> "AIJOperator":
+        """CSR of the scipy matrix ``A`` on ``device``, in ``dtype`` (torch
+        or numpy; default: A's own).  Duplicate entries are summed."""
+        import scipy.sparse as sp
+
+        A = sp.csr_matrix(A)
+        if not A.has_canonical_format:
+            A = A.copy()
+            A.sum_duplicates()
+        indptr = torch.from_numpy(A.indptr.astype(np.int64, copy=False))
+        indices = torch.from_numpy(A.indices.astype(np.int32, copy=False))
+        vals = torch.from_numpy(np.ascontiguousarray(A.data))
+        dtype = as_torch_dtype(dtype) or vals.dtype
+        return cls(indptr.to(device), indices.to(device),
+                   vals.to(device=device, dtype=dtype), A.shape)
+
+    @property
+    def nnz(self):
+        return int(self.cols.shape[0])
+
+    def mult(self, x: torch.Tensor) -> torch.Tensor:
+        return csr_spmv(self.rowptr, self.cols, self.vals, x, self.shape[1])
+
+    def mult_h(self, x: torch.Tensor) -> torch.Tensor:
+        if self._adjoint is None:
+            # a stable sort by column keeps each column's rows ascending
+            order = torch.argsort(self.cols, stable=True)
+            counts = torch.bincount(self.cols.to(torch.int64),
+                                    minlength=self.shape[1])
+            rowptr = torch.zeros(self.shape[1] + 1, dtype=torch.int64,
+                                 device=self.device)
+            torch.cumsum(counts, 0, out=rowptr[1:])
+            self._adjoint = AIJOperator(
+                rowptr, row_of_entry(self.rowptr)[order],
+                self.vals[order].conj(), (self.shape[1], self.shape[0]))
+        return self._adjoint.mult(x)
+
+    def norm_estimate(self) -> float:
+        return float(torch.linalg.vector_norm(self.vals))
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((self.vals.cpu().numpy(), self.cols.cpu().numpy(),
+                              self.rowptr.cpu().numpy()), shape=self.shape)
+
+    def fast_form(self) -> LinearOperator:
+        """The form the solvers run, chosen once and cached: a
+        :class:`DIAOperator` (kernels K1/K2) when the matrix is square and
+        its nonzeros lie on at most 32 diagonals that each hold at least
+        n/2 entries, else this CSR operator (K6).  Reference:
+        ``AIJOperator.to_gell`` / ``_try_dia_padded``, same thresholds; its
+        n >= 4096 cut (an XLA-or-Pallas choice on the TPU) is not kept:
+        every AIJ here runs on a kernel."""
+        if self._fast is None:
+            self._fast = self._try_dia() or self
+        return self._fast
+
+    def _try_dia(self):
+        m, n = self.shape
+        if m != n or self.nnz == 0:
+            return None
+        rows = row_of_entry(self.rowptr)
+        off = self.cols.to(torch.int64) - rows
+        uoff, inv, counts = torch.unique(off, return_inverse=True,
+                                         return_counts=True)
+        if len(uoff) > 32 or int(counts.min()) < 0.5 * n:
+            return None
+        diags = torch.zeros(len(uoff) * n, dtype=self.dtype, device=self.device)
+        diags[inv * n + rows] = self.vals
+        return DIAOperator(uoff.tolist(), diags.view(len(uoff), n),
+                           shape=self.shape)
+
+
+class ShellOperator(LinearOperator):
+    """Operator defined by callbacks (MATSHELL analog): ``matvec`` (and
+    ``rmatvec`` for A^H) take and return (n,) tensors on ``device``."""
+
+    def __init__(self, shape, dtype, matvec: Callable,
+                 rmatvec: Optional[Callable] = None,
+                 nnz: Optional[int] = None, device="cpu"):
+        self.shape = tuple(shape)
+        self.dtype = as_torch_dtype(dtype)
+        self.device = torch.device(device)
+        self._matvec = matvec
+        self._rmatvec = rmatvec
+        self._nnz = nnz
+
+    @property
+    def nnz(self):
+        return self._nnz if self._nnz is not None else self.shape[0] * self.shape[1]
+
+    def mult(self, x):
+        return self._matvec(x)
+
+    def mult_h(self, x):
+        if self._rmatvec is None:
+            raise ValueError("ShellOperator has no rmatvec")
+        return self._rmatvec(x)
+
+
+class ScaledOperator(LinearOperator):
+    def __init__(self, op: LinearOperator, alpha):
+        self.op = op
+        self.alpha = alpha
+        self.shape = op.shape
+        self.dtype = op.dtype
+        self.device = op.device
+
+    @property
+    def nnz(self):
+        return self.op.nnz
+
+    def mult(self, x):
+        return self.alpha * self.op.mult(x)
+
+    def mult_h(self, x):
+        return self.alpha.conjugate() * self.op.mult_h(x)
+
+
+def _common(ops):
+    dtype = ops[0].dtype
+    for o in ops[1:]:
+        dtype = torch.promote_types(dtype, o.dtype)
+    return dtype, ops[0].device
+
+
+class SumOperator(LinearOperator):
+    """sum_i coeff_i * op_i (same shape)."""
+
+    def __init__(self, ops: Sequence[LinearOperator], coeffs: Sequence):
+        self.ops = tuple(ops)
+        self.coeffs = tuple(coeffs)
+        self.shape = self.ops[0].shape
+        self.dtype, self.device = _common(self.ops)
+
+    @property
+    def nnz(self):
+        return sum(o.nnz for o in self.ops)
+
+    def _sum(self, x, adjoint: bool):
+        y = None
+        for c, o in zip(self.coeffs, self.ops):
+            c = c.conjugate() if adjoint else c
+            t = o.mult_h(x) if adjoint else o.mult(x)
+            t = t if c == 1.0 else c * t
+            y = t if y is None else y + t
+        return y
+
+    def mult(self, x):
+        return self._sum(x, adjoint=False)
+
+    def mult_h(self, x):
+        return self._sum(x, adjoint=True)
+
+
+class ProductOperator(LinearOperator):
+    """op_0 @ op_1 @ ... (applied right to left)."""
+
+    def __init__(self, ops: Sequence[LinearOperator]):
+        self.ops = tuple(ops)
+        self.shape = (self.ops[0].shape[0], self.ops[-1].shape[1])
+        self.dtype, self.device = _common(self.ops)
+
+    @property
+    def nnz(self):
+        return sum(o.nnz for o in self.ops)
+
+    def mult(self, x):
+        for o in reversed(self.ops):
+            x = o.mult(x)
+        return x
+
+    def mult_h(self, x):
+        for o in self.ops:
+            x = o.mult_h(x)
+        return x
+
+
+class AdjointOperator(LinearOperator):
+    def __init__(self, op: LinearOperator):
+        self.op = op
+        self.shape = (op.shape[1], op.shape[0])
+        self.dtype = op.dtype
+        self.device = op.device
+
+    @property
+    def nnz(self):
+        return self.op.nnz
+
+    def mult(self, x):
+        return self.op.mult_h(x)
+
+    def mult_h(self, x):
+        return self.op.mult(x)
+
+    @property
+    def H(self):
+        return self.op
+
+
+class DiagonalOperator(LinearOperator):
+    """diag(d); used for balancing, preconditioning, Omega signatures."""
+
+    def __init__(self, d, device=None):
+        d = d if torch.is_tensor(d) else torch.from_numpy(np.array(d))
+        self.d = d.to(device) if device is not None else d
+        n = self.d.shape[0]
+        self.shape = (n, n)
+        self.dtype = self.d.dtype
+        self.device = self.d.device
+
+    @property
+    def nnz(self):
+        return self.shape[0]
+
+    def mult(self, x):
+        return self.d * x
+
+    def mult_h(self, x):
+        return self.d.conj() * x
+
+
+def norm_estimate_randomized(A: LinearOperator, seed: int = 0) -> float:
+    """Randomized matrix-norm estimate: sqrt(n)*||A v|| for a normalized
+    Gaussian v (reference: MatNormEstimate, src/sys/mat/matutil.c:391 —
+    overestimates ||A||_2 with high probability; one matvec).  v is drawn
+    with numpy, so both packages use the same vector."""
+    n = A.shape[1]
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(n)
+    v = v / np.linalg.norm(v)
+    w = A.mult(torch.from_numpy(v).to(A.device, A.dtype))
+    return float(torch.linalg.vector_norm(w)) * float(np.sqrt(n))
+
+
+def aslinearoperator(A, device="cpu") -> LinearOperator:
+    """Coerce a scipy sparse matrix, an array or a tensor into an operator
+    on ``device`` (a LinearOperator is returned as is)."""
+    if isinstance(A, LinearOperator):
+        return A
+    import scipy.sparse as sp
+
+    if sp.issparse(A):
+        return AIJOperator.from_scipy(A, device=device)
+    return DenseOperator(A, device=device)

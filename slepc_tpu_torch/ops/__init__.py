@@ -5,9 +5,9 @@ where it launches its kernel; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
 """
 
-from . import bv, dia, rotate
+from . import bv, csr, dia, rotate
 
-_MODULES = (dia, bv, rotate)
+_MODULES = (dia, csr, bv, rotate)
 
 
 def launch_counts() -> dict:

@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _SIGNATURES = {
+    "slepc_csr_spmv": (_I, [_I, _I, _P, _P, _P, _P, _P, _I64, _P]),
     "slepc_dia_spmv": (_I, [_I, _P, _I64, ctypes.POINTER(_I64), _I, _P, _P,
                             _I64, _P]),
     "slepc_dia_max_diags": (_I, []),

@@ -14,13 +14,17 @@ locked.
 
 One filtered apply is ``degree`` SpMVs of the base operator, chained by the
 three-term Chebyshev recurrence in a Python loop (each SpMV is the DIA
-kernel on the card, each recurrence step three in-place vector updates).
+or CSR kernel on the card, each recurrence step three in-place vector
+updates).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..mat.linop import AIJOperator, DIAOperator
+from ..ops.csr import csr_spmv
 
 
 class ChebAmplifyOperator:
@@ -84,11 +88,26 @@ def cheb_value(lam, lo, hi, degree: int):
 
 
 def gershgorin_upper(op) -> float:
-    """Upper bound on lambda_max from row sums of |a_ij| (safe ``hi``) of a
-    DIA operator."""
-    diags = getattr(op, "diags", None)
-    if diags is None:
-        raise NotImplementedError(
-            "gershgorin_upper is ported for DIA operators only (ROADMAP.md, "
-            "queue 1, 'Remainders of items 1-7')")
-    return float(diags.abs().sum(dim=0).max())
+    """Upper bound on lambda_max from row sums of |a_ij| (safe ``hi``).
+
+    DIA: the row sums of |diags|.  AIJ: the rigorous row-sum bound
+    max_i sum_j |a_ij| from the CSR arrays, computed as |A| 1 with the CSR
+    SpMV (K6 on the card; deterministic, no atomics).  The reference falls
+    back to its power iteration for AIJ only because its hybrid pack hides
+    the row sums (ROADMAP.md queue 3).  Any other operator: 30 steps of
+    power iteration from a seeded ``torch.Generator``, times 1.1 -- an
+    estimate, NOT a guaranteed bound.
+    """
+    if isinstance(op, DIAOperator):
+        return float(op.diags.abs().sum(dim=0).max())
+    if isinstance(op, AIJOperator):
+        ones = torch.ones(op.shape[1], dtype=op.dtype, device=op.device)
+        sums = csr_spmv(op.rowptr, op.cols, op.vals.abs(), ones, op.shape[1])
+        return float(sums.max()) if sums.numel() else 0.0
+    gen = torch.Generator(device=op.device).manual_seed(7)
+    v = torch.randn(op.shape[0], generator=gen, dtype=op.dtype,
+                    device=op.device)
+    for _ in range(30):
+        w = op.mult(v)
+        v = w / torch.linalg.vector_norm(w)
+    return float(torch.linalg.vector_norm(op.mult(v))) * 1.1

@@ -5,6 +5,8 @@ plain PyTorch SpMV (what the port runs for CPU tensors) and through
 slepc_tpu's padded Pallas kernels in interpret mode: f32 via both
 ``dia_spmv_padded`` and ``dia_spmv_padded_v3`` (and ``mult2d``, which picks
 one), f64 via the double-single ``DIAPaddedOperatorDS``.  Compared unpadded.
+The unpadded narrow-halo ``dia_spmv_prepared_v3``, which nothing in
+slepc_tpu calls, is held against the plain version in f32 and f64.
 Tolerances: f64 1e-13 relative (double-single arithmetic is ~2e-15), f32
 1e-6 relative (single rounding of a 5-7 term sum).
 """
@@ -70,6 +72,23 @@ def test_f64_matches_double_single_kernel(kind):
     ys = A.to_scipy() @ x if kind.startswith("lap") else None
     if ys is not None:
         assert _rel(y, ys) < 1e-15
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-13)])
+@pytest.mark.parametrize("kind", ["lap3", "lap2", "rand3", "rand2"])
+def test_plain_version_matches_narrow_halo_prepared_kernel(kind, dtype, tol):
+    """dia_spmv_prepared_v3 (the unpadded narrow-halo kernel, no caller in
+    slepc_tpu) computes K1's function: held here against the plain version
+    on the same numpy diagonals, f32 and f64."""
+    A = _operators(kind)
+    n = A.shape[0]
+    d = np.asarray(A.diags).astype(dtype)
+    x = np.random.default_rng(5).standard_normal(n).astype(dtype)
+    yj = dp.dia_spmv_prepared_v3(A.offsets, dp.prepare_diags(jnp.asarray(d), n, RB),
+                                 jnp.asarray(x), n, RB)
+    y = dia.dia_spmv(A.offsets, torch.from_numpy(d), torch.from_numpy(x))
+    assert y.dtype == torch.from_numpy(d).dtype
+    assert _rel(y.numpy(), np.asarray(yj)) < tol
 
 
 def test_plain_version_handles_offsets_past_the_ends():

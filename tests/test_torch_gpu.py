@@ -7,14 +7,16 @@ host.  Run them on the card with
 
 (``--noconftest`` because tests/conftest.py sets up JAX, which the port's
 machine need not have).  Shapes are small and odd on purpose: ragged tiles,
-strided basis prefixes, offsets at and past the vector ends.
+strided basis prefixes, offsets at and past the vector ends, empty CSR rows
+and rows far longer than the lanes the CSR kernel gives a row.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from slepc_tpu_torch.ops import bv, dia, rotate
+import slepc_tpu_torch as stt
+from slepc_tpu_torch.ops import bv, csr, dia, rotate
 
 pytestmark = pytest.mark.gpu
 
@@ -96,3 +98,116 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         dia.dia_spmv((0,), torch.zeros((1, 10), dtype=torch.float16, device=cuda),
                      torch.zeros(10, dtype=torch.float16, device=cuda))
+
+
+def _csr(lengths, ncols, seed):
+    rng = np.random.default_rng(seed)
+    rowptr = np.zeros(len(lengths) + 1, np.int64)
+    rowptr[1:] = np.cumsum(lengths)
+    cols = rng.integers(0, max(ncols, 1), rowptr[-1]).astype(np.int32)
+    return rowptr, cols, rng.standard_normal(rowptr[-1])
+
+
+def _lengths(kind):
+    rng = np.random.default_rng(9)
+    if kind == "empty":
+        return [0], 1
+    if kind == "no_rows":
+        return [], 5
+    if kind == "tiny":  # empty rows and a row of 40 under 8 lanes
+        return [0, 3, 0, 40, 1, 0, 2], 9
+    if kind == "ragged":
+        ln = rng.integers(0, 13, 1001)
+        ln[[5, 500, 1000]] = 500
+        return ln, 1001
+    ln = rng.poisson(7, 100_003)  # flagship-like rows, with long ones
+    ln[::997] = 100
+    return ln, 100_003
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind", ["empty", "no_rows", "tiny", "ragged", "big"])
+def test_csr_kernel_matches_plain(cuda, dtype, tol, kind):
+    lengths, ncols = _lengths(kind)
+    _check_csr_kernel(cuda, dtype, tol, lengths, ncols)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("lanes,mean", [(2, 1.6), (4, 3), (8, 6), (16, 12),
+                                        (32, 40)])
+def test_csr_kernel_every_lane_count(cuda, dtype, tol, lanes, mean):
+    # a mean row length that selects each instantiation of the kernel, with
+    # empty rows and rows three times longer than the lanes
+    rng = np.random.default_rng(lanes)
+    lengths = rng.poisson(mean, 20_011)
+    lengths[::101] = 0
+    lengths[50::1009] = 3 * lanes + 1
+    assert csr.lanes_for(len(lengths), int(lengths.sum())) == lanes
+    _check_csr_kernel(cuda, dtype, tol, lengths, 20_011)
+
+
+def _check_csr_kernel(cuda, dtype, tol, lengths, ncols):
+    rp, cl, vl = _csr(lengths, ncols, 7)
+    rowptr = torch.from_numpy(rp).to(cuda)
+    cols = torch.from_numpy(cl).to(cuda)
+    vals = torch.from_numpy(vl).to(cuda, dtype)
+    x = _rand((ncols,), dtype, cuda, 8)
+    key = "csr_spmv_f64" if dtype == torch.float64 else "csr_spmv_f32"
+    before = csr.launches[key]
+    y = csr.csr_spmv(rowptr, cols, vals, x, ncols)
+    ref = csr.csr_spmv_ref(rowptr, cols, vals, x)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape == (len(lengths),)
+    assert csr.launches[key] == before + (1 if len(lengths) else 0)
+    if len(lengths):
+        scale = csr.csr_spmv_ref(rowptr, cols, vals.abs(), x.abs()).clamp_min(1)
+        assert float(((y - ref).abs() / scale).max()) <= 4 * tol
+        empty = torch.from_numpy(np.asarray(lengths) == 0).to(cuda)
+        assert bool((y[empty] == 0).all())  # empty rows write 0
+        # deterministic: no atomics, same bits every time
+        assert torch.equal(csr.csr_spmv(rowptr, cols, vals, x, ncols), y)
+
+
+def test_csr_kernel_rejects_what_it_does_not_take(cuda):
+    rp, cl, vl = _csr([2, 0, 3], 4, 1)
+    rowptr = torch.from_numpy(rp).to(cuda)
+    cols = torch.from_numpy(cl).to(cuda)
+    vals = torch.from_numpy(vl).to(cuda)
+    x = torch.ones(8, dtype=torch.float64, device=cuda)
+    before = dict(csr.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        csr.csr_spmv(rowptr, cols, vals, x[::2], 4)
+    with pytest.raises(ValueError, match="int32"):
+        csr.csr_spmv(rowptr, cols.long(), vals, x[:4], 4)
+    with pytest.raises(ValueError, match="dtype or device"):
+        csr.csr_spmv(rowptr, cols, vals.cpu(), x[:4], 4)
+    with pytest.raises(TypeError):
+        csr.csr_spmv(rowptr, cols, vals.half(), x[:4].half(), 4)
+    with pytest.raises(ValueError, match="4 columns"):  # x too short to gather
+        csr.csr_spmv(rowptr, cols, vals, x[:3], 4)
+    with pytest.raises(ValueError, match="columns"):
+        stt.AIJOperator(rowptr, cols, vals, (3, 4)).mult(x[:3])
+    assert csr.launches == before
+
+
+def test_aij_operator_routes_to_its_kernel_on_the_card(cuda):
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    L = stt.laplacian_3d(15, 16, 18).to_scipy()
+    p = reverse_cuthill_mckee(sp.csr_matrix(L), symmetric_mode=True)
+    A = L[p][:, p].tocsr()
+    x = np.random.default_rng(3).standard_normal(A.shape[0])
+    xt = torch.from_numpy(x).to(cuda)
+    aij = stt.from_scipy(A, device=cuda).fast_form()
+    dia_op = stt.from_scipy(L, device=cuda).fast_form()
+    assert isinstance(aij, stt.AIJOperator)
+    assert isinstance(dia_op, stt.DIAOperator)
+    stt.reset_launch_counts()
+    y = aij.mult(xt)
+    yh = aij.mult_h(xt)
+    yd = dia_op.mult(xt)
+    counts = stt.launch_counts()
+    assert counts["csr_spmv_f64"] == 2 and counts["dia_spmv_f64"] == 1
+    for out, want in ((y, A @ x), (yh, A.T @ x), (yd, L @ x)):
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-13
