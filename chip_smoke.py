@@ -20,18 +20,30 @@ Phases (each failing check raises; the script then exits non-zero):
      200x225x230 Laplacian in f64 to tol 1e-8, Chebyshev degree 450,
      ncv 48, certified against the closed-form spectrum;
   4. the same solve on the RCM-ordered CSR flagship through
-     ``from_scipy``: the general-sparsity (AIJ) path on K6.
+     ``from_scipy``: the general-sparsity (AIJ) path on K6;
+  5. the blocked flagship: the phase-3 solve with ``cheb_block = 4``, the
+     blocked filtered cycle on the block DIA kernel K5, same gates;
+  6. small paths: EPS(block_size=4, ncv=28) on laplacian_2d(95, 97) as DIA
+     (K5) and as RCM-ordered CSR (K6 per row) in f64 and f32, and EPS
+     with ``set_reorthogonalization("partial")`` in f64, with phase 2's
+     gates; ks_cheb_smallest(reorth="partial") on laplacian_2d(80, 80) in
+     f64 against the closed form.
+
+Phase 1 also times K5 at b = 2, 4, 8 beside b single K1/K2 calls on the
+same block, and K3's three sweeps at panel width b = 4 (K = 52).
 
     python3 chip_smoke.py --profile
 
-adds, after phase 4, a lane sweep of K6 (every lane count the kernel is
+adds, after phase 6, a lane sweep of K6 (every lane count the kernel is
 built for, natural and RCM order, f64 and f32, beside the DIA kernel on the
-same matrix) and a torch.profiler split of one more phase-4 solve by
-kernel.  Its launches are not counted.
+same matrix) and a torch.profiler split by kernel of one more phase-4
+solve and one more phase-5 solve.  Its launches are not counted.
 
 Launch counters are reset to 0 before phase 2 and read after phase 3 (the
-DIA path), and reset again before phase 4 and read after it (the AIJ
-path); every kernel of each path must have launched.  The last three lines
+DIA path), reset again before phase 4 and read after it (the AIJ path),
+before phase 5 and after it (the blocked path), and before phase 6 and
+after it (the small blocked and partial paths); every kernel of each path
+must have launched.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -55,7 +67,9 @@ from slepc_tpu_torch.ops.csr import (csr_spmv, csr_spmv_ref, lanes_for,
 from slepc_tpu_torch.ops.bv import (panel_dots, panel_dots_ref, panel_update,
                                     panel_update_dots, panel_update_dots_ref,
                                     panel_update_ref)
-from slepc_tpu_torch.ops.dia import dia_spmv, dia_spmv_ref
+from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
+from slepc_tpu_torch.ops.dia import (dia_spmm, dia_spmm_ref, dia_spmv,
+                                     dia_spmv_ref)
 from slepc_tpu_torch.ops.rotate import rotate, rotate_ref
 
 FLAGSHIP = (200, 225, 230)
@@ -65,6 +79,8 @@ SRC = "slepc_tpu_torch/csrc/"
 KERNELS = {
     "dia_spmv_f32": ("K1", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:463"),
     "dia_spmv_f64": ("K2", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:720"),
+    "dia_spmm_f32": ("K5", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:280"),
+    "dia_spmm_f64": ("K5", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:280"),
     "panel_dots_f32": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:74"),
     "panel_dots_f64": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:74"),
     "panel_update_f32": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:115"),
@@ -187,6 +203,73 @@ def phase1(dev, table):
         torch.cuda.empty_cache()
 
 
+def phase1_block(dev, table):
+    print("phase 1: K5 (block DIA SpMM) vs plain PyTorch on the flagship "
+          "operator, beside b single K1/K2 calls; K3 at b = 4", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    n, nd = lap.shape[0], len(lap.offsets)
+    for dt, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
+        diags = lap.diags.to(dt)
+        # X is a slice of a taller basis, as the blocked cycle hands it over
+        V = torch.randn((12, n), generator=gen, dtype=dt, device=dev)
+        for b in (2, 4, 8):
+            X = V[3:3 + b]
+            Y = dia_spmm(lap.offsets, diags, X)
+            Y_ref = dia_spmm_ref(lap.offsets, diags, X)
+            err = float((Y - Y_ref).abs().max())
+            rel = err / float(Y_ref.abs().max())
+            ms = cuda_ms(lambda: dia_spmm(lap.offsets, diags, X))
+            plain = cuda_ms(lambda: dia_spmm_ref(lap.offsets, diags, X))
+            single = cuda_ms(lambda: [dia_spmv(lap.offsets, diags, X[m])
+                                      for m in range(b)])
+            nbytes = (nd + 2 * b) * n * X.element_size()
+            name = f"dia_spmm_{TAG[dt]}"
+            print(f"  b={b}: {b} single K{2 if dt == torch.float64 else 1} "
+                  f"calls {single:.4f} ms ({b * (nd + 2) * n * X.element_size() / 1e9:.3f} GB)",
+                  flush=True)
+            if b == 4:  # the path's block size goes into the kernel table
+                record(table, name, err, rel, tol, ms, plain, nbytes)
+            else:
+                check(np.isfinite(rel) and rel <= tol,
+                      f"{name} b={b}: relative error {rel:.3e} > {tol:.0e}")
+                print(f"  {name} b={b}: err {rel:.3e} (tol {tol:.0e})  "
+                      f"kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                      f"{nbytes / 1e9:.3f} GB -> {nbytes / ms / 1e6:.1f} GB/s",
+                      flush=True)
+            del Y, Y_ref
+        del V, diags
+    del lap
+    torch.cuda.empty_cache()
+
+    K, b = 52, 4
+    dt = torch.float64
+    V = torch.randn((K, n), generator=gen, dtype=dt, device=dev)
+    W = torch.randn((b, n), generator=gen, dtype=dt, device=dev)
+    C = torch.randn((K, b), generator=gen, dtype=dt, device=dev)
+    elt = V.element_size()
+    sweeps = (("panel_dots", lambda: panel_dots(V, W),
+               lambda: panel_dots_ref(V, W), (K + b) * n * elt),
+              ("panel_update", lambda: panel_update(V, C, W),
+               lambda: panel_update_ref(V, C, W), (K + 2 * b) * n * elt),
+              ("panel_update_dots", lambda: panel_update_dots(V, C, W),
+               lambda: panel_update_dots_ref(V, C, W), (K + 2 * b) * n * elt))
+    for name, fn, ref_fn, nbytes in sweeps:
+        out, ref = fn(), ref_fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        rel = max(float((o - r).abs().max() / r.abs().max())
+                  for o, r in zip(outs, refs))
+        check(rel <= 1e-12, f"{name} at b=4: relative error {rel:.3e}")
+        ms, plain = cuda_ms(fn), cuda_ms(ref_fn)
+        print(f"  {name}_f64 K={K} b={b}: err {rel:.3e}  kernel {ms:.4f} ms  "
+              f"plain {plain:.4f} ms  {nbytes / 1e9:.3f} GB -> "
+              f"{nbytes / ms / 1e6:.1f} GB/s", flush=True)
+        del out, ref, outs, refs
+    del V, W, C
+    torch.cuda.empty_cache()
+
+
 def rcm_order(L):
     """L reordered with reverse Cuthill-McKee (PETSc's MATORDERINGRCM)."""
     perm = reverse_cuthill_mckee(L, symmetric_mode=True)
@@ -289,51 +372,70 @@ def family_counts(counts, tag, spmv="dia_spmv"):
             "K4": counts[f"rotate_{tag}"]}
 
 
-def phase2(dev):
-    print("phase 2: plain Krylov-Schur through EPS, laplacian_2d(95, 97), as "
-          "DIA (K1/K2) and as RCM-ordered CSR (K6)", flush=True)
+F64_F32 = ((torch.float64, 1e-9), (torch.float32, 1e-5))
+
+
+def small_solves(dev, label, paths, setup=None, max_it=400, dtypes=F64_F32):
+    """EPS on laplacian_2d(95, 97), nev=6, ncv=28, as each (kind, SpMV
+    counter) of ``paths`` in each (dtype, tol) of ``dtypes`` (f64 at 1e-9
+    and f32 at 1e-5 unless given); ``setup`` configures the EPS.  Gates:
+    nconv >= 6, |lam - exact| <= 1e-9 (f64) or relative 1e-4 (f32), and
+    the path's kernels launched."""
     exact = stt.laplacian_2d_eigs(95, 97, k=6)
     csr = rcm_order(stt.laplacian_2d(95, 97).to_scipy())
-    for kind, spmv in (("DIA", "dia_spmv"), ("CSR", "csr_spmv")):
-        for dt, tol in ((torch.float64, 1e-9), (torch.float32, 1e-5)):
+    for kind, spmv in paths:
+        for dt, tol in dtypes:
             before = stt.launch_counts()
             A = (stt.laplacian_2d(95, 97, dtype=dt, device=dev) if kind == "DIA"
                  else stt.from_scipy(csr, dtype=dt, device=dev))
             eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
-                          ncv=28, tol=tol, max_it=400, options=stt.Options())
+                          ncv=28, tol=tol, max_it=max_it,
+                          options=stt.Options())
+            if setup is not None:
+                setup(eps)
             t0 = time.perf_counter()
             eps.solve()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            lam = np.sort(np.asarray(eps.eigenvalues[:6], np.float64))
-            err = np.abs(lam - exact)
+            k = min(eps.nconv, 6)
+            lam = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))
+            err = np.abs(lam - exact[:k]) if k else np.array([np.inf])
             counts = stt.launch_counts()
             delta = {k: counts[k] - before[k] for k in counts}
             fam = family_counts(delta, TAG[dt], spmv)
-            where = f"{kind} {TAG[dt]}"
+            where = f"{label} {kind} {TAG[dt]} (tol {tol:.0e})"
             print(f"  {where}: nconv={eps.nconv} its={eps.its} wall={wall:.3f} s "
-                  f"max|lam-exact|={err.max():.3e} rel={np.max(err / exact):.3e} "
+                  f"max|lam-exact|={err.max():.3e} "
+                  f"rel={np.max(err / exact[:max(k, 1)]):.3e} "
                   f"launches={fam}", flush=True)
-            check(eps.nconv >= 6, f"phase 2 {where}: nconv {eps.nconv} < 6")
+            check(eps.nconv >= 6, f"{where}: nconv {eps.nconv} < 6")
             if dt == torch.float64:
                 check(err.max() <= 1e-9,
-                      f"phase 2 {where}: |lam - exact| {err.max():.3e}")
+                      f"{where}: |lam - exact| {err.max():.3e}")
             else:
                 check(np.max(err / exact) <= 1e-4,
-                      f"phase 2 {where}: relative error {np.max(err / exact):.3e}")
+                      f"{where}: relative error {np.max(err / exact):.3e}")
             check(all(v > 0 for v in fam.values()),
-                  f"phase 2 {where}: a kernel did not launch: {fam}")
+                  f"{where}: a kernel did not launch: {fam}")
 
 
-def flagship_solve(A, where, spmv):
+def phase2(dev):
+    print("phase 2: plain Krylov-Schur through EPS, laplacian_2d(95, 97), as "
+          "DIA (K1/K2) and as RCM-ordered CSR (K6)", flush=True)
+    small_solves(dev, "phase 2", (("DIA", "dia_spmv"), ("CSR", "csr_spmv")))
+
+
+def flagship_solve(A, where, spmv, cheb_block=1):
     """The flagship EPS solve on operator A; checks the certification gates
-    and that the path's kernels launched (counts read as deltas)."""
+    and that the path's kernels launched (counts read as deltas).  Returns
+    (wall, launch deltas, cheb stats)."""
     dev = A.device
     before = stt.launch_counts()
     eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=20,
                   tol=1e-8, options=stt.Options.from_cli(
                       "-eps_ncv 48 -eps_cheb_degree 450"))
     eps.cheb_keep_den = 3
+    eps.cheb_block = cheb_block
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eps.solve()
@@ -362,7 +464,7 @@ def flagship_solve(A, where, spmv):
     check(eig_err.max() <= 1e-9, f"{where}: |lam - exact| {eig_err.max():.3e}")
     check(all(v > 0 for v in fam.values()),
           f"{where}: a kernel did not launch: {fam}")
-    return wall, delta
+    return wall, delta, st
 
 
 def phase3(dev):
@@ -376,6 +478,23 @@ def phase3(dev):
     return flagship_solve(A, "phase 3", "dia_spmv")[0]
 
 
+def phase5(dev):
+    print("phase 5: the blocked flagship through EPS: phase 3's solve with "
+          "cheb_block = 4 (the blocked filtered cycle on K5)", flush=True)
+    A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    b, degree, ncv_probe = 4, 450, 32
+    wall, delta, st = flagship_solve(A, "phase 5", "dia_spmm", cheb_block=b)
+    # every filtered column went through K5: each block step is one filtered
+    # block apply = degree K5 launches, and the probe's 32 columns are plain
+    want = degree * (st["cols"] - ncv_probe) // b
+    print(f"  K5 launches {delta['dia_spmm_f64']} (degree x filtered "
+          f"columns / b = {want}); K2 launches {delta['dia_spmv_f64']} "
+          f"(probe, window adaptations, certification, polish)", flush=True)
+    check(delta["dia_spmm_f64"] == want,
+          f"phase 5: K5 ran {delta['dia_spmm_f64']} times, not {want}")
+    return wall
+
+
 def phase4(dev, A_csr, host):
     print("phase 4: the AIJ flagship through EPS: the RCM-ordered CSR of the "
           "same Laplacian from from_scipy, same settings", flush=True)
@@ -386,10 +505,54 @@ def phase4(dev, A_csr, host):
     print(f"  host CSR build {host['build_s']:.3f} s, RCM + permutation "
           f"{host['rcm_s']:.3f} s, from_scipy upload {upload_s:.3f} s; "
           f"n={A.shape[0]} nnz={A.nnz}", flush=True)
-    wall, delta = flagship_solve(A, "phase 4", "csr_spmv")
+    wall, delta, _ = flagship_solve(A, "phase 4", "csr_spmv")
     check(delta["dia_spmv_f64"] == 0,
           f"phase 4: the DIA kernel ran {delta['dia_spmv_f64']} times")
     return wall
+
+
+def phase6(dev):
+    print("phase 6: small paths: blocked EPS (block_size 4) as DIA (K5) and "
+          "as RCM-ordered CSR (K6 per row); partial reorthogonalization; "
+          "Chebyshev with partial reorthogonalization", flush=True)
+    # block Krylov depth per restart is ncv/b = 7: the blocked cycle needs
+    # several hundred restarts here where the plain one needs ~56.  In f32
+    # the blocked error estimates of the six wanted pairs level off (2e-6 to
+    # 5e-5 with the plain versions on a CPU, 2e-5 to 2e-4 with the kernels;
+    # lambda_1 ~ 2e-3 against ||A|| ~ 8): at tol 1e-5 the solve ran 3000
+    # restarts on the card without converging, so the f32 solve runs at
+    # tol 1e-4 (the gate on the eigenvalues is phase 2's)
+    small_solves(dev, "phase 6 blocked",
+                 (("DIA", "dia_spmm"), ("CSR", "csr_spmv")),
+                 setup=lambda eps: setattr(eps, "block_size", 4), max_it=3000,
+                 dtypes=((torch.float64, 1e-9), (torch.float32, 1e-4)))
+    # f64 only: at tol 1e-5 the f32 semi-orthogonal basis (drift up to
+    # sqrt(eps_f32) ~ 3e-4) never certifies this case, in the JAX package
+    # either (its EPS stalls at nconv 0 after 400 cycles on the CPU)
+    small_solves(dev, "phase 6 partial", (("DIA", "dia_spmv"),),
+                 setup=lambda eps: eps.set_reorthogonalization("partial"),
+                 dtypes=F64_F32[:1])
+    # tests/test_round5.py:55-64 of the JAX package
+    before = stt.launch_counts()
+    t0 = time.perf_counter()
+    res = ks_cheb_smallest(stt.laplacian_2d(80, 80, device=dev), nev=10,
+                           tol=1e-8, ncv=32, degree=80, reorth="partial")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = stt.launch_counts()
+    fam = family_counts({k: counts[k] - before[k] for k in counts}, "f64")
+    err = np.abs(np.sort(res["lam"][:10]) - stt.laplacian_2d_eigs(80, 80, k=10))
+    print(f"  cheb partial f64: nconv={res['nconv']} wall={wall:.3f} s "
+          f"cols={res['stats']['cols']} cycles={res['stats']['cycles']} "
+          f"max|lam-exact|={err.max():.3e} "
+          f"max resid={np.max(res['resid'][:10]):.3e} launches={fam}",
+          flush=True)
+    check(res["nconv"] >= 10, f"phase 6 cheb partial: nconv {res['nconv']}")
+    check(err.max() <= 1e-10, f"phase 6 cheb partial: |lam - exact| "
+          f"{err.max():.3e}")
+    check(np.max(res["resid"][:10]) <= 1e-8, "phase 6 cheb partial: residual")
+    check(all(v > 0 for v in fam.values()),
+          f"phase 6 cheb partial: a kernel did not launch: {fam}")
 
 
 def csr_spmv_at(op, x, lanes):
@@ -429,15 +592,15 @@ def lane_sweep(dev, L, A):
             torch.cuda.empty_cache()
 
 
-def profile_solve(dev, A_csr):
+def profile_solve(A, where, spmv, cheb_block=1):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print("profile: torch.profiler over one phase-4 solve", flush=True)
-    A = stt.from_scipy(A_csr, device=dev)
+    print(f"profile: torch.profiler over one {where} solve", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, _ = flagship_solve(A, "profiled phase 4", "csr_spmv")
+        wall = flagship_solve(A, f"profiled {where}", spmv,
+                              cheb_block=cheb_block)[0]
     rows = sorted((e for e in prof.key_averages()
                    if e.self_device_time_total > 0),
                   key=lambda e: -e.self_device_time_total)
@@ -457,8 +620,9 @@ def profile_solve(dev, A_csr):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 4: K6 lane sweep and a "
-                             "torch.profiler split of a phase-4 solve")
+                        help="after phase 6: K6 lane sweep and a "
+                             "torch.profiler split of a phase-4 and a "
+                             "phase-5 solve")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -487,6 +651,7 @@ def main():
 
     table, host = {}, {}
     phase1(dev, table)
+    phase1_block(dev, table)
     L_csr, A_csr = phase1_csr(dev, table, host)
     if not args.profile:
         del L_csr
@@ -498,10 +663,20 @@ def main():
     stt.reset_launch_counts()
     wall_aij = phase4(dev, A_csr, host)
     aij_path = stt.launch_counts()
+    stt.reset_launch_counts()
+    wall_blk = phase5(dev)
+    blk_path = stt.launch_counts()
+    stt.reset_launch_counts()
+    phase6(dev)
+    small_path = stt.launch_counts()
     if args.profile:
         lane_sweep(dev, L_csr, A_csr)
-        profile_solve(dev, A_csr)
-    counts = {k: dia_path[k] + aij_path[k] for k in dia_path}
+        profile_solve(stt.from_scipy(A_csr, device=dev), "phase 4", "csr_spmv")
+        profile_solve(stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64,
+                                       device=dev), "phase 5", "dia_spmm",
+                      cheb_block=4)
+    paths = (dia_path, aij_path, blk_path, small_path)
+    counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
     kernels = []
@@ -512,8 +687,8 @@ def main():
                         "launches": counts[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"]})
-    print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6) on "
-          f"{smi_line}", flush=True)
+    print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
+          f"{wall_blk:.3f} s (blocked, K5) on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

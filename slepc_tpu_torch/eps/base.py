@@ -2,7 +2,9 @@
 
 The subset the Hermitian Krylov-Schur slice needs: the constructor and
 options (``nev ncv tol max_it which problem_type``, ``-eps_cheb_degree``,
-monitors), ``solve``, ``nconv``, ``get_eigenpair``, ``compute_error`` and
+``-eps_block_size``, ``-eps_lanczos_reorthog``, monitors), the fast-path
+attributes (``block_size``, ``cheb_block``, ``cheb_reorth``, ...),
+``solve``, ``nconv``, ``get_eigenpair``, ``compute_error`` and
 ``error_view``.  Eigenvectors stay on the operator's device as the rows of
 a (nconv, n) tensor.  Other solvers, problem types, spectral
 transformations and options raise NotImplementedError naming their
@@ -51,6 +53,7 @@ _DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5}
 _TODO_SOLVERS = ("only EPS 'krylovschur' on Hermitian (hep) problems is "
                  "ported; {} is still to be ported (ROADMAP.md, queue 1, "
                  "item 11)")
+_REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
 
 
 class EPS:
@@ -82,6 +85,7 @@ class EPS:
         # Krylov-Schur fast-path settings (the attributes ks_hep_solve
         # reads; slepc_tpu/eps/ks_jit.py:1139-1148, 1220-1235)
         self.reorth = "full"
+        self.reorth_period = 1
         self.rot_mode = "exact"
         self.block_size = 1
         self.cheb_degree = 0
@@ -139,16 +143,22 @@ class EPS:
         if o.get("monitor_conv", False) is True:
             self.monitor.add(ConvMonitor())
 
-    def set_reorthogonalization(self, kind: str):
-        """Orthogonalization policy of the Krylov-Schur fast path: 'full'
-        (CGS2 every column; 'delayed' maps to it).  The light policies are
-        still to be ported."""
-        if kind not in ("full", "delayed"):
-            raise NotImplementedError(
-                f"reorthogonalization {kind!r} is not ported yet; only "
-                f"'full' is (ROADMAP.md, queue 1, 'Krylov-Schur cycle "
-                f"remainder')")
+    def set_reorthogonalization(self, kind: str, period: int = 4):
+        """Orthogonalization policy of the Krylov-Schur fast path
+        (reference -eps_lanczos_reorthog, ``slepc_tpu/eps/base.py:316``):
+        'full' (CGS2 every column, default), 'partial' (Simon's omega
+        monitor: local CGS2 against the two previous rows, a full sweep
+        only when the drift estimate crosses sqrt(eps)/sqrt(ncv)),
+        'periodic' and 'selective' (explicit-Lanczos policies; the
+        Krylov-Schur path runs them as the monitored 'partial'), 'local'
+        (full here, as in the reference, unless a period was set) and
+        'delayed' (runs as 'full').  ``period`` is kept for 'periodic'."""
+        if kind not in _REORTH:
+            raise ValueError(f"reorthogonalization {kind!r} is not one of "
+                             f"{_REORTH}")
         self.reorth = kind
+        if kind == "periodic":
+            self.reorth_period = period
         return self
 
     # -- derived defaults --------------------------------------------------

@@ -24,6 +24,14 @@ The cycle is the split form of the reference: extension (``degree`` DIA
 kernel launches per column plus the CGS2 panel kernel), host LAPACK
 projected eigh, then the rotation kernel.  Bases live on the operator's
 device for the whole solve.
+
+``block=b > 1`` runs the blocked filtered cycle (``ks_jit`` blocked body:
+the block SpMV K5 inside the recurrence, BCGS2 + SVQB^2): b filtered
+applies per panel sweep, at the price of more columns (block-Krylov depth
+per restart is ncv/b).  ``reorth="partial"`` keeps the single-column
+recursion with Simon's omega-monitored extension; the basis is then only
+semi-orthogonal, so certification CholQR2-orthonormalizes the certified
+block before Rayleigh-Ritz.
 """
 
 from __future__ import annotations
@@ -38,9 +46,8 @@ import torch
 from ..ops.bv import panel_dots
 from ..ops.rotate import rotate
 from ..st.cheb import ChebAmplifyOperator, cheb_value, gershgorin_upper
-from .ks_jit import (_TODO_BLOCK, _check_modes, _hep_extend_body,
-                     _hep_rotate_body, _np_dtype, _restart_sizes,
-                     ks_hep_cycle)
+from .ks_jit import (_check_rot_mode, _hep_cycle_blocked_body,
+                     _hep_cycle_body, _np_dtype, ks_hep_cycle)
 
 _logger = logging.getLogger(__name__)
 
@@ -186,10 +193,14 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
                      nrot: int = 0):
     """k smallest eigenpairs of Hermitian ``op`` via Chebyshev-amplified
     Krylov-Schur.  Returns a result dict (lam, resid, X, stats); X holds
-    the eigenvector rows on the operator's device."""
-    if block > 1:
-        raise NotImplementedError(_TODO_BLOCK)
-    _check_modes(reorth, rot_mode)
+    the eigenvector rows on the operator's device.  ``block`` > 1 runs the
+    blocked filtered cycle (ncv must be a multiple of it); ``reorth``
+    'full' or 'partial' the single-column one (module docstring)."""
+    block = max(int(block), 1)
+    if block > 1 and ncv % block != 0:
+        raise ValueError(f"ncv={ncv} must be a multiple of block={block}")
+    _check_rot_mode(rot_mode)
+    nxr = block  # basis rows past ncv
     t_start = time.perf_counter()
     log = log or _logger.info
     dev, dtype = op.device, op.dtype
@@ -231,33 +242,29 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
     # clamp against the SPD worst case lam1=0)
     lo0 = _clamp_window_exp(float(lo0), 0.0, hi, degree)
     lo = float(lo0)
-    V = torch.zeros((ncv + 1, n), dtype=dtype, device=dev)
+    V = torch.zeros((ncv + nxr, n), dtype=dtype, device=dev)
     V[0] = v0
+    if block > 1:
+        # leading block: row 0 = the probe's best Ritz row, then b-1 seeded
+        # random rows; CholQR2 is lower-triangular, so row 0 keeps its
+        # direction
+        V[1:block] = torch.randn((block - 1, n), generator=gen,
+                                 dtype=torch.float64, device=dev).to(dtype)
+        V[:block] = _orthonormalize_rows(V, k=block)
     hdtype = _np_dtype(dtype)
-    H = np.zeros((ncv + 1, ncv), dtype=hdtype)
+    H = np.zeros((ncv + nxr, ncv), dtype=hdtype)
     del v0
 
     # ---- filtered cycles: split form -----------------------------------
     bop = ChebAmplifyOperator(op, lo, hi, degree)
-    nro_s = nrot if (nrot and nrot < ncv) else ncv
 
     def cyc(bop, V, H, j0, tol):
-        V, H = _hep_extend_body(bop, V, H, j0, ncv, gen, ncv=ncv, passes=2)
-        beta = float(abs(H[ncv, ncv - 1]))
-        S = 0.5 * (H[:ncv, :ncv] + H[:ncv, :ncv].T).astype(np.float64)
-        theta, Q = np.linalg.eigh(S)  # LAPACK, ascending
-        theta, Q = theta[::-1], Q[:, ::-1]  # largest first
-        errest = beta * np.abs(Q[ncv - 1, :]) / np.maximum(
-            np.abs(theta), 1e-300)
-        conv = errest < float(tol)
-        k2 = int(np.cumprod(conv).sum())
-        k2, kl, _ = _restart_sizes(k2, ncv, keep_den, nro_s)
-        V = _hep_rotate_body(V, Q[:, :nro_s], kl, ncv=ncv)
-        Hn = np.zeros_like(H)
-        keepm = np.arange(ncv) < kl
-        Hn[np.arange(ncv), np.arange(ncv)] = theta * keepm
-        Hn[kl, :ncv] = (beta * Q[ncv - 1, :]) * keepm
-        return (V, Hn, kl, k2, theta, errest, beta)
+        if block > 1:
+            return _hep_cycle_blocked_body(bop, V, H, j0, tol, gen, ncv=ncv,
+                                           b=block, which="largest")
+        return _hep_cycle_body(bop, V, H, j0, tol, gen, ncv=ncv,
+                               which="largest", keep_den=keep_den, nrot=nrot,
+                               reorth=reorth)
 
     j0 = 0
     k2 = 0
@@ -274,7 +281,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         nonlocal bop, lo
         lo = float(lo_new)
         bop = ChebAmplifyOperator(op, lo, hi, degree)
-        Hh = np.zeros((ncv + 1, ncv), hdtype)
+        Hh = np.zeros((ncv + nxr, ncv), hdtype)
         if k2 > 0:
             pv = cheb_value(np.asarray(lamA_locked[:k2]), lo, hi, degree)
             Hh[np.arange(k2), np.arange(k2)] = pv.astype(hdtype)
@@ -286,7 +293,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
             break
         o = cyc(bop, V, H, j0, cur_tol_b)
         V, H = o[0], o[1]
-        newcols = ncv - j0
+        newcols = ncv - j0 * block  # j0 is in block units if block > 1
         j0 = int(o[2])
         # monotone lock watermark: the projected eigh on the huge-range
         # filtered H can wiggle a locked row's errest past tol_b and
@@ -335,7 +342,8 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
                 V = None
                 o = None
             tau_np, rel, X, nok = _certify(op, Vbox, kc, nev, tol, hi, stats,
-                                           log, drop=drop)
+                                           log, drop=drop,
+                                           orthonormalize=reorth != "full")
             if nok >= nev or drop:
                 # terminal either way when the basis was dropped: the
                 # filtered cycles cannot resume without it
@@ -411,7 +419,9 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
                 lo_new = lo  # keep the last good window
             log(f"cheb: {tag} lo {lo:.4e} -> {lo_new:.4e} (k2={k2})")
             H = _set_window(lo_new, lamA_np, k2)
-            j0 = k2
+            # blocked: restart at the last complete locked block; rows past
+            # it stay Ritz vectors and re-enter through the starting block
+            j0 = k2 // block
             stats["adaptations"] += 1
             stall = 0
             k2_prev = -1
@@ -432,7 +442,8 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         V = None
         o = None
         tau_np, rel, X, nok = _certify(op, Vbox, kc, nev, tol, hi, stats,
-                                       log, drop=True)
+                                       log, drop=True,
+                                       orthonormalize=reorth != "full")
         result = {"lam": tau_np[: min(kc, nev)],
                   "resid": rel[: min(kc, nev)], "X": X,
                   "lam_all": tau_np, "resid_all": rel}
@@ -443,7 +454,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
 
 
 def _certify(op, Vbox, kc: int, nev: int, tol: float, hi: float, stats,
-             log, drop: bool = False):
+             log, drop: bool = False, orthonormalize: bool = False):
     """Rayleigh-Ritz certification on A + shifted inverse-iteration polish.
 
     Error at eigenvalues just outside the certified block decays only like
@@ -453,10 +464,18 @@ def _certify(op, Vbox, kc: int, nev: int, tol: float, hi: float, stats,
     ``Vbox``: single-element list holding the basis; with ``drop=True`` the
     basis is released right after the first Rayleigh-Ritz (the caller must
     clear its own reference first), so the polish never holds V + X + X'.
+    ``orthonormalize``: CholQR2 the leading kc rows first (a semi-orthogonal
+    basis from the partial extension), then release the basis.
     Returns (tau ascending, rel resid, X rows, nconv-leading)."""
     t_cert0 = time.perf_counter()
     stats["certs"] += 1
     V = Vbox[0]
+    if orthonormalize:
+        Vq = _orthonormalize_rows(V, k=kc)
+        del V
+        if drop:
+            Vbox[0] = None
+        V = Vq
     tau_np, res, X = _rr_refine(op, V, kc)
     del V
     if drop:

@@ -1,13 +1,13 @@
 """Krylov-Schur restart cycle for Hermitian problems
 (``slepc_tpu/eps/ks_jit.py``).
 
-One restart cycle = basis extension (SpMV + CGS2 per column), projected
-eigh, convergence count, restart rotation.  PyTorch runs eagerly, so the
-cycle is host-orchestrated: the SpMV (DIA kernel K1/K2 or CSR kernel K6,
-or a shell operator's own ``mult``), the CGS2 sweeps (panel kernel K3) and
-the rotation (kernel K4) run on the basis' device, and the host reads back one small vector per column (the projection
-coefficients and the new column's norm) and solves the ncv x ncv projected
-problem with LAPACK.
+One restart cycle = basis extension (SpMV + orthogonalization per column),
+projected eigh, convergence count, restart rotation.  PyTorch runs eagerly,
+so the cycle is host-orchestrated: the SpMV (DIA kernel K1/K2 or CSR kernel
+K6, or a shell operator's own ``mult``), the CGS panel sweeps (kernel K3)
+and the rotation (kernel K4) run on the basis' device, and the host reads
+back one small vector per column (the projection coefficients and the new
+column's norm) and solves the ncv x ncv projected problem with LAPACK.
 
 Layout: the basis is the row-major ``(ncv+1, n)`` tensor V, row k is basis
 vector k, so every row is contiguous and the leading rows V[:j+1] that a
@@ -20,11 +20,26 @@ vectors, arrow row beta * Q[last, :] -- the reference's DSTruncate +
 BVMultInPlace.  Soft locking by construction: locked Ritz pairs stay in the
 projected matrix with zero residual coupling.
 
-Ported: full reorthogonalization (CGS2) and the exact f64/f32 rotation; the
-reference's ``rot_mode`` "exact" and "ds" are the same native-precision K4
-path here.  The partial/selective/periodic reorthogonalization modes, the
-blocked cycle and the mixed/hybrid rotations are still to be ported and
-raise NotImplementedError.
+Orthogonalization of the single-column extension (``reorth``):
+  * "full": CGS2 against every basis row, every column;
+  * "partial": Simon's omega monitor -- a local CGS2 against the two
+    previous rows, and a full CGS2 only when the omega recurrence (run on
+    the host from H) estimates that the new column has drifted past
+    sqrt(eps)/sqrt(ncv), when the previous column tripped, or at the first
+    column of the cycle; a second host read only when a full sweep fires;
+  * "selective" (with ``nsel`` > 0): the local rows plus the leading
+    locked rows;
+  * ``reorth_period`` > 1: a full sweep every period-th column, local
+    otherwise.
+
+The blocked cycle (:func:`ks_hep_cycle_blocked`, block size b): b columns
+per step through the block SpMV (``mult_block``, kernel K5 for a DIA
+operator), branch-free BCGS2 (three K3 sweeps at panel width b), and an
+SVQB^2 orthonormalization of the b new columns whose two factors come from
+the b x b Gram matrix on the host; the combine runs on K4.
+
+The reference's ``rot_mode`` "exact" and "ds" are the same native-precision
+K4 path here; "mixed"/"hybrid" (f32-plane rotations) are not ported.
 """
 
 from __future__ import annotations
@@ -32,30 +47,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mat.linop import AIJOperator
+from ..mat.linop import AIJOperator, LinearOperator
 from ..ops.bv import panel_dots, panel_update, panel_update_dots
 from ..ops.rotate import rotate
 from ..sys.events import log_event
 
-_TODO_REORTH = ("reorth={!r} is not ported yet; only 'full' (CGS2) is "
-                "(ROADMAP.md, queue 1, 'Krylov-Schur cycle remainder')")
 _TODO_ROT = ("rot_mode={!r} is not ported (f32-plane rotations); every "
              "rotation of the port is the native-precision kernel K4, "
              "rot_mode 'exact' or 'ds' (ROADMAP.md, queue 1, 'Krylov-Schur "
              "cycle remainder')")
-_TODO_BLOCK = ("the blocked Krylov-Schur cycle is not ported yet (ROADMAP.md, "
-               "queue 2, K5)")
 
 
 def _np_dtype(dtype: torch.dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
-def _check_modes(reorth: str, rot_mode: str) -> None:
-    if reorth not in ("full", "delayed"):
-        raise NotImplementedError(_TODO_REORTH.format(reorth))
+def _check_rot_mode(rot_mode: str) -> None:
     if rot_mode not in ("exact", "ds"):
         raise NotImplementedError(_TODO_ROT.format(rot_mode))
+
+
+def _host(*tensors) -> np.ndarray:
+    """One device-to-host read of several small tensors, flattened, f64."""
+    return torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy() \
+        .astype(np.float64)
+
+
+def _mat(M, V):
+    """A host matrix as the Q argument of :func:`rotate` on V's device."""
+    return torch.from_numpy(np.ascontiguousarray(M)).to(V.device, V.dtype)
 
 
 def _orth_sweeps(Vact, w, passes: int):
@@ -73,36 +93,128 @@ def _orth_sweeps(Vact, w, passes: int):
     return wp[0], c_tot[:, 0]
 
 
+class _OmegaMonitor:
+    """Simon's omega recurrence (reference ks_jit.py:461-518), on the host.
+
+    ``cur[k]`` estimates |v_j . v_k|; one step predicts the drift of the new
+    column v_{j+1} from H's alpha/beta entries and says whether a full
+    sweep must fire.  Computed in H's dtype, as the reference does."""
+
+    def __init__(self, ncv: int, dtype, eps_mach: float):
+        self.dtype = dtype
+        self.eps = eps_mach
+        sq0 = np.sqrt(eps_mach)  # the restarted block's pairwise drift
+        self.prev = np.full(ncv + 1, sq0, dtype)
+        self.cur = self.prev.copy()
+        self.force = False
+        self.thresh = np.sqrt(eps_mach) / np.sqrt(ncv)
+
+    def need_full(self, H, j: int, j0: int, alpha_j: float,
+                  beta_loc: float) -> bool:
+        dt = self.dtype
+        ncv = H.shape[1]
+        ar = np.arange(ncv)
+        alpha = H[ar, ar]
+        betav = H[ar + 1, ar]
+        alpha_j, beta_loc = dt.type(alpha_j), dt.type(beta_loc)
+        beta_jm1 = betav[j - 1] if j > 0 else dt.type(0)
+        anorm = max(np.abs(alpha).max(), abs(alpha_j)) \
+            + 2 * max(betav.max(), beta_loc)
+        bsafe = beta_loc if beta_loc > 0 else dt.type(1)
+        # roundoff term in omega units (eps * anorm enters before the
+        # division by beta)
+        psi = dt.type(self.eps) * anorm / bsafe
+        z = np.zeros(1, dt)
+        om = self.cur
+        nxt = (np.concatenate([betav, z]) * np.concatenate([om[1:], z])
+               + (np.concatenate([alpha, z]) - alpha_j) * om
+               + np.concatenate([z, betav]) * np.concatenate([z, om[:-1]])
+               - beta_jm1 * self.prev) / bsafe
+        nxt = np.minimum(np.abs(nxt) + psi, dt.type(1))
+        kmask = (np.arange(ncv + 1) < j).astype(dt)
+        nxt = nxt * kmask
+        psi_c = min(psi, dt.type(1))
+        nxt[j] = psi_c
+        tripped = bool(nxt.max() > self.thresh)
+        need = tripped or self.force or j == j0
+        if need:  # the new column is orthogonal to eps level after a sweep
+            nxt = psi_c * kmask
+            nxt[j] = psi_c
+        self.prev, self.cur, self.force = self.cur, nxt, tripped
+        return need
+
+
+def _finish_column(V, H, j: int, w, c_np: np.ndarray, beta: float, gen,
+                   eps_mach: float) -> None:
+    """Breakdown check, V[j+1] = w / beta and H column j."""
+    is_brk = beta < eps_mach ** 0.75 * (float(np.linalg.norm(c_np))
+                                        + eps_mach)
+    beta_eff = beta
+    if is_brk:
+        # breakdown -> deterministic random restart direction
+        # (krylovschur.c:298-307 role), orthogonalized twice
+        Vact = V[: j + 1]
+        rnd = torch.randn(V.shape[1], generator=gen, dtype=V.dtype,
+                          device=V.device)
+        for _ in range(2):
+            rnd = panel_update(Vact, panel_dots(Vact, rnd[None]),
+                               rnd[None])[0]
+        w = rnd
+        beta_eff = float(torch.linalg.vector_norm(w))
+    torch.div(w, beta_eff if beta_eff > 0 else 1.0, out=V[j + 1])
+    H[:, j] = 0
+    H[: j + 1, j] = c_np
+    H[j + 1, j] = 0.0 if is_brk else beta
+
+
 def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
-                     passes: int = 2):
-    """Extend columns [j0, jend) with full CGS2 (in place on V and H)."""
-    rdtype = V.dtype
-    eps_mach = float(torch.finfo(rdtype).eps)
+                     passes: int = 2, reorth: str = "full",
+                     reorth_period: int = 1, nsel: int = 0, nlock: int = 0):
+    """Extend columns [j0, jend) (in place on V and H), orthogonalizing
+    each new column as ``reorth`` says (module docstring)."""
+    eps_mach = float(torch.finfo(V.dtype).eps)
+    monitor = _OmegaMonitor(ncv, H.dtype, eps_mach) \
+        if reorth == "partial" else None
+    selective = reorth == "selective" and nsel > 0
     for j in range(j0, jend):
         w = op.mult(V[j])
-        Vact = V[: j + 1]
-        w, c_tot = _orth_sweeps(Vact, w, passes)
-        # one host read per column: coefficients and the new column norm
-        host = torch.cat([c_tot, torch.linalg.vector_norm(w)[None]]).cpu() \
-            .numpy().astype(np.float64)
-        c_np, beta = host[:-1], float(host[-1])
-        is_brk = beta < eps_mach ** 0.75 * (float(np.linalg.norm(c_np))
-                                            + eps_mach)
-        beta_eff = beta
-        if is_brk:
-            # breakdown -> deterministic random restart direction
-            # (krylovschur.c:298-307 role), orthogonalized twice
-            rnd = torch.randn(V.shape[1], generator=gen, dtype=rdtype,
-                              device=V.device)
+        lo = max(j - 1, 0)
+        Vloc = V[lo: j + 1]  # the local rows v_{j-1}, v_j
+        c_np = np.zeros(j + 1)
+        if monitor is not None:
+            w, cl = _orth_sweeps(Vloc, w, 2)
+            host = _host(cl, torch.linalg.vector_norm(w))
+            c_np[lo:], beta = host[:-1], float(host[-1])
+            if monitor.need_full(H, j, j0, c_np[j], beta):
+                w, cf = _orth_sweeps(V[: j + 1], w, passes)
+                host = _host(cf, torch.linalg.vector_norm(w))
+                c_np += host[:-1]
+                beta = float(host[-1])
+        elif selective:
+            # local rows, then the locked rows below them, twice
+            # (reference ks_jit.py:529-553)
+            nsl = min(nsel, nlock, max(j - 1, 0))
+            cl_tot = torch.zeros(j + 1 - lo, dtype=V.dtype, device=V.device)
+            cs_tot = torch.zeros(nsl, dtype=V.dtype, device=V.device)
             for _ in range(2):
-                rnd = panel_update(Vact, panel_dots(Vact, rnd[None]),
-                                   rnd[None])[0]
-            w = rnd
-            beta_eff = float(torch.linalg.vector_norm(w))
-        torch.div(w, beta_eff if beta_eff > 0 else 1.0, out=V[j + 1])
-        H[:, j] = 0
-        H[: j + 1, j] = c_np
-        H[j + 1, j] = 0.0 if is_brk else beta
+                cl = panel_dots(Vloc, w[None])
+                w = panel_update(Vloc, cl, w[None])[0]
+                cl_tot += cl[:, 0]
+                if nsl:
+                    cs = panel_dots(V[:nsl], w[None])
+                    w = panel_update(V[:nsl], cs, w[None])[0]
+                    cs_tot += cs[:, 0]
+            host = _host(cl_tot, cs_tot, torch.linalg.vector_norm(w))
+            c_np[lo:] = host[: j + 1 - lo]
+            c_np[:nsl] += host[j + 1 - lo: -1]
+            beta = float(host[-1])
+        else:
+            local = reorth_period > 1 and j % reorth_period != 0 and j != j0
+            w, ct = _orth_sweeps(Vloc if local else V[: j + 1], w,
+                                 2 if local else passes)
+            host = _host(ct, torch.linalg.vector_norm(w))
+            c_np[lo if local else 0:], beta = host[:-1], float(host[-1])
+        _finish_column(V, H, j, w, c_np, beta, gen, eps_mach)
     return V, H
 
 
@@ -128,14 +240,14 @@ def _restart_sizes(k2: int, ncv: int, keep_den: int, nrot: int):
     return k2, kl, nro
 
 
-def _hep_rotate_body(V, Q: np.ndarray, kl: int, *, ncv: int):
+def _hep_rotate_body(V, Q: np.ndarray, kl: int, *, ncv: int, nres: int = 1):
     """Restart rotation V[:P] = Q^T V[:ncv] (kernel K4 into a separate
-    buffer, then copied back) and the residual-row move V[kl] = V[ncv]."""
-    Qt = torch.from_numpy(np.ascontiguousarray(Q)).to(V.device, V.dtype)
-    Vrot = rotate(Qt, V[:ncv])
+    buffer, then copied back) and the residual-row move
+    V[kl:kl+nres] = V[ncv:ncv+nres] (nres = b rows in the blocked cycle)."""
+    Vrot = rotate(_mat(Q, V), V[:ncv])
     V[: Q.shape[1]].copy_(Vrot)
     del Vrot
-    V[kl].copy_(V[ncv])
+    V[kl: kl + nres].copy_(V[ncv: ncv + nres])
     return V
 
 
@@ -158,15 +270,19 @@ def _hep_finish_body(V, H, tol: float, *, ncv: int, which: str,
 
 def _hep_cycle_body(op, V, H, j0: int, tol: float, gen, *, ncv: int,
                     which: str, passes: int = 2, keep_den: int = 2,
-                    nrot: int = 0):
-    V, H = _hep_extend_body(op, V, H, j0, ncv, gen, ncv=ncv, passes=passes)
+                    nrot: int = 0, reorth: str = "full",
+                    reorth_period: int = 1, nsel: int = 0, nlock: int = 0):
+    V, H = _hep_extend_body(op, V, H, j0, ncv, gen, ncv=ncv, passes=passes,
+                            reorth=reorth, reorth_period=reorth_period,
+                            nsel=nsel, nlock=nlock)
     return _hep_finish_body(V, H, tol, ncv=ncv, which=which,
                             keep_den=keep_den, nrot=nrot)
 
 
 def ks_hep_cycle(op, V, H, j0, tol, gen, ncv: int, which: str = "smallest",
                  passes: int = 2, reorth: str = "full",
-                 keep_den: int = 2, rot_mode: str = "exact", nrot: int = 0):
+                 keep_den: int = 2, rot_mode: str = "exact", nrot: int = 0,
+                 reorth_period: int = 1, nlock: int = 0, nsel: int = 0):
     """One Krylov-Schur(HEP) restart cycle.
 
     Args:
@@ -179,28 +295,161 @@ def ks_hep_cycle(op, V, H, j0, tol, gen, ncv: int, which: str = "smallest",
       tol: relative tolerance.
       gen: ``torch.Generator`` on V's device for breakdown restarts.
       which: 'smallest' | 'largest' | 'largest_magnitude'.
+      reorth, reorth_period, nsel, nlock: the extension's orthogonalization
+           (module docstring); nlock = count of locked leading rows.
     Returns:
       (V, H, j0_new, k2, theta, errest, beta); theta and errest are (ncv,)
       numpy arrays in wanted-first order, k2 the count of leading converged
       Ritz pairs.
     """
-    _check_modes(reorth, rot_mode)
+    _check_rot_mode(rot_mode)
     return _hep_cycle_body(op, V, H, int(j0), float(tol), gen,
                            ncv=ncv, which=which, passes=passes,
-                           keep_den=keep_den, nrot=nrot)
+                           keep_den=keep_den, nrot=nrot, reorth=reorth,
+                           reorth_period=reorth_period, nsel=nsel,
+                           nlock=int(nlock))
 
 
 def get_ks_hep_cycle(op, gen, ncv: int, which: str = "smallest",
                      passes: int = 2, reorth: str = "full",
                      keep_den: int = 2, rot_mode: str = "exact",
-                     nrot: int = 0):
-    """Restart cycle bound to ``op``; call as ``cycle(V, H, j0, tol)``."""
-    _check_modes(reorth, rot_mode)
+                     nrot: int = 0, reorth_period: int = 1, nsel: int = 0):
+    """Restart cycle bound to ``op``; call as
+    ``cycle(V, H, j0, tol, nlock=0)``."""
+    _check_rot_mode(rot_mode)
 
-    def cycle(V, H, j0, tol):
+    def cycle(V, H, j0, tol, nlock=0):
         return ks_hep_cycle(op, V, H, j0, tol, gen, ncv=ncv, which=which,
                             passes=passes, reorth=reorth,
-                            keep_den=keep_den, rot_mode=rot_mode, nrot=nrot)
+                            keep_den=keep_den, rot_mode=rot_mode, nrot=nrot,
+                            reorth_period=reorth_period, nlock=nlock,
+                            nsel=nsel)
+
+    return cycle
+
+
+# ---- the blocked cycle (reference ks_jit.py:811-1030) --------------------
+
+def _svqb(G, eps_mach: float):
+    """Clamped SVQB factors of the Gram matrix G = W W^T of b rows W, with
+    the diagonal scaling of SLEPc's SVQB (bvorthog.c): (inv, half) with
+    X = inv W orthonormal and W = half X exactly.  The scaling keeps the
+    factors accurate when the rows of W differ in norm by many orders (a
+    filtered block does: converged rows leave residuals near 1 beside
+    others near 1e6)."""
+    g = np.sqrt(np.maximum(np.diag(G), 0.0))
+    g[g == 0] = 1.0
+    lam, U = _gram_eigh(G / np.outer(g, g))
+    lam_c = np.maximum(lam, eps_mach ** 2 * max(lam[-1], eps_mach))
+    inv = (U * lam_c ** -0.5) @ U.T / g[None, :]
+    half = g[:, None] * ((U * lam_c ** 0.5) @ U.T)
+    return inv, half
+
+
+def _gram_eigh(G):
+    return np.linalg.eigh(0.5 * (G + G.T))
+
+
+def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
+    """Block step p (in place on V and H): the b columns V[p*b:(p+1)*b]
+    through the block SpMV, branch-free BCGS2 against Vact = V[:(p+1)*b]
+    (three K3 sweeps), then SVQB^2 of the result into V[(p+1)*b:(p+2)*b].
+
+    SVQB^2, as the reference (ks_jit.py:964-980) with three repairs that a
+    filtered block at high degree needs (its rows span ~1e12 in norm):
+      X1 = inv1 Wb from the diagonally scaled Gram of Wb, so Wb = half1 X1
+      exactly;
+      X1 -= P^T Vact, one more CGS pass against the basis (inv1 amplifies
+      the rounding that BCGS2 left along Vact in Wb's weak directions);
+      X2 = inv2 X1 from the Gram of that X1, measured on the device (the
+      reference computed it as inv1 G inv1, which cannot see the rounding
+      the first factor amplified).  A direction that collapses there (a
+      rank-deficient block) is refilled with a random direction
+      orthogonalized against Vact; its coupling is at rounding level.
+    The H column block is [C + P half1^T; (half1 half2)^T], from
+    Wb = (C + P half1^T)^T Vact + (half1 half2) X2 (the reference stores
+    half1 half2 untransposed).  Two host reads per step."""
+    m = (p + 1) * b
+    Vact = V[:m]
+    Wb = op_blk(V[p * b: m])
+    C1 = panel_dots(Vact, Wb)
+    Wb, C2 = panel_update_dots(Vact, C1, Wb)
+    Wb = panel_update(Vact, C2, Wb)
+    host = _host(C1 + C2, panel_dots(Wb, Wb))
+    C, G = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
+    inv1, half1 = _svqb(G, eps_mach)
+    X = rotate(_mat(inv1.T, V), Wb)
+    P = panel_dots(Vact, X)
+    X = panel_update(Vact, P, X)
+    host = _host(P, panel_dots(X, X))
+    P, G1 = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
+    lam1, U1 = _gram_eigh(G1)
+    dead = lam1 < 1e-2  # live directions of X have norms near 1
+    if dead.any():
+        R = torch.randn((int(dead.sum()), V.shape[1]), generator=gen,
+                        dtype=V.dtype, device=V.device)
+        R /= torch.linalg.vector_norm(R, dim=1, keepdim=True)
+        X += rotate(_mat(U1[:, dead].T, V), R)
+        for _ in range(2):
+            X = panel_update(Vact, panel_dots(Vact, X), X)
+        G1 = _host(panel_dots(X, X)).reshape(b, b)
+    inv2, half2 = _svqb(G1, eps_mach)
+    V[m: m + b].copy_(rotate(_mat(inv2.T, V), X))
+    H[:, p * b: m] = 0
+    H[:m, p * b: m] = C + P @ half1.T
+    # Wb = (half1 half2) X2 + ..., so H[m + r, p*b + i] = (half1 half2)[i, r]
+    H[m: m + b, p * b: m] = (half1 @ half2).T
+
+
+def _hep_cycle_blocked_body(op, V, H, jb0: int, tol: float, gen, *,
+                            ncv: int, b: int, which: str):
+    if ncv % b:
+        raise ValueError(f"ncv={ncv} must be a multiple of the block {b}")
+    eps_mach = float(torch.finfo(V.dtype).eps)
+    op_blk = LinearOperator.block_of(op)
+    for p in range(jb0, ncv // b):
+        _block_step(op_blk, V, H, p, b, gen, eps_mach)
+
+    theta, Q, _ = _projected_solve(H, ncv, which)
+    # convergence: residual of Ritz pair p = ||B_last Q[ncv-b:, p]||
+    Blast = H[ncv: ncv + b, ncv - b: ncv]
+    Rq = Blast @ Q[ncv - b:, :]
+    errest = np.linalg.norm(Rq, axis=0) / np.maximum(np.abs(theta), 1e-300)
+    k2 = int(np.sum(np.cumprod((errest < tol).astype(np.int64))))
+    # restart: keep kl rows, block aligned
+    kl = k2 + max(1, (ncv - k2) // 2)
+    kl = max(min(-(-kl // b) * b, ncv - b), b)
+    V = _hep_rotate_body(V, Q, kl, ncv=ncv, nres=b)
+    keep = (np.arange(ncv) < kl).astype(H.dtype)
+    Hnew = np.zeros_like(H)
+    Hnew[np.arange(ncv), np.arange(ncv)] = theta.astype(H.dtype) * keep
+    Hnew[kl: kl + b, :] = Rq.astype(H.dtype) * keep[None, :]
+    return V, Hnew, kl // b, k2, theta, errest, float(np.linalg.norm(Blast))
+
+
+def ks_hep_cycle_blocked(op, V, H, jb0, tol, gen, ncv: int, b: int,
+                         which: str = "smallest"):
+    """One BLOCK Krylov-Schur(HEP) restart cycle (thick-restart block
+    Lanczos, block size b <= 8): per block step the basis is read three
+    times for all b new columns instead of three times per column.
+
+    V is (ncv+b, n), ncv % b == 0, updated in place; H is the host
+    (ncv+b, ncv) projected matrix plus the trailing block-coupling rows;
+    extension starts at block jb0, whose rows [jb0*b, jb0*b+b) must hold
+    an orthonormal block.  Returns (V, H, jb_new, k2, theta, errest, beta)
+    with jb_new in block units and beta = ||B_last||_F."""
+    return _hep_cycle_blocked_body(op, V, H, int(jb0), float(tol), gen,
+                                   ncv=ncv, b=b, which=which)
+
+
+def get_ks_hep_cycle_blocked(op, gen, ncv: int, b: int,
+                             which: str = "smallest"):
+    """Blocked restart cycle bound to ``op``; call as
+    ``cycle(V, H, jb0, tol)``."""
+
+    def cycle(V, H, jb0, tol):
+        return ks_hep_cycle_blocked(op, V, H, jb0, tol, gen, ncv=ncv, b=b,
+                                    which=which)
 
     return cycle
 
@@ -208,7 +457,7 @@ def get_ks_hep_cycle(op, gen, ncv: int, which: str = "smallest",
 def _prepare_fast_operator(op):
     """The operator form the cycle runs (reference ``_prepare_fast_operator``,
     ks_jit.py:1042-1115): an AIJ operator goes to its routed form (a DIA
-    operator on K1/K2 when it is a few dense diagonals, else CSR on K6);
+    operator on K1/K2/K5 when it is a few dense diagonals, else CSR on K6);
     a DIA operator, or any other operator with a ``mult`` on its device,
     runs as it is.  Vectors stay flat (n,): there is no padded layout."""
     if isinstance(op, AIJOperator):
@@ -216,13 +465,21 @@ def _prepare_fast_operator(op):
     return op
 
 
+def _init_rows(n: int, nrows: int, np_dtype) -> np.ndarray:
+    """nrows start vectors: seeded numpy normals orthonormalized by a host
+    QR -- the reference's ``_init_rows``, so both packages start from the
+    same block.  Returns (nrows, n)."""
+    rng0 = np.random.default_rng(0)
+    M = np.stack([rng0.standard_normal(n) for _ in range(nrows)], axis=1)
+    Qm, _ = np.linalg.qr(M.astype(np_dtype))
+    return np.ascontiguousarray(Qm.T)
+
+
 def ks_hep_solve(eps, op, which: str) -> None:
     """Host loop over restart cycles; fills the EPS result fields."""
     ncv = eps.ncv
     op = _prepare_fast_operator(op)
     dtype = op.dtype
-    if int(eps.block_size) > 1:
-        raise NotImplementedError(_TODO_BLOCK)
 
     # Chebyshev-amplified smallest-end path (eps.cheb_degree > 0): the
     # monotone low-end filter turns badly-separated smallest eigenvalues
@@ -231,12 +488,14 @@ def ks_hep_solve(eps, op, which: str) -> None:
     if cheb_deg > 0 and which == "smallest":
         from .cheb_accel import ks_cheb_smallest
 
-        if int(eps.cheb_block) > 1:
-            raise NotImplementedError(_TODO_BLOCK)
+        cheb_blk = int(eps.cheb_block or 1)
+        if cheb_blk > 1:
+            ncv = -(-ncv // cheb_blk) * cheb_blk  # block-aligned basis
         res = ks_cheb_smallest(
             op, nev=eps.nev, tol=eps.tol, ncv=ncv, degree=cheb_deg,
-            reorth=eps.cheb_reorth, rot_mode=eps.cheb_rot_mode,
-            keep_den=int(eps.cheb_keep_den), budget_s=eps.cheb_budget_s)
+            block=cheb_blk, reorth=eps.cheb_reorth,
+            rot_mode=eps.cheb_rot_mode, keep_den=int(eps.cheb_keep_den),
+            budget_s=eps.cheb_budget_s)
         k = int(res["nconv"])
         eps.nconv = k
         eps.its = res["stats"]["cycles"]
@@ -246,19 +505,27 @@ def ks_hep_solve(eps, op, which: str) -> None:
         eps._eigenvectors = res["X"][:k]
         return
 
-    rmode = eps.reorth
-    _check_modes(rmode, eps.rot_mode)
-    # start vector: seeded numpy normal, normalized by a host QR
-    # (identical to the reference's _init_rows, so both packages start the
-    # plain cycle from the same vector)
-    c = np.random.default_rng(0).standard_normal(eps.n)
-    Qm, _ = np.linalg.qr(c[:, None].astype(_np_dtype(dtype)))
-    V = torch.zeros((ncv + 1, eps.n), dtype=dtype, device=op.device)
-    V[0] = torch.from_numpy(np.ascontiguousarray(Qm[:, 0])).to(op.device)
-    H = np.zeros((ncv + 1, ncv), dtype=_np_dtype(dtype))
+    bsize = int(eps.block_size or 1)
+    if bsize > 1:
+        ncv = -(-ncv // bsize) * bsize  # block-aligned basis
+    nrow0 = max(bsize, 1)
+    V = torch.zeros((ncv + nrow0, eps.n), dtype=dtype, device=op.device)
+    V[:nrow0] = torch.from_numpy(
+        _init_rows(eps.n, nrow0, _np_dtype(dtype))).to(op.device)
+    H = np.zeros((ncv + nrow0, ncv), dtype=_np_dtype(dtype))
     gen = torch.Generator(device=op.device).manual_seed(12345)
-    cycle_fn = get_ks_hep_cycle(op, gen, ncv, which, reorth=rmode,
-                                rot_mode=eps.rot_mode)
+    if bsize > 1:
+        cycle_fn = get_ks_hep_cycle_blocked(op, gen, ncv, bsize, which)
+    else:
+        # 'delayed' hides reduction latency, which the fused sweeps already
+        # do: it is 'full'.  Selective and periodic belong to explicit
+        # Lanczos; Krylov-Schur's light policy is the monitored 'partial'
+        # (reference ks_jit.py:1220-1235)
+        rmode = {"delayed": "full", "selective": "partial",
+                 "periodic": "partial"}.get(eps.reorth, eps.reorth)
+        cycle_fn = get_ks_hep_cycle(op, gen, ncv, which, reorth=rmode,
+                                    reorth_period=eps.reorth_period,
+                                    rot_mode=eps.rot_mode)
     j0, k2 = 0, 0
     theta = errest = None
     n = eps.n

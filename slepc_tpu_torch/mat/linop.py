@@ -2,10 +2,13 @@
 (``slepc_tpu/mat/linop.py``).
 
 An operator's tensors live on one device, and its ``mult`` / ``mult_h``
-take and return flat ``(n,)`` vectors there.  Formats:
+take and return flat ``(n,)`` vectors there; ``mult_block`` takes the b
+rows of a ``(b, n)`` block at once (the blocked Krylov-Schur cycle's SpMV).
+Formats:
 
   * :class:`DIAOperator` — diagonal-offset storage for stencil / banded
-    matrices; ``mult`` is the DIA kernel K1/K2 (``ops/dia.py``).
+    matrices; ``mult`` is the DIA kernel K1/K2 and ``mult_block`` the block
+    kernel K5 (``ops/dia.py``).
   * :class:`AIJOperator` — general sparsity as plain CSR on the device;
     ``mult`` is the CSR kernel K6 (``ops/csr.py``).  The reference's padded
     ELL and hybrid diagonal/gather packs are TPU layouts and are not ported;
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import csr_spmv, row_of_entry
-from ..ops.dia import dia_spmv
+from ..ops.dia import dia_spmm, dia_spmv
 
 
 def as_torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -70,8 +73,25 @@ class LinearOperator:
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def mult_block(self, X: torch.Tensor) -> torch.Tensor:
+        """A applied to each row of the (b, n) block X: one ``mult`` per
+        row, into a new (b, m) tensor (the reference's ``jax.vmap(op.mult)``
+        role, ks_jit.py:930-931)."""
+        Y = torch.empty((X.shape[0], self.shape[0]), dtype=X.dtype,
+                        device=X.device)
+        for m in range(X.shape[0]):
+            Y[m] = self.mult(X[m])
+        return Y
+
     def __call__(self, x):
         return self.mult(x)
+
+    @staticmethod
+    def block_of(op) -> Callable[[torch.Tensor], torch.Tensor]:
+        """``op.mult_block``, or the one-``mult``-per-row default for an
+        operator object that has no ``mult_block`` of its own."""
+        return getattr(op, "mult_block", None) \
+            or (lambda X: LinearOperator.mult_block(op, X))
 
     # ---- operator algebra ----------------------------------------------
     def __add__(self, other: "LinearOperator") -> "LinearOperator":
@@ -192,12 +212,26 @@ class DIAOperator(LinearOperator):
     def norm_estimate(self) -> float:
         return float(torch.linalg.vector_norm(self.diags))
 
+    def _check_len(self, x: torch.Tensor, what: str) -> None:
+        # the kernels take x's length as n, so a short x would silently give
+        # the product of A's leading block
+        if x.shape[-1] != self.shape[1]:
+            raise ValueError(f"DIAOperator.{what}: x has {x.shape[-1]} "
+                             f"entries, the operator {self.shape[1]} columns")
+
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_len(x, "mult")
         return dia_spmv(self.offsets, self.diags, x)
+
+    def mult_block(self, X: torch.Tensor) -> torch.Tensor:
+        """Kernel K5: the diagonals are read once for all b rows of X."""
+        self._check_len(X, "mult_block")
+        return dia_spmm(self.offsets, self.diags, X)
 
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
         """(A^H x)[i + off] += conj(d[i]) x[i]: slice updates, as the
         reference's rolls (no kernel there either)."""
+        self._check_len(x, "mult_h")
         n = self.shape[0]
         y = torch.zeros_like(x)
         for k, off in enumerate(self.offsets):

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "slepc_dia_spmv": (_I, [_I, _P, _I64, ctypes.POINTER(_I64), _I, _P, _P,
                             _I64, _P]),
     "slepc_dia_max_diags": (_I, []),
+    "slepc_dia_spmm": (_I, [_I, _P, _I64, ctypes.POINTER(_I64), _I, _P, _I64,
+                            _P, _I64, _I, _I64, _P]),
+    "slepc_dia_spmm_max_b": (_I, []),
     "slepc_error_string": (ctypes.c_char_p, [_I]),
     "slepc_panel": (_I, [_I, _I, _P, _I64, _I, _P, _I64, _I, _P, _P, _I64, _P,
                          _I, _P, _I64, _P]),

@@ -15,7 +15,8 @@ locked.
 One filtered apply is ``degree`` SpMVs of the base operator, chained by the
 three-term Chebyshev recurrence in a Python loop (each SpMV is the DIA
 or CSR kernel on the card, each recurrence step three in-place vector
-updates).
+updates).  ``mult_block`` runs the same recurrence on a (b, n) block, with
+the block SpMV (kernel K5 for a DIA base) per step.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mat.linop import AIJOperator, DIAOperator
+from ..mat.linop import AIJOperator, DIAOperator, LinearOperator
 from ..ops.csr import csr_spmv
 
 
@@ -48,21 +49,31 @@ class ChebAmplifyOperator:
     def device(self):
         return self.base.device
 
-    def mult(self, x: torch.Tensor) -> torch.Tensor:
+    def _recurrence(self, apply, x: torch.Tensor) -> torch.Tensor:
         d = self.degree
         if d <= 0:
             return x
         a = 2.0 / (self.hi - self.lo)
         b = (self.hi + self.lo) / (self.hi - self.lo)
         # t1 = L(x) = b x - a A x
-        t1 = self.base.mult(x).mul_(-a).add_(x, alpha=b)
+        t1 = apply(x).mul_(-a).add_(x, alpha=b)
         tm1, tk = x, t1
         for _ in range(1, d):
             # t_{k+1} = 2 L(t_k) - t_{k-1} = 2b t_k - 2a A t_k - t_{k-1}
-            nxt = self.base.mult(tk).mul_(-2.0 * a).add_(tk, alpha=2.0 * b) \
+            nxt = apply(tk).mul_(-2.0 * a).add_(tk, alpha=2.0 * b) \
                 .sub_(tm1)
             tm1, tk = tk, nxt
         return tk
+
+    def mult(self, x: torch.Tensor) -> torch.Tensor:
+        return self._recurrence(self.base.mult, x)
+
+    def mult_block(self, X: torch.Tensor) -> torch.Tensor:
+        """B applied to each row of the (b, n) block X: the same recurrence
+        and in-place passes as :meth:`mult`, on whole blocks over the base's
+        ``mult_block`` (kernel K5 for a DIA base; one ``mult`` per row for a
+        base that has none)."""
+        return self._recurrence(LinearOperator.block_of(self.base), X)
 
 
 def cheb_value(lam, lo, hi, degree: int):

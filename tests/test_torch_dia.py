@@ -7,6 +7,7 @@ slepc_tpu's padded Pallas kernels in interpret mode: f32 via both
 one), f64 via the double-single ``DIAPaddedOperatorDS``.  Compared unpadded.
 The unpadded narrow-halo ``dia_spmv_prepared_v3``, which nothing in
 slepc_tpu calls, is held against the plain version in f32 and f64.
+``DIAOperator`` rejects an x of the wrong length on every device.
 Tolerances: f64 1e-13 relative (double-single arithmetic is ~2e-15), f32
 1e-6 relative (single rounding of a 5-7 term sum).
 """
@@ -105,9 +106,27 @@ def test_plain_version_handles_offsets_past_the_ends():
     assert np.abs(y - dense @ x).max() < 1e-14
 
 
+@pytest.mark.parametrize("method", ["mult", "mult_h", "mult_block"])
+def test_operator_rejects_x_of_the_wrong_length(method):
+    # the kernels take n from x, so a short x would silently give the
+    # product of A's leading block: the operator checks on every device
+    top = interop.dia_from_slepc_tpu(laplacian_2d(6, 5))
+    for wrong in (29, 31):
+        x = torch.ones(wrong, dtype=torch.float64)
+        with pytest.raises(ValueError, match="30 columns"):
+            getattr(top, method)(x[None] if method == "mult_block" else x)
+    x = torch.ones(30, dtype=torch.float64)
+    assert getattr(top, method)(x[None] if method == "mult_block" else x) \
+        .shape[-1] == 30
+
+
 def test_wrapper_raises_off_the_cpu_and_cuda():
     d = torch.zeros((1, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         dia.dia_spmv((0,), d, torch.zeros(4, device="meta"))
     with pytest.raises(ValueError):
         dia.dia_spmv((0,), torch.zeros((1, 4)), torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="no kernel"):
+        dia.dia_spmm((0,), d, torch.zeros((2, 4), device="meta"))
+    with pytest.raises(ValueError):
+        dia.dia_spmm((0,), torch.zeros((1, 4)), torch.zeros(4))  # not (b, n)

@@ -91,6 +91,7 @@ def test_rotate_kernel_matches_plain(cuda, dtype, tol, K, P, n):
 
 def test_kernels_reject_what_they_do_not_take(cuda):
     V = torch.zeros((4, 10), dtype=torch.float64, device=cuda)
+    before = stt.launch_counts()
     with pytest.raises(ValueError):
         bv.panel_dots(V, torch.zeros((9, 10), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
@@ -98,6 +99,66 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         dia.dia_spmv((0,), torch.zeros((1, 10), dtype=torch.float16, device=cuda),
                      torch.zeros(10, dtype=torch.float16, device=cuda))
+    # a DIA operator takes x of exactly its column count (a shorter x would
+    # give the product of its leading block)
+    A = stt.laplacian_2d(6, 5, device=cuda)
+    for wrong in (29, 31):
+        x = torch.ones(wrong, dtype=torch.float64, device=cuda)
+        for call in (A.mult, A.mult_h, lambda v: A.mult_block(v[None])):
+            with pytest.raises(ValueError, match="30 columns"):
+                call(x)
+    assert stt.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", range(1, 9))
+@pytest.mark.parametrize("n,offsets", [
+    (7, (-9, -1, 0, 1, 9)), (1001, (-200, -1, 0, 1, 200)),
+    (45_013, (-45_000, -200, -1, 0, 1, 200, 45_000))])
+def test_dia_block_kernel_matches_plain(cuda, dtype, tol, b, n, offsets):
+    d = _rand((len(offsets), n), dtype, cuda, 0)
+    # X is b rows of a wider basis (row stride n + 3), as K5 takes a slice
+    # of the cycle's basis without a copy
+    X = _rand((b + 4, n + 3), dtype, cuda, 1)[2:2 + b, :n]
+    assert X.stride(0) == n + 3
+    key = "dia_spmm_f64" if dtype == torch.float64 else "dia_spmm_f32"
+    before = dia.launches[key]
+    Y = dia.dia_spmm(offsets, d, X)
+    ref = dia.dia_spmm_ref(offsets, d, X)
+    torch.cuda.synchronize()
+    assert dia.launches[key] == before + 1
+    assert Y.shape == (b, n)
+    scale = dia.dia_spmm_ref(offsets, d.abs(), X.abs()).max()
+    assert float((Y - ref).abs().max() / scale) <= 4 * tol
+    # row m is K1/K2's product with X[m]
+    Y1 = torch.stack([dia.dia_spmv(offsets, d, X[m].contiguous())
+                      for m in range(b)])
+    assert float((Y - Y1).abs().max() / scale) <= 4 * tol
+    # deterministic: same bits every time
+    assert torch.equal(dia.dia_spmm(offsets, d, X), Y)
+
+
+def test_dia_block_kernel_rejects_what_it_does_not_take(cuda):
+    offsets = (-1, 0, 1)
+    d = torch.ones((3, 50), dtype=torch.float64, device=cuda)
+    X = torch.ones((9, 50), dtype=torch.float64, device=cuda)
+    before = dict(dia.launches)
+    with pytest.raises(ValueError, match="block of 9"):
+        dia.dia_spmm(offsets, d, X)
+    with pytest.raises(ValueError, match="dtype or device"):
+        dia.dia_spmm(offsets, d, X[:4].float())
+    with pytest.raises(ValueError, match="dtype or device"):
+        dia.dia_spmm(offsets, d, X[:4].cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        dia.dia_spmm(offsets, d, torch.ones((4, 100), dtype=torch.float64,
+                                           device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="diagonals"):
+        dia.dia_spmm(tuple(range(33)), torch.ones((33, 50), dtype=torch.float64,
+                                                  device=cuda), X[:4])
+    op = stt.DIAOperator(offsets, d)
+    with pytest.raises(ValueError, match="50 columns"):
+        op.mult_block(X[:4, :49])
+    assert dia.launches == before
 
 
 def _csr(lengths, ncols, seed):

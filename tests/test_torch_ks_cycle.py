@@ -78,9 +78,9 @@ def test_f32_cycle_matches_pallas_sweeps():
     assert np.abs(np.asarray(oj[4]) - ot[4]).max() < 1e-4
 
 
-@pytest.mark.parametrize("kw", [{"reorth": "partial"}, {"reorth": "selective"},
-                                {"rot_mode": "mixed"}, {"rot_mode": "hybrid"}])
+@pytest.mark.parametrize("kw", [{"rot_mode": "mixed"}, {"rot_mode": "hybrid"}])
 def test_unported_modes_raise_naming_the_roadmap(kw):
+    # the light reorthogonalizations are ported: tests/test_torch_reorth.py
     top = interop.dia_from_slepc_tpu(laplacian_2d(6, 6))
     V = torch.zeros((5, 36), dtype=torch.float64)
     V[0, 0] = 1.0
