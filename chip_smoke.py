@@ -8,7 +8,14 @@ Phases (each failing check raises; the script then exits non-zero):
      kernels from slepc_tpu_torch/csrc and report the build time;
   1. each kernel against its plain PyTorch version on the card, at the
      flagship shapes (200x225x230 3-D Laplacian, 10.35M rows): error and
-     CUDA-event times (median of 20) of kernel and plain version.  The CSR
+     CUDA-event times (median of 20) of kernel and plain version, first
+     the stream yardstick K7 (nd = 7, n = 10.35M, f32 and f64; its
+     measured GB/s is the rate the other kernels' bytes are held against).
+     Beside every kernel: its bound (bytes / 3.35 TB/s or operations / peak,
+     whichever is larger), its bytes at K7's measured rate, and one PyTorch
+     library call computing the same function (cuSPARSE CSR product for
+     the SpMV kernels, the cuBLAS `@` that is the plain version of K3/K4,
+     einsum for K7).  The CSR
      kernel K6 runs on the flagship built as a scipy CSR matrix and
      reordered with reverse Cuthill-McKee (an irregular pattern), and on
      that matrix plus seeded symmetric random entries (rows past 32
@@ -27,23 +34,48 @@ Phases (each failing check raises; the script then exits non-zero):
      (K5) and as RCM-ordered CSR (K6 per row) in f64 and f32, and EPS
      with ``set_reorthogonalization("partial")`` in f64, with phase 2's
      gates; ks_cheb_smallest(reorth="partial") on laplacian_2d(80, 80) in
-     f64 against the closed form.
+     f64 against the closed form;
+  7. the shift-and-invert slice at full size: the 100x102x104 Laplacian
+     (1,060,800 rows), f64, B = diag(1 + 0.5 sin(1e-3 i)), sigma = 0,
+     800 fixed CG steps per inner solve on K2, nev 10, ncv 32, tol 1e-10
+     on the transformed estimate (SINVERT_TOL says why), through
+     EPS(A, B, "ghep") + STSinvertDevice: nconv >= 10 and max true
+     residual ||A x - lam B x|| / (|lam| ||x||) <= 1e-8 recomputed with K2;
+     then the standard problem on the same grid, |lam - exact| <= 1e-9.
+     Before it, K2, K3 and K4 against their plain versions at the shapes
+     phases 7 and 8 give them (each path's operator and basis height);
+  8. small shift-and-invert paths: interior target with MINRES inner
+     solves on laplacian_3d(8, 9, 10); host-factorized STSinvert through
+     the general Krylov-Schur loop on laplacian_2d(95, 97) with an interior
+     target (HEP, closed form) and with a diagonal B (GHEP, against scipy's
+     eigsh), STCayley once; spectrum slicing on laplacian_2d(95, 97)
+     (block-tridiagonal LDL^T on the card) and on laplacian_1d(1,000,000)
+     over a mid-spectrum interval (scanned LDL^T inertia on the card),
+     count and values against the closed forms, and every factorization
+     of a slicing solve on that card backend.  The native LDL^T library
+     must build (g++): a missing one fails the run.
 
 Phase 1 also times K5 at b = 2, 4, 8 beside b single K1/K2 calls on the
 same block, and K3's three sweeps at panel width b = 4 (K = 52).
 
     python3 chip_smoke.py --profile
 
-adds, after phase 6, a lane sweep of K6 (every lane count the kernel is
-built for, natural and RCM order, f64 and f32, beside the DIA kernel on the
-same matrix) and a torch.profiler split by kernel of one more phase-4
-solve and one more phase-5 solve.  Its launches are not counted.
+adds, after phase 8, a torch.profiler split of one more phase-7 GHEP solve
+(the device-busy share of the launch-bound inner solve), the residual of
+phase 7's inner solve after 400 and 800 CG steps with the ungated solves
+at EPS tol 1e-8 (what SINVERT_TOL rests on), a lane sweep of
+K6 (every lane count the kernel is built for, natural and RCM order, f64
+and f32, beside the DIA kernel on the same matrix) and a torch.profiler
+split by kernel of one more phase-4 solve and one more phase-5 solve.  Its
+launches are not counted.
 
 Launch counters are reset to 0 before phase 2 and read after phase 3 (the
 DIA path), reset again before phase 4 and read after it (the AIJ path),
-before phase 5 and after it (the blocked path), and before phase 6 and
-after it (the small blocked and partial paths); every kernel of each path
-must have launched.  The last three lines
+before phase 5 and after it (the blocked path), before phase 6 and after
+it (the small blocked and partial paths), and before phase 7 and after
+phase 8 (the shift-and-invert paths: K2, K3, K4); K7's launches are read
+around its yardstick measurement in phase 1.  Every kernel of each path must
+have launched.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -71,6 +103,9 @@ from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
 from slepc_tpu_torch.ops.dia import (dia_spmm, dia_spmm_ref, dia_spmv,
                                      dia_spmv_ref)
 from slepc_tpu_torch.ops.rotate import rotate, rotate_ref
+from slepc_tpu_torch.ops.stream import (stream_bandwidth, stream_sum,
+                                        stream_sum_ref)
+from slepc_tpu_torch.native.ldl import ldl_available
 
 FLAGSHIP = (200, 225, 230)
 TAG = {torch.float32: "f32", torch.float64: "f64"}
@@ -91,7 +126,14 @@ KERNELS = {
     "rotate_f64": ("K4", SRC + "rotate.cu", "slepc_tpu/ops/rotate_pallas.py:100"),
     "csr_spmv_f32": ("K6", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
     "csr_spmv_f64": ("K6", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
+    "stream_sum_f32": ("K7", SRC + "stream.cu", "bench.py:164"),
+    "stream_sum_f64": ("K7", SRC + "stream.cu", "bench.py:164"),
 }
+# Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM;
+# 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores.
+CUBLAS = "the plain version's `@` (cuBLAS), timed once"
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def check(cond, msg):
@@ -116,14 +158,111 @@ def cuda_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def record(table, name, err_abs, err_rel, tol, ms, plain_ms, nbytes):
+def record(table, name, err_abs, err_rel, tol, ms, plain_ms, nbytes, flops,
+           dtype, library_ms=None, library=""):
+    """One kernel row: the error gate, the times measured here, and the
+    bound computed from this run's inputs (nbytes: every input read once
+    and every output written once; flops: the operations on them)."""
     check(np.isfinite(err_rel) and err_rel <= tol,
           f"{name}: relative error {err_rel:.3e} > {tol:.0e}")
+    if library == CUBLAS:  # K3 / K4: the plain version is the library call
+        library_ms = plain_ms
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     table[name] = {"max_abs_err": err_abs, "rel_err": err_rel, "ms": ms,
-                   "plain_ms": plain_ms, "bytes": nbytes}
+                   "plain_ms": plain_ms, "bytes": nbytes,
+                   "bound_ms": max(t_bytes, t_flops),
+                   "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                   "library_ms": library_ms, "library": library,
+                   "dtype": dtype}
+    lib = f"  library {library_ms:.4f} ms ({library})" \
+        if library_ms is not None else ""
     print(f"  {name:<22} err {err_rel:.3e} (tol {tol:.0e})  kernel {ms:.4f} ms"
-          f"  plain {plain_ms:.4f} ms  {nbytes / 1e9:.3f} GB -> "
-          f"{nbytes / ms / 1e6:.1f} GB/s", flush=True)
+          f"  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_flops):.4f} ms"
+          f"  {nbytes / 1e9:.3f} GB -> {nbytes / ms / 1e6:.1f} GB/s{lib}",
+          flush=True)
+
+
+def spmv_errors(offsets, diags, x):
+    """(max abs, relative to max |y|) error of K1/K2 against the plain
+    version."""
+    y_ref = dia_spmv_ref(offsets, diags, x)
+    err = float((dia_spmv(offsets, diags, x) - y_ref).abs().max())
+    return err, err / float(y_ref.abs().max())
+
+
+def panel_errors(V, W, C):
+    """{sweep: (max abs, max scaled)} error of K3's three sweeps against
+    their plain versions.  Scaled by the sums of |products|: the kernel and
+    torch add in different orders."""
+    dscale = V.abs() @ W.abs().T
+    uscale = W.abs() + C.abs().T @ V.abs()
+    err = (panel_dots(V, W) - panel_dots_ref(V, W)).abs()
+    out = {"panel_dots": (float(err.max()), float((err / dscale).max()))}
+    err = (panel_update(V, C, W) - panel_update_ref(V, C, W)).abs()
+    out["panel_update"] = (float(err.max()), float((err / uscale).max()))
+    U, D = panel_update_dots(V, C, W)
+    U_ref, D_ref = panel_update_dots_ref(V, C, W)
+    err_u, err_d = (U - U_ref).abs(), (D - D_ref).abs()
+    d2scale = V.abs() @ U_ref.abs().T
+    out["panel_update_dots"] = (
+        max(float(err_u.max()), float(err_d.max())),
+        max(float((err_u / uscale).max()), float((err_d / d2scale).max())))
+    return out
+
+
+def rotate_errors(Q, V):
+    """(max abs, max scaled by sum |products|) error of K4."""
+    err = (rotate(Q, V) - rotate_ref(Q, V)).abs()
+    return float(err.max()), float((err / (Q.abs().T @ V.abs())).max())
+
+
+def random_q(K, P, dev, dtype, seed=2):
+    """P orthonormal columns of length K (a restart's rotation)."""
+    Qm, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((K, K)))
+    return torch.from_numpy(np.ascontiguousarray(Qm[:, :P])).to(dev, dtype)
+
+
+def phase1_stream(dev, table):
+    """K7 against its plain version, then the yardstick itself: the rate
+    every other kernel's bytes are held against, per dtype in GB/s."""
+    print("phase 1: K7 (stream yardstick) vs plain PyTorch, nd = 7, "
+          "n = 10,350,000", flush=True)
+    nd, n = 7, FLAGSHIP[0] * FLAGSHIP[1] * FLAGSHIP[2]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rates = {}
+    for dt, tol in ((torch.float32, 2e-6), (torch.float64, 1e-14)):
+        d = torch.randn((nd, n), generator=gen, dtype=dt, device=dev)
+        x = torch.randn(n, generator=gen, dtype=dt, device=dev)
+        worst_abs = worst_rel = 0.0
+        # the whole rows (n is a multiple of 4: the vector kernel alone), an
+        # aligned window of odd length (the vector kernel and its scalar
+        # tail) and a window whose base is not 16-byte aligned (the scalar
+        # kernel)
+        for dd, xx in ((d, x), (d[:, :n - 3], x[:n - 3].clone()),
+                       (d[:, 1:n - 2], x[1:n - 2].clone())):
+            y = stream_sum(dd, xx)
+            y_ref = stream_sum_ref(dd, xx)
+            err = float((y - y_ref).abs().max())
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / float(y_ref.abs().max()))
+        y = torch.empty_like(x)
+        ms = cuda_ms(lambda: stream_sum(d, x, out=y))
+        plain = cuda_ms(lambda: stream_sum_ref(d, x))
+        lib = cuda_ms(lambda: torch.einsum("kn,n->n", d, x))
+        record(table, f"stream_sum_{TAG[dt]}", worst_abs, worst_rel, tol, ms,
+               plain, (nd + 2) * n * x.element_size(), 2 * nd * n, dt, lib,
+               "torch.einsum('kn,n->n')")
+        del d, x, y, y_ref
+        torch.cuda.empty_cache()
+    # the yardstick's own path: counted from zero
+    stt.reset_launch_counts()
+    for dt in (torch.float32, torch.float64):
+        rates[dt] = stream_bandwidth(nd, n, dt, dev)
+        print(f"  stream_bandwidth({nd}, {n}, {TAG[dt]}) = {rates[dt]:.1f} GB/s "
+              f"({100 * rates[dt] * 1e9 / PEAK_BYTES:.1f}% of 3.35 TB/s)",
+              flush=True)
+    return rates, stt.launch_counts()
 
 
 def phase1(dev, table):
@@ -139,17 +278,15 @@ def phase1(dev, table):
         worst_abs = worst_rel = 0.0
         for i, diags in enumerate((lap.diags.to(dt), rnd.to(dt))):
             x = torch.randn(diags.shape[1], generator=gen, dtype=dt, device=dev)
-            y = dia_spmv(lap.offsets, diags, x)
-            y_ref = dia_spmv_ref(lap.offsets, diags, x)
-            err = float((y - y_ref).abs().max())
-            worst_abs = max(worst_abs, err)
-            worst_rel = max(worst_rel, err / float(y_ref.abs().max()))
+            err, rel = spmv_errors(lap.offsets, diags, x)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
             if i == 0:  # time the flagship operator itself
                 ms = cuda_ms(lambda: dia_spmv(lap.offsets, diags, x))
                 plain = cuda_ms(lambda: dia_spmv_ref(lap.offsets, diags, x))
         nbytes = (len(lap.offsets) + 2) * n * x.element_size()
-        record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes)
-        del diags, x, y, y_ref
+        record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes,
+               2 * lap.nnz, dt)  # library time: phase1_csr, on the CSR
+        del diags, x
     del lap, rnd
 
     K, b = 49, 1
@@ -159,47 +296,29 @@ def phase1(dev, table):
         W = torch.randn((b, n), generator=gen, dtype=dt, device=dev)
         C = torch.randn((K, b), generator=gen, dtype=dt, device=dev)
         elt = V.element_size()
-        # error scales: the kernel and torch sum in different orders
-        dscale = V.abs() @ W.abs().T
-        uscale = W.abs() + C.abs().T @ V.abs()
-        D = panel_dots(V, W)
-        err = (D - panel_dots_ref(V, W)).abs()
-        record(table, f"panel_dots_{t}", float(err.max()),
-               float((err / dscale).max()), tol,
+        errs = panel_errors(V, W, C)
+        record(table, f"panel_dots_{t}", *errs["panel_dots"], tol,
                cuda_ms(lambda: panel_dots(V, W)),
-               cuda_ms(lambda: panel_dots_ref(V, W)), (K + b) * n * elt)
-        U = panel_update(V, C, W)
-        U_ref = panel_update_ref(V, C, W)
-        err = (U - U_ref).abs()
-        record(table, f"panel_update_{t}", float(err.max()),
-               float((err / uscale).max()), tol,
+               cuda_ms(lambda: panel_dots_ref(V, W)),
+               (K + b) * n * elt, 2 * K * b * n, dt, library=CUBLAS)
+        record(table, f"panel_update_{t}", *errs["panel_update"], tol,
                cuda_ms(lambda: panel_update(V, C, W)),
-               cuda_ms(lambda: panel_update_ref(V, C, W)), (K + 2 * b) * n * elt)
-        U2, D2 = panel_update_dots(V, C, W)
-        U2_ref, D2_ref = panel_update_dots_ref(V, C, W)
-        err_u = (U2 - U2_ref).abs()
-        err_d = (D2 - D2_ref).abs()
-        d2scale = V.abs() @ U2_ref.abs().T
-        record(table, f"panel_update_dots_{t}",
-               max(float(err_u.max()), float(err_d.max())),
-               max(float((err_u / uscale).max()), float((err_d / d2scale).max())),
+               cuda_ms(lambda: panel_update_ref(V, C, W)),
+               (K + 2 * b) * n * elt, 2 * K * b * n, dt, library=CUBLAS)
+        record(table, f"panel_update_dots_{t}", *errs["panel_update_dots"],
                tol, cuda_ms(lambda: panel_update_dots(V, C, W)),
                cuda_ms(lambda: panel_update_dots_ref(V, C, W)),
-               (K + 2 * b) * n * elt)
-        del D, U, U_ref, U2, U2_ref, D2, D2_ref, err, err_u, err_d, uscale
+               (K + 2 * b) * n * elt, 4 * K * b * n, dt, library=CUBLAS)
 
         Kr, P = 48, 40
-        Qm, _ = np.linalg.qr(np.random.default_rng(2).standard_normal((Kr, Kr)))
-        Q = torch.from_numpy(np.ascontiguousarray(Qm[:, :P])).to(dev, dt)
+        Q = random_q(Kr, P, dev, dt)
         Vr = V[:Kr]
-        out = rotate(Q, Vr)
-        err = (out - rotate_ref(Q, Vr)).abs()
-        rscale = Q.abs().T @ Vr.abs()
-        record(table, f"rotate_{t}", float(err.max()),
-               float((err / rscale).max()), 1e-14 if dt == torch.float64 else 1e-5,
-               cuda_ms(lambda: rotate(Q, Vr)), cuda_ms(lambda: rotate_ref(Q, Vr)),
-               (Kr + P) * n * elt)
-        del V, W, C, Vr, out, err, rscale, dscale
+        record(table, f"rotate_{t}", *rotate_errors(Q, Vr),
+               1e-14 if dt == torch.float64 else 1e-5,
+               cuda_ms(lambda: rotate(Q, Vr)),
+               cuda_ms(lambda: rotate_ref(Q, Vr)),
+               (Kr + P) * n * elt, 2 * Kr * P * n, dt, library=CUBLAS)
+        del V, W, C, Vr, Q
         torch.cuda.empty_cache()
 
 
@@ -229,7 +348,8 @@ def phase1_block(dev, table):
                   f"calls {single:.4f} ms ({b * (nd + 2) * n * X.element_size() / 1e9:.3f} GB)",
                   flush=True)
             if b == 4:  # the path's block size goes into the kernel table
-                record(table, name, err, rel, tol, ms, plain, nbytes)
+                record(table, name, err, rel, tol, ms, plain, nbytes,
+                       2 * lap.nnz * b, dt)  # library time: phase1_csr
             else:
                 check(np.isfinite(rel) and rel <= tol,
                       f"{name} b={b}: relative error {rel:.3e} > {tol:.0e}")
@@ -270,6 +390,22 @@ def phase1_block(dev, table):
     torch.cuda.empty_cache()
 
 
+CUSPARSE = "torch.sparse_csr_tensor @ x (cuSPARSE)"
+
+
+def cusparse_ms(op, rhs):
+    """Median time of the library's CSR product on op's matrix: rhs (n,) or
+    (n, b).  Used nowhere in the port."""
+    S = torch.sparse_csr_tensor(op.rowptr, op.cols.to(torch.int64), op.vals,
+                                size=op.shape)
+    ref = op.mult(rhs) if rhs.dim() == 1 else torch.stack(
+        [op.mult(rhs[:, m].contiguous()) for m in range(rhs.shape[1])], dim=1)
+    err = float(((S @ rhs) - ref).abs().max() / ref.abs().max())
+    check(err <= (1e-12 if rhs.dtype == torch.float64 else 1e-5),
+          f"library CSR product differs from the kernel by {err:.3e}")
+    return cuda_ms(lambda: S @ rhs)
+
+
 def rcm_order(L):
     """L reordered with reverse Cuthill-McKee (PETSc's MATORDERINGRCM)."""
     perm = reverse_cuthill_mckee(L, symmetric_mode=True)
@@ -303,7 +439,7 @@ def phase1_csr(dev, table, host):
     print("phase 1: K6 (CSR SpMV) vs plain PyTorch on the RCM-ordered "
           "flagship CSR", flush=True)
     t0 = time.perf_counter()
-    L = stt.laplacian_3d(*FLAGSHIP).to_scipy()  # built on the host CPU
+    L = stt.laplacian_3d(*FLAGSHIP, device="cpu").to_scipy()  # on the host
     host["build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     A = rcm_order(L)
@@ -337,8 +473,10 @@ def phase1_csr(dev, table, host):
                 elt = x.element_size()
                 nbytes = (op.nnz * (elt + 4) + (op.shape[0] + 1) * 8
                           + 2 * op.shape[0] * elt)
+                lib_ms = cusparse_ms(op, x)
             del op, x, rows, y, y_ref
-        record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes)
+        record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes,
+               2 * A.nnz, dt, lib_ms, CUSPARSE)
     del ops
     torch.cuda.empty_cache()
 
@@ -360,8 +498,24 @@ def phase1_csr(dev, table, host):
     check(delta == {"dia_spmv_f64": 1, "csr_spmv_f64": 0},
           f"routed SpMV launched {delta}")
     check(err <= 1e-14, f"DIA route vs K6: {err:.3e}")
-    del op, fast, x, y, y6
-    torch.cuda.empty_cache()
+    del fast, x, y, y6
+    print("phase 1: the library call beside K1/K2 and K5: cuSPARSE on the "
+          "same matrix as a torch.sparse_csr_tensor", flush=True)
+    n = op.shape[0]
+    del op
+    for dt in (torch.float64, torch.float32):
+        op = stt.from_scipy(L, dtype=dt, device=dev)
+        x = torch.randn(n, generator=gen, dtype=torch.float64,
+                        device=dev).to(dt)
+        X = torch.randn((n, 4), generator=gen, dtype=torch.float64,
+                        device=dev).to(dt)
+        for name, rhs in ((f"dia_spmv_{TAG[dt]}", x), (f"dia_spmm_{TAG[dt]}", X)):
+            table[name]["library_ms"] = cusparse_ms(op, rhs)
+            table[name]["library"] = CUSPARSE
+            print(f"  {name}: library {table[name]['library_ms']:.4f} ms "
+                  f"(kernel {table[name]['ms']:.4f} ms)", flush=True)
+        del op, x, X
+        torch.cuda.empty_cache()
     return L, A
 
 
@@ -555,6 +709,255 @@ def phase6(dev):
           f"phase 6 cheb partial: a kernel did not launch: {fam}")
 
 
+SINVERT_GRID = (100, 102, 104)  # 1,060,800 rows
+SINVERT_ITERS = 800
+# The cycle's estimate ||M u - theta u|| / theta lives in the transformed
+# space (M = D^1/2 A^-1 D^1/2, theta = 1/lambda ~ 358); the residual of the
+# original pencil is ||A D^-1/2 r_u|| / ||x||, up to ||A|| / lambda_1 ~ 4e3
+# times larger.  At the deployment's tol 1e-8 the solve stopped after 2
+# cycles with a true residual of 4.1e-7 (GHEP) / 1.8e-7 (standard) although
+# 800 CG steps solve to 1.1e-14; one more cycle at tol 1e-10 gives 2.1e-12
+# (H100 80GB HBM3, 700 W).  The gate on the true residual stays 1e-8.
+SINVERT_TOL = 1e-10
+
+
+def sinvert_kernels(dev):
+    """K2, K3 and K4 against their plain versions at the shapes phases 7
+    and 8 give them (f64, phase 1's tolerances): K2 on each path's operator;
+    K3's three sweeps against 1, ncv and ncv + 1 basis rows of its length
+    (the first column, the last, and the basis with its residual row); K4
+    at (ncv, ncv) (the fast path's restart), (ncv, ncv // 2) (the general
+    loop keeps half) and (ncv, 1) (one Ritz vector).  Run before the
+    paths' launch counts are reset: these launches are not theirs."""
+    print("phases 7-8: K2, K3, K4 vs plain PyTorch at the shift-and-invert "
+          "paths' shapes", flush=True)
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for where, A, ncv in (
+            ("phase 7, 100x102x104", stt.laplacian_3d(
+                *SINVERT_GRID, dtype=f64, device=dev), 32),
+            ("phase 8 MINRES, 8x9x10", stt.laplacian_3d(
+                8, 9, 10, dtype=f64, device=dev), 20),
+            ("phase 8 general loop, 95x97", stt.laplacian_2d(
+                95, 97, dtype=f64, device=dev), 21),
+            ("phase 8 slicing, 95x97", stt.laplacian_2d(
+                95, 97, dtype=f64, device=dev), 64),
+            ("phase 8 slicing, 1-D 1,000,000", stt.laplacian_1d(
+                1_000_000, dtype=f64, device=dev), 64)):
+        n = A.shape[0]
+        x = torch.randn(n, generator=gen, dtype=f64, device=dev)
+        worst = {"K2": spmv_errors(A.offsets, A.diags, x)[1], "K3": 0.0,
+                 "K4": 0.0}
+        V = torch.randn((ncv + 1, n), generator=gen, dtype=f64, device=dev)
+        C = torch.randn((ncv + 1, 1), generator=gen, dtype=f64, device=dev)
+        for K in (1, ncv, ncv + 1):
+            errs = panel_errors(V[:K], x[None], C[:K])
+            worst["K3"] = max(worst["K3"], *(rel for _, rel in errs.values()))
+        for P in (ncv, ncv // 2, 1):
+            worst["K4"] = max(worst["K4"], rotate_errors(
+                random_q(ncv, P, dev, f64), V[:ncv])[1])
+        print(f"  {where}: n={n} nd={len(A.offsets)} ncv={ncv}  "
+              + "  ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+              flush=True)
+        check(worst["K2"] <= 1e-14, f"{where}: K2 error {worst['K2']:.3e}")
+        check(worst["K3"] <= 1e-13, f"{where}: K3 error {worst['K3']:.3e}")
+        check(worst["K4"] <= 1e-14, f"{where}: K4 error {worst['K4']:.3e}")
+        del A, x, V, C
+    torch.cuda.empty_cache()
+
+
+def sinvert_solve(dev, where, generalized, tol=SINVERT_TOL, gate=True):
+    """The device shift-and-invert solve at full size: sigma = 0, fixed
+    CG inner solves on K2, nev 10, ncv 32, ``tol`` on the transformed
+    estimate.  ``gate``: hold nconv and the true residual to phase 7's
+    gates.  Returns (eps, wall, launch deltas)."""
+    n = SINVERT_GRID[0] * SINVERT_GRID[1] * SINVERT_GRID[2]
+    A = stt.laplacian_3d(*SINVERT_GRID, dtype=torch.float64, device=dev)
+    mats = [A]
+    if generalized:
+        bd = 1.0 + 0.5 * torch.sin(
+            torch.arange(n, dtype=torch.float64, device=dev) * 1e-3)
+        mats.append(stt.DIAOperator((0,), bd[None, :]))
+    before = stt.launch_counts()
+    eps = stt.EPS(*mats, problem_type="ghep" if generalized else "hep",
+                  which="target_magnitude", nev=10, ncv=32, tol=tol,
+                  options=stt.Options())
+    eps.set_target(0.0)
+    eps.set_st(stt.STSinvertDevice(mats, sigma=0.0, iters=SINVERT_ITERS))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = stt.launch_counts()
+    delta = {k: counts[k] - before[k] for k in counts}
+    fam = family_counts(delta, "f64")
+    cols = delta["dia_spmv_f64"] // SINVERT_ITERS
+    k = min(eps.nconv, 10)
+    # true residual ||A x - lam B x|| / (|lam| ||x||), recomputed with K2
+    resid = np.array([eps.compute_error(i) for i in range(k)])
+    print(f"  {where}: nconv={eps.nconv} wall={wall:.3f} s cycles={eps.its} "
+          f"columns={cols} ({wall / max(cols, 1) * 1e3:.1f} ms each, "
+          f"{wall / max(cols * SINVERT_ITERS, 1) * 1e6:.1f} us per CG step) "
+          f"launches={fam} peak_mem={peak / 1e9:.2f} GB", flush=True)
+    print(f"  {where}: max true rel resid="
+          f"{resid.max() if k else np.inf:.3e} lam={np.sort(eps.eigenvalues[:k])}",
+          flush=True)
+    if gate:
+        check(eps.nconv >= 10, f"{where}: nconv {eps.nconv} < 10")
+        check(resid.max() <= 1e-8, f"{where}: true residual {resid.max():.3e}")
+    check(all(v > 0 for v in fam.values()),
+          f"{where}: a kernel did not launch: {fam}")
+    return eps, wall, delta
+
+
+def sinvert_tol_study(dev):
+    """What bounds phase 7's true residual: the relative residual of the
+    inner solve (cg_fixed on the 100x102x104 Laplacian, seeded random b)
+    after 400 and 800 steps, and the ungated solves at the deployment's
+    tol 1e-8 beside SINVERT_TOL."""
+    from slepc_tpu_torch.ksp.iterative_jit import cg_fixed
+
+    print("profile: phase 7's inner solve and EPS tolerance", flush=True)
+    A = stt.laplacian_3d(*SINVERT_GRID, dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = torch.randn(A.shape[0], generator=gen, dtype=torch.float64, device=dev)
+    for iters in (400, SINVERT_ITERS):
+        x = cg_fixed(A.mult, b, iters)
+        r = float(torch.linalg.vector_norm(b - A.mult(x))
+                  / torch.linalg.vector_norm(b))
+        print(f"  cg_fixed iters={iters}: ||b - A x|| / ||b|| = {r:.3e}",
+              flush=True)
+    del A, b, x
+    for generalized in (True, False):
+        sinvert_solve(dev, f"tol 1e-8 {'GHEP' if generalized else 'standard'}",
+                      generalized, tol=1e-8, gate=False)
+
+
+def phase7(dev):
+    print("phase 7: the shift-and-invert slice at full size: 100x102x104 "
+          "Laplacian (1,060,800 rows), f64, sigma = 0, CG iters = 800, "
+          f"nev 10, ncv 32, tol {SINVERT_TOL:g} on the transformed estimate, "
+          "gate 1e-8 on the true residual", flush=True)
+    _, wall_g, _ = sinvert_solve(dev, "phase 7 GHEP", generalized=True)
+    eps, wall_s, _ = sinvert_solve(dev, "phase 7 standard", generalized=False)
+    exact = stt.laplacian_3d_eigs(*SINVERT_GRID, k=10)
+    err = np.abs(np.sort(eps.eigenvalues[:10]) - exact)
+    print(f"  phase 7 standard: max|lam-exact|={err.max():.3e}", flush=True)
+    check(err.max() <= 1e-9, f"phase 7 standard: |lam - exact| {err.max():.3e}")
+    return wall_g, wall_s
+
+
+def near(exact, target, k):
+    return np.sort(exact[np.argsort(np.abs(exact - target))][:k])
+
+
+def report(where, eps, want, t0, tol, resid_tol=1e-8):
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k = len(want)
+    check(eps.nconv >= k, f"{where}: nconv {eps.nconv} < {k}")
+    got = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))  # best-first
+    err = np.abs(got - want).max()
+    resid = max(eps.compute_error(i) for i in range(k))
+    print(f"  {where}: nconv={eps.nconv} its={eps.its} wall={wall:.3f} s "
+          f"max|lam-ref|={err:.3e} max true rel resid={resid:.3e}", flush=True)
+    check(err <= tol, f"{where}: |lam - ref| {err:.3e} > {tol:.0e}")
+    check(resid <= resid_tol, f"{where}: true residual {resid:.3e}")
+
+
+def phase8(dev):
+    print("phase 8: small shift-and-invert paths on the card", flush=True)
+    check(ldl_available(), "the native LDL^T library did not build (g++): "
+          "the host-direct paths would run on splu alone")
+    f64 = torch.float64
+    # interior target, MINRES inner solves (tests/test_round4.py:299-316 of
+    # the JAX package)
+    A = stt.laplacian_3d(8, 9, 10, dtype=f64, device=dev)
+    lam_all = stt.laplacian_3d_eigs(8, 9, 10)
+    sigma = float(0.5 * (lam_all[7] + lam_all[8]))
+    t0 = time.perf_counter()
+    eps = stt.EPS(A, problem_type="hep", which="target_magnitude", nev=4,
+                  ncv=20, tol=1e-9, options=stt.Options())
+    eps.set_target(sigma)
+    eps.set_st(stt.STSinvertDevice([A], sigma=sigma, iters=600,
+                                   method="minres"))
+    eps.solve()
+    report("device sinvert, interior, MINRES", eps, near(lam_all, sigma, 4),
+           t0, 1e-7, resid_tol=1e-6)
+
+    # host-factorized STSinvert through the general loop
+    A = stt.laplacian_2d(95, 97, dtype=f64, device=dev)
+    n = A.shape[0]
+    exact = stt.laplacian_2d_eigs(95, 97)
+    target = 2.0
+    t0 = time.perf_counter()
+    eps = stt.EPS(A, problem_type="hep", nev=6, options=stt.Options())
+    eps.set_target(target)
+    eps.solve()
+    check(eps.st.name == "sinvert" and eps.st.ksp.method == "direct",
+          "HEP target did not take the direct shift-and-invert")
+    print(f"  factorization backend: {eps.st.ksp._direct.backend}", flush=True)
+    report("STSinvert HEP, general loop", eps, near(exact, target, 6), t0, 1e-9)
+
+    bd = 1.0 + 0.5 * torch.sin(torch.arange(n, dtype=f64, device=dev) * 1e-2)
+    B = stt.DIAOperator((0,), bd[None, :])
+    import scipy.sparse.linalg as spla
+    ref = np.sort(spla.eigsh(A.to_scipy().tocsc(), k=6,
+                             M=sp.diags(bd.cpu().numpy()).tocsc(),
+                             sigma=target, which="LM",
+                             return_eigenvectors=False))
+    t0 = time.perf_counter()
+    eps = stt.EPS(A, B, problem_type="ghep", nev=6, options=stt.Options())
+    eps.set_target(target)
+    eps.solve()
+    report("STSinvert GHEP (diagonal B) vs scipy eigsh", eps, ref, t0, 1e-9)
+    X = eps._eigenvectors[:6]
+    G = (X * bd) @ X.T
+    orth = float((G - torch.eye(6, dtype=f64, device=dev)).abs().max())
+    print(f"  B-orthonormality of the eigenvectors: {orth:.3e}", flush=True)
+    check(orth <= 1e-8, f"GHEP eigenvectors not B-orthonormal: {orth:.3e}")
+
+    t0 = time.perf_counter()
+    eps = stt.EPS(A, problem_type="hep", nev=6, options=stt.Options())
+    eps.set_target(target)
+    eps.set_st(stt.STCayley([A], sigma=target, nu=1.0))
+    eps.solve()
+    report("STCayley HEP", eps, near(exact, target, 6), t0, 1e-9)
+
+    # spectrum slicing: block-tridiagonal LDL^T, then the scanned one
+    for label, A, exact, lo, backend in (
+            ("laplacian_2d(95, 97)", A, exact, 2000, "btridiag_device"),
+            ("laplacian_1d(1,000,000)",
+             stt.laplacian_1d(1_000_000, dtype=f64, device=dev),
+             stt.laplacian_1d_eigs(1_000_000), 500_000, "tridiag_device")):
+        a = 0.5 * (exact[lo - 1] + exact[lo])
+        b = 0.5 * (exact[lo + 29] + exact[lo + 30])
+        want = exact[lo: lo + 30]
+        stt.log_begin()
+        t0 = time.perf_counter()
+        eps = stt.EPS(A, problem_type="hep", tol=1e-8, options=stt.Options())
+        eps.set_interval(a, b)
+        eps.solve()
+        check(eps.nconv == 30, f"slicing {label}: found {eps.nconv} of 30 "
+              f"eigenvalues in [{a}, {b}]")
+        report(f"slicing {label}, 30 eigenvalues in [{a:.6f}, {b:.6f}]", eps,
+               want, t0, 1e-9)
+        from slepc_tpu_torch.sys.events import get_event
+
+        fac = get_event("Slice_Factorization")
+        print(f"  factorizations={eps.slice_factorizations} "
+              f"({fac['time']:.3f} s) backends={eps.slice_backends}",
+              flush=True)
+        # inertia and solves on the card: a host backend would pass the
+        # closed-form gates unseen
+        check(eps.slice_backends == (backend,), f"slicing {label}: factorized "
+              f"with {eps.slice_backends}, not {backend}")
+        stt.log_reset()
+        del A
+
+
 def csr_spmv_at(op, x, lanes):
     """K6 on op's CSR at a given lane count: the library entry itself, which
     the wrapper csr_spmv calls with lanes_for (uncounted; for the sweep)."""
@@ -592,24 +995,34 @@ def lane_sweep(dev, L, A):
             torch.cuda.empty_cache()
 
 
-def profile_solve(A, where, spmv, cheb_block=1):
+def profile_solve(where, solve, plain_wall=None):
+    """torch.profiler over ``solve()``, which returns the wall time.
+    ``plain_wall``: the same solve's wall without the profiler (its host
+    overhead stretches a launch-bound solve; kernel times stay)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     print(f"profile: torch.profiler over one {where} solve", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = flagship_solve(A, f"profiled {where}", spmv,
-                              cheb_block=cheb_block)[0]
-    rows = sorted((e for e in prof.key_averages()
-                   if e.self_device_time_total > 0),
+        wall = solve()
+    averages = prof.key_averages()
+    # a log_event annotation has a host row and a device-side row spanning
+    # its kernels; a kernel has a device-side row only
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    rows = sorted((e for e in averages if e.self_device_time_total > 0
+                   and not (e.device_type == DeviceType.CUDA
+                            and e.key in host_keys)),
                   key=lambda e: -e.self_device_time_total)
     # device-side rows only: an aten op's row repeats its kernels' time
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("Command Buffer Full")]
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"  profiled wall {wall:.3f} s; device rows sum to {busy:.1f} ms "
           f"({100 * busy / (wall * 1e3):.1f}% of the wall)", flush=True)
+    if plain_wall is not None:
+        print(f"  the same solve without the profiler took {plain_wall:.3f} s:"
+              f" device busy {100 * busy / (plain_wall * 1e3):.1f}% of it",
+              flush=True)
     for e in rows[:16]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:10.1f} ms {e.count:7d} calls {ms / e.count:8.4f} ms/call "
@@ -620,9 +1033,9 @@ def profile_solve(A, where, spmv, cheb_block=1):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 6: K6 lane sweep and a "
-                             "torch.profiler split of a phase-4 and a "
-                             "phase-5 solve")
+                        help="after phase 8: phase 7's tolerance study, a "
+                             "K6 lane sweep and a torch.profiler split of a "
+                             "phase-7, a phase-4 and a phase-5 solve")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -650,6 +1063,7 @@ def main():
             print("   ", line.strip())
 
     table, host = {}, {}
+    rates, stream_path = phase1_stream(dev, table)
     phase1(dev, table)
     phase1_block(dev, table)
     L_csr, A_csr = phase1_csr(dev, table, host)
@@ -669,13 +1083,28 @@ def main():
     stt.reset_launch_counts()
     phase6(dev)
     small_path = stt.launch_counts()
+    sinvert_kernels(dev)
+    stt.reset_launch_counts()
+    wall_sinv, wall_sinv_std = phase7(dev)
+    phase8(dev)
+    sinv_path = stt.launch_counts()
+    fam = family_counts(sinv_path, "f64")
+    print(f"  phases 7-8 launches: {fam}", flush=True)
+    check(all(v > 0 for v in fam.values()),
+          f"phases 7-8: a kernel did not launch: {fam}")
     if args.profile:
+        profile_solve("phase 7 GHEP", lambda: sinvert_solve(
+            dev, "profiled phase 7 GHEP", generalized=True)[1],
+            plain_wall=wall_sinv)
+        sinvert_tol_study(dev)
         lane_sweep(dev, L_csr, A_csr)
-        profile_solve(stt.from_scipy(A_csr, device=dev), "phase 4", "csr_spmv")
-        profile_solve(stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64,
-                                       device=dev), "phase 5", "dia_spmm",
-                      cheb_block=4)
-    paths = (dia_path, aij_path, blk_path, small_path)
+        A = stt.from_scipy(A_csr, device=dev)
+        profile_solve("phase 4", lambda: flagship_solve(
+            A, "profiled phase 4", "csr_spmv")[0])
+        A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+        profile_solve("phase 5", lambda: flagship_solve(
+            A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
+    paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -686,9 +1115,23 @@ def main():
                         "source": src, "replaces": replaces,
                         "launches": counts[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"]})
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "stream_ms": row["bytes"] / rates[row["dtype"]] / 1e6,
+                        "library_ms": row["library_ms"],
+                        "library": row["library"] or None})
+    print("kernel table (ms): kernel / plain / bound / stream / library",
+          flush=True)
+    for k in kernels:
+        lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        print(f"  {k['name']:<28} {k['ms']:.4f} / {k['plain_ms']:.4f} / "
+              f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
+              f"{lib}  launches {k['launches']}", flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
-          f"{wall_blk:.3f} s (blocked, K5) on {smi_line}", flush=True)
+          f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
+          f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard) on "
+          f"{smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

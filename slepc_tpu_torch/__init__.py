@@ -6,15 +6,23 @@ tensor code is PyTorch; every Pallas kernel of the ported slice is a CUDA
 kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
 first use (``ops/_build.py``).
 
-Ported so far: the Hermitian Krylov-Schur main path — ``EPS(A,
-problem_type="hep", which=..., nev=...)``, plain or Chebyshev-amplified
-(``-eps_cheb_degree``) — on a DIA operator, on any scipy / PETSc-binary
-sparse matrix (``from_scipy``, ``load_operator``: CSR on the device) and on
-a ``ShellOperator``, with the DIA SpMV (K1/K2), the CSR SpMV (K6), the CGS2
-panel sweeps (K3) and the restart rotation (K4) as kernels.
+Ported so far: Hermitian Krylov-Schur -- ``EPS(A[, B], problem_type="hep" |
+"ghep", which=..., nev=...)`` -- for extreme eigenvalues (plain, blocked or
+Chebyshev-amplified with ``-eps_cheb_degree``), for interior eigenvalues
+and generalized problems by shift-and-invert (``set_target``,
+``STSinvert`` on a direct factorization, ``STSinvertDevice`` on CG / MINRES
+inner solves on the card, ``STCayley``, a generalized ``STShift``) and for
+all eigenvalues of an interval (spectrum slicing, certified by inertia), on
+a DIA operator, on any scipy / PETSc-binary sparse matrix (``from_scipy``,
+``load_operator``: CSR on the device) and on a ``ShellOperator``; with KSP,
+the direct solvers, BV and DS beside it.  Kernels: the DIA SpMV (K1/K2) and
+block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
+rotation (K4) and the stream yardstick (K7).
 
-Devices are explicit: an operator's tensors live on the device they were
-built on, and all work happens there.  A CUDA tensor goes to the kernel or
+Devices: every constructor and generator takes ``device``; ``None`` means
+the CUDA card and raises without one, ``device="cpu"`` must be asked for
+(``sys/device.py``).  A tensor handed in keeps its device, and all work
+happens where the operator lives.  A CUDA tensor goes to the kernel or
 raises; only a tensor on the CPU takes the kernel's plain PyTorch version.
 """
 
@@ -34,7 +42,10 @@ from .mat.generators import (laplacian_1d, laplacian_2d, laplacian_3d,
                              random_sparse)
 from .mat.petsc_io import (load_operator, read_petsc_matrix,
                            write_petsc_matrix)
-from .st import STShift, ChebAmplifyOperator
+from .st import (ST, STShift, STSinvert, STCayley, STPrecond, STShell,
+                 STSinvertDevice, SinvertCGOperator, ChebAmplifyOperator)
+from .ksp import KSP, DirectSolver, solve_linear
+from .bv import BV
 from .eps import EPS, EPSConvergedReason, EPSError, ProblemType
 from .ops import launch_counts, reset_launch_counts
 
@@ -73,8 +84,19 @@ __all__ = [
     "load_operator",
     "read_petsc_matrix",
     "write_petsc_matrix",
+    "ST",
     "STShift",
+    "STSinvert",
+    "STCayley",
+    "STPrecond",
+    "STShell",
+    "STSinvertDevice",
+    "SinvertCGOperator",
     "ChebAmplifyOperator",
+    "KSP",
+    "DirectSolver",
+    "solve_linear",
+    "BV",
     "EPS",
     "EPSConvergedReason",
     "EPSError",

@@ -458,19 +458,25 @@ def _prepare_fast_operator(op):
     """The operator form the cycle runs (reference ``_prepare_fast_operator``,
     ks_jit.py:1042-1115): an AIJ operator goes to its routed form (a DIA
     operator on K1/K2/K5 when it is a few dense diagonals, else CSR on K6);
-    a DIA operator, or any other operator with a ``mult`` on its device,
-    runs as it is.  Vectors stay flat (n,): there is no padded layout."""
+    a DIA operator, the device shift-and-invert operator
+    (``SinvertCGOperator``), or any other operator with a ``mult`` on its
+    device, runs as it is.  Vectors stay flat (n,): there is no padded layout."""
     if isinstance(op, AIJOperator):
         return op.fast_form()
     return op
 
 
-def _init_rows(n: int, nrows: int, np_dtype) -> np.ndarray:
-    """nrows start vectors: seeded numpy normals orthonormalized by a host
-    QR -- the reference's ``_init_rows``, so both packages start from the
-    same block.  Returns (nrows, n)."""
+def _init_rows(n: int, nrows: int, np_dtype, initial_space=None) -> np.ndarray:
+    """nrows start vectors: the columns of ``initial_space`` first, then
+    seeded numpy normals, orthonormalized by a host QR -- the reference's
+    ``_init_rows``, so both packages start from the same block.  Returns
+    (nrows, n)."""
     rng0 = np.random.default_rng(0)
-    M = np.stack([rng0.standard_normal(n) for _ in range(nrows)], axis=1)
+    cols = [] if initial_space is None else \
+        [initial_space[:, j] for j in range(min(initial_space.shape[1], nrows))]
+    while len(cols) < nrows:
+        cols.append(rng0.standard_normal(n))
+    M = np.stack(cols, axis=1)
     Qm, _ = np.linalg.qr(M.astype(np_dtype))
     return np.ascontiguousarray(Qm.T)
 
@@ -511,7 +517,8 @@ def ks_hep_solve(eps, op, which: str) -> None:
     nrow0 = max(bsize, 1)
     V = torch.zeros((ncv + nrow0, eps.n), dtype=dtype, device=op.device)
     V[:nrow0] = torch.from_numpy(
-        _init_rows(eps.n, nrow0, _np_dtype(dtype))).to(op.device)
+        _init_rows(eps.n, nrow0, _np_dtype(dtype),
+                   eps.initial_space)).to(op.device)
     H = np.zeros((ncv + nrow0, ncv), dtype=_np_dtype(dtype))
     gen = torch.Generator(device=op.device).manual_seed(12345)
     if bsize > 1:
@@ -542,6 +549,15 @@ def ks_hep_solve(eps, op, which: str) -> None:
         if k2 >= eps.nev:
             break
     eps.nconv = k2
-    eps.eigenvalues = eps.st.back_transform(theta[:k2].astype(np.float64))
+    eps.eigenvalues = np.asarray(
+        eps.st.back_transform(theta[:k2].astype(np.float64)))
     eps.errests = errest[:k2].copy()
-    eps._eigenvectors = V[:k2].clone()
+    X = V[:k2].clone()
+    post = getattr(op, "postprocess_vec", None)
+    if post is not None and k2 > 0:
+        # transformed-space -> original-space vectors (the device
+        # shift-invert symmetrization's x = D^{-1/2} u), renormalized
+        X = torch.stack([post(X[i]) for i in range(k2)])
+        nrm = torch.linalg.vector_norm(X, dim=1, keepdim=True)
+        X /= torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    eps._eigenvectors = X

@@ -9,6 +9,13 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
   (``dph + dpl`` joined in f64) becomes a port :class:`DIAOperator`.
 * :func:`aij_from_slepc_tpu`: a slepc_tpu ``AIJOperator`` (through its host
   CSR, ``to_scipy()``) becomes a port :class:`AIJOperator`.
+* :func:`operator_from_slepc_tpu`: DIA / AIJ / Dense / Diagonal / Identity
+  operators by class name.
+* :func:`sinvert_operator_from_slepc_tpu`, :func:`st_from_slepc_tpu`,
+  :func:`ksp_from_slepc_tpu`, :func:`bv_from_slepc_tpu`: a slepc_tpu
+  ``SinvertCGOperator``, ``ST*`` / ``STSinvertDevice``, ``KSP`` or ``BV``
+  (diagonals, b_diag, sigma, iters, method; basis array, constraints)
+  becomes the port's, so both compute the same thing.
 * :func:`dia_to_padded_ds`: a port f64 operator as the (offsets, dph, dpl, n)
   arguments of ``DIAPaddedOperatorDS``.
 * :func:`basis_from_padded` / :func:`basis_to_padded`: a padded basis
@@ -22,7 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mat.linop import AIJOperator, DIAOperator
+from .bv.bv import BV
+from .ksp.ksp import KSP
+from .mat.linop import (AIJOperator, DenseOperator, DIAOperator,
+                        DiagonalOperator, IdentityOperator)
+from .st.sinvert_jit import SinvertCGOperator, STSinvertDevice
+from .st.st import STCayley, STPrecond, STShift, STSinvert
+from .sys.device import resolve_device
 
 LANES = 512  # lane width of slepc_tpu's padded 2-D layout
 
@@ -32,7 +45,7 @@ def _prepared_to_diags(dp: np.ndarray, n: int) -> np.ndarray:
     return np.ascontiguousarray(dp.reshape(dp.shape[0], -1)[:, :n])
 
 
-def dia_from_slepc_tpu(op, device="cpu") -> DIAOperator:
+def dia_from_slepc_tpu(op, device=None) -> DIAOperator:
     if hasattr(op, "dph"):
         n = int(op.n_interior)
         d = (_prepared_to_diags(np.asarray(op.dph), n).astype(np.float64)
@@ -42,11 +55,88 @@ def dia_from_slepc_tpu(op, device="cpu") -> DIAOperator:
         d = _prepared_to_diags(np.asarray(op.dp), n)
     else:
         d = np.asarray(op.diags)
-    return DIAOperator(op.offsets, torch.from_numpy(np.array(d)), device=device)
+    return DIAOperator(op.offsets, np.array(d), device=resolve_device(device))
 
 
-def aij_from_slepc_tpu(op, device="cpu") -> AIJOperator:
+def aij_from_slepc_tpu(op, device=None) -> AIJOperator:
     return AIJOperator.from_scipy(op.to_scipy(), device=device)
+
+
+def operator_from_slepc_tpu(op, device=None):
+    """A slepc_tpu operator as the port's operator of the same kind."""
+    kind = type(op).__name__
+    if kind.startswith("DIA"):
+        return dia_from_slepc_tpu(op, device=device)
+    if kind == "AIJOperator":
+        return aij_from_slepc_tpu(op, device=device)
+    if kind == "DenseOperator":
+        return DenseOperator(np.array(op.A), device=device)
+    if kind == "DiagonalOperator":
+        return DiagonalOperator(np.array(op.d), device=device)
+    if kind == "IdentityOperator":
+        return IdentityOperator(op.shape[0], np.dtype(op.dtype), device)
+    raise TypeError(f"no port counterpart for a slepc_tpu {kind}")
+
+
+def _flat(op, xp) -> np.ndarray:
+    """A padded 2-D array of the padded operator ``op`` as a flat (n,)."""
+    return np.array(op.unpad(xp))
+
+
+def sinvert_operator_from_slepc_tpu(jop, device=None) -> SinvertCGOperator:
+    """A slepc_tpu ``SinvertCGOperator``: its shifted padded operator, the
+    D^{1/2} and Jacobi vectors, iters and method."""
+    Sop = dia_from_slepc_tpu(jop.Sop, device=device)
+
+    def vec(xp):
+        if xp is None:
+            return None
+        return torch.from_numpy(_flat(jop.Sop, xp)).to(Sop.device, Sop.dtype)
+
+    return SinvertCGOperator(Sop, vec(jop.dhalf), vec(jop.invdiag),
+                             iters=jop.iters, method=jop.method)
+
+
+def st_from_slepc_tpu(jst, device=None):
+    """A slepc_tpu ST (shift, sinvert, cayley, precond, sinvert-device) on
+    the port's operators, with its sigma and KSP options."""
+    mats = [operator_from_slepc_tpu(M, device=device) for M in jst.mats]
+    sigma = jst.sigma
+    name = jst.name
+    if name == "sinvert-device":
+        return STSinvertDevice(mats, sigma=sigma, iters=jst.iters,
+                               method=jst.method)
+    if name == "sinvert":
+        return STSinvert(mats, sigma=sigma, ksp_opts=jst.ksp_opts,
+                         hermitian=jst.hermitian)
+    if name == "cayley":
+        return STCayley(mats, sigma=sigma, nu=jst.nu, ksp_opts=jst.ksp_opts)
+    cls = {"shift": STShift, "precond": STPrecond}.get(name)
+    if cls is None:
+        raise TypeError(f"no port counterpart for a slepc_tpu ST {name!r}")
+    return cls(mats, sigma=sigma, ksp_opts=jst.ksp_opts)
+
+
+def ksp_from_slepc_tpu(jksp, device=None) -> KSP:
+    """A slepc_tpu KSP: the same operator, method, tolerances and
+    preconditioner choice."""
+    backend = jksp._direct.backend if jksp._direct is not None else "auto"
+    return KSP(operator_from_slepc_tpu(jksp.A, device=device),
+               method=jksp.method, pc=jksp._pcname, rtol=jksp.rtol,
+               atol=jksp.atol, maxiter=jksp.maxiter,
+               hermitian=jksp.hermitian, direct_backend=backend)
+
+
+def bv_from_slepc_tpu(jbv, device=None) -> BV:
+    """A slepc_tpu BV: its (n, nc + m) column array becomes the port's
+    (nc + m, n) row array; constraints, active window and the inner-product
+    matrix carry over."""
+    arr = torch.from_numpy(np.ascontiguousarray(np.asarray(jbv.array).T))
+    bv = BV(jbv.n, jbv.m, nc=jbv.nc, array=arr.to(resolve_device(device)))
+    bv.set_active_columns(jbv.l, jbv.k)
+    if jbv.matrix is not None:
+        bv.set_matrix(operator_from_slepc_tpu(jbv.matrix, device=device))
+    return bv
 
 
 def _prepare(d: np.ndarray, n: int, block_rows: int) -> np.ndarray:

@@ -1,3 +1,6 @@
-from .iterative_jit import minres_fixed
+from .iterative_jit import cg_fixed, minres_fixed
+from .ksp import KSP, solve_linear
+from .direct import DirectSolver, tridiag_inertia, banded_ldlt_inertia
 
-__all__ = ["minres_fixed"]
+__all__ = ["cg_fixed", "minres_fixed", "KSP", "solve_linear", "DirectSolver",
+           "tridiag_inertia", "banded_ldlt_inertia"]

@@ -1,8 +1,8 @@
 """Test/benchmark matrix generators (``slepc_tpu/mat/generators.py:17-223``).
 
 The discrete Laplacians are DIA operators whose diagonals are built with
-torch ops directly on ``device``: at 10M rows the 3-D Laplacian materializes
-on the card in milliseconds, with no host array and no upload (the role of
+torch ops directly on ``device`` (``None``: the card, ``sys/device.py``): at
+10M rows the 3-D Laplacian materializes on the card in milliseconds, with no host array and no upload (the role of
 slepc_tpu's ``laplacian_3d_device``).  The closed-form spectra are numpy.
 General sparse input comes in through :func:`from_scipy` (an AIJOperator
 in CSR on ``device``) and :func:`random_sparse`; ``markov`` waits for the
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..sys.device import resolve_device
 from .linop import AIJOperator, DenseOperator, DIAOperator, as_torch_dtype
 
 
@@ -21,11 +22,12 @@ def _neighbor(cond: torch.Tensor, dtype) -> torch.Tensor:
     return torch.where(cond, -1.0, 0.0).to(dtype)
 
 
-def laplacian_1d(n: int, dtype=torch.float64, device="cpu") -> DIAOperator:
+def laplacian_1d(n: int, dtype=torch.float64, device=None) -> DIAOperator:
     """Tridiagonal 1-D Laplacian, eigenvalues 2-2cos(k*pi/(n+1)).
 
     Reference analog: src/eps/tutorials/ex1.c.
     """
+    device = resolve_device(device)
     i = torch.arange(n, device=device)
     main = torch.full((n,), 2.0, dtype=dtype, device=device)
     lo = _neighbor(i > 0, dtype)  # entry A[i, i-1] stored at row i
@@ -34,7 +36,7 @@ def laplacian_1d(n: int, dtype=torch.float64, device="cpu") -> DIAOperator:
 
 
 def laplacian_2d(nx: int, ny: int | None = None, dtype=torch.float64,
-                 device="cpu") -> DIAOperator:
+                 device=None) -> DIAOperator:
     """5-point 2-D Laplacian on an nx x ny grid (row-major x fastest).
 
     Reference analog: src/eps/tutorials/ex2.c.
@@ -42,6 +44,7 @@ def laplacian_2d(nx: int, ny: int | None = None, dtype=torch.float64,
     if ny is None:
         ny = nx
     n = nx * ny
+    device = resolve_device(device)
     i = torch.arange(n, device=device)
     ix = i % nx
     main = torch.full((n,), 4.0, dtype=dtype, device=device)
@@ -54,13 +57,14 @@ def laplacian_2d(nx: int, ny: int | None = None, dtype=torch.float64,
 
 
 def laplacian_3d(nx: int, ny: int | None = None, nz: int | None = None,
-                 dtype=torch.float64, device="cpu") -> DIAOperator:
+                 dtype=torch.float64, device=None) -> DIAOperator:
     """7-point 3-D Laplacian (x fastest, then y, then z)."""
     if ny is None:
         ny = nx
     if nz is None:
         nz = nx
     n = nx * ny * nz
+    device = resolve_device(device)
     i = torch.arange(n, device=device)
     ix = i % nx
     iy = (i // nx) % ny
@@ -112,7 +116,7 @@ def laplacian_3d_eigs(nx: int, ny: int | None = None, nz: int | None = None,
     return ev if k is None else ev[:k]
 
 
-def from_scipy(A, dtype=None, device="cpu") -> AIJOperator:
+def from_scipy(A, dtype=None, device=None) -> AIJOperator:
     """A scipy sparse matrix as an AIJOperator (CSR) on ``device``."""
     return AIJOperator.from_scipy(A, dtype=dtype, device=device)
 
@@ -123,7 +127,7 @@ def from_dense(A, device=None) -> DenseOperator:
 
 def random_sparse(n: int, m: int | None = None, density: float = 0.01,
                   seed: int = 0, dtype=np.float64, symmetric: bool = False,
-                  device="cpu") -> AIJOperator:
+                  device=None) -> AIJOperator:
     """Random sparse test matrix (deterministic at fixed seed; the same
     matrix as slepc_tpu's ``random_sparse`` for the same arguments)."""
     import scipy.sparse as sp

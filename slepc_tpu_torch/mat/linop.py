@@ -34,6 +34,18 @@ import torch
 
 from ..ops.csr import csr_spmv, row_of_entry
 from ..ops.dia import dia_spmm, dia_spmv
+from ..sys.device import resolve_device
+
+
+def _place(data, device) -> torch.Tensor:
+    """``data`` as a tensor on ``device``.  A tensor handed in with
+    ``device=None`` keeps its device; a numpy array (or any tensor with an
+    explicit ``device``) goes where :func:`resolve_device` says -- the card
+    unless the caller names another device."""
+    if torch.is_tensor(data):
+        return data if device is None else data.to(resolve_device(device))
+    return torch.from_numpy(np.ascontiguousarray(data)).to(
+        resolve_device(device))
 
 
 def as_torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -145,8 +157,7 @@ class DenseOperator(LinearOperator):
     """A dense matrix; ``mult`` is a matrix-vector product."""
 
     def __init__(self, A, device=None):
-        A = A if torch.is_tensor(A) else torch.from_numpy(np.array(A))
-        self.A = A.to(device) if device is not None else A
+        self.A = _place(A, device)
         self.shape = tuple(self.A.shape)
         self.dtype = self.A.dtype
         self.device = self.A.device
@@ -165,10 +176,10 @@ class DenseOperator(LinearOperator):
 
 
 class IdentityOperator(LinearOperator):
-    def __init__(self, n: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, n: int, dtype=torch.float64, device=None):
         self.shape = (n, n)
         self.dtype = as_torch_dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @property
     def nnz(self):
@@ -186,17 +197,14 @@ class DIAOperator(LinearOperator):
     y[i] = sum_d diags[d][i] * x[i + offsets[d]], with x taken as zero
     outside [0, n) (slepc_tpu pre-zeroes those entries of ``diags``; the
     kernel's bounds check makes that optional).  ``diags`` is a (ndiag, n)
-    tensor; a numpy array is taken over as is onto ``device``.
+    tensor; a tensor keeps its device unless ``device`` is given, a numpy
+    array goes onto ``device`` (default: the card).
     """
 
     def __init__(self, offsets: Sequence[int], diags, shape=None,
                  device=None):
         self.offsets = tuple(int(o) for o in offsets)
-        if not torch.is_tensor(diags):
-            diags = torch.from_numpy(np.ascontiguousarray(diags))
-        if device is not None:
-            diags = diags.to(device)
-        self.diags = diags.contiguous()
+        self.diags = _place(diags, device).contiguous()
         n = self.diags.shape[1]
         self.shape = tuple(shape) if shape is not None else (n, n)
         self.dtype = self.diags.dtype
@@ -276,9 +284,10 @@ class AIJOperator(LinearOperator):
         self._fast = None     # routed form (fast_form)
 
     @classmethod
-    def from_scipy(cls, A, dtype=None, device="cpu") -> "AIJOperator":
-        """CSR of the scipy matrix ``A`` on ``device``, in ``dtype`` (torch
-        or numpy; default: A's own).  Duplicate entries are summed."""
+    def from_scipy(cls, A, dtype=None, device=None) -> "AIJOperator":
+        """CSR of the scipy matrix ``A`` on ``device`` (default: the card),
+        in ``dtype`` (torch or numpy; default: A's own).  Duplicate entries
+        are summed."""
         import scipy.sparse as sp
 
         A = sp.csr_matrix(A)
@@ -289,6 +298,7 @@ class AIJOperator(LinearOperator):
         indices = torch.from_numpy(A.indices.astype(np.int32, copy=False))
         vals = torch.from_numpy(np.ascontiguousarray(A.data))
         dtype = as_torch_dtype(dtype) or vals.dtype
+        device = resolve_device(device)
         return cls(indptr.to(device), indices.to(device),
                    vals.to(device=device, dtype=dtype), A.shape)
 
@@ -356,10 +366,10 @@ class ShellOperator(LinearOperator):
 
     def __init__(self, shape, dtype, matvec: Callable,
                  rmatvec: Optional[Callable] = None,
-                 nnz: Optional[int] = None, device="cpu"):
+                 nnz: Optional[int] = None, device=None):
         self.shape = tuple(shape)
         self.dtype = as_torch_dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._matvec = matvec
         self._rmatvec = rmatvec
         self._nnz = nnz
@@ -481,8 +491,7 @@ class DiagonalOperator(LinearOperator):
     """diag(d); used for balancing, preconditioning, Omega signatures."""
 
     def __init__(self, d, device=None):
-        d = d if torch.is_tensor(d) else torch.from_numpy(np.array(d))
-        self.d = d.to(device) if device is not None else d
+        self.d = _place(d, device)
         n = self.d.shape[0]
         self.shape = (n, n)
         self.dtype = self.d.dtype
@@ -512,9 +521,10 @@ def norm_estimate_randomized(A: LinearOperator, seed: int = 0) -> float:
     return float(torch.linalg.vector_norm(w)) * float(np.sqrt(n))
 
 
-def aslinearoperator(A, device="cpu") -> LinearOperator:
+def aslinearoperator(A, device=None) -> LinearOperator:
     """Coerce a scipy sparse matrix, an array or a tensor into an operator
-    on ``device`` (a LinearOperator is returned as is)."""
+    on ``device`` (default: the card; a tensor keeps its device, a
+    LinearOperator is returned as is)."""
     if isinstance(A, LinearOperator):
         return A
     import scipy.sparse as sp

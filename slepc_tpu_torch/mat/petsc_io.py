@@ -67,8 +67,9 @@ def write_petsc_vector(path: str, v) -> None:
         v.astype(">f8").tofile(f)
 
 
-def load_operator(path: str, dtype=np.float64, device="cpu"):
-    """Load a PETSc binary Mat as an AIJOperator on ``device``."""
+def load_operator(path: str, dtype=np.float64, device=None):
+    """Load a PETSc binary Mat as an AIJOperator on ``device`` (default: the
+    card)."""
     from .linop import AIJOperator
 
     return AIJOperator.from_scipy(read_petsc_matrix(path, dtype), dtype=dtype,

@@ -5,9 +5,9 @@ where it launches its kernel; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
 """
 
-from . import bv, csr, dia, rotate
+from . import bv, csr, dia, rotate, stream
 
-_MODULES = (dia, csr, bv, rotate)
+_MODULES = (dia, csr, bv, rotate, stream)
 
 
 def launch_counts() -> dict:

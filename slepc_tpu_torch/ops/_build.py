@@ -48,6 +48,7 @@ _SIGNATURES = {
     "slepc_panel_tile": (_I, []),
     "slepc_panel_max_b": (_I, []),
     "slepc_rotate": (_I, [_I, _P, _I, _I, _P, _I64, _P, _I64, _I64, _P]),
+    "slepc_stream_sum": (_I, [_I, _P, _I64, _I, _P, _P, _I64, _P]),
 }
 
 

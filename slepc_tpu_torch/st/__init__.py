@@ -1,4 +1,7 @@
 from .cheb import ChebAmplifyOperator, cheb_value, gershgorin_upper
-from .st import STShift
+from .st import ST, STShift, STSinvert, STCayley, STPrecond, STShell
+from .sinvert_jit import SinvertCGOperator, STSinvertDevice
 
-__all__ = ["STShift", "ChebAmplifyOperator", "cheb_value", "gershgorin_upper"]
+__all__ = ["ST", "STShift", "STSinvert", "STCayley", "STPrecond", "STShell",
+           "SinvertCGOperator", "STSinvertDevice", "ChebAmplifyOperator",
+           "cheb_value", "gershgorin_upper"]

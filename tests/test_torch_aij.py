@@ -43,7 +43,7 @@ NEV = 4
 
 
 def _rcm_laplacian():
-    L = sp.csr_matrix(tst.laplacian_3d(*DIMS).to_scipy())
+    L = sp.csr_matrix(tst.laplacian_3d(*DIMS, device="cpu").to_scipy())
     perm = reverse_cuthill_mckee(L, symmetric_mode=True)
     return L[perm][:, perm].tocsr()
 
@@ -86,7 +86,7 @@ def _rel(a, b):
 def test_csr_spmv_matches_hybrid_ell_kernel(kind, dtype, np_dtype, tol):
     A = _round2_matrix() if kind == "round2" else _rcm_laplacian()
     jop = GELLPaddedOperator.from_scipy(A, block_rows=64, dtype=np_dtype)
-    top = tst.from_scipy(A, dtype=dtype)
+    top = tst.from_scipy(A, dtype=dtype, device="cpu")
     x = np.random.default_rng(1).standard_normal(A.shape[0]).astype(np_dtype)
     yj = np.asarray(jop.unpad(jop.mult2d(jop.pad2d(jnp.asarray(x)))))
     y = top.mult(torch.from_numpy(x)).numpy()
@@ -103,7 +103,7 @@ def test_csr_spmv_where_the_reference_cannot_pack(dtype, tol):
     A = _unpackable_matrix()
     with pytest.raises(ValueError, match="64 slots"):
         GELLPaddedOperator.from_scipy(A, block_rows=64)
-    top = tst.from_scipy(A, dtype=dtype)
+    top = tst.from_scipy(A, dtype=dtype, device="cpu")
     assert isinstance(top.fast_form(), tst.AIJOperator)
     x = np.random.default_rng(2).standard_normal(A.shape[0])
     y = top.mult(torch.from_numpy(x).to(dtype)).numpy()
@@ -118,7 +118,7 @@ def test_edge_shapes_of_the_plain_version():
                             torch.zeros(0, dtype=torch.int32),
                             torch.zeros(0), (0, 3))
     assert empty.mult(torch.ones(3)).shape == (0,)
-    zeros = tst.from_scipy(sp.csr_matrix((5, 5)))
+    zeros = tst.from_scipy(sp.csr_matrix((5, 5)), device="cpu")
     assert zeros.nnz == 0 and zeros.fast_form() is zeros
     assert torch.equal(zeros.mult(torch.ones(5, dtype=torch.float64)),
                        torch.zeros(5, dtype=torch.float64))
@@ -128,7 +128,8 @@ def test_edge_shapes_of_the_plain_version():
 def test_x_of_the_wrong_length_raises(method):
     # the kernel gathers x[cols] unchecked, so the wrapper checks the length
     # on every device; a 3x4 operator takes x of 4 entries, its adjoint 3
-    op = tst.from_scipy(sp.random(3, 4, density=0.5, random_state=6))
+    op = tst.from_scipy(sp.random(3, 4, density=0.5, random_state=6),
+                        device="cpu")
     right = 4 if method == "mult" else 3
     assert getattr(op, method)(torch.ones(right, dtype=torch.float64)).shape \
         == (7 - right,)
@@ -142,7 +143,7 @@ def test_routing_dense_diagonals_to_dia_and_the_rest_to_csr(monkeypatch):
     R = _rcm_laplacian()
     x = np.random.default_rng(3).standard_normal(L.shape[0])
     # port: dense diagonals -> DIAOperator (K1/K2), with the CSR's values
-    fast = tst.from_scipy(L).fast_form()
+    fast = tst.from_scipy(L, device="cpu").fast_form()
     assert isinstance(fast, tst.DIAOperator)
     assert fast.offsets == (-70, -1, 0, 1, 70)
     assert _rel(fast.mult(torch.from_numpy(x)).numpy(), L @ x) < 1e-15
@@ -160,7 +161,7 @@ def test_routing_dense_diagonals_to_dia_and_the_rest_to_csr(monkeypatch):
     assert jdia.offsets == fast.offsets
     monkeypatch.undo()
     # irregular pattern: the port keeps CSR (K6), the reference hybrid ELL
-    aij = tst.from_scipy(R)
+    aij = tst.from_scipy(R, device="cpu")
     assert aij.fast_form() is aij
     assert jst.from_scipy(R)._try_dia_padded() is None
     assert isinstance(jst.from_scipy(R).to_gell(), GELLPaddedOperator)
@@ -188,7 +189,7 @@ def jax_eps():
 @pytest.mark.parametrize("degree", [0, 20])
 def test_eps_on_csr_matches_reference_and_closed_form(jax_eps, degree):
     exact = tst.laplacian_3d_eigs(*DIMS, k=NEV)
-    A = tst.from_scipy(_rcm_laplacian())
+    A = tst.from_scipy(_rcm_laplacian(), device="cpu")
     eps = _eps(tst, A, degree)
     assert eps.nconv >= NEV and len(jax_eps[degree]) >= NEV
     lam = np.sort(eps.eigenvalues[:NEV])
@@ -201,9 +202,9 @@ def test_eps_on_csr_matches_reference_and_closed_form(jax_eps, degree):
 
 @pytest.mark.parametrize("degree", [0, 20])
 def test_eps_on_a_shell_operator(degree):
-    aij = tst.from_scipy(_rcm_laplacian())
+    aij = tst.from_scipy(_rcm_laplacian(), device="cpu")
     shell = tst.ShellOperator(aij.shape, torch.float64, aij.mult, aij.mult_h,
-                              nnz=aij.nnz)
+                              nnz=aij.nnz, device="cpu")
     eps = _eps(tst, shell, degree)
     assert eps.nconv >= NEV
     exact = tst.laplacian_3d_eigs(*DIMS, k=NEV)
@@ -215,13 +216,14 @@ def test_gershgorin_upper_of_aij_is_the_row_sum_bound():
         j_random_sparse(4320, density=0.001, seed=6, symmetric=True)
         .to_scipy())
     A = sp.csr_matrix(A)
-    hi = gershgorin_upper(tst.from_scipy(A))
+    hi = gershgorin_upper(tst.from_scipy(A, device="cpu"))
     rowsum = float(abs(A).sum(axis=1).max())
     assert abs(hi - rowsum) <= 1e-14 * rowsum
     assert hi >= float(eigsh(A, k=1, which="LA")[0][0])
     # another operator: power iteration x 1.1, seeded
     shell = tst.ShellOperator(A.shape, torch.float64,
-                              tst.from_scipy(A).mult)
+                              tst.from_scipy(A, device="cpu").mult,
+                              device="cpu")
     est = gershgorin_upper(shell)
     assert est == gershgorin_upper(shell) and est > 0.9 * rowsum
 
@@ -229,7 +231,7 @@ def test_gershgorin_upper_of_aij_is_the_row_sum_bound():
 def test_aij_from_slepc_tpu_round_trips():
     A = _round2_matrix()
     jop = jst.from_scipy(A)
-    top = interop.aij_from_slepc_tpu(jop)
+    top = interop.aij_from_slepc_tpu(jop, device="cpu")
     back = top.to_scipy()
     for name in ("indptr", "indices", "data"):
         assert np.array_equal(getattr(back, name), getattr(A, name)), name
@@ -242,7 +244,7 @@ def test_aij_from_slepc_tpu_round_trips():
 @pytest.mark.parametrize("kw", [{"m": 40}, {"symmetric": True}])
 def test_random_sparse_is_the_references_matrix(kw):
     a = j_random_sparse(60, density=0.1, seed=3, **kw)
-    b = tst.random_sparse(60, density=0.1, seed=3, **kw)
+    b = tst.random_sparse(60, density=0.1, seed=3, **kw, device="cpu")
     assert b.shape == a.shape
     assert abs(sp.csr_matrix(a.to_scipy()) - b.to_scipy()).max() == 0
 
@@ -258,7 +260,7 @@ def test_petsc_binary_files_cross_between_packages(tmp_path):
         Bt = tst.read_petsc_matrix(str(path))
         for name in ("indptr", "indices", "data"):
             assert np.array_equal(getattr(Bt, name), getattr(Bj, name)), name
-    op = tst.load_operator(str(ref_file))
+    op = tst.load_operator(str(ref_file), device="cpu")
     assert isinstance(op, tst.AIJOperator) and op.dtype == torch.float64
     assert np.array_equal(op.to_scipy().toarray(), A.toarray())
     v = np.random.default_rng(8).standard_normal(11)

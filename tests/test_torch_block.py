@@ -64,7 +64,7 @@ def test_block_spmm_matches_pallas_block_kernel(b):
         .astype(np.float32)
     Yp = jop.mult2d_block(jnp.stack([jop.pad2d(jnp.asarray(x)) for x in X]))
     Yj = np.stack([np.asarray(jop.unpad(y)) for y in Yp])
-    top = interop.dia_from_slepc_tpu(jop)
+    top = interop.dia_from_slepc_tpu(jop, device="cpu")
     Y = top.mult_block(torch.from_numpy(X)).numpy()
     assert Y.dtype == np.float32 and Y.shape == X.shape
     assert np.abs(Y - Yj).max() <= 1e-6 * np.abs(Yj).max()
@@ -84,7 +84,7 @@ def test_f64_block_spmm_matches_vmap_of_reference_mult(kind):
     rng = np.random.default_rng(8)
     V = rng.standard_normal((9, A.shape[0]))
     Yj = np.asarray(jax.vmap(A.mult)(jnp.asarray(V[2:6])))
-    top = interop.dia_from_slepc_tpu(A)
+    top = interop.dia_from_slepc_tpu(A, device="cpu")
     Vt = torch.from_numpy(V)
     Y = top.mult_block(Vt[2:6])  # a slice of a taller basis, as the cycle
     assert _rel(Y.numpy(), Yj) < 1e-13
@@ -106,7 +106,7 @@ def test_f64_blocked_cycle_matches_reference():
     Vj = jnp.zeros((ncv + b, n)).at[:b].set(jnp.asarray(rows0))
     oj = j_blocked(A, Vj, jnp.zeros((ncv + b, ncv)), jnp.asarray(0), 1e-8,
                    jax.random.PRNGKey(0), ncv=ncv, b=b, which="smallest")
-    top = interop.dia_from_slepc_tpu(A)
+    top = interop.dia_from_slepc_tpu(A, device="cpu")
     V = torch.zeros((ncv + b, n), dtype=torch.float64)
     V[:b] = torch.from_numpy(rows0)
     ot = ks_hep_cycle_blocked(top, V, np.zeros((ncv + b, ncv)), 0, 1e-8,
@@ -151,7 +151,7 @@ def test_f32_blocked_cycle_matches_pallas_sweeps():
     oj = j_blocked(jop, Vj, jnp.zeros((ncv + b, ncv), np.float32),
                    jnp.asarray(0), 1e-5, jax.random.PRNGKey(0), ncv=ncv, b=b,
                    which="largest", orth="pallas")
-    top = interop.dia_from_slepc_tpu(jop)
+    top = interop.dia_from_slepc_tpu(jop, device="cpu")
     V = torch.zeros((ncv + b, A.shape[0]), dtype=torch.float32)
     V[:b] = torch.from_numpy(interop.basis_from_padded(Vj[:b], A.shape[0]))
     ot = ks_hep_cycle_blocked(top, V, np.zeros((ncv + b, ncv), np.float32),
@@ -161,7 +161,8 @@ def test_f32_blocked_cycle_matches_pallas_sweeps():
 
 
 def _block_eps(pkg):
-    eps = pkg.EPS(pkg.laplacian_2d(40, 40), problem_type="hep",
+    kw = {"device": "cpu"} if pkg is tst else {}
+    eps = pkg.EPS(pkg.laplacian_2d(40, 40, **kw), problem_type="hep",
                   which="smallest_real", nev=4, ncv=32, tol=1e-9, max_it=200)
     eps.block_size = 4
     eps.solve()
@@ -210,7 +211,7 @@ def test_cheb_block_matches_reference_and_closed_form(jax_ref, case):
     nev = kw["nev"]
     exact = tst.laplacian_2d_eigs(side, side, k=nev)
     tst.reset_launch_counts()
-    res = ks_cheb_smallest(tst.laplacian_2d(side, side), tol=1e-8, block=4,
+    res = ks_cheb_smallest(tst.laplacian_2d(side, side, device="cpu"), tol=1e-8, block=4,
                            **kw)
     assert all(v == 0 for v in tst.launch_counts().values())  # CPU: plain
     j_nconv, j_lam = jax_ref[case]
@@ -225,7 +226,7 @@ def test_cheb_block_matches_reference_and_closed_form(jax_ref, case):
 
 
 def test_cheb_block_through_eps_rounds_ncv_up():
-    A = tst.laplacian_2d(30, 29)
+    A = tst.laplacian_2d(30, 29, device="cpu")
     eps = tst.EPS(A, problem_type="hep", which="smallest_real", nev=4,
                   ncv=22, tol=1e-9,
                   options=tst.Options.from_cli("-eps_cheb_degree 40"))
@@ -237,15 +238,15 @@ def test_cheb_block_through_eps_rounds_ncv_up():
 
 
 def test_cheb_block_ncv_must_divide():
-    A = tst.laplacian_2d(20, 20)  # tests/test_round5.py:31-35
+    A = tst.laplacian_2d(20, 20, device="cpu")  # tests/test_round5.py:31-35
     with pytest.raises(ValueError, match="multiple"):
         ks_cheb_smallest(A, nev=4, tol=1e-8, ncv=22, degree=20, block=4)
 
 
 def test_eps_block_size_on_rcm_ordered_csr():
-    L = sp.csr_matrix(tst.laplacian_3d(15, 16, 18).to_scipy())
+    L = sp.csr_matrix(tst.laplacian_3d(15, 16, 18, device="cpu").to_scipy())
     perm = reverse_cuthill_mckee(L, symmetric_mode=True)
-    A = tst.from_scipy(L[perm][:, perm].tocsr())
+    A = tst.from_scipy(L[perm][:, perm].tocsr(), device="cpu")
     assert A.fast_form() is A  # the CSR form: K6 once per row
     X = np.random.default_rng(2).standard_normal((3, A.shape[0]))
     Y = A.mult_block(torch.from_numpy(X)).numpy()

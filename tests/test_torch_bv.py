@@ -55,3 +55,223 @@ def test_panel_sweeps_take_a_basis_prefix():
     U, D = bv.panel_update_dots(V, C, W)
     assert torch.allclose(U, W - C.T @ V.clone(), rtol=0, atol=1e-12)
     assert torch.allclose(D, V.clone() @ U.T, rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# bv/orthog.py, bv/bv.py, bv/krylov.py: the port's row-major basis against
+# slepc_tpu's (n, m) column basis on the same seeded numpy data.  The
+# reference's masks select "the previous columns"; the port slices the row
+# prefix.  Tolerances: 1e-12 on orthogonalized vectors and coefficients
+# (f64, the same sweeps in another summation order), 1e-10 on the block
+# factorizations (Cholesky / eigh of a Gram matrix), signs aligned where a
+# factor is unique only up to sign.
+# ---------------------------------------------------------------------------
+
+import scipy.sparse as sp
+
+import slepc_tpu as jst
+from slepc_tpu.bv import orthog as jorth
+from slepc_tpu.bv.bv import BV as JBV
+from slepc_tpu.bv.krylov import arnoldi_extend as j_arnoldi
+from slepc_tpu.bv.krylov import lanczos_extend as j_lanczos
+import slepc_tpu_torch as tst
+from slepc_tpu_torch import interop
+from slepc_tpu_torch.bv import orthog as torth
+from slepc_tpu_torch.bv.bv import BV, OrthogBlockType
+from slepc_tpu_torch.bv.krylov import arnoldi_extend, lanczos_extend
+
+
+def _metric(n, seed=3):
+    d = 1.0 + np.random.default_rng(seed).random(n)
+    Bs = sp.diags([0.1 * np.ones(n - 1), d, 0.1 * np.ones(n - 1)],
+                  [-1, 0, 1]).tocsr()
+    return jst.from_scipy(Bs), tst.from_scipy(Bs, device="cpu"), Bs.toarray()
+
+
+@pytest.mark.parametrize("metric", [False, True])
+@pytest.mark.parametrize("passes", [1, 2, 3])
+def test_orthogonalize_vec_matches_reference(metric, passes):
+    rng = np.random.default_rng(1)
+    n, m, j = 90, 12, 7
+    V = np.linalg.qr(rng.standard_normal((n, m)))[0]
+    w = rng.standard_normal(n)
+    jB, tB, Bd = _metric(n) if metric else (None, None, None)
+    mask = (np.arange(m) < j).astype(np.float64)
+    wj, cj, nbj, naj = jorth.orthogonalize_vec(
+        jnp.asarray(V), jnp.asarray(mask), jnp.asarray(w),
+        None if jB is None else jB.mult, passes=passes)
+    wt, ct, nbt, nat = torth.orthogonalize_vec(
+        torch.from_numpy(V.T.copy())[:j], torch.from_numpy(w),
+        None if tB is None else tB.mult, passes=passes)
+    assert np.abs(wt.numpy() - np.asarray(wj)).max() < 1e-12
+    assert np.abs(ct.numpy() - np.asarray(cj)[:j]).max() < 1e-12
+    assert abs(float(nbt) - float(nbj)) < 1e-12
+    assert abs(float(nat) - float(naj)) < 1e-12
+    # no rows to project against: the vector comes back untouched
+    w0, c0, nb0, na0 = torth.orthogonalize_vec(
+        torch.zeros((0, n), dtype=torch.float64), torch.from_numpy(w))
+    assert w0 is not None and c0.numel() == 0 and float(nb0) == float(na0)
+
+
+@pytest.mark.parametrize("metric", [False, True])
+@pytest.mark.parametrize("name", ["cholqr", "cholqr2", "svqb", "mgs_block"])
+def test_block_orthonormalization_matches_reference(name, metric):
+    rng = np.random.default_rng(2)
+    n, m = 70, 11  # more rows than one K3 panel
+    X = rng.standard_normal((n, m)) @ np.diag(np.logspace(0, 2, m))
+    jB, tB, Bd = _metric(n) if metric else (None, None, np.eye(n))
+    Qj, Fj = getattr(jorth, name)(jnp.asarray(X), None if jB is None else jB.mult)
+    Qt, Ft = getattr(torth, name)(torch.from_numpy(X.T.copy()),
+                                  None if tB is None else tB.mult)
+    Qt = Qt.numpy()
+    np.testing.assert_allclose(Qt @ Bd @ Qt.T, np.eye(m), atol=1e-10)
+    sign = np.sign(np.sum(Qt.T * np.asarray(Qj), axis=0))
+    assert np.abs(Qt.T * sign - np.asarray(Qj)).max() < 1e-10
+    if name == "svqb":  # Q_cols = X_cols T
+        np.testing.assert_allclose(X @ Ft, Qt.T, atol=1e-10)
+    else:               # X_cols = Q_cols R
+        np.testing.assert_allclose(Qt.T @ Ft, X, atol=1e-9)
+        np.testing.assert_allclose(np.abs(Ft), np.abs(np.asarray(Fj)), atol=1e-9)
+
+
+def test_cholqr2_shifts_a_rank_deficient_block():
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((4, 60))
+    X[3] = X[0] + X[1]  # exactly dependent rows: the Gram matrix is singular
+    Q, _ = torth.cholqr2(torch.from_numpy(X))
+    assert torch.isfinite(Q).all()
+
+
+def _bv_pair(n, m, metric, seed=4):
+    rng = np.random.default_rng(seed)
+    jbv = JBV(n, m)
+    jbv.array = jnp.asarray(rng.standard_normal((n, m)))
+    jB = tB = None
+    if metric:
+        jB, tB, _ = _metric(n)
+        jbv.set_matrix(jB)
+    return jbv, interop.bv_from_slepc_tpu(jbv, device="cpu")
+
+
+@pytest.mark.parametrize("metric", [False, True])
+def test_bv_columns_constraints_and_orthonormalization(metric):
+    n, m = 80, 6
+    jbv, tbv = _bv_pair(n, m, metric)
+    assert tbv.array.shape == (m, n) and (tbv.matrix is not None) == metric
+    C = np.random.default_rng(5).standard_normal((n, 2))
+    assert jbv.insert_constraints(jnp.asarray(C)) == \
+        tbv.insert_constraints(C.T) == 2
+    assert tbv.array.shape == (m + 2, n) and tbv.nc == 2
+    for j in range(3):
+        cj, nj, lj = jbv.orthonormalize_column(j, replace_lindep=True)
+        ct, nt, lt = tbv.orthonormalize_column(j, replace_lindep=True)
+        assert lj == lt and abs(nj - nt) < 1e-12 * max(1.0, abs(nj))
+        # the reference pads its coefficients with masked zeros
+        assert np.abs(ct - np.asarray(cj)[:j]).max(initial=0.0) < 1e-11
+        assert np.abs(np.asarray(cj)[j:]).max() == 0.0
+        assert abs(tbv.norm_column(j) - 1.0) < 1e-12
+    A = np.asarray(jbv.array)
+    sign = np.sign(np.sum(tbv.array.numpy().T * A, axis=0))
+    assert np.abs(tbv.array.numpy().T * sign - A)[:, :5].max() < 1e-11
+    np.testing.assert_allclose(tbv.to_numpy()[:, :3],
+                               np.asarray(jbv.to_numpy())[:, :3], atol=1e-11)
+    y = np.random.default_rng(6).standard_normal(n)
+    tbv.set_active_columns(0, 3)
+    jbv.set_active_columns(0, 3)
+    np.testing.assert_allclose(tbv.dot_vec(y).numpy(),
+                               np.asarray(jbv.dot_vec(jnp.asarray(y))), atol=1e-11)
+    v, c, nrm, lindep = tbv.orthogonalize_vec(y)
+    vj, cj, nrmj, lindepj = jbv.orthogonalize_vec(jnp.asarray(y))
+    assert lindep == lindepj and abs(nrm - nrmj) < 1e-11
+    assert np.abs(v.numpy() - np.asarray(vj)).max() < 1e-11
+
+
+def test_bv_lindep_replacement_and_block_ops():
+    n, m = 50, 5
+    jbv, tbv = _bv_pair(n, m, False, seed=7)
+    for bv_ in (jbv, tbv):
+        bv_.orthonormalize_column(0)
+        bv_.set_column(1, 3.0 * np.asarray(bv_.get_column(0)))  # dependent
+    cj, nj, lj = jbv.orthonormalize_column(1, replace_lindep=True)
+    ct, nt, lt = tbv.orthonormalize_column(1, replace_lindep=True)
+    assert lt == lj is False and abs(nt - nj) < 1e-10
+    assert abs(float(torch.dot(tbv.get_column(0), tbv.get_column(1)))) < 1e-12
+    # mult_in_place (K4) and mult_vec against the reference
+    Q = np.linalg.qr(np.random.default_rng(8).standard_normal((m, m)))[0]
+    jbv.mult_in_place(Q, 0, 3)
+    tbv.mult_in_place(Q, 0, 3)
+    np.testing.assert_allclose(tbv.to_numpy(), np.asarray(jbv.to_numpy()),
+                               atol=1e-10)
+    q = np.arange(1.0, 4.0)
+    np.testing.assert_allclose(tbv.mult_vec(q).numpy(),
+                               np.asarray(jbv.mult_vec(q)), atol=1e-10)
+    for bt in (OrthogBlockType.CHOL, OrthogBlockType.SVQB, OrthogBlockType.GS):
+        _, t2 = _bv_pair(n, m, False, seed=9)
+        t2.orthogonalize(bt)
+        G = t2.array @ t2.array.T
+        np.testing.assert_allclose(G.numpy(), np.eye(m), atol=1e-10)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        BV(10, 2)  # no card here, and no quiet CPU fallback
+
+
+@pytest.mark.parametrize("metric", [False, True])
+def test_arnoldi_and_lanczos_extend_match_reference(metric):
+    nx, ny, mmax, nc = 9, 8, 10, 1
+    n = nx * ny
+    jA = jst.laplacian_2d(nx, ny)
+    tA = interop.dia_from_slepc_tpu(jA, device="cpu")
+    jB, tB, Bd = _metric(n) if metric else (None, None, np.eye(n))
+    rng = np.random.default_rng(10)
+    V0 = np.zeros((n, nc + mmax + 1))
+    c = rng.standard_normal(n)
+    V0[:, 0] = c / np.sqrt(c @ Bd @ c)
+    v = rng.standard_normal(n)
+    v -= V0[:, 0] * (V0[:, 0] @ Bd @ v)
+    V0[:, 1] = v / np.sqrt(v @ Bd @ v)
+    if metric:  # B^{-1} A is B-self-adjoint
+        Binv = np.linalg.inv(Bd)
+        jop = jst.ShellOperator((n, n), np.float64,
+                                lambda x: jnp.asarray(Binv) @ jA.mult(x))
+        top = tst.ShellOperator((n, n), torch.float64,
+                                lambda x: torch.from_numpy(Binv) @ tA.mult(x),
+                                device="cpu")
+    else:
+        jop, top = jA, tA
+    Vj, Hj, betaj, brkj, _ = j_arnoldi(jop, jnp.asarray(V0),
+                                      jnp.zeros((mmax + 1, mmax)), 0, 6,
+                                      nc=nc, Bop=jB)
+    Vt = torch.from_numpy(V0.T.copy())
+    Ht = np.zeros((mmax + 1, mmax))
+    Vt, Ht, betat, brkt = arnoldi_extend(top, Vt, Ht, 0, 6, nc=nc, Bop=tB)
+    assert not brkt and not bool(brkj)
+    assert abs(betat - float(betaj)) < 1e-10
+    np.testing.assert_allclose(Ht, np.asarray(Hj), atol=1e-10)
+    np.testing.assert_allclose(Vt.numpy().T, np.asarray(Vj), atol=1e-10)
+    # a second window continues the same factorization
+    Vj, Hj, betaj, _, _ = j_arnoldi(jop, Vj, Hj, 6, mmax, nc=nc, Bop=jB)
+    Vt, Ht, betat, _ = arnoldi_extend(top, Vt, Ht, 6, mmax, nc=nc, Bop=tB)
+    np.testing.assert_allclose(Ht, np.asarray(Hj), atol=1e-9)
+    G = Vt.numpy() @ Bd @ Vt.numpy().T
+    np.testing.assert_allclose(G, np.eye(nc + mmax + 1), atol=1e-10)
+    # Lanczos: the tridiagonal read off the same loop
+    al, be = np.zeros(mmax), np.zeros(mmax)
+    Vj2, alj, bej, bmj, _, _ = j_lanczos(jop, jnp.asarray(V0), jnp.asarray(al),
+                                         jnp.asarray(be), 0, mmax, nc=nc, Bop=jB)
+    Vt2, alt, bet, bmt, _ = lanczos_extend(top, torch.from_numpy(V0.T.copy()),
+                                           al, be, 0, mmax, nc=nc, Bop=tB)
+    np.testing.assert_allclose(alt, np.asarray(alj), atol=1e-10)
+    np.testing.assert_allclose(bet, np.asarray(bej), atol=1e-10)
+    assert abs(bmt - float(bmj)) < 1e-10
+
+
+def test_arnoldi_breakdown_restarts_with_a_random_vector():
+    n = 12
+    e0 = np.zeros(n)
+    e0[0] = 1.0
+    top = tst.DiagonalOperator(np.arange(1.0, n + 1), device="cpu")
+    V = torch.zeros((5, n), dtype=torch.float64)
+    V[0] = torch.from_numpy(e0)  # an eigenvector: A v is parallel to v
+    H = np.zeros((5, 4))
+    V, H, beta, brk = arnoldi_extend(top, V, H, 0, 3)
+    assert brk and H[1, 0] == 0.0 and abs(H[0, 0] - 1.0) < 1e-14
+    np.testing.assert_allclose((V[:4] @ V[:4].T).numpy(), np.eye(4), atol=1e-12)

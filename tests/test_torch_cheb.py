@@ -28,7 +28,7 @@ CHEB_OPTS = "-eps_cheb_degree 60"
 
 
 def _cheb_eps(pkg):
-    A = pkg.laplacian_2d(60, 60)
+    A = pkg.laplacian_2d(60, 60, **({"device": "cpu"} if pkg is tst else {}))
     eps = pkg.EPS(A, problem_type="hep", which="smallest_real", nev=8, ncv=24,
                   tol=1e-8, options=pkg.Options.from_cli(CHEB_OPTS))
     eps.solve()
@@ -51,7 +51,7 @@ def jax_plain():
 
 def test_amplifier_apply_matches_reference():
     A = jst.laplacian_2d(30, 28)
-    top = interop.dia_from_slepc_tpu(A)
+    top = interop.dia_from_slepc_tpu(A, device="cpu")
     lo, hi, deg = 0.05, gershgorin_upper(top), 60
     assert hi == 8.0
     x = np.random.default_rng(4).standard_normal(A.shape[0])
@@ -73,7 +73,7 @@ def test_cheb_eps_slice_matches_reference_and_closed_form(jax_cheb):
 
 
 def test_plain_eps_matches_reference(jax_plain):
-    eps = tst.EPS(tst.laplacian_2d(18, 17), problem_type="hep",
+    eps = tst.EPS(tst.laplacian_2d(18, 17, device="cpu"), problem_type="hep",
                   which="largest_real", nev=4)
     eps.solve()
     assert eps.nconv >= 4
@@ -87,9 +87,11 @@ def test_plain_eps_matches_reference(jax_plain):
 
 @pytest.mark.parametrize("kw,match", [
     ({"problem_type": "nhep"}, "item 11"),
-    ({"problem_type": "hep", "which": "target_magnitude"}, "item 11"),
+    # harmonic extraction (interior targets now run: shift-and-invert)
+    ({"problem_type": "hep", "which": "target_magnitude",
+      "options": tst.Options.from_cli("-eps_harmonic")}, "item 11"),
 ])
 def test_unported_eps_paths_raise(kw, match):
-    eps = tst.EPS(tst.laplacian_1d(20), nev=2, **kw)
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), nev=2, **kw)
     with pytest.raises(NotImplementedError, match=match):
         eps.solve()

@@ -47,7 +47,7 @@ def test_f32_matches_padded_kernels(kind):
     n = A.shape[0]
     A32 = JDIAOperator(A.offsets, np.asarray(A.diags, np.float32))
     jop = dp.DIAPaddedOperator.from_dia(A32, block_rows=RB)
-    top = interop.dia_from_slepc_tpu(jop)
+    top = interop.dia_from_slepc_tpu(jop, device="cpu")
     assert top.dtype == torch.float32
     x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
     y = top.mult(torch.from_numpy(x)).numpy()
@@ -63,7 +63,7 @@ def test_f64_matches_double_single_kernel(kind):
     A = _operators(kind)
     n = A.shape[0]
     jop = dp.DIAPaddedOperatorDS.from_dia(A, block_rows=RB)
-    top = interop.dia_from_slepc_tpu(jop)
+    top = interop.dia_from_slepc_tpu(jop, device="cpu")
     assert top.dtype == torch.float64
     x = np.random.default_rng(2).standard_normal(n)
     y = top.mult(torch.from_numpy(x)).numpy()
@@ -110,7 +110,7 @@ def test_plain_version_handles_offsets_past_the_ends():
 def test_operator_rejects_x_of_the_wrong_length(method):
     # the kernels take n from x, so a short x would silently give the
     # product of A's leading block: the operator checks on every device
-    top = interop.dia_from_slepc_tpu(laplacian_2d(6, 5))
+    top = interop.dia_from_slepc_tpu(laplacian_2d(6, 5), device="cpu")
     for wrong in (29, 31):
         x = torch.ones(wrong, dtype=torch.float64)
         with pytest.raises(ValueError, match="30 columns"):

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import slepc_tpu_torch as stt
-from slepc_tpu_torch.ops import bv, csr, dia, rotate
+from slepc_tpu_torch.ksp import tridiag_device as td
+from slepc_tpu_torch.ops import bv, csr, dia, rotate, stream
 
 pytestmark = pytest.mark.gpu
 
@@ -272,3 +273,73 @@ def test_aij_operator_routes_to_its_kernel_on_the_card(cuda):
     assert counts["csr_spmv_f64"] == 2 and counts["dia_spmv_f64"] == 1
     for out, want in ((y, A @ x), (yh, A.T @ x), (yd, L @ x)):
         assert np.abs(out.cpu().numpy() - want).max() <= 1e-13
+
+
+# ---- K7, the stream yardstick --------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("nd,n,start,pad", [
+    (1, 1, 0, 0), (7, 1000, 0, 0), (7, 1001, 1, 0), (3, 4099, 3, 0),
+    (32, 70_001, 0, 0), (7, 1001, 0, 3), (5, 4099, 0, 1)])
+def test_stream_kernel_matches_plain(cuda, dtype, tol, nd, n, start, pad):
+    # start > 0 or an odd row stride: rows that are not 16-byte aligned take
+    # the scalar kernel; pad > 0: aligned rows of odd length, the vector
+    # kernel and its scalar tail
+    d = _rand((nd, start + n + pad), dtype, cuda, 2)[:, start: start + n]
+    x = _rand((n + start,), dtype, cuda, 3)[start:].clone()
+    before = dict(stream.launches)
+    y = stream.stream_sum(d, x)
+    ref = stream.stream_sum_ref(d, x)
+    torch.cuda.synchronize()
+    scale = stream.stream_sum_ref(d.abs(), x.abs()).max()
+    assert float((y - ref).abs().max() / scale) <= 4 * tol
+    key = "stream_sum_f64" if dtype == torch.float64 else "stream_sum_f32"
+    assert stream.launches[key] == before[key] + 1
+    out = torch.empty_like(x)
+    assert stream.stream_sum(d, x, out=out) is out
+    assert torch.equal(out, y)  # deterministic
+
+
+def test_stream_rejects_without_fallback_and_measures_a_rate(cuda):
+    d = torch.ones((3, 64), dtype=torch.float64, device=cuda)
+    x = torch.ones(64, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream.stream_sum(d[:, ::2], x[:32])
+    with pytest.raises(ValueError, match="dtype or device"):
+        stream.stream_sum(d, x.cpu())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        stream.stream_sum(d.half(), x.half())
+    rate = stream.stream_bandwidth(7, 1 << 20, torch.float64, cuda, reps=5)
+    assert 10.0 < rate < 3350.0  # GB/s, below the card's published peak
+
+
+# ---- the scanned LDL^T on the card -----------------------------------------
+
+@pytest.mark.parametrize("n,sigma", [(1000, 0.0), (100_003, 1.3),
+                                     (1_000_000, 2.0001)])
+def test_scanned_tridiagonal_ldlt_on_the_card(cuda, n, sigma):
+    A = stt.laplacian_1d(n, device=cuda)
+    a, b = td.tridiag_of_operator(A)
+    exact = stt.laplacian_1d_eigs(n)
+    assert int(td.tridiag_inertia(a, b, sigma)) == int(np.sum(exact < sigma))
+    rhs = _rand((n,), torch.float64, cuda, 4)
+    piv = td.tridiag_pivots(a, b, sigma)
+    x = td.tridiag_solve(a, b, sigma, rhs, pivots=piv)
+    r = A.mult(x) - sigma * x - rhs
+    assert float(r.norm() / rhs.norm()) <= 1e-8
+    # the same recurrences on the CPU give the same pivots
+    piv_cpu = td.tridiag_pivots(a.cpu(), b.cpu(), sigma)
+    ok = piv_cpu.abs() > 1e-6  # away from the near-zero pivots
+    rel = ((piv.cpu() - piv_cpu).abs() / piv_cpu.abs())[ok]
+    assert float(rel.median()) <= 1e-10
+
+
+def test_block_tridiagonal_ldlt_on_the_card(cuda):
+    A = stt.laplacian_2d(12, 9, device=cuda)
+    Ab, Bb = (torch.from_numpy(M).to(cuda) for M in td.btridiag_of_operator(A))
+    exact = stt.laplacian_2d_eigs(12, 9)
+    for sigma in (0.0, 1.5, 3.7):
+        assert int(td.btridiag_inertia(Ab, Bb, sigma)) == int(np.sum(exact < sigma))
+    rhs = _rand((A.shape[0],), torch.float64, cuda, 5)
+    x = td.btridiag_solve(Ab, Bb, 1.5, rhs)
+    assert float((A.mult(x) - 1.5 * x - rhs).norm() / rhs.norm()) <= 1e-10

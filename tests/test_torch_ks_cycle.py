@@ -39,7 +39,7 @@ def test_f64_cycle_matches_double_single_reference():
     side, ncv, rb = 24, 10, 8
     A = laplacian_2d(side, side)
     jop = DIAPaddedOperatorDS.from_dia(A, block_rows=rb)
-    top = interop.dia_from_slepc_tpu(jop)
+    top = interop.dia_from_slepc_tpu(jop, device="cpu")
     v0 = np.random.default_rng(5).standard_normal(side * side)
     v0 /= np.linalg.norm(v0)
 
@@ -66,7 +66,7 @@ def test_f32_cycle_matches_pallas_sweeps():
     side, ncv = 90, 12
     A = laplacian_2d(side, side, dtype=np.float32)
     jop = DIAPaddedOperator.from_dia(A)
-    top = interop.dia_from_slepc_tpu(jop)
+    top = interop.dia_from_slepc_tpu(jop, device="cpu")
     x0 = jop.pad2d(jnp.ones((A.shape[0],), np.float32))
     v0 = x0 / jnp.linalg.norm(x0)
     Vj = jnp.zeros((ncv + 1,) + x0.shape, np.float32).at[0].set(v0)
@@ -81,7 +81,7 @@ def test_f32_cycle_matches_pallas_sweeps():
 @pytest.mark.parametrize("kw", [{"rot_mode": "mixed"}, {"rot_mode": "hybrid"}])
 def test_unported_modes_raise_naming_the_roadmap(kw):
     # the light reorthogonalizations are ported: tests/test_torch_reorth.py
-    top = interop.dia_from_slepc_tpu(laplacian_2d(6, 6))
+    top = interop.dia_from_slepc_tpu(laplacian_2d(6, 6), device="cpu")
     V = torch.zeros((5, 36), dtype=torch.float64)
     V[0, 0] = 1.0
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,0 +1,210 @@
+"""The general Krylov-Schur loop (eps/krylovschur.py) against slepc_tpu's,
+on the CPU.
+
+Counterparts of tests/test_eps_krylovschur.py:53 (interior target by
+shift-and-invert), :98 (GHEP with a dense SPD B) and :122 (GHEP
+shift-and-invert), plus the deflation space of :141, ``true_residual``,
+``mpd``, a generalized sinvert on a stencil with a tridiagonal SPD B, and
+the -st_* options.  Both packages get the same operators and, in the
+general loop, the same start vector (``default_rng(0).standard_normal(n)``),
+so they walk the same trajectory: eigenvalues within 1e-10 of each other,
+the same ``its`` and ``nconv``, and within the reference tests' own
+tolerances of scipy / the closed form.
+"""
+
+import numpy as np
+import pytest
+import scipy.linalg as sla
+import scipy.sparse as sp
+
+import slepc_tpu as jst
+import slepc_tpu_torch as tst
+from slepc_tpu_torch import interop
+from slepc_tpu_torch.eps.base import EPSConvergedReason
+
+
+def _both(make_ops, configure=None, **eps_kw):
+    """Solve with both packages; make_ops() gives slepc_tpu operators."""
+    out = []
+    for pkg in (jst, tst):
+        ops = make_ops()
+        if pkg is tst:
+            ops = [interop.operator_from_slepc_tpu(M, device="cpu") for M in ops]
+        eps = pkg.EPS(*ops, options=pkg.Options(), **eps_kw)
+        if configure is not None:
+            configure(eps)
+        eps.solve()
+        out.append(eps)
+    je, te = out
+    assert te.nconv == je.nconv and te.its == je.its
+    k = te.nconv
+    np.testing.assert_allclose(te.eigenvalues[:k], je.eigenvalues[:k].real,
+                               rtol=1e-10, atol=1e-10)
+    assert te.reason == EPSConvergedReason.CONVERGED_TOL
+    assert te._eigenvectors.shape == (k, ops[0].shape[0])
+    return je, te
+
+
+def test_hep_sinvert_target():
+    n = 150
+    exact = tst.laplacian_1d_eigs(n)
+    _, te = _both(lambda: [jst.laplacian_1d(n)],
+                  lambda eps: eps.set_target(1.0), problem_type="hep", nev=4)
+    assert te.nconv >= 4
+    want = np.sort(exact[np.argsort(np.abs(exact - 1.0))][:4])
+    np.testing.assert_allclose(np.sort(te.eigenvalues[:4]), want, rtol=1e-7)
+    assert te.st.name == "sinvert" and te.st.ksp.method == "direct"
+    assert max(te.compute_error(i) for i in range(4)) < 1e-8
+    # wanted-first: sorted by distance to the target
+    d = np.abs(te.eigenvalues[:te.nconv] - 1.0)
+    assert np.all(np.diff(d) >= 0)
+
+
+def _dense_pair(seed, n, kind):
+    rng = np.random.default_rng(seed)
+    Ad = rng.standard_normal((n, n))
+    Ad = 0.5 * (Ad + Ad.T)
+    if kind == "spd":
+        Bd = rng.standard_normal((n, n)) / np.sqrt(n)
+        Bd = Bd @ Bd.T + n * np.eye(n) * 0.1
+    else:
+        Bd = np.eye(n) + 0.1 * np.diag(rng.random(n))
+    return Ad, Bd
+
+
+def test_ghep_shift():
+    Ad, Bd = _dense_pair(5, 80, "spd")
+    _, te = _both(lambda: [jst.DenseOperator(Ad), jst.DenseOperator(Bd)],
+                  problem_type="ghep", which="largest_real", nev=4)
+    assert te.nconv >= 4
+    w = sla.eigh(Ad, Bd, eigvals_only=True)
+    np.testing.assert_allclose(np.sort(te.eigenvalues[:4])[::-1], w[::-1][:4],
+                               rtol=1e-7)
+    X = te._eigenvectors[:4].numpy()  # rows, B-orthonormal
+    np.testing.assert_allclose(X @ Bd @ X.T, np.eye(4), atol=1e-6)
+    assert max(te.compute_error(i) for i in range(4)) < 1e-7
+
+
+def test_ghep_sinvert():
+    Ad, Bd = _dense_pair(6, 60, "diag")
+    _, te = _both(lambda: [jst.DenseOperator(Ad), jst.DenseOperator(Bd)],
+                  lambda eps: eps.set_target(0.5), problem_type="ghep", nev=3)
+    assert te.nconv >= 3
+    w = sla.eigh(Ad, Bd, eigvals_only=True)
+    want = np.sort(w[np.argsort(np.abs(w - 0.5))][:3])
+    np.testing.assert_allclose(np.sort(te.eigenvalues[:3]), want, rtol=1e-7)
+
+
+def test_ghep_sinvert_on_a_stencil_with_a_sparse_mass_matrix():
+    """Host LDL^T / LU factorization of A - sigma B (CSR), B-metric basis,
+    several restarts with locking (ncv small)."""
+    nx, ny = 14, 13
+    n = nx * ny
+    Bs = sp.diags([np.full(n - 1, 1 / 6), np.full(n, 2 / 3),
+                   np.full(n - 1, 1 / 6)], [-1, 0, 1]).tocsr()
+    As = sp.csr_matrix(np.asarray(jst.laplacian_2d(nx, ny).to_dense()))
+    je, te = _both(lambda: [jst.laplacian_2d(nx, ny), jst.from_scipy(Bs)],
+                   lambda eps: eps.set_target(2.2), problem_type="ghep",
+                   nev=6, ncv=12, tol=1e-10)
+    assert te.nconv >= 6 and te.its > 1
+    w = sla.eigh(As.toarray(), Bs.toarray(), eigvals_only=True)
+    want = np.sort(w[np.argsort(np.abs(w - 2.2))][:6])
+    np.testing.assert_allclose(np.sort(te.eigenvalues[:6]), want, rtol=1e-9)
+    assert max(te.compute_error(i) for i in range(6)) < 1e-8
+
+
+def test_deflation_space_and_true_residual_and_mpd():
+    n = 80
+    j = np.arange(1, n + 1)
+    v_top = np.sin(np.pi * n * j / (n + 1))
+    v_top /= np.linalg.norm(v_top)
+    exact = tst.laplacian_1d_eigs(n)
+
+    def configure(eps):
+        eps.set_deflation_space(v_top)
+        eps.set_true_residual(True)
+
+    _, te = _both(lambda: [jst.laplacian_1d(n)], configure,
+                  problem_type="hep", which="largest_real", nev=2, mpd=10)
+    # the 2nd and 3rd largest, not the deflated largest
+    np.testing.assert_allclose(np.sort(te.eigenvalues[:2])[::-1],
+                               exact[::-1][1:3], rtol=1e-6)
+    assert te.mpd == 10
+
+
+def test_initial_space_monitor_and_stopping():
+    n = 60
+    v0 = np.random.default_rng(7).standard_normal(n)
+    calls = []
+
+    def configure(eps):
+        eps.set_initial_space(v0)
+        eps.set_target(0.3)
+        if isinstance(eps, tst.EPS):
+            eps.set_monitor(lambda s, its, k, e, r: calls.append((its, k)))
+
+    _both(lambda: [jst.laplacian_1d(n)], configure, problem_type="hep", nev=2)
+    assert calls and calls[-1][1] >= 2
+    # a user stopping test ends the run after one cycle
+    te = tst.EPS(tst.laplacian_1d(n, device="cpu"), problem_type="hep",
+                 which="largest_real", nev=20, ncv=24)
+    te.set_deflation_space(v0)  # forces the general loop
+    te.stopping = lambda eps, its, k, nev: True
+    te.solve()
+    assert te.its == 1 and te.reason == EPSConvergedReason.DIVERGED_ITS
+
+
+@pytest.mark.parametrize("cli,name,method", [
+    ("-st_type sinvert -st_shift 1.0", "sinvert", "direct"),
+    ("-st_type sinvert -st_shift 1.0 -st_ksp_type minres", "sinvert", "minres"),
+    ("-st_type cayley -st_shift 1.0", "cayley", "direct"),
+    ("-eps_target 1.0", "sinvert", "direct"),
+])
+def test_st_options(cli, name, method):
+    n = 150
+    exact = tst.laplacian_1d_eigs(n)
+    want = np.sort(exact[np.argsort(np.abs(exact - 1.0))][:3])
+    te = tst.EPS(tst.laplacian_1d(n, device="cpu"), problem_type="hep", nev=3,
+                 options=tst.Options.from_cli(cli))
+    te.solve()
+    assert te.st.name == name and te.st.ksp.method == method
+    assert te.which == tst.Which.TARGET_MAGNITUDE and te.target == 1.0
+    np.testing.assert_allclose(np.sort(te.eigenvalues[:3]), want, rtol=1e-7)
+    je = jst.EPS(jst.laplacian_1d(n), problem_type="hep", nev=3,
+                 options=jst.Options.from_cli(cli))
+    if method != "minres":  # the reference runs CG there, which breaks down
+        je.solve()
+        np.testing.assert_allclose(np.sort(te.eigenvalues[:3]),
+                                   np.sort(je.eigenvalues[:3].real), rtol=1e-9)
+    with pytest.raises(tst.EPSError, match="unknown st_type"):
+        tst.EPS(tst.laplacian_1d(8, device="cpu"), problem_type="hep",
+                options=tst.Options.from_cli("-st_type bogus")).solve()
+
+
+@pytest.mark.parametrize("kw,setup,what", [
+    (dict(problem_type="nhep"), None, "problem_type='nhep'"),
+    (dict(problem_type="ghiep"), None, "problem_type='ghiep'"),
+    (dict(problem_type="hep"), lambda e: setattr(e, "extraction", "harmonic"),
+     "harmonic extraction"),
+    (dict(problem_type="hep"), lambda e: setattr(e, "two_sided", True),
+     "two-sided"),
+    (dict(problem_type="hep"), lambda e: setattr(e, "balance", "krylov"),
+     "balancing"),
+    (dict(problem_type="hep"), lambda e: setattr(e, "arbitrary", abs),
+     "arbitrary selection"),
+    (dict(problem_type="hep", solver="lanczos"), None, "solver 'lanczos'"),
+])
+def test_unported_arms_raise_naming_the_roadmap(kw, setup, what):
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), **kw)
+    if setup is not None:
+        setup(eps)
+    with pytest.raises(NotImplementedError, match="queue 1, item 11") as err:
+        eps.solve()
+    assert what in str(err.value)
+
+
+def test_st_filter_raises_naming_the_roadmap():
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type="hep",
+                  options=tst.Options.from_cli("-st_type filter"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        eps.solve()

@@ -37,30 +37,30 @@ def _dia_pair():
     # slepc_tpu's DIA rolls x circularly: entries past the ends must be zero
     d *= np.asarray(base.diags) != 0
     jop = jl.DIAOperator(base.offsets, d)
-    return jop, interop.dia_from_slepc_tpu(jop)
+    return jop, interop.dia_from_slepc_tpu(jop, device="cpu")
 
 
 def _pairs(kind):
     M, d = _mats()
-    jd, td = jl.DenseOperator(M), tl.DenseOperator(M)
+    jd, td = jl.DenseOperator(M), tl.DenseOperator(M, device="cpu")
     jdia, tdia = _dia_pair()
     if kind == "dense":
         return jd, td
     if kind == "identity":
-        return jl.IdentityOperator(N), tl.IdentityOperator(N)
+        return jl.IdentityOperator(N), tl.IdentityOperator(N, device="cpu")
     if kind == "dia":
         return jdia, tdia
     if kind == "aij_rect":
         a = j_random_sparse(N, 17, density=0.3, seed=1)
-        return a, tst.random_sparse(N, 17, density=0.3, seed=1)
+        return a, tst.random_sparse(N, 17, density=0.3, seed=1, device="cpu")
     if kind == "shell":
         Mj, Mt = jnp.asarray(M), torch.from_numpy(M)
         return (jl.ShellOperator((N, N), np.float64, lambda x: Mj @ x,
                                  lambda x: Mj.T @ x),
                 tl.ShellOperator((N, N), torch.float64, lambda x: Mt @ x,
-                                 lambda x: Mt.T @ x))
+                                 lambda x: Mt.T @ x, device="cpu"))
     if kind == "diagonal":
-        return jl.DiagonalOperator(d), tl.DiagonalOperator(d)
+        return jl.DiagonalOperator(d), tl.DiagonalOperator(d, device="cpu")
     if kind == "scaled":
         return 2.5 * jd, 2.5 * td
     if kind == "sum":
@@ -77,7 +77,7 @@ def _pairs(kind):
         return jdia.shifted(0.7), tdia.shifted(0.7)
     if kind == "shifted_by_b":
         return (jdia.shifted(0.7, jl.DiagonalOperator(d)),
-                tdia.shifted(0.7, tl.DiagonalOperator(d)))
+                tdia.shifted(0.7, tl.DiagonalOperator(d, device="cpu")))
     raise KeyError(kind)
 
 
@@ -122,7 +122,7 @@ def test_norm_estimates_match_reference():
             <= 1e-12 * jop.norm_estimate(), kind
     # n > 4096: the randomized estimate, the same numpy vector in both
     jb = j_random_sparse(5000, density=0.001, seed=2)
-    tb = tst.random_sparse(5000, density=0.001, seed=2)
+    tb = tst.random_sparse(5000, density=0.001, seed=2, device="cpu")
     jsum, tsum = jb + jb, tb + tb
     assert abs(tsum.norm_estimate() - jsum.norm_estimate()) \
         <= 1e-12 * jsum.norm_estimate()
@@ -132,13 +132,14 @@ def test_aslinearoperator_and_adjoint_of_adjoint():
     M, _ = _mats()
     S = sp.random(N, N, density=0.2, random_state=np.random.default_rng(3),
                   format="csr")
-    assert isinstance(tst.aslinearoperator(S), tst.AIJOperator)
+    assert isinstance(tst.aslinearoperator(S, device="cpu"), tst.AIJOperator)
     assert isinstance(jst.aslinearoperator(S), jl.AIJOperator)
-    dense = tst.aslinearoperator(M)
+    dense = tst.aslinearoperator(M, device="cpu")
     assert isinstance(dense, tst.DenseOperator)
-    assert tst.aslinearoperator(dense) is dense
+    assert tst.aslinearoperator(dense, device="cpu") is dense
     assert dense.H.H is dense
-    assert tst.from_dense(M).shape == (N, N)
+    assert tst.from_dense(M, device="cpu").shape == (N, N)
     x = np.random.default_rng(4).standard_normal(N)
-    assert _rel(tst.aslinearoperator(S).mult(torch.from_numpy(x)).numpy(),
+    assert _rel(tst.aslinearoperator(S, device="cpu").mult(
+        torch.from_numpy(x)).numpy(),
                 S @ x) < 1e-14

@@ -53,7 +53,7 @@ def test_light_reorth_cycles_match_reference(mode):
     v0 = _init_rows(n, 1, np.float64)
     Vj = jnp.zeros((ncv + 1, n)).at[0].set(jnp.asarray(v0[0]))
     Hj = jnp.zeros((ncv + 1, ncv))
-    top = interop.dia_from_slepc_tpu(A)
+    top = interop.dia_from_slepc_tpu(A, device="cpu")
     V = torch.zeros((ncv + 1, n), dtype=torch.float64)
     V[0] = torch.from_numpy(v0[0])
     H = np.zeros((ncv + 1, ncv))
@@ -77,7 +77,8 @@ def test_light_reorth_cycles_match_reference(mode):
 
 
 def _plain_eps(pkg, kind=None, options=None):
-    eps = pkg.EPS(pkg.laplacian_2d(18, 17), problem_type="hep",
+    kw = {"device": "cpu"} if pkg is tst else {}
+    eps = pkg.EPS(pkg.laplacian_2d(18, 17, **kw), problem_type="hep",
                   which="largest_real", nev=4, options=options)
     if kind is not None:
         eps.set_reorthogonalization(kind)
@@ -114,11 +115,11 @@ def test_reorthogonalization_option_and_unknown_kind():
         "-eps_lanczos_reorthog partial"))
     assert eps.reorth == "partial" and eps.nconv >= 4
     with pytest.raises(ValueError, match="one of"):
-        tst.EPS(tst.laplacian_1d(10)).set_reorthogonalization("sometimes")
+        tst.EPS(tst.laplacian_1d(10, device="cpu")).set_reorthogonalization("sometimes")
 
 
 def test_cheb_partial_matches_reference_and_closed_form(jax_ref):
-    A = tst.laplacian_2d(80, 80)
+    A = tst.laplacian_2d(80, 80, device="cpu")
     exact = tst.laplacian_2d_eigs(80, 80, k=10)
     cols = {}
     for reo in ("full", "partial"):
