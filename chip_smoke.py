@@ -55,12 +55,27 @@ Phases (each failing check raises; the script then exits non-zero):
      of a slicing solve on that card backend.  The native LDL^T library
      must build (g++): a missing one fails the run.
 
+  9. the path K3 sets the pace of, at full width: the plain (unfiltered)
+     EPS(krylovschur, hep) on the 200x225x230 Laplacian, f64, ncv 48,
+     which = "largest_real", stopped after 3 restarts (it need not
+     converge): ms per column, the K2 / K3 / K4 launches, K3's share of
+     the wall estimated from phase 1's per-sweep times, and every Ritz
+     value inside [0, 12]; then the same restarts through ks_hep_cycle on a
+     basis held here, its kept rows orthonormal to 1e-12.
+
 Phase 1 also times K5 at b = 2, 4, 8 beside b single K1/K2 calls on the
-same block, and K3's three sweeps at panel width b = 4 (K = 52).
+same block, K3's three sweeps at panel width b = 4 (K = 52), and K4 in
+place (out = V[:P]) and at (K, P) = (48, 1) and (4, 4), and the host time
+of K3's and K4's launch planning beside a whole wrapper call at the small
+paths' size.  The printed rows
+show, in brackets, each kernel's time before the last redesign of K3 and K4
+(BEFORE_MS: PERF.md's earlier reading, a constant, so not in the JSON line,
+which holds only what this run measured).
 
     python3 chip_smoke.py --profile
 
-adds, after phase 8, a torch.profiler split of one more phase-7 GHEP solve
+adds, after phase 9, a torch.profiler split by kernel of one more phase-9
+solve (K3's measured share of the device time), of one more phase-7 GHEP solve
 (the device-busy share of the launch-bound inner solve), the residual of
 phase 7's inner solve after 400 and 800 CG steps with the ungated solves
 at EPS tol 1e-8 (what SINVERT_TOL rests on), a lane sweep of
@@ -72,9 +87,10 @@ launches are not counted.
 Launch counters are reset to 0 before phase 2 and read after phase 3 (the
 DIA path), reset again before phase 4 and read after it (the AIJ path),
 before phase 5 and after it (the blocked path), before phase 6 and after
-it (the small blocked and partial paths), and before phase 7 and after
-phase 8 (the shift-and-invert paths: K2, K3, K4); K7's launches are read
-around its yardstick measurement in phase 1.  Every kernel of each path must
+it (the small blocked and partial paths), before phase 7 and after
+phase 8 (the shift-and-invert paths: K2, K3, K4), and before phase 9 and
+after it (the plain cycle at full width); K7's launches are read around
+its yardstick measurement in phase 1.  Every kernel of each path must
 have launched.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
@@ -83,6 +99,7 @@ are the kernel table as JSON, the nvidia-smi line, and
 import argparse
 import json
 import logging
+import re
 import subprocess
 import sys
 import time
@@ -98,11 +115,12 @@ from slepc_tpu_torch.ops.csr import (csr_spmv, csr_spmv_ref, lanes_for,
                                      row_of_entry)
 from slepc_tpu_torch.ops.bv import (panel_dots, panel_dots_ref, panel_update,
                                     panel_update_dots, panel_update_dots_ref,
-                                    panel_update_ref)
+                                    panel_update_ref, plan_panel)
 from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
+from slepc_tpu_torch.eps.ks_jit import ks_hep_cycle
 from slepc_tpu_torch.ops.dia import (dia_spmm, dia_spmm_ref, dia_spmv,
                                      dia_spmv_ref)
-from slepc_tpu_torch.ops.rotate import rotate, rotate_ref
+from slepc_tpu_torch.ops.rotate import plan_rotate, rotate, rotate_ref
 from slepc_tpu_torch.ops.stream import (stream_bandwidth, stream_sum,
                                         stream_sum_ref)
 from slepc_tpu_torch.native.ldl import ldl_available
@@ -128,6 +146,18 @@ KERNELS = {
     "csr_spmv_f64": ("K6", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
     "stream_sum_f32": ("K7", SRC + "stream.cu", "bench.py:164"),
     "stream_sum_f64": ("K7", SRC + "stream.cu", "bench.py:164"),
+}
+# Each kernel's time before the last redesign of K3 and K4, same script and
+# shapes (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W), ms
+BEFORE_MS = {
+    "dia_spmv_f32": 0.2129, "dia_spmv_f64": 0.2866,
+    "dia_spmm_f32": 0.3976, "dia_spmm_f64": 0.5643,
+    "panel_dots_f32": 1.0976, "panel_dots_f64": 2.5056,
+    "panel_update_f32": 1.0385, "panel_update_f64": 1.8921,
+    "panel_update_dots_f32": 1.5866, "panel_update_dots_f64": 4.5716,
+    "rotate_f32": 4.1784, "rotate_f64": 7.4997,
+    "csr_spmv_f32": 0.7195, "csr_spmv_f64": 0.6416,
+    "stream_sum_f32": 0.1562, "stream_sum_f64": 0.2739,
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM;
 # 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores.
@@ -170,7 +200,8 @@ def record(table, name, err_abs, err_rel, tol, ms, plain_ms, nbytes, flops,
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     table[name] = {"max_abs_err": err_abs, "rel_err": err_rel, "ms": ms,
-                   "plain_ms": plain_ms, "bytes": nbytes,
+                   "plain_ms": plain_ms,
+                   "bytes": nbytes,
                    "bound_ms": max(t_bytes, t_flops),
                    "bound_by": "bytes" if t_bytes >= t_flops else "operations",
                    "library_ms": library_ms, "library": library,
@@ -178,7 +209,7 @@ def record(table, name, err_abs, err_rel, tol, ms, plain_ms, nbytes, flops,
     lib = f"  library {library_ms:.4f} ms ({library})" \
         if library_ms is not None else ""
     print(f"  {name:<22} err {err_rel:.3e} (tol {tol:.0e})  kernel {ms:.4f} ms"
-          f"  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_flops):.4f} ms"
+          f" (PERF.md's earlier {BEFORE_MS[name]:.4f})  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_flops):.4f} ms"
           f"  {nbytes / 1e9:.3f} GB -> {nbytes / ms / 1e6:.1f} GB/s{lib}",
           flush=True)
 
@@ -318,8 +349,53 @@ def phase1(dev, table):
                cuda_ms(lambda: rotate(Q, Vr)),
                cuda_ms(lambda: rotate_ref(Q, Vr)),
                (Kr + P) * n * elt, 2 * Kr * P * n, dt, library=CUBLAS)
-        del V, W, C, Vr, Q
+        # in place (the restart's call: out = V[:P], no copy-back) on a copy
+        # of the basis; bitwise the out-of-place result
+        Vw = Vr.clone()
+        same = torch.equal(rotate(Q, Vw, out=Vw[:P]), rotate(Q, Vr))
+        check(same, f"rotate_{t} in place differs from out of place")
+        ms_in = cuda_ms(lambda: rotate(Q, Vw, out=Vw[:P]))
+        print(f"  rotate_{t} in place ({Kr}, {P}): {ms_in:.4f} ms "
+              f"({(Kr + P) * n * elt / ms_in / 1e6:.1f} GB/s)", flush=True)
+        del Vw
+        for Ks, Ps in ((48, 1), (4, 4)):  # one Ritz vector; a b x b block
+            Qs, Vs = random_q(Ks, Ps, dev, dt), V[:Ks]
+            rel = rotate_errors(Qs, Vs)[1]
+            check(rel <= (1e-14 if dt == torch.float64 else 1e-5),
+                  f"rotate_{t} ({Ks}, {Ps}): error {rel:.3e}")
+            nb = (Ks + Ps) * n * elt
+            ms_s = cuda_ms(lambda: rotate(Qs, Vs))
+            print(f"  rotate_{t} ({Ks}, {Ps}): err {rel:.3e}  kernel "
+                  f"{ms_s:.4f} ms  plain {cuda_ms(lambda: rotate_ref(Qs, Vs)):.4f}"
+                  f" ms  bound {nb / PEAK_BYTES * 1e3:.4f} ms  "
+                  f"{nb / ms_s / 1e6:.1f} GB/s", flush=True)
+        del V, W, C, Vr, Q, Qs, Vs
         torch.cuda.empty_cache()
+
+
+def phase1_planning(dev):
+    """Host time of K3's and K4's launch planning (plain Python, redone at
+    every call) beside the whole wrapper call at the small paths' size,
+    where a solve is bound by launches: microseconds per call."""
+    def us(fn, reps=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    K, n, f64 = 28, 95 * 97, torch.float64
+    V = torch.randn((K, n), dtype=f64, device=dev)
+    C = torch.randn((K, 1), dtype=f64, device=dev)
+    Q = random_q(K, K // 2, dev, f64)
+    print(f"  host microseconds a call at ({K}, {n}) f64: plan_panel "
+          f"{us(lambda: plan_panel(2, K, 1, n, f64, blocks_per_sm=lambda *a: 4)):.1f}"
+          f" of panel_update_dots {us(lambda: panel_update_dots(V, C, V[:1])):.1f}"
+          f"; plan_rotate "
+          f"{us(lambda: plan_rotate(K, K // 2, n, f64, blocks_per_sm=lambda *a: 2)):.1f}"
+          f" of rotate {us(lambda: rotate(Q, V)):.1f}", flush=True)
 
 
 def phase1_block(dev, table):
@@ -958,6 +1034,91 @@ def phase8(dev):
         del A
 
 
+def plain_solve(A, ncv, restarts, cycles=None):
+    """The plain EPS(krylovschur, hep) solve of phase 9, stopped after
+    ``restarts`` restarts.  ``cycles`` collects, at each restart, (converged
+    count, Ritz values, host clock, launch counts).  Returns (eps, wall)."""
+    eps = stt.EPS(A, problem_type="hep", which="largest_real", nev=4,
+                  ncv=ncv, tol=1e-8, max_it=restarts, options=stt.Options())
+    if cycles is not None:
+        eps.monitor.add(lambda _e, _its, k2, theta, _err: cycles.append(
+            (int(k2), np.array(theta, np.float64), time.perf_counter(),
+             stt.launch_counts())))
+    t0 = time.perf_counter()
+    eps.solve()
+    torch.cuda.synchronize()
+    return eps, time.perf_counter() - t0
+
+
+def phase9(dev, table):
+    """The plain Krylov-Schur cycle at 10.35M rows: one K2 call and three
+    K3 sweeps a column, one K4 call a restart.  Returns the wall and the
+    solve's launch counts."""
+    ncv, restarts = 48, 3
+    print("phase 9: the plain (unfiltered) Krylov-Schur cycle at full width: "
+          f"200x225x230 Laplacian, f64, ncv {ncv}, largest_real, stopped "
+          f"after {restarts} restarts (it need not converge)", flush=True)
+    A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    cycles = []
+    before = stt.launch_counts()
+    eps, wall = plain_solve(A, ncv, restarts, cycles)
+    counts = stt.launch_counts()
+    delta = {k: counts[k] - before[k] for k in counts}
+    fam = family_counts(delta, "f64")
+    check(len(cycles) > 1, "phase 9: no restarted cycle ran")
+    # a cycle's columns are its K2 launches; it extends a basis of
+    # ncv - columns kept rows, so its columns meet kept + 1 .. ncv rows
+    marks = [before] + [c[3] for c in cycles]
+    cols = [m1["dia_spmv_f64"] - m0["dia_spmv_f64"]
+            for m0, m1 in zip(marks, marks[1:])]
+    check(sum(cols) == delta["dia_spmv_f64"] and cols[0] == ncv,
+          f"phase 9: columns per restart {cols}")
+    # the restarted cycles alone: the first one's window also holds the
+    # solve's set-up (the start vector is drawn on the host)
+    later = [K for c in cols[1:] for K in range(ncv - c + 1, ncv + 1)]
+    later_ms = (cycles[-1][2] - cycles[0][2]) * 1e3
+    # an estimate, not this solve's device time: phase 1's sweeps at K = 49,
+    # b = 1, scaled by the bytes of a K-row sweep
+    per49 = sum(table[f"panel_{s}_f64"]["ms"]
+                for s in ("dots", "update_dots", "update"))
+    k3_ms = sum(per49 * (K + 2) / 51 for K in later)
+    theta = cycles[-1][1]
+    print(f"  nconv={eps.nconv} (not required) restarts={eps.its} "
+          f"wall={wall:.3f} s columns={sum(cols)} launches={fam}", flush=True)
+    print(f"  restarts 2..{len(cycles)}: {len(later)} columns against "
+          f"{min(later)}..{max(later)} rows in {later_ms:.1f} ms (host clock) "
+          f"= {later_ms / len(later):.3f} ms per column; K3 estimated from "
+          f"phase 1's sweeps (K = 49: {per49:.4f} ms, scaled by rows) "
+          f"{k3_ms:.1f} ms = {100 * k3_ms / later_ms:.1f}% of it; K2 estimated "
+          f"{len(later) * table['dia_spmv_f64']['ms']:.1f} ms", flush=True)
+    print(f"  Ritz values in [{theta.min():.6f}, {theta.max():.6f}]",
+          flush=True)
+    check(eps.its == restarts or eps.nconv >= 4, f"phase 9: {eps.its} restarts")
+    check(theta.min() >= 0.0 and theta.max() <= 12.0,
+          f"phase 9: Ritz values outside [0, 12]: {theta.min()}, {theta.max()}")
+    check(all(v > 0 for v in fam.values()),
+          f"phase 9: a kernel did not launch: {fam}")
+    del eps
+    # the basis gate: the solve frees its basis, so the same restarts are
+    # driven once more through the cycle function on a basis held here
+    V = torch.zeros((ncv + 1, A.shape[0]), dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    V[0] = torch.randn(A.shape[0], generator=gen, dtype=torch.float64,
+                       device=dev)
+    V[0] /= torch.linalg.vector_norm(V[0])
+    H, j0 = np.zeros((ncv + 1, ncv)), 0
+    for _ in range(restarts):
+        V, H, j0 = ks_hep_cycle(A, V, H, j0, 1e-8, gen, ncv=ncv,
+                                which="largest")[:3]
+    B = V[: j0 + 1]
+    orth = float((B @ B.T - torch.eye(j0 + 1, dtype=B.dtype,
+                                      device=dev)).abs().max())
+    print(f"  {restarts} restarts through ks_hep_cycle: kept basis rows "
+          f"{j0 + 1}, max|V V^T - I| = {orth:.3e}", flush=True)
+    check(orth <= 1e-12, f"phase 9: basis not orthonormal: {orth:.3e}")
+    return wall, delta
+
+
 def csr_spmv_at(op, x, lanes):
     """K6 on op's CSR at a given lane count: the library entry itself, which
     the wrapper csr_spmv calls with lanes_for (uncounted; for the sweep)."""
@@ -1030,10 +1191,33 @@ def profile_solve(where, solve, plain_wall=None):
               f"{e.key[:90]}", flush=True)
 
 
+def kernel_resources(log):
+    """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
+    names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
+              "K3 panel<{}, B={}, VW={}, update={}, dots={}>"),
+             ("rotate_f64_kernelILi(\\d)ELb([01])E", "K4 rotate_f64<MT={}, vec={}>"),
+             ("rotate_f32_kernelILb([01])E", "K4 rotate_f32<vec={}>"))
+    entry, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+            for pat, fmt in names:
+                hit = re.search(pat, entry)
+                if hit:
+                    entry = fmt.format(*hit.groups())
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and entry is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            print(f"    {entry[:80]}: {regs.group(1) if regs else '?'} "
+                  f"registers; {spill}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 8: phase 7's tolerance study, a "
+                        help="after phase 9: phase 7's tolerance study, a "
                              "K6 lane sweep and a torch.profiler split of a "
                              "phase-7, a phase-4 and a phase-5 solve")
     args = parser.parse_args()
@@ -1058,13 +1242,12 @@ def main():
     print(f"  kernels built+loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s)",
           flush=True)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("   ", line.strip())
+    kernel_resources(_build.build_log)
 
     table, host = {}, {}
     rates, stream_path = phase1_stream(dev, table)
     phase1(dev, table)
+    phase1_planning(dev)
     phase1_block(dev, table)
     L_csr, A_csr = phase1_csr(dev, table, host)
     if not args.profile:
@@ -1092,7 +1275,13 @@ def main():
     print(f"  phases 7-8 launches: {fam}", flush=True)
     check(all(v > 0 for v in fam.values()),
           f"phases 7-8: a kernel did not launch: {fam}")
+    stt.reset_launch_counts()
+    wall_plain, plain_path = phase9(dev, table)
     if args.profile:
+        A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+        profile_solve("phase 9", lambda: plain_solve(A, 48, 3)[1],
+                      plain_wall=wall_plain)
+        del A
         profile_solve("phase 7 GHEP", lambda: sinvert_solve(
             dev, "profiled phase 7 GHEP", generalized=True)[1],
             plain_wall=wall_sinv)
@@ -1104,7 +1293,8 @@ def main():
         A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
         profile_solve("phase 5", lambda: flagship_solve(
             A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
-    paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path)
+    paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
+             plain_path)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -1121,16 +1311,19 @@ def main():
                         "stream_ms": row["bytes"] / rates[row["dtype"]] / 1e6,
                         "library_ms": row["library_ms"],
                         "library": row["library"] or None})
-    print("kernel table (ms): kernel / plain / bound / stream / library",
-          flush=True)
+    print("kernel table (ms): kernel (PERF.md's earlier reading, not measured "
+          "here) / plain / bound / stream / library", flush=True)
     for k in kernels:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
-        print(f"  {k['name']:<28} {k['ms']:.4f} / {k['plain_ms']:.4f} / "
+        print(f"  {k['name']:<28} {k['ms']:.4f} "
+              f"({BEFORE_MS[k['name'].split()[0]]:.4f}) / "
+              f"{k['plain_ms']:.4f} / "
               f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
               f"{lib}  launches {k['launches']}", flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
-          f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard) on "
+          f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard); plain "
+          f"cycle 10.35M rows {wall_plain:.3f} s on "
           f"{smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -121,8 +121,8 @@ class BV:
         s = self.l if s is None else s
         e = self.k if e is None else e
         Vact = self.array[self.nc: self.nc + Q.shape[0]]
-        self.array[self._phys(s): self._phys(e)] = rotate(
-            Q[:, s:e].contiguous(), Vact)
+        rotate(Q[:, s:e].contiguous(), Vact,
+               out=self.array[self._phys(s): self._phys(e)])
 
     def dot_vec(self, y) -> torch.Tensor:
         """c = V B y over the active vectors; one K3 sweep."""

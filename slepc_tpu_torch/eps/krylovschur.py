@@ -206,8 +206,8 @@ class KrylovSchur:
                 # ---- rotate: V[k:k+kl] = Q[:, :kl]^T V[k:nv] (K4) ----
                 with log_event("BV_MultInPlace",
                                flops=2.0 * n * (nv - k) * kl):
-                    V.array[nc + k: nc + k + kl] = rotate(
-                        on_device(Q[:, :kl]), V.array[nc + k: nc + nv])
+                    rotate(on_device(Q[:, :kl]), V.array[nc + k: nc + nv],
+                           out=V.array[nc + k: nc + k + kl])
                 # ---- H: locked diagonal + kept diagonal + arrow row ----
                 H = np.zeros_like(H)
                 idx = np.arange(k2)

@@ -241,12 +241,11 @@ def _restart_sizes(k2: int, ncv: int, keep_den: int, nrot: int):
 
 
 def _hep_rotate_body(V, Q: np.ndarray, kl: int, *, ncv: int, nres: int = 1):
-    """Restart rotation V[:P] = Q^T V[:ncv] (kernel K4 into a separate
-    buffer, then copied back) and the residual-row move
-    V[kl:kl+nres] = V[ncv:ncv+nres] (nres = b rows in the blocked cycle)."""
-    Vrot = rotate(_mat(Q, V), V[:ncv])
-    V[: Q.shape[1]].copy_(Vrot)
-    del Vrot
+    """Restart rotation V[:P] = Q^T V[:ncv] (kernel K4, in place: a block
+    reads all ncv rows of its columns before it stores any) and the
+    residual-row move V[kl:kl+nres] = V[ncv:ncv+nres] (nres = b rows in the
+    blocked cycle)."""
+    rotate(_mat(Q, V), V[:ncv], out=V[: Q.shape[1]])
     V[kl: kl + nres].copy_(V[ncv: ncv + nres])
     return V
 
@@ -394,7 +393,7 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
             X = panel_update(Vact, panel_dots(Vact, X), X)
         G1 = _host(panel_dots(X, X)).reshape(b, b)
     inv2, half2 = _svqb(G1, eps_mach)
-    V[m: m + b].copy_(rotate(_mat(inv2.T, V), X))
+    rotate(_mat(inv2.T, V), X, out=V[m: m + b])
     H[:, p * b: m] = 0
     H[:m, p * b: m] = C + P @ half1.T
     # Wb = (half1 half2) X2 + ..., so H[m + r, p*b + i] = (half1 half2)[i, r]

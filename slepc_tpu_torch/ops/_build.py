@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels (``slepc_tpu_torch/csrc``).
 
-The kernels are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, ``slepc_tpu_torch/_build/libslepc_tpu_torch_kernels.so``,
-and bound with ``ctypes``.  The library is rebuilt whenever the hash of the
-sources (and of the compiler flags) changes.  Only the sources in this
+The kernels are compiled at first use with one ``nvcc`` call (which compiles
+the sources side by side: ``--threads 0 --split-compile 0``) into one shared
+library with a plain C interface,
+``slepc_tpu_torch/_build/libslepc_tpu_torch_kernels.so``, and bound with
+``ctypes``.  The library is rebuilt whenever the hash of the sources (and of
+the compiler flags) changes.  Only the sources in this
 package are compiled; nothing is downloaded.  If ``nvcc`` is missing or the
 build fails, :func:`load` raises with the compiler's output.
 """
@@ -23,7 +25,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libslepc_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--threads", "0", "--split-compile", "0")
 
 DTYPE_CODE = {"torch.float32": 0, "torch.float64": 1}
 
@@ -43,11 +46,19 @@ _SIGNATURES = {
                             _P, _I64, _I, _I64, _P]),
     "slepc_dia_spmm_max_b": (_I, []),
     "slepc_error_string": (ctypes.c_char_p, [_I]),
-    "slepc_panel": (_I, [_I, _I, _P, _I64, _I, _P, _I64, _I, _P, _P, _I64, _P,
-                         _I, _P, _I64, _P]),
-    "slepc_panel_tile": (_I, []),
+    "slepc_panel": (_I, [_I, _I, _I, _P, _I64, _I, _P, _I64, _I, _P, _P, _I64,
+                         _P, _I, _I, _I, _P, _I64, _P]),
     "slepc_panel_max_b": (_I, []),
-    "slepc_rotate": (_I, [_I, _P, _I, _I, _P, _I64, _P, _I64, _I64, _P]),
+    "slepc_panel_max_groups": (_I, []),
+    "slepc_panel_rows": (_I, [_I]),
+    "slepc_panel_smem": (_I64, [_I, _I, _I, _I, _I, _I]),
+    "slepc_panel_occupancy": (_I, [_I, _I, _I, _I, _I, _I,
+                                   ctypes.POINTER(_I)]),
+    "slepc_rotate": (_I, [_I, _I, _P, _I, _I, _P, _I64, _P, _I64, _I64, _I, _I,
+                          _P]),
+    "slepc_rotate_max_p": (_I, []),
+    "slepc_rotate_smem": (_I64, [_I, _I, _I, _I]),
+    "slepc_rotate_occupancy": (_I, [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]),
     "slepc_stream_sum": (_I, [_I, _P, _I64, _I, _P, _P, _I64, _P]),
 }
 

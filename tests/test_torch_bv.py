@@ -275,3 +275,115 @@ def test_arnoldi_breakdown_restarts_with_a_random_vector():
     V, H, beta, brk = arnoldi_extend(top, V, H, 0, 3)
     assert brk and H[1, 0] == 0.0 and abs(H[0, 0] - 1.0) < 1e-14
     np.testing.assert_allclose((V[:4] @ V[:4].T).numpy(), np.eye(4), atol=1e-12)
+
+
+# ---- the launch planning of the panel sweeps (no card needed) -------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", range(1, 9))
+@pytest.mark.parametrize("K", [1, 3, 5, 17, 29, 49, 52, 64, 65, 129])
+def test_panel_plan_covers_the_paths(dtype, b, K):
+    elt = 8 if dtype == torch.float64 else 4
+    for n in (720, 9215, 10_350_000):
+        for mode in (0, 1, 2):
+            if mode == 2 and not bv.fused_update_dots(K, b):
+                with pytest.raises(ValueError, match="planned each"):
+                    bv.plan_panel(mode, K, b, n, dtype)
+                continue
+            plan = bv.plan_panel(mode, K, b, n, dtype)
+            assert plan["vec"] == (n % (16 // elt) == 0)
+            assert plan["width"] >= b and plan["width"] in (1, 2, 4, 8)
+            assert plan["rows"] == (8 if plan["width"] <= 2 else 4)
+            covered = 0
+            for one in plan["launches"]:
+                assert one["k0"] == covered
+                covered = one["k1"]
+                assert 1 <= one["groups"] <= bv.MAX_GROUPS
+                assert one["k1"] - one["k0"] <= one["groups"] * plan["rows"]
+                assert one["threads"] == 32 * one["groups"] * one["cw"] <= 512
+                assert one["tile"] == 32 * one["cw"] * (
+                    16 // elt if plan["vec"] else 1)
+                assert one["smem"] <= bv.SMEM_LIMIT == 232_448
+                assert 1 <= one["grid"] <= -(-n // one["tile"])
+            assert covered == K
+            # one launch up to one block's reach of 16 row groups
+            assert (len(plan["launches"]) == 1) == (K <= 16 * plan["rows"])
+
+
+def test_panel_plan_alignment_occupancy_and_refusals():
+    f64 = torch.float64
+    assert bv.plan_panel(0, 49, 1, 4096, f64)["vec"]
+    assert not bv.plan_panel(0, 49, 1, 4096, f64, v_base=8)["vec"]
+    assert not bv.plan_panel(0, 49, 1, 4096, f64, w_base=8)["vec"]
+    assert not bv.plan_panel(0, 49, 1, 4096, f64, ldv=4097)["vec"]
+    assert bv.plan_panel(0, 49, 1, 4096, f64, ldv=8192, ldw=4098)["vec"]
+    assert not bv.plan_panel(0, 49, 1, 4095, f64, ldv=4096)["vec"]  # odd n
+    # the grid comes from the SM count and the kernel's occupancy
+    seen = []
+    plan = bv.plan_panel(2, 49, 1, 10_350_000, f64, sm_count=100,
+                         blocks_per_sm=lambda vec, one: seen.append(
+                             (vec, one["groups"], one["cw"])) or 3)
+    assert seen == [(True, 7, 1)] and plan["launches"][0]["grid"] == 300
+    assert bv.plan_panel(0, 49, 1, 100, f64)["launches"][0]["grid"] == 2
+    # shared memory holds the G parts of the update, not the basis tile: it
+    # does not grow with K past one block's reach
+    big = bv.plan_panel(1, 1000, 8, 10_000, f64)
+    assert max(one["smem"] for one in big["launches"]) == \
+        bv.plan_panel(1, 64, 8, 10_000, f64)["launches"][0]["smem"]
+    assert bv.plan_panel(0, 49, 1, 4096, f64)["launches"][0]["smem"] <= 4096
+    # update+dots: one kernel within a block's reach below width 8
+    assert bv.fused_update_dots(49, 1) and bv.fused_update_dots(64, 4)
+    assert bv.fused_update_dots(128, 2) and not bv.fused_update_dots(129, 2)
+    assert not bv.fused_update_dots(65, 4) and not bv.fused_update_dots(8, 5)
+    for bad in (dict(mode=3), dict(b=9), dict(K=0), dict(n=0)):
+        args = dict(mode=0, K=4, b=1, n=10, dtype=f64)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            bv.plan_panel(**args)
+    with pytest.raises(TypeError):
+        bv.plan_panel(0, 4, 1, 10, torch.float16)
+
+
+@pytest.mark.parametrize("K,b", [(49, 1), (129, 2), (65, 3), (64, 4),
+                                 (130, 4), (8, 5), (129, 8), (200, 7)])
+def test_panel_sweeps_in_row_chunks_match_plain(K, b):
+    """The launch sequence around the kernel (row chunks past one block's
+    reach, update+dots as two sweeps where it is not fused), with the plain
+    versions standing in for the kernel launches."""
+    rng = np.random.default_rng(5)
+    n = 300
+    V = torch.from_numpy(np.linalg.qr(rng.standard_normal((n, K)))[0].T.copy())
+    W = torch.from_numpy(rng.standard_normal((b, n)))
+    C = torch.from_numpy(rng.standard_normal((K, b)))
+    calls = []
+
+    def sweep(m, vec, one, Vrows, Wm, Crows):
+        calls.append((m, one["k0"], one["k1"]))
+        assert Vrows.shape[0] == one["k1"] - one["k0"]
+        if m == 0:
+            return None, bv.panel_dots_ref(Vrows, Wm)
+        if m == 1:
+            return bv.panel_update_ref(Vrows, Crows, Wm), None
+        return bv.panel_update_dots_ref(Vrows, Crows, Wm)
+
+    def plan_for(m, Wm):
+        return bv.plan_panel(m, K, b, n, torch.float64)
+
+    reach = 16 * bv.ROWS[bv._compiled_width(b)]
+    chunks = [(k0, min(k0 + reach, K)) for k0 in range(0, K, reach)]
+    U, D = bv._run_plan(0, V, W, None, plan_for, sweep)
+    assert U is None and calls == [(0, *c) for c in chunks]
+    assert torch.allclose(D, bv.panel_dots_ref(V, W), rtol=0, atol=1e-12)
+    calls.clear()
+    U, D = bv._run_plan(1, V, W, C, plan_for, sweep)
+    assert D is None and calls == [(1, *c) for c in chunks]
+    U_ref, D_ref = bv.panel_update_dots_ref(V, C, W)
+    assert torch.allclose(U, U_ref, rtol=0, atol=1e-12)
+    calls.clear()
+    U, D = bv._run_plan(2, V, W, C, plan_for, sweep)
+    if bv.fused_update_dots(K, b):
+        assert calls == [(2, 0, K)]
+    else:
+        assert calls == [(1, *c) for c in chunks] + [(0, *c) for c in chunks]
+    assert torch.allclose(U, U_ref, rtol=0, atol=1e-12)
+    assert torch.allclose(D, D_ref, rtol=0, atol=1e-11)

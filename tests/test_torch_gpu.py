@@ -17,7 +17,7 @@ import torch
 
 import slepc_tpu_torch as stt
 from slepc_tpu_torch.ksp import tridiag_device as td
-from slepc_tpu_torch.ops import bv, csr, dia, rotate, stream
+from slepc_tpu_torch.ops import _build, bv, csr, dia, rotate, stream
 
 pytestmark = pytest.mark.gpu
 
@@ -53,16 +53,18 @@ def test_dia_kernel_matches_plain(cuda, dtype, tol, n, offsets):
     assert dia.launches[key] == before[key] + 1
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.float64, 1e-13)])
-@pytest.mark.parametrize("K,b,n", [(1, 1, 1), (9, 3, 130), (33, 8, 4097),
-                                   (49, 1, 100_003), (64, 2, 777)])
-def test_panel_kernels_match_plain(cuda, dtype, tol, K, b, n):
-    # V is the prefix of a taller basis, as in the Krylov cycle
-    Vfull = _rand((K + 3, n), dtype, cuda, 2)
-    V = Vfull[:K]
-    W = _rand((b, n), dtype, cuda, 3)
-    C = _rand((K, b), dtype, cuda, 4)
+# K3 / K4 at the edges of their designs: K around the rows a thread holds
+# (8 or 4) and past one block's reach (16 row groups: K = 65 at b > 2, 129),
+# every panel width, n below one tile, odd (f64) or not a multiple of 4
+# (f32: the one-element loads), and over many strides of the grid.
+PANEL_K = [1, 3, 5, 17, 49, 65, 129]
+PANEL_N = [1, 37, 130, 4096, 4097, 100_003, 300_004]
+PANEL_CASES = [(9, 3, 130), (33, 8, 4097), (49, 1, 100_003), (64, 2, 777)] + [
+    (K, b, PANEL_N[(i + b) % len(PANEL_N)])
+    for i, K in enumerate(PANEL_K) for b in range(1, 9)]
+
+
+def _panel_check(V, W, C, tol):
     dscale = V.abs() @ W.abs().T
     uscale = W.abs() + C.abs().T @ V.abs()
     D = bv.panel_dots(V, W)
@@ -76,18 +78,176 @@ def test_panel_kernels_match_plain(cuda, dtype, tol, K, b, n):
     assert float(((D2 - V @ U_ref.T).abs() / d2scale).max()) <= 10 * tol
     # deterministic: no atomics, same bits every time
     assert torch.equal(bv.panel_dots(V, W), D)
+    U3, D3 = bv.panel_update_dots(V, C, W)
+    assert torch.equal(U3, U2) and torch.equal(D3, D2)
+    assert torch.equal(bv.panel_update(V, C, W), U)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("K,b,n", PANEL_CASES)
+def test_panel_kernels_match_plain(cuda, dtype, tol, K, b, n):
+    # V is the prefix of a taller basis, as in the Krylov cycle
+    Vfull = _rand((K + 3, n), dtype, cuda, 2)
+    V = Vfull[:K]
+    W = _rand((b, n), dtype, cuda, 3)
+    C = _rand((K, b), dtype, cuda, 4)
+    _panel_check(V, W, C, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("layout", ["offset", "w_row_strided", "padded_rows",
+                                    "w_in_basis"])
+@pytest.mark.parametrize("K,b,n", [(17, 1, 4096), (49, 4, 20_000),
+                                   (5, 8, 1024)])
+def test_panel_kernels_take_views(cuda, dtype, tol, layout, K, b, n):
+    C = _rand((K, b), dtype, cuda, 4)
+    if layout == "offset":  # bases that are not 16-byte aligned
+        V = _rand((K + 1, n + 1), dtype, cuda, 2)[:K, 1:]
+        W = _rand((b, n + 1), dtype, cuda, 3)[:, 1:]
+    elif layout == "w_row_strided":  # every other row of a taller panel
+        V = _rand((K, n), dtype, cuda, 2)
+        W = _rand((2 * b, n), dtype, cuda, 3)[::2]
+    elif layout == "padded_rows":  # aligned rows longer than n
+        V = _rand((K, n + 4), dtype, cuda, 2)[:, :n]
+        W = _rand((b, n + 8), dtype, cuda, 3)[:, :n]
+    else:  # the panel is rows of the same buffer as the basis
+        full = _rand((K + b, n), dtype, cuda, 2)
+        V, W = full[:K], full[K:]
+    before = dict(bv.launches)
+    _panel_check(V, W, C, tol)
+    t = "f64" if dtype == torch.float64 else "f32"
+    assert bv.launches[f"panel_dots_{t}"] > before[f"panel_dots_{t}"]
+
+
+def test_panel_plan_matches_the_compiled_kernel(cuda):
+    lib = _build.load()
+    assert lib.slepc_panel_max_b() == bv.MAX_B
+    assert lib.slepc_panel_max_groups() == bv.MAX_GROUPS
+    for b in range(1, 9):
+        assert lib.slepc_panel_rows(b) == bv.ROWS[bv._compiled_width(b)]
+    for dtype in (torch.float32, torch.float64):
+        code = 0 if dtype == torch.float32 else 1
+        for mode in (0, 1, 2):
+            for K, b, n in [(1, 1, 10), (49, 1, 4096), (52, 4, 4096),
+                            (129, 8, 4097), (64, 8, 1 << 20)]:
+                if mode == 2 and not bv.fused_update_dots(K, b):
+                    with pytest.raises(ValueError, match="planned each"):
+                        bv.plan_panel(mode, K, b, n, dtype)
+                    continue
+                plan = bv.plan_panel(mode, K, b, n, dtype)
+                for one in plan["launches"]:
+                    assert one["smem"] == lib.slepc_panel_smem(
+                        code, mode, b, one["groups"], one["cw"],
+                        int(plan["vec"]))
+
+
+ROTATE_K = [1, 3, 5, 17, 49, 65, 129]
+ROTATE_P = [1, 7, 8, 9, 40, 64]
+ROTATE_N = [1, 37, 130, 4096, 4101, 100_003, 300_004]
+ROTATE_CASES = [(24, 18, 4096 + 5), (48, 40, 100_003), (64, 64, 333),
+                (100, 130, 1000)] + [
+    (K, P, ROTATE_N[(i + j) % len(ROTATE_N)])
+    for i, K in enumerate(ROTATE_K) for j, P in enumerate(ROTATE_P)]
+
+
+def _rotate_tol(dtype, tol, K):
+    # past K = 64 the bound is K * eps: the kernel takes the k-sum in
+    # another order than cuBLAS takes it
+    return max(tol, K * torch.finfo(dtype).eps)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-14)])
-@pytest.mark.parametrize("K,P,n", [(1, 1, 1), (24, 18, 4096 + 5),
-                                   (48, 40, 100_003), (64, 64, 333)])
+@pytest.mark.parametrize("K,P,n", ROTATE_CASES)
 def test_rotate_kernel_matches_plain(cuda, dtype, tol, K, P, n):
-    V = _rand((K + 1, n), dtype, cuda, 5)[:K]
+    full = _rand((K + 1, n), dtype, cuda, 5)
+    V = full[:K]
     Q = _rand((K, P), dtype, cuda, 6)
+    key = "rotate_f64" if dtype == torch.float64 else "rotate_f32"
+    before = rotate.launches[key]
     out = rotate.rotate(Q, V)
-    err = (out - rotate.rotate_ref(Q, V)).abs() / (Q.abs().T @ V.abs())
-    assert float(err.max()) <= tol
+    assert rotate.launches[key] == before + -(-P // rotate.MAX_P)
+    ref = rotate.rotate_ref(Q, V)
+    err = (out - ref).abs() / (Q.abs().T @ V.abs())
+    assert float(err.max()) <= _rotate_tol(dtype, tol, K)
+    # deterministic: fixed order of the k-sum, same bits every time
+    assert torch.equal(rotate.rotate(Q, V), out)
+    # into a given buffer, and in place into rows of V itself
+    buf = torch.full_like(out, float("nan"))
+    assert rotate.rotate(Q, V, out=buf) is buf and torch.equal(buf, out)
+    if P <= K:
+        for r0 in (0, K - P):
+            work = full.clone()
+            rotate.rotate(Q, work[:K], out=work[r0: r0 + P])
+            assert torch.equal(work[r0: r0 + P], out)
+            keep = torch.ones(K + 1, dtype=torch.bool, device=cuda)
+            keep[r0: r0 + P] = False
+            assert torch.equal(work[keep], full[keep])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-14)])
+@pytest.mark.parametrize("layout", ["offset", "padded_rows", "out_offset"])
+@pytest.mark.parametrize("K,P,n", [(48, 40, 20_000), (20, 1, 4096),
+                                   (4, 4, 1024)])
+def test_rotate_kernel_takes_views(cuda, dtype, tol, layout, K, P, n):
+    Q = _rand((K, P), dtype, cuda, 6)
+    out = None
+    if layout == "offset":  # a base that is not 16-byte aligned, in place
+        full = _rand((K + 1, n + 1), dtype, cuda, 5)
+        V = full[:K, 1:]
+        out = V[:P]
+    elif layout == "padded_rows":  # aligned rows longer than n
+        V = _rand((K, n + 4), dtype, cuda, 5)[:, :n]
+    else:  # aligned V, out at an odd element offset
+        V = _rand((K, n), dtype, cuda, 5)
+        out = torch.empty((P, n + 1), dtype=dtype, device=cuda)[:, 1:]
+    ref = rotate.rotate_ref(Q, V)
+    scale = Q.abs().T @ V.abs()
+    got = rotate.rotate(Q, V, out=out)
+    assert float(((got - ref).abs() / scale).max()) <= _rotate_tol(dtype, tol, K)
+
+
+def test_rotate_plan_matches_the_compiled_kernel(cuda):
+    lib = _build.load()
+    assert lib.slepc_rotate_max_p() == rotate.MAX_P
+    for dtype in (torch.float32, torch.float64):
+        code = 0 if dtype == torch.float32 else 1
+        for K, P in [(1, 1), (48, 40), (49, 24), (129, 64), (20, 1), (4, 4),
+                     (400, 8)]:
+            plan = rotate.plan_rotate(K, P, 100_000, dtype)
+            assert plan["smem"] == lib.slepc_rotate_smem(code, K, P,
+                                                         plan["stages"])
+
+
+def test_rotate_rejects_overlaps_and_shapes(cuda):
+    f64 = torch.float64
+    full = torch.zeros((12, 64), dtype=f64, device=cuda)
+    V = full[:8]
+    Q = torch.zeros((8, 4), dtype=f64, device=cuda)
+    before = stt.launch_counts()
+    with pytest.raises(ValueError, match="overlaps V"):
+        rotate.rotate(Q, V, out=full.view(-1)[8: 8 + 4 * 64].view(4, 64))
+    with pytest.raises(ValueError, match="overlaps V"):
+        rotate.rotate(Q, V, out=full[::2][:4])  # rows of V at another stride
+    with pytest.raises(ValueError, match="overlaps Q"):
+        rotate.rotate(full[:8, :4], torch.zeros((8, 4), dtype=f64, device=cuda),
+                      out=full[:4, :4])
+    with pytest.raises(ValueError, match="is not"):
+        rotate.rotate(Q, V, out=torch.zeros((5, 64), dtype=f64, device=cuda))
+    with pytest.raises(ValueError, match="dtype or device"):
+        rotate.rotate(Q, V, out=torch.zeros((4, 64), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rotate.rotate(Q, V, out=torch.zeros((4, 128), dtype=f64,
+                                            device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="shared memory"):
+        rotate.rotate(torch.zeros((600, 64), dtype=f64, device=cuda),
+                      torch.zeros((600, 64), dtype=f64, device=cuda))
+    with pytest.raises(ValueError, match="does not match"):
+        rotate.rotate(Q[:7], V)
+    assert stt.launch_counts() == before
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
