@@ -16,10 +16,12 @@ Phases (each failing check raises; the script then exits non-zero):
      library call computing the same function (cuSPARSE CSR product for
      the SpMV kernels, the cuBLAS `@` that is the plain version of K3/K4,
      einsum for K7).  The CSR
-     kernel K6 runs on the flagship built as a scipy CSR matrix and
-     reordered with reverse Cuthill-McKee (an irregular pattern), and on
-     that matrix plus seeded symmetric random entries (rows past 32
-     entries); the un-permuted CSR must route to the DIA kernel;
+     kernel K6 runs, beside its plain version and cuSPARSE, on the flagship
+     built as a scipy CSR matrix and reordered with reverse Cuthill-McKee
+     (an irregular pattern), on that matrix plus seeded symmetric random
+     entries (rows past 32 entries), and on a seeded random graph Laplacian
+     with hub rows of more than 10^5 entries; the un-permuted CSR must
+     route to the DIA kernel;
   2. the plain Krylov-Schur cycle through EPS on laplacian_2d(95, 97),
      nev=6, ncv=28, in f64 (tol 1e-9) and f32 (tol 1e-5), as a DIA
      operator and as its RCM-ordered CSR matrix;
@@ -37,8 +39,9 @@ Phases (each failing check raises; the script then exits non-zero):
      f64 against the closed form;
   7. the shift-and-invert slice at full size: the 100x102x104 Laplacian
      (1,060,800 rows), f64, B = diag(1 + 0.5 sin(1e-3 i)), sigma = 0,
-     800 fixed CG steps per inner solve on K2, nev 10, ncv 32, tol 1e-10
-     on the transformed estimate (SINVERT_TOL says why), through
+     800 fixed CG steps per inner solve on K2, nev 10, ncv 32, the
+     deployment's tol 1e-8 (each candidate confirmed on the original pencil
+     by the fast path's true-residual test), through
      EPS(A, B, "ghep") + STSinvertDevice: nconv >= 10 and max true
      residual ||A x - lam B x|| / (|lam| ||x||) <= 1e-8 recomputed with K2;
      then the standard problem on the same grid, |lam - exact| <= 1e-9.
@@ -63,14 +66,14 @@ Phases (each failing check raises; the script then exits non-zero):
      value inside [0, 12]; then the same restarts through ks_hep_cycle on a
      basis held here, its kept rows orthonormal to 1e-12.
 
-Phase 1 also times K5 at b = 2, 4, 8 beside b single K1/K2 calls on the
-same block, K3's three sweeps at panel width b = 4 (K = 52), and K4 in
-place (out = V[:P]) and at (K, P) = (48, 1) and (4, 4), and the host time
-of K3's and K4's launch planning beside a whole wrapper call at the small
-paths' size.  The printed rows
-show, in brackets, each kernel's time before the last redesign of K3 and K4
-(BEFORE_MS: PERF.md's earlier reading, a constant, so not in the JSON line,
-which holds only what this run measured).
+Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
+same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
+panel width b = 4 (K = 52), and K4 in place (out = V[:P]) and at (K, P) =
+(48, 1) and (4, 4), and the host time of K3's and K4's launch planning
+beside a whole wrapper call at the small paths' size.  The printed rows
+show, in brackets, each kernel's time on the tree before the redesign of
+K5 and K6 (BEFORE_MS: PERF.md's earlier reading, a constant, so not in the
+JSON line, which holds only what this run measured).
 
     python3 chip_smoke.py --profile
 
@@ -78,11 +81,13 @@ adds, after phase 9, a torch.profiler split by kernel of one more phase-9
 solve (K3's measured share of the device time), of one more phase-7 GHEP solve
 (the device-busy share of the launch-bound inner solve), the residual of
 phase 7's inner solve after 400 and 800 CG steps with the ungated solves
-at EPS tol 1e-8 (what SINVERT_TOL rests on), a lane sweep of
-K6 (every lane count the kernel is built for, natural and RCM order, f64
-and f32, beside the DIA kernel on the same matrix) and a torch.profiler
-split by kernel of one more phase-4 solve and one more phase-5 solve.  Its
-launches are not counted.
+at EPS tol 1e-10 (phase 7's setting before the fast path's true-residual
+test), a sweep of K6's row-block budget (natural, RCM, RCM + random and
+hub order, f64 and f32, beside the DIA kernel on the same matrix) and of
+K5's tile (b = 1, 4, 8), the blocked f32 study (phase 6's f32 blocked solve
+at tol 1e-5 with each of K5, K3, K4 in turn swapped for its plain
+version), and a torch.profiler split by kernel of one more phase-4 solve
+and one more phase-5 solve.  Its launches are not counted.
 
 Launch counters are reset to 0 before phase 2 and read after phase 3 (the
 DIA path), reset again before phase 4 and read after it (the AIJ path),
@@ -111,15 +116,15 @@ from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 import slepc_tpu_torch as stt
 from slepc_tpu_torch.ops import _build
-from slepc_tpu_torch.ops.csr import (csr_spmv, csr_spmv_ref, lanes_for,
-                                     row_of_entry)
+from slepc_tpu_torch.ops.csr import (CSR_BUDGET, csr_plan, csr_spmv,
+                                     csr_spmv_ref, row_of_entry)
 from slepc_tpu_torch.ops.bv import (panel_dots, panel_dots_ref, panel_update,
                                     panel_update_dots, panel_update_dots_ref,
                                     panel_update_ref, plan_panel)
 from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
 from slepc_tpu_torch.eps.ks_jit import ks_hep_cycle
-from slepc_tpu_torch.ops.dia import (dia_spmm, dia_spmm_ref, dia_spmv,
-                                     dia_spmv_ref)
+from slepc_tpu_torch.ops.dia import (SPMM_TILE, dia_spmm, dia_spmm_ref,
+                                     dia_spmv, dia_spmv_ref, plan_spmm)
 from slepc_tpu_torch.ops.rotate import plan_rotate, rotate, rotate_ref
 from slepc_tpu_torch.ops.stream import (stream_bandwidth, stream_sum,
                                         stream_sum_ref)
@@ -147,17 +152,18 @@ KERNELS = {
     "stream_sum_f32": ("K7", SRC + "stream.cu", "bench.py:164"),
     "stream_sum_f64": ("K7", SRC + "stream.cu", "bench.py:164"),
 }
-# Each kernel's time before the last redesign of K3 and K4, same script and
-# shapes (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W), ms
+# Each kernel's time on the tree before the redesign of K5 and K6, same
+# script and shapes (PERF.md's kernel table, the earlier reading: NVIDIA
+# H100 80GB HBM3, 700.00 W), ms
 BEFORE_MS = {
-    "dia_spmv_f32": 0.2129, "dia_spmv_f64": 0.2866,
-    "dia_spmm_f32": 0.3976, "dia_spmm_f64": 0.5643,
-    "panel_dots_f32": 1.0976, "panel_dots_f64": 2.5056,
-    "panel_update_f32": 1.0385, "panel_update_f64": 1.8921,
-    "panel_update_dots_f32": 1.5866, "panel_update_dots_f64": 4.5716,
-    "rotate_f32": 4.1784, "rotate_f64": 7.4997,
-    "csr_spmv_f32": 0.7195, "csr_spmv_f64": 0.6416,
-    "stream_sum_f32": 0.1562, "stream_sum_f64": 0.2739,
+    "dia_spmv_f32": 0.1786, "dia_spmv_f64": 0.2782,
+    "dia_spmm_f32": 0.3912, "dia_spmm_f64": 0.5675,
+    "panel_dots_f32": 0.7986, "panel_dots_f64": 1.3711,
+    "panel_update_f32": 0.8016, "panel_update_f64": 1.5338,
+    "panel_update_dots_f32": 0.8312, "panel_update_dots_f64": 1.5186,
+    "rotate_f32": 1.6316, "rotate_f64": 2.8121,
+    "csr_spmv_f32": 0.7137, "csr_spmv_f64": 0.6377,
+    "stream_sum_f32": 0.1428, "stream_sum_f64": 0.2646,
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM;
 # 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores.
@@ -399,22 +405,30 @@ def phase1_planning(dev):
 
 
 def phase1_block(dev, table):
+    """K5 at b = 1, 2, 4, 8 against its plain version and b K1/K2 calls;
+    returns its times {(dtype, b): ms} (cuSPARSE beside them: phase1_csr)."""
     print("phase 1: K5 (block DIA SpMM) vs plain PyTorch on the flagship "
           "operator, beside b single K1/K2 calls; K3 at b = 4", flush=True)
     gen = torch.Generator(device=dev).manual_seed(6)
     lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
     n, nd = lap.shape[0], len(lap.offsets)
+    k5_ms = {}
     for dt, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
         diags = lap.diags.to(dt)
         # X is a slice of a taller basis, as the blocked cycle hands it over
         V = torch.randn((12, n), generator=gen, dtype=dt, device=dev)
-        for b in (2, 4, 8):
+        plan = plan_spmm(lap.offsets, n, 4, dt)
+        print(f"  {TAG[dt]}: tile {plan.tile}, halo {plan.halo}, diagonals "
+              f"(d direct, n near) {''.join('dn'[w] for w in plan.where)}, "
+              f"{plan.smem} bytes staged a block at b = 4", flush=True)
+        for b in (1, 2, 4, 8):
             X = V[3:3 + b]
             Y = dia_spmm(lap.offsets, diags, X)
             Y_ref = dia_spmm_ref(lap.offsets, diags, X)
             err = float((Y - Y_ref).abs().max())
             rel = err / float(Y_ref.abs().max())
             ms = cuda_ms(lambda: dia_spmm(lap.offsets, diags, X))
+            k5_ms[(dt, b)] = ms
             plain = cuda_ms(lambda: dia_spmm_ref(lap.offsets, diags, X))
             single = cuda_ms(lambda: [dia_spmv(lap.offsets, diags, X[m])
                                       for m in range(b)])
@@ -464,6 +478,7 @@ def phase1_block(dev, table):
         del out, ref, outs, refs
     del V, W, C
     torch.cuda.empty_cache()
+    return k5_ms
 
 
 CUSPARSE = "torch.sparse_csr_tensor @ x (cuSPARSE)"
@@ -504,6 +519,25 @@ def with_random_entries(A, seed=5):
     return (A + B + B.T).tocsr()
 
 
+def hub_graph_laplacian(n=2_097_152, degree=4, hubs=4, hub_edges=150_000,
+                        seed=11):
+    """Seeded random graph Laplacian L = D - W (the irregular, power-user
+    case of an AIJ matrix): ``degree`` uniform random edges per node, plus
+    ``hubs`` nodes joined to ``hub_edges`` random nodes each, so a few rows
+    hold more than 10^5 entries; unit weights, summed duplicates."""
+    rng = np.random.default_rng(seed)
+    i = np.repeat(np.arange(n), degree)
+    j = rng.integers(0, n, i.size)
+    hub = rng.choice(n, hubs, replace=False)
+    i = np.concatenate([i, np.repeat(hub, hub_edges)])
+    j = np.concatenate([j, rng.integers(0, n, hubs * hub_edges)])
+    keep = i != j
+    W = sp.csr_matrix((np.ones(int(keep.sum())), (i[keep], j[keep])),
+                      shape=(n, n))
+    W = (W + W.T).tocsr()
+    return (sp.diags(np.asarray(W.sum(axis=1)).ravel()) - W).tocsr()
+
+
 def pattern(op):
     """(bandwidth, distinct diagonal offsets, longest row) of a CSR operator."""
     off = op.cols.to(torch.int64) - row_of_entry(op.rowptr)
@@ -511,9 +545,10 @@ def pattern(op):
             int(op.rowptr.diff().max()))
 
 
-def phase1_csr(dev, table, host):
-    print("phase 1: K6 (CSR SpMV) vs plain PyTorch on the RCM-ordered "
-          "flagship CSR", flush=True)
+def phase1_csr(dev, table, host, k5_ms):
+    print("phase 1: K6 (CSR SpMV) vs plain PyTorch and cuSPARSE on the "
+          "RCM-ordered flagship CSR, on it plus random entries and on a hub "
+          "graph Laplacian", flush=True)
     t0 = time.perf_counter()
     L = stt.laplacian_3d(*FLAGSHIP, device="cpu").to_scipy()  # on the host
     host["build_s"] = time.perf_counter() - t0
@@ -523,7 +558,11 @@ def phase1_csr(dev, table, host):
     print(f"  host CSR: build {host['build_s']:.3f} s, RCM + permutation "
           f"{host['rcm_s']:.3f} s; n={A.shape[0]} nnz={A.nnz}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
-    ops = {"rcm": A, "rcm+random": with_random_entries(A)}
+    t0 = time.perf_counter()
+    ops = {"rcm": A, "rcm+random": with_random_entries(A),
+           "hub": hub_graph_laplacian()}
+    print(f"  host: random entries and the hub graph built in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     for dt, tol in ((torch.float64, 1e-13), (torch.float32, 2e-6)):
         name = f"csr_spmv_{TAG[dt]}"
         worst_abs = worst_rel = 0.0
@@ -531,29 +570,47 @@ def phase1_csr(dev, table, host):
             op = stt.from_scipy(M, dtype=dt, device=dev)
             if dt == torch.float64:
                 bw, noff, longest = pattern(op)
-                print(f"  {label}: nnz={op.nnz} bandwidth={bw} "
-                      f"distinct offsets={noff} longest row={longest}",
+                print(f"  {label}: n={op.shape[0]} nnz={op.nnz} "
+                      f"bandwidth={bw} distinct offsets={noff} "
+                      f"longest row={longest} row blocks="
+                      f"{op.row_plan().nblocks} (budget "
+                      f"{op.row_plan().budget})",
                       flush=True)
             x = torch.randn(op.shape[1], generator=gen, dtype=dt, device=dev)
             rows = row_of_entry(op.rowptr)
-            y = csr_spmv(op.rowptr, op.cols, op.vals, x, op.shape[1])
+            y = op.mult(x)
             y_ref = csr_spmv_ref(op.rowptr, op.cols, op.vals, x, rows)
-            err = float((y - y_ref).abs().max())
+            # the plain version's own f32 sums (index_add_'s atomics, in no
+            # fixed order) are off by up to 6e-6 on a hub row of 1.5e5
+            # entries: the f32 kernel is held against the plain version on
+            # the same inputs in f64
+            y_ref64 = y_ref if dt == torch.float64 else csr_spmv_ref(
+                op.rowptr, op.cols, op.vals.double(), x.double(), rows)
+            err = float((y.double() - y_ref64).abs().max())
+            err_plain = float((y - y_ref).abs().max() / y_ref.abs().max())
             worst_abs = max(worst_abs, err)
-            worst_rel = max(worst_rel, err / float(y_ref.abs().max()))
-            if label == "rcm":  # time the flagship operator itself
-                ms = cuda_ms(lambda: csr_spmv(op.rowptr, op.cols, op.vals, x,
-                                              op.shape[1]))
-                plain = cuda_ms(lambda: csr_spmv_ref(op.rowptr, op.cols,
-                                                     op.vals, x, rows))
-                elt = x.element_size()
-                nbytes = (op.nnz * (elt + 4) + (op.shape[0] + 1) * 8
-                          + 2 * op.shape[0] * elt)
-                lib_ms = cusparse_ms(op, x)
-            del op, x, rows, y, y_ref
+            worst_rel = max(worst_rel, err / float(y_ref64.abs().max()))
+            ms = cuda_ms(lambda: op.mult(x))
+            plain = cuda_ms(lambda: csr_spmv_ref(op.rowptr, op.cols,
+                                                 op.vals, x, rows))
+            lib_ms = cusparse_ms(op, x)
+            elt = x.element_size()
+            # the bound counts rowptr, cols, vals and x once, y once
+            nbytes = (op.nnz * (elt + 4) + (op.shape[0] + 1) * 8
+                      + 2 * op.shape[0] * elt)
+            print(f"  {label} {TAG[dt]}: err {err / float(y_ref64.abs().max()):.3e}"
+                  f" (against the {TAG[dt]} plain version {err_plain:.3e})"
+                  f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  cuSPARSE "
+                  f"{lib_ms:.4f} ms  bound {nbytes / PEAK_BYTES * 1e3:.4f} ms"
+                  f"  {nbytes / ms / 1e6:.1f} GB/s", flush=True)
+            if label == "rcm":  # the flagship operator goes into the table
+                row = (ms, plain, nbytes, lib_ms, 2 * op.nnz)
+            del op, x, rows, y, y_ref, y_ref64
+            torch.cuda.empty_cache()
+        ms, plain, nbytes, lib_ms, flops = row
         record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes,
-               2 * A.nnz, dt, lib_ms, CUSPARSE)
-    del ops
+               flops, dt, lib_ms, CUSPARSE)
+    ops.pop("rcm")
     torch.cuda.empty_cache()
 
     print("phase 1: routing: the un-permuted flagship CSR must run on the DIA "
@@ -575,24 +632,34 @@ def phase1_csr(dev, table, host):
           f"routed SpMV launched {delta}")
     check(err <= 1e-14, f"DIA route vs K6: {err:.3e}")
     del fast, x, y, y6
-    print("phase 1: the library call beside K1/K2 and K5: cuSPARSE on the "
-          "same matrix as a torch.sparse_csr_tensor", flush=True)
+    print("phase 1: the library call beside K1/K2 and K5 (b = 1, 2, 4, 8): "
+          "cuSPARSE on the same matrix as a torch.sparse_csr_tensor",
+          flush=True)
     n = op.shape[0]
     del op
     for dt in (torch.float64, torch.float32):
         op = stt.from_scipy(L, dtype=dt, device=dev)
         x = torch.randn(n, generator=gen, dtype=torch.float64,
                         device=dev).to(dt)
-        X = torch.randn((n, 4), generator=gen, dtype=torch.float64,
-                        device=dev).to(dt)
-        for name, rhs in ((f"dia_spmv_{TAG[dt]}", x), (f"dia_spmm_{TAG[dt]}", X)):
-            table[name]["library_ms"] = cusparse_ms(op, rhs)
-            table[name]["library"] = CUSPARSE
-            print(f"  {name}: library {table[name]['library_ms']:.4f} ms "
-                  f"(kernel {table[name]['ms']:.4f} ms)", flush=True)
-        del op, x, X
+        name = f"dia_spmv_{TAG[dt]}"
+        table[name]["library_ms"] = cusparse_ms(op, x)
+        table[name]["library"] = CUSPARSE
+        print(f"  {name}: library {table[name]['library_ms']:.4f} ms "
+              f"(kernel {table[name]['ms']:.4f} ms)", flush=True)
+        for b in (1, 2, 4, 8):
+            X = torch.randn((n, b), generator=gen, dtype=torch.float64,
+                            device=dev).to(dt)
+            lib = cusparse_ms(op, X)
+            name = f"dia_spmm_{TAG[dt]}"
+            if b == 4:
+                table[name]["library_ms"] = lib
+                table[name]["library"] = CUSPARSE
+            print(f"  {name} b={b}: library {lib:.4f} ms (kernel "
+                  f"{k5_ms[(dt, b)]:.4f} ms)", flush=True)
+            del X
+        del op, x
         torch.cuda.empty_cache()
-    return L, A
+    return L, A, ops
 
 
 def family_counts(counts, tag, spmv="dia_spmv"):
@@ -746,16 +813,14 @@ def phase6(dev):
           "as RCM-ordered CSR (K6 per row); partial reorthogonalization; "
           "Chebyshev with partial reorthogonalization", flush=True)
     # block Krylov depth per restart is ncv/b = 7: the blocked cycle needs
-    # several hundred restarts here where the plain one needs ~56.  In f32
-    # the blocked error estimates of the six wanted pairs level off (2e-6 to
-    # 5e-5 with the plain versions on a CPU, 2e-5 to 2e-4 with the kernels;
-    # lambda_1 ~ 2e-3 against ||A|| ~ 8): at tol 1e-5 the solve ran 3000
-    # restarts on the card without converging, so the f32 solve runs at
-    # tol 1e-4 (the gate on the eigenvalues is phase 2's)
+    # several hundred restarts here where the plain one needs ~56.  The f32
+    # solve runs at phase 2's tol 1e-5: with K3's update subtracting the
+    # summed projection once, its estimates reach the tol in ~400 restarts
+    # (blocked_f32_study, under --profile, swaps each kernel for its plain
+    # version)
     small_solves(dev, "phase 6 blocked",
                  (("DIA", "dia_spmm"), ("CSR", "csr_spmv")),
-                 setup=lambda eps: setattr(eps, "block_size", 4), max_it=3000,
-                 dtypes=((torch.float64, 1e-9), (torch.float32, 1e-4)))
+                 setup=lambda eps: setattr(eps, "block_size", 4), max_it=3000)
     # f64 only: at tol 1e-5 the f32 semi-orthogonal basis (drift up to
     # sqrt(eps_f32) ~ 3e-4) never certifies this case, in the JAX package
     # either (its EPS stalls at nconv 0 after 400 cycles on the CPU)
@@ -790,11 +855,11 @@ SINVERT_ITERS = 800
 # The cycle's estimate ||M u - theta u|| / theta lives in the transformed
 # space (M = D^1/2 A^-1 D^1/2, theta = 1/lambda ~ 358); the residual of the
 # original pencil is ||A D^-1/2 r_u|| / ||x||, up to ||A|| / lambda_1 ~ 4e3
-# times larger.  At the deployment's tol 1e-8 the solve stopped after 2
-# cycles with a true residual of 4.1e-7 (GHEP) / 1.8e-7 (standard) although
-# 800 CG steps solve to 1.1e-14; one more cycle at tol 1e-10 gives 2.1e-12
-# (H100 80GB HBM3, 700 W).  The gate on the true residual stays 1e-8.
-SINVERT_TOL = 1e-10
+# times larger.  The fast path confirms each candidate on the original
+# pencil before it counts (eps/ks_jit.py _true_residual_confirm), so the
+# solve runs at the deployment's tol 1e-8 and the gate on the true residual
+# is that same 1e-8 (without the test the solve stopped at 4.1e-7).
+SINVERT_TOL = 1e-8
 
 
 def sinvert_kernels(dev):
@@ -891,8 +956,9 @@ def sinvert_solve(dev, where, generalized, tol=SINVERT_TOL, gate=True):
 def sinvert_tol_study(dev):
     """What bounds phase 7's true residual: the relative residual of the
     inner solve (cg_fixed on the 100x102x104 Laplacian, seeded random b)
-    after 400 and 800 steps, and the ungated solves at the deployment's
-    tol 1e-8 beside SINVERT_TOL."""
+    after 400 and 800 steps, and the ungated solves at tol 1e-10 (phase
+    7's setting before the fast path's true-residual test) beside phase
+    7's."""
     from slepc_tpu_torch.ksp.iterative_jit import cg_fixed
 
     print("profile: phase 7's inner solve and EPS tolerance", flush=True)
@@ -907,15 +973,15 @@ def sinvert_tol_study(dev):
               flush=True)
     del A, b, x
     for generalized in (True, False):
-        sinvert_solve(dev, f"tol 1e-8 {'GHEP' if generalized else 'standard'}",
-                      generalized, tol=1e-8, gate=False)
+        sinvert_solve(dev, f"tol 1e-10 {'GHEP' if generalized else 'standard'}",
+                      generalized, tol=1e-10, gate=False)
 
 
 def phase7(dev):
     print("phase 7: the shift-and-invert slice at full size: 100x102x104 "
           "Laplacian (1,060,800 rows), f64, sigma = 0, CG iters = 800, "
-          f"nev 10, ncv 32, tol {SINVERT_TOL:g} on the transformed estimate, "
-          "gate 1e-8 on the true residual", flush=True)
+          f"nev 10, ncv 32, tol {SINVERT_TOL:g} (candidates confirmed on the "
+          "original pencil), gate 1e-8 on the true residual", flush=True)
     _, wall_g, _ = sinvert_solve(dev, "phase 7 GHEP", generalized=True)
     eps, wall_s, _ = sinvert_solve(dev, "phase 7 standard", generalized=False)
     exact = stt.laplacian_3d_eigs(*SINVERT_GRID, k=10)
@@ -1119,41 +1185,130 @@ def phase9(dev, table):
     return wall, delta
 
 
-def csr_spmv_at(op, x, lanes):
-    """K6 on op's CSR at a given lane count: the library entry itself, which
-    the wrapper csr_spmv calls with lanes_for (uncounted; for the sweep)."""
-    y = torch.empty(op.shape[0], dtype=x.dtype, device=x.device)
-    rc = _build.load().slepc_csr_spmv(
-        _build.dtype_code(x), lanes, op.rowptr.data_ptr(), op.cols.data_ptr(),
-        op.vals.data_ptr(), x.data_ptr(), y.data_ptr(), op.shape[0],
-        _build.stream_handle(x))
-    _build.check(rc, "csr_spmv")
-    return y
-
-
-def lane_sweep(dev, L, A):
-    print("profile: K6 at each lane count (ms, CUDA events, median of 20), "
-          "natural and RCM order, beside the DIA kernel", flush=True)
+def budget_sweep(dev, L, A, more):
+    """K6 at each row-block budget (ms, CUDA events, median of 20): the
+    natural and RCM-ordered flagship, RCM + random entries and the hub
+    graph, f64 and f32, beside the DIA kernel on the same matrix; every
+    budget's result against the default plan's."""
+    print("profile: K6 at each row-block budget (ms, CUDA events, median of "
+          "20), beside the DIA kernel where the matrix routes to it",
+          flush=True)
     gen = torch.Generator(device=dev).manual_seed(4)
     for dt, tol in ((torch.float64, 1e-13), (torch.float32, 2e-6)):
-        for label, M in (("natural", L), ("RCM", A)):
+        for label, M in (("natural", L), ("RCM", A), *more.items()):
             op = stt.from_scipy(M, dtype=dt, device=dev)
             x = torch.randn(op.shape[1], generator=gen, dtype=dt, device=dev)
-            y = csr_spmv(op.rowptr, op.cols, op.vals, x, op.shape[1])
+            y = op.mult(x)
             times = []
-            for lanes in (2, 4, 8, 16, 32):
-                err = float((csr_spmv_at(op, x, lanes) - y).abs().max()
-                            / y.abs().max())
-                check(err <= tol, f"K6 at {lanes} lanes: {err:.3e}")
-                ms = cuda_ms(lambda: csr_spmv_at(op, x, lanes))
-                times.append(f"L{lanes}={ms:.4f}")
+            for budget in (512, 1024, 2048, 4096, 8192):
+                plan = csr_plan(op.rowptr, budget)
+                run = lambda: csr_spmv(op.rowptr, op.cols, op.vals, x,
+                                       op.shape[1], plan=plan)
+                err = float((run() - y).abs().max() / y.abs().max())
+                check(err <= tol, f"K6 at budget {budget}: {err:.3e}")
+                times.append(f"B{budget}={cuda_ms(run):.4f}")
             fast = op.fast_form()
             if isinstance(fast, stt.DIAOperator):
                 times.append(f"DIA={cuda_ms(lambda: fast.mult(x)):.4f}")
-            print(f"  {label} {TAG[dt]}: {' '.join(times)} (lanes_for picks "
-                  f"{lanes_for(op.shape[0], op.nnz)})", flush=True)
+            print(f"  {label} {TAG[dt]}: {' '.join(times)} (default "
+                  f"{CSR_BUDGET[dt]})", flush=True)
             del op, x, y, fast
             torch.cuda.empty_cache()
+
+
+def tile_sweep(dev):
+    """K5 at each tile (rows a block stages) on the flagship operator,
+    b = 1, 4, 8, f64 and f32 (ms, CUDA events, median of 20); the plan's
+    diagonals printed as d(irect) and n(ear)."""
+    print("profile: K5 at each tile (ms, CUDA events, median of 20) on the "
+          "flagship operator", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    n = lap.shape[0]
+    for dt, tiles in ((torch.float64, (512, 1024, 2048, 4096)),
+                      (torch.float32, (1024, 2048, 4096, 8192))):
+        diags = lap.diags.to(dt)
+        V = torch.randn((9, n), generator=gen, dtype=dt, device=dev)
+        for b in (1, 4, 8):
+            X = V[1:1 + b]
+            Y = dia_spmm(lap.offsets, diags, X)
+            times = []
+            for tile in tiles:
+                run = lambda: dia_spmm(lap.offsets, diags, X, tile=tile)
+                err = float((run() - Y).abs().max() / Y.abs().max())
+                check(err == 0.0, f"K5 at tile {tile}: differs by {err:.3e}")
+                plan = plan_spmm(lap.offsets, n, b, dt, tile)
+                where = "".join("dn"[w] for w in plan.where)
+                times.append(f"T{tile}({where})={cuda_ms(run):.4f}")
+            print(f"  {TAG[dt]} b={b}: {' '.join(times)} (default "
+                  f"{SPMM_TILE[dt]})", flush=True)
+            del X, Y
+        del diags, V
+        torch.cuda.empty_cache()
+
+
+def _swapped(what):
+    """Context: the blocked cycle's K5, K3 or K4 call sites take the plain
+    version (``what``: a subset of {"K5", "K3", "K4"})."""
+    import contextlib
+
+    from slepc_tpu_torch.eps import ks_jit
+    from slepc_tpu_torch.mat import linop
+
+    def rotate_plain(Q, V, out=None):
+        r = rotate_ref(Q, V)
+        return r if out is None else out.copy_(r)
+
+    swaps = []
+    if "K5" in what:
+        swaps.append((linop, "dia_spmm",
+                      lambda o, d, X, tile=None: dia_spmm_ref(o, d, X)))
+    if "K3" in what:
+        swaps += [(ks_jit, "panel_dots", panel_dots_ref),
+                  (ks_jit, "panel_update", panel_update_ref),
+                  (ks_jit, "panel_update_dots", panel_update_dots_ref)]
+    if "K4" in what:
+        swaps.append((ks_jit, "rotate", rotate_plain))
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+        for m, k, f in swaps:
+            setattr(m, k, f)
+        try:
+            yield
+        finally:
+            for m, k, f in saved:
+                setattr(m, k, f)
+
+    return ctx()
+
+
+def blocked_f32_study(dev, max_it=1000):
+    """Phase 6's f32 blocked solve (laplacian_2d(95, 97), block_size 4,
+    ncv 28, nev 6) at tol 1e-5, with every kernel, with each of K5, K3 and
+    K4 swapped for its plain version, and with all three swapped: nconv,
+    restarts, and where the six wanted error estimates level off (their
+    least value over the run and their value at the end)."""
+    print(f"profile: the f32 blocked solve at tol 1e-5 with kernels swapped "
+          f"for their plain versions ({max_it} restarts at most)", flush=True)
+    A = stt.laplacian_2d(95, 97, dtype=torch.float32, device=dev)
+    for what in ((), ("K5",), ("K3",), ("K4",), ("K5", "K3", "K4")):
+        eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
+                      ncv=28, tol=1e-5, max_it=max_it, options=stt.Options())
+        eps.block_size = 4
+        errs = []
+        eps.monitor.add(lambda _e, _its, _k2, _theta, err: errs.append(
+            np.array(err[:6], np.float64)))
+        t0 = time.perf_counter()
+        with _swapped(what):
+            eps.solve()
+        torch.cuda.synchronize()
+        E = np.array(errs)
+        print(f"  plain {'+'.join(what) or 'none':<9} nconv={eps.nconv} "
+              f"its={eps.its} wall={time.perf_counter() - t0:.2f} s; "
+              f"least estimates {np.array2string(E.min(axis=0), precision=2)}"
+              f", last {np.array2string(E[-1], precision=2)}", flush=True)
 
 
 def profile_solve(where, solve, plain_wall=None):
@@ -1196,7 +1351,9 @@ def kernel_resources(log):
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
               "K3 panel<{}, B={}, VW={}, update={}, dots={}>"),
              ("rotate_f64_kernelILi(\\d)ELb([01])E", "K4 rotate_f64<MT={}, vec={}>"),
-             ("rotate_f32_kernelILb([01])E", "K4 rotate_f32<vec={}>"))
+             ("rotate_f32_kernelILb([01])E", "K4 rotate_f32<vec={}>"),
+             ("dia_spmm_kernelI([df])Li(\\d)E", "K5 dia_spmm<{}, BT={}>"),
+             ("csr_spmv_kernelI([df])E", "K6 csr_spmv<{}>"))
     entry, spill = None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+?)'", line)
@@ -1217,9 +1374,10 @@ def kernel_resources(log):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 9: phase 7's tolerance study, a "
-                             "K6 lane sweep and a torch.profiler split of a "
-                             "phase-7, a phase-4 and a phase-5 solve")
+                        help="after phase 9: phase 7's tolerance study, the "
+                             "K6 budget and K5 tile sweeps, the blocked f32 "
+                             "study and a torch.profiler split of a phase-9, "
+                             "a phase-7, a phase-4 and a phase-5 solve")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1248,10 +1406,10 @@ def main():
     rates, stream_path = phase1_stream(dev, table)
     phase1(dev, table)
     phase1_planning(dev)
-    phase1_block(dev, table)
-    L_csr, A_csr = phase1_csr(dev, table, host)
+    k5_ms = phase1_block(dev, table)
+    L_csr, A_csr, more_csr = phase1_csr(dev, table, host, k5_ms)
     if not args.profile:
-        del L_csr
+        del L_csr, more_csr
     # the comparisons above do not count: each path is read from zero
     stt.reset_launch_counts()
     phase2(dev)
@@ -1286,7 +1444,10 @@ def main():
             dev, "profiled phase 7 GHEP", generalized=True)[1],
             plain_wall=wall_sinv)
         sinvert_tol_study(dev)
-        lane_sweep(dev, L_csr, A_csr)
+        budget_sweep(dev, L_csr, A_csr, more_csr)
+        del L_csr, more_csr
+        tile_sweep(dev)
+        blocked_f32_study(dev)
         A = stt.from_scipy(A_csr, device=dev)
         profile_solve("phase 4", lambda: flagship_solve(
             A, "profiled phase 4", "csr_spmv")[0])

@@ -50,23 +50,8 @@ constexpr int kThreads64 = 128;    // f64: 4 warps x 16 columns
 constexpr int kTile32 = 128;       // f32: columns per tile (32 lanes x 4)
 constexpr int kMaxRowTiles = 8;    // 8-row tiles of output per launch
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(gmem), "r"(src_bytes) : "memory");
-  else if (BYTES == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-                 "l"(gmem), "r"(src_bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+using slepc::cp_async;
+using slepc::cp_async_commit;
 
 // Wait until the oldest of `stages - 1` groups in flight has landed.
 __device__ __forceinline__ void cp_async_wait_for(int stages) {

@@ -1,3 +1,4 @@
-from .base import EPS, EPSConvergedReason, EPSError, ProblemType
+from .base import EPS, EPSConvergedReason, EPSError, EPSSolver, ProblemType
+from . import krylovschur  # registers "krylovschur"
 
-__all__ = ["EPS", "EPSConvergedReason", "EPSError", "ProblemType"]
+__all__ = ["EPS", "EPSConvergedReason", "EPSError", "EPSSolver", "ProblemType"]

@@ -1,24 +1,32 @@
 """EPS — linear eigenproblem solver front-end (``slepc_tpu/eps/base.py``).
 
-The surface the Hermitian Krylov-Schur solver needs: ``A x = lambda x`` and
-``A x = lambda B x`` (``hep`` / ``ghep``); options ``nev ncv mpd tol max_it
-which problem_type target interval``, ``-eps_true_residual``,
-``-eps_conv_*``, ``-eps_cheb_degree``, ``-eps_block_size``,
-``-eps_lanczos_reorthog``, ``-eps_partitions``, monitors, and the ST
-options ``-st_type -st_shift -st_ksp_type``; ``set_target``,
-``set_interval``, ``set_st``, ``set_deflation_space``,
-``set_initial_space``; ``solve``, ``nconv``, ``get_eigenpair``,
-``compute_error`` (with B) and ``error_view``.  Eigenvectors stay on the
-operator's device as the rows of a (nconv, n) tensor.  Other solvers and
-the non-Hermitian, indefinite, harmonic, balanced, two-sided and
-arbitrary-selection variants raise NotImplementedError naming their ROADMAP
-item.
+The reference's public surface: ``A x = lambda x`` and ``A x = lambda B x``;
+options ``nev ncv mpd tol max_it which problem_type target interval``,
+``-eps_true_residual``, ``-eps_conv_*``, ``-eps_cheb_degree``,
+``-eps_block_size``, ``-eps_lanczos_reorthog``, ``-eps_partitions``,
+monitors, the post-solve viewers ``-eps_view`` / ``-eps_converged_reason``
+/ ``-eps_error_relative``, and the ST options ``-st_type -st_shift
+-st_ksp_type``; the setters (``set_operators``, ``set_problem_type``,
+``set_type``, ``set_which``, ``set_dimensions``, ``set_tolerances``,
+``set_target``, ``set_interval``, ``set_st``, ...), ``solve`` through the
+solver registry (:meth:`EPS.register`, :class:`EPSSolver`), the getters,
+``compute_error`` (with B), ``view``, ``error_view`` and
+``save_state`` / ``load_state``.  Eigenvectors stay on the operator's device
+as the rows of a (nconv, n) tensor; ``get_eigenvectors`` returns them in the
+reference's (n, nconv) shape, as a transposed view.
+
+Only ``krylovschur`` on Hermitian (``hep``, ``ghep``) problems is
+registered.  The reference's other solvers, and the non-Hermitian,
+indefinite, harmonic, balanced, two-sided, arbitrary-selection and region
+variants (whose setters exist), raise NotImplementedError naming their
+ROADMAP item; a name the reference does not know raises :class:`EPSError`
+listing the registered ones.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Type
 
 import numpy as np
 import torch
@@ -58,6 +66,10 @@ _TODO_SOLVERS = ("only EPS 'krylovschur' on Hermitian (hep, ghep) problems "
                  "is ported; {} is still to be ported (ROADMAP.md, queue 1, "
                  "item 11)")
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
+# the reference's registered solvers that are not ported yet
+_REFERENCE_SOLVERS = ("arnoldi", "bse", "ciss", "gd", "jd", "lanczos",
+                      "lapack", "lobpcg", "lyapii", "power", "rqcg",
+                      "subspace")
 
 
 def _real_if_real(z: complex):
@@ -68,6 +80,12 @@ def _real_if_real(z: complex):
 
 class EPS:
     """Linear eigensolver: A x = lambda x or A x = lambda B x."""
+
+    _solvers: Dict[str, Type["EPSSolver"]] = {}
+
+    @classmethod
+    def register(cls, name: str, solver: Type["EPSSolver"]) -> None:
+        cls._solvers[name] = solver
 
     def __init__(self, A: Optional[LinearOperator] = None,
                  B: Optional[LinearOperator] = None, *,
@@ -191,6 +209,84 @@ class EPS:
             self.monitor.add(monitor_all)
         if o.get("monitor_conv", False) is True:
             self.monitor.add(ConvMonitor())
+        # post-solve viewers (reference -eps_view / -eps_converged_reason /
+        # -eps_error_relative, epssolve.c:97-113)
+        self._view_on_solve = o.get("view", False) is True
+        self._error_view_on_solve = (
+            o.get("error_relative", False) is True
+            or o.get("error_absolute", False) is True)
+        self._reason_view_on_solve = o.get("converged_reason", False) is True
+
+    def set_operators(self, A: LinearOperator,
+                      B: Optional[LinearOperator] = None):
+        self.A = A
+        self.B = B
+        self._setup_done = False
+        return self
+
+    def set_problem_type(self, pt: str | ProblemType):
+        self.problem_type = ProblemType(pt) if isinstance(pt, str) else pt
+        return self
+
+    def set_type(self, name: str):
+        self.solver_name = name
+        return self
+
+    def set_which(self, which: str | Which, target: Optional[complex] = None):
+        self.which = Which(which) if isinstance(which, str) else which
+        if target is not None:
+            self.target = target
+        return self
+
+    def set_dimensions(self, nev: Optional[int] = None,
+                       ncv: Optional[int] = None, mpd: Optional[int] = None):
+        if nev is not None:
+            self.nev = nev
+        if ncv is not None:
+            self.ncv = ncv
+        if mpd is not None:
+            self.mpd = mpd
+        return self
+
+    def set_tolerances(self, tol: Optional[float] = None,
+                       max_it: Optional[int] = None):
+        if tol is not None:
+            self.tol = tol
+        if max_it is not None:
+            self.max_it = max_it
+        return self
+
+    # setters of variants that are not ported: they set the attribute the
+    # solver refuses (ROADMAP.md, queue 1, item 11)
+    def set_rg(self, rg):
+        self.rg = rg
+        return self
+
+    def set_two_sided(self, flg: bool = True):
+        self.two_sided = flg
+        return self
+
+    def set_balance(self, kind: str = "krylov", its: int = 5):
+        self.balance = kind
+        self.balance_its = its
+        return self
+
+    def set_arbitrary_selection(self, fn):
+        self.arbitrary = fn
+        return self
+
+    def set_extraction(self, kind: str):
+        if kind not in ("ritz", "harmonic"):
+            raise ValueError(f"extraction {kind!r} is not ritz or harmonic")
+        self.extraction = kind
+        return self
+
+    def set_power_nonlinear(self, A_of_x, B_of_x=None):
+        """Nonlinear inverse power iteration (the reference's 'power'
+        solver, not ported)."""
+        self.power_nonlinear = (A_of_x, B_of_x)
+        self.solver_name = "power"
+        return self
 
     def set_target(self, target: complex):
         self.target = target
@@ -376,17 +472,19 @@ class EPS:
 
     def solve(self):
         """Run the configured solver (reference: EPSSolve, epssolve.c:119)."""
-        from .krylovschur import KrylovSchur
-
-        if self.solver_name != "krylovschur":
+        cls = self._solvers.get(self.solver_name)
+        if cls is None and self.solver_name in _REFERENCE_SOLVERS:
             raise NotImplementedError(_TODO_SOLVERS.format(
                 f"solver {self.solver_name!r}"))
+        if cls is None:
+            raise EPSError(f"unknown EPS solver {self.solver_name!r}; "
+                           f"available: {sorted(self._solvers)}")
         if not self._setup_done:
             self.setup()
         self.its = 0
         self.nconv = 0
         self.reason = EPSConvergedReason.ITERATING
-        KrylovSchur().solve(self)
+        cls().solve(self)
         if self.reason == EPSConvergedReason.ITERATING:
             self.reason = (EPSConvergedReason.CONVERGED_TOL
                            if self.nconv >= self.nev else EPSConvergedReason.DIVERGED_ITS)
@@ -397,9 +495,69 @@ class EPS:
             self.errests[: self.nconv] = self.errests[perm]
             self._eigenvectors = self._eigenvectors[
                 torch.from_numpy(perm).to(self._eigenvectors.device)]
+        if self._reason_view_on_solve:
+            verb = "CONVERGED" if self.reason.value > 0 else "DIVERGED"
+            print(f"EPS solve {verb}: {self.nconv} eigenpairs, reason "
+                  f"{self.reason.name}, iterations {self.its}")
+        if self._view_on_solve:
+            self.view()
+        if self._error_view_on_solve:
+            self.error_view()
+        return self
+
+    # -- checkpoint / resume ------------------------------------------------
+    def save_state(self, path: str):
+        """Persist the solve's results to an .npz file in the reference's
+        layout (eigenvectors and basis as (n, k) columns), so that either
+        package can resume from it."""
+        def cols(X):
+            return X.detach().cpu().numpy().T if X is not None \
+                else np.zeros((self.n, 0))
+
+        basis = getattr(self, "V", None)
+        np.savez(path, eigenvalues=self.eigenvalues,
+                 eigenvectors=cols(self._eigenvectors[: self.nconv]
+                                   if self._eigenvectors is not None
+                                   else None),
+                 errests=self.errests, nconv=self.nconv, its=self.its,
+                 basis=cols(basis.array) if basis is not None
+                 else np.zeros((0, 0)))
+        return self
+
+    def load_state(self, path: str):
+        """Warm-start from a saved state: the converged vectors (and a few
+        leftover basis columns) become the initial space, the first column
+        their sum plus a tiny seeded perturbation (the reference's
+        ``load_state``)."""
+        d = np.load(path)
+        X = d["eigenvectors"]
+        basis = d["basis"]
+        cols = []
+        if X.size:
+            v0 = X.sum(axis=1, keepdims=True)
+            real = self.A is not None and self.A.dtype.is_floating_point
+            pert = 100.0 * (torch.finfo(self.A.dtype).eps if real
+                            else np.finfo(np.float64).eps)
+            rng = np.random.default_rng(1)
+            v0 = v0 + pert * np.linalg.norm(v0) * rng.standard_normal(
+                v0.shape) / np.sqrt(v0.shape[0])
+            cols += [v0, X]
+        if basis.size:
+            extra = basis[:, X.shape[1]: X.shape[1] + 4]
+            if extra.size:
+                cols.append(extra)
+        if cols:
+            init = np.concatenate(cols, axis=1)
+            if self.A is not None and not self.A.dtype.is_complex \
+                    and np.iscomplexobj(init):
+                init = init.real
+            self.set_initial_space(init)
         return self
 
     # -- results -----------------------------------------------------------
+    def get_converged(self) -> int:
+        return self.nconv
+
     def get_eigenvalue(self, i: int):
         if i >= self.nconv:
             raise EPSError(f"only {self.nconv} converged pairs")
@@ -409,6 +567,16 @@ class EPS:
         """(lambda_i, x_i) with x_i a tensor on the operator's device."""
         lam = self.get_eigenvalue(i)
         return lam, self._eigenvectors[i]
+
+    def get_eigenvectors(self) -> torch.Tensor:
+        """The converged eigenvectors as the reference's (n, nconv) columns:
+        a transposed view of the device rows."""
+        if self._eigenvectors is None:
+            raise EPSError("no eigenvectors: solve first")
+        return self._eigenvectors[: self.nconv].T
+
+    def get_error_estimate(self, i: int) -> float:
+        return float(self.errests[i])
 
     def compute_error(self, i: int, error_type: str = "relative") -> float:
         """Explicit residual ||A x - lambda B x|| / ||x|| (/|lambda| if
@@ -422,6 +590,31 @@ class EPS:
         if error_type == "relative":
             return res / max(abs(lam), 1e-300)
         return res
+
+    def view(self):
+        """Print the solver configuration (reference: EPSView, epsview.c)."""
+        pt = self.problem_type.value if self.problem_type else "(unset)"
+        lines = [
+            "EPS Object:",
+            f"  solver: {self.solver_name}",
+            f"  problem type: {pt}",
+            f"  which: {self.which.value}"
+            + (f" (target={self.target})" if self.target is not None else "")
+            + (f" (interval={self.interval})" if self.interval is not None
+               else ""),
+            f"  dimensions: nev={self.nev} ncv={self.ncv} mpd={self.mpd}",
+            f"  tolerances: tol={self.tol} max_it={self.max_it}",
+            f"  convergence test: {self.conv_test}",
+        ]
+        if self.st is not None:
+            lines.append(f"  ST: type={self.st.name} sigma={self.st.sigma}")
+            if getattr(self.st, "ksp", None) is not None:
+                lines.append(f"    KSP: method={self.st.ksp.method}")
+        if self.rg is not None:
+            lines.append(f"  RG: {type(self.rg).__name__}")
+        s = "\n".join(lines)
+        print(s)
+        return s
 
     def error_view(self):
         lines = [f"nconv={self.nconv} reason={self.reason.name} its={self.its}"]
@@ -444,3 +637,10 @@ class EPS:
                 nrm = abs(theta)
             return res / max(abs(theta) + nrm, 1e-300)
         return res / max(abs(theta), 1e-300)
+
+
+class EPSSolver:
+    """Base class of the solvers :meth:`EPS.register` dispatches to."""
+
+    def solve(self, eps: EPS) -> None:
+        raise NotImplementedError

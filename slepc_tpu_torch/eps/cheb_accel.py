@@ -20,18 +20,16 @@ is unknown up front.  A one-cycle plain-Lanczos probe gives a safe starting
 lo; whenever convergence exhausts the eigenvalues below lo, the converged
 Rayleigh quotients extrapolate the next window.
 
-The cycle is the split form of the reference: extension (``degree`` DIA
-kernel launches per column plus the CGS2 panel kernel), host LAPACK
-projected eigh, then the rotation kernel.  Bases live on the operator's
-device for the whole solve.
-
-``block=b > 1`` runs the blocked filtered cycle (``ks_jit`` blocked body:
-the block SpMV K5 inside the recurrence, BCGS2 + SVQB^2): b filtered
-applies per panel sweep, at the price of more columns (block-Krylov depth
-per restart is ncv/b).  ``reorth="partial"`` keeps the single-column
-recursion with Simon's omega-monitored extension; the basis is then only
-semi-orthogonal, so certification CholQR2-orthonormalizes the certified
-block before Rayleigh-Ritz.
+A window that amplified nothing (lo below lambda_1, as the range clamp can
+set the first one on a small grid at a high degree) locks bulk vectors, and
+a window moved by ``_next_lo``'s unclamped x1.2 step can amplify lambda_1
+far past the clamp's bound; then the filtered block overflows (b > 1), or
+the filtered spectrum spans more than f64 resolves and the wanted rows are
+lost (b = 1: a short count).  So every filtered apply checks its block,
+and every cycle its Ritz values: a non-finite value, or a growth past
+``_MAX_GROWTH``, raises :class:`EPSError` naming the degree and the window
+(for b = 1 and b > 1 alike; the reference returns the short count, or
+nconv 0 for b > 1: a deliberate divergence).
 """
 
 from __future__ import annotations
@@ -46,10 +44,48 @@ import torch
 from ..ops.bv import panel_dots
 from ..ops.rotate import rotate
 from ..st.cheb import ChebAmplifyOperator, cheb_value, gershgorin_upper
+from .base import EPSError
 from .ks_jit import (_check_rot_mode, _hep_cycle_blocked_body,
                      _hep_cycle_body, _np_dtype, ks_hep_cycle)
 
 _logger = logging.getLogger(__name__)
+
+
+# The range clamp keeps max |p| <= cosh(34) ~ 2.9e14 when it is given the
+# true lambda_1 (or 0); healthy windows clamped against a locked Rayleigh
+# quotient reach ~2e1 times more (5.2e15, laplacian_2d(60, 60) at degree
+# 40).  A filtered block that grows by 1e3 times more was amplified below
+# the eigenvalues the solve knows of.
+_MAX_GROWTH = 1e3 * np.cosh(34.0)
+
+
+def _window_fault(bop, growth: float, what: str) -> EPSError:
+    return EPSError(
+        f"Chebyshev filter of degree {bop.degree} on the window "
+        f"[{bop.lo:.6g}, {bop.hi:.6g}]: {what} {growth:.3e}, past the range "
+        f"bound {_MAX_GROWTH:.1e} (an earlier window amplified nothing, or "
+        f"the window moved past the clamp, so the filtered spectrum spans "
+        f"more than the cycle resolves); lower the degree or give lo0 below "
+        f"lambda_1")
+
+
+class _CheckedAmplifier(ChebAmplifyOperator):
+    """The solve's filter: every apply checks its block's growth (one host
+    read of two norms, beside the cycle's own read per column)."""
+
+    def _checked(self, Y, X):
+        ny, nx = torch.stack([torch.linalg.vector_norm(Y),
+                              torch.linalg.vector_norm(X)]).double().cpu()
+        growth = float(ny) / max(float(nx), 1e-300)
+        if not np.isfinite(growth) or growth > _MAX_GROWTH:
+            raise _window_fault(self, growth, "a filtered block grew by")
+        return Y
+
+    def mult(self, x):
+        return self._checked(super().mult(x), x)
+
+    def mult_block(self, X):
+        return self._checked(super().mult_block(X), X)
 
 
 def _rayleigh_diag(op, V, k: int) -> np.ndarray:
@@ -256,7 +292,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
     del v0
 
     # ---- filtered cycles: split form -----------------------------------
-    bop = ChebAmplifyOperator(op, lo, hi, degree)
+    bop = _CheckedAmplifier(op, lo, hi, degree)
 
     def cyc(bop, V, H, j0, tol):
         if block > 1:
@@ -280,7 +316,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         """Move the filter window; rebuild H for the locked rows."""
         nonlocal bop, lo
         lo = float(lo_new)
-        bop = ChebAmplifyOperator(op, lo, hi, degree)
+        bop = _CheckedAmplifier(op, lo, hi, degree)
         Hh = np.zeros((ncv + nxr, ncv), hdtype)
         if k2 > 0:
             pv = cheb_value(np.asarray(lamA_locked[:k2]), lo, hi, degree)
@@ -292,6 +328,9 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
             log("cheb: wall budget hit")
             break
         o = cyc(bop, V, H, j0, cur_tol_b)
+        top = np.abs(np.asarray(o[4])).max()
+        if not np.isfinite(top) or top > _MAX_GROWTH:
+            raise _window_fault(bop, top, "the filtered Ritz values reach")
         V, H = o[0], o[1]
         newcols = ncv - j0 * block  # j0 is in block units if block > 1
         j0 = int(o[2])

@@ -42,7 +42,7 @@ from ..st.sinvert_jit import STSinvertDevice
 from ..st.st import STShift
 from ..sys.events import log_event
 from ..sys.sort import Which
-from .base import EPSConvergedReason, ProblemType
+from .base import EPS, EPSConvergedReason, EPSSolver, ProblemType
 from .ks_jit import ks_hep_solve
 
 _WHICH = {Which.SMALLEST_REAL: "smallest",
@@ -68,7 +68,7 @@ def _check_ported(eps) -> None:
         raise ValueError("problem_type='ghep' needs a B operator")
 
 
-class KrylovSchur:
+class KrylovSchur(EPSSolver):
     """Krylov-Schur with locking for HEP / GHEP."""
 
     keep = 0.5  # restart kept fraction
@@ -229,3 +229,6 @@ class KrylovSchur:
                                      np.float64).copy()
         eps.errests = err_locked[:k].copy()
         eps._eigenvectors = V.array[nc: nc + k].clone()
+
+
+EPS.register("krylovschur", KrylovSchur)

@@ -251,11 +251,16 @@ def _hep_rotate_body(V, Q: np.ndarray, kl: int, *, ncv: int, nres: int = 1):
 
 
 def _hep_finish_body(V, H, tol: float, *, ncv: int, which: str,
-                     keep_den: int = 2, nrot: int = 0):
-    """Projected solve + convergence + restart rotation + H rebuild."""
+                     keep_den: int = 2, nrot: int = 0, confirm=None):
+    """Projected solve + convergence + restart rotation + H rebuild.
+    ``confirm(V, Q, theta, errest, tol)``: the leading candidates' errest
+    replaced by a residual on the original problem
+    (:func:`_true_residual_confirm`)."""
     theta, Q, beta = _projected_solve(H, ncv, which)
     last = Q[ncv - 1, :]
     errest = beta * np.abs(last) / np.maximum(np.abs(theta), 1e-300)
+    if confirm is not None:
+        errest = confirm(V, Q, theta, errest, tol)
     conv = errest < tol
     k2 = int(np.sum(np.cumprod(conv.astype(np.int64))))
     k2, kl, nro = _restart_sizes(k2, ncv, keep_den, nrot)
@@ -270,18 +275,20 @@ def _hep_finish_body(V, H, tol: float, *, ncv: int, which: str,
 def _hep_cycle_body(op, V, H, j0: int, tol: float, gen, *, ncv: int,
                     which: str, passes: int = 2, keep_den: int = 2,
                     nrot: int = 0, reorth: str = "full",
-                    reorth_period: int = 1, nsel: int = 0, nlock: int = 0):
+                    reorth_period: int = 1, nsel: int = 0, nlock: int = 0,
+                    confirm=None):
     V, H = _hep_extend_body(op, V, H, j0, ncv, gen, ncv=ncv, passes=passes,
                             reorth=reorth, reorth_period=reorth_period,
                             nsel=nsel, nlock=nlock)
     return _hep_finish_body(V, H, tol, ncv=ncv, which=which,
-                            keep_den=keep_den, nrot=nrot)
+                            keep_den=keep_den, nrot=nrot, confirm=confirm)
 
 
 def ks_hep_cycle(op, V, H, j0, tol, gen, ncv: int, which: str = "smallest",
                  passes: int = 2, reorth: str = "full",
                  keep_den: int = 2, rot_mode: str = "exact", nrot: int = 0,
-                 reorth_period: int = 1, nlock: int = 0, nsel: int = 0):
+                 reorth_period: int = 1, nlock: int = 0, nsel: int = 0,
+                 confirm=None):
     """One Krylov-Schur(HEP) restart cycle.
 
     Args:
@@ -296,6 +303,8 @@ def ks_hep_cycle(op, V, H, j0, tol, gen, ncv: int, which: str = "smallest",
       which: 'smallest' | 'largest' | 'largest_magnitude'.
       reorth, reorth_period, nsel, nlock: the extension's orthogonalization
            (module docstring); nlock = count of locked leading rows.
+      confirm: None, or the true-residual check of the candidates
+           (:func:`_true_residual_confirm`).
     Returns:
       (V, H, j0_new, k2, theta, errest, beta); theta and errest are (ncv,)
       numpy arrays in wanted-first order, k2 the count of leading converged
@@ -306,13 +315,14 @@ def ks_hep_cycle(op, V, H, j0, tol, gen, ncv: int, which: str = "smallest",
                            ncv=ncv, which=which, passes=passes,
                            keep_den=keep_den, nrot=nrot, reorth=reorth,
                            reorth_period=reorth_period, nsel=nsel,
-                           nlock=int(nlock))
+                           nlock=int(nlock), confirm=confirm)
 
 
 def get_ks_hep_cycle(op, gen, ncv: int, which: str = "smallest",
                      passes: int = 2, reorth: str = "full",
                      keep_den: int = 2, rot_mode: str = "exact",
-                     nrot: int = 0, reorth_period: int = 1, nsel: int = 0):
+                     nrot: int = 0, reorth_period: int = 1, nsel: int = 0,
+                     confirm=None):
     """Restart cycle bound to ``op``; call as
     ``cycle(V, H, j0, tol, nlock=0)``."""
     _check_rot_mode(rot_mode)
@@ -322,7 +332,7 @@ def get_ks_hep_cycle(op, gen, ncv: int, which: str = "smallest",
                             passes=passes, reorth=reorth,
                             keep_den=keep_den, rot_mode=rot_mode, nrot=nrot,
                             reorth_period=reorth_period, nlock=nlock,
-                            nsel=nsel)
+                            nsel=nsel, confirm=confirm)
 
     return cycle
 
@@ -401,7 +411,7 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
 
 
 def _hep_cycle_blocked_body(op, V, H, jb0: int, tol: float, gen, *,
-                            ncv: int, b: int, which: str):
+                            ncv: int, b: int, which: str, confirm=None):
     if ncv % b:
         raise ValueError(f"ncv={ncv} must be a multiple of the block {b}")
     eps_mach = float(torch.finfo(V.dtype).eps)
@@ -414,6 +424,8 @@ def _hep_cycle_blocked_body(op, V, H, jb0: int, tol: float, gen, *,
     Blast = H[ncv: ncv + b, ncv - b: ncv]
     Rq = Blast @ Q[ncv - b:, :]
     errest = np.linalg.norm(Rq, axis=0) / np.maximum(np.abs(theta), 1e-300)
+    if confirm is not None:
+        errest = confirm(V, Q, theta, errest, tol)
     k2 = int(np.sum(np.cumprod((errest < tol).astype(np.int64))))
     # restart: keep kl rows, block aligned
     kl = k2 + max(1, (ncv - k2) // 2)
@@ -427,7 +439,7 @@ def _hep_cycle_blocked_body(op, V, H, jb0: int, tol: float, gen, *,
 
 
 def ks_hep_cycle_blocked(op, V, H, jb0, tol, gen, ncv: int, b: int,
-                         which: str = "smallest"):
+                         which: str = "smallest", confirm=None):
     """One BLOCK Krylov-Schur(HEP) restart cycle (thick-restart block
     Lanczos, block size b <= 8): per block step the basis is read three
     times for all b new columns instead of three times per column.
@@ -438,17 +450,17 @@ def ks_hep_cycle_blocked(op, V, H, jb0, tol, gen, ncv: int, b: int,
     an orthonormal block.  Returns (V, H, jb_new, k2, theta, errest, beta)
     with jb_new in block units and beta = ||B_last||_F."""
     return _hep_cycle_blocked_body(op, V, H, int(jb0), float(tol), gen,
-                                   ncv=ncv, b=b, which=which)
+                                   ncv=ncv, b=b, which=which, confirm=confirm)
 
 
 def get_ks_hep_cycle_blocked(op, gen, ncv: int, b: int,
-                             which: str = "smallest"):
+                             which: str = "smallest", confirm=None):
     """Blocked restart cycle bound to ``op``; call as
     ``cycle(V, H, jb0, tol)``."""
 
     def cycle(V, H, jb0, tol):
         return ks_hep_cycle_blocked(op, V, H, jb0, tol, gen, ncv=ncv, b=b,
-                                    which=which)
+                                    which=which, confirm=confirm)
 
     return cycle
 
@@ -478,6 +490,38 @@ def _init_rows(n: int, nrows: int, np_dtype, initial_space=None) -> np.ndarray:
     M = np.stack(cols, axis=1)
     Qm, _ = np.linalg.qr(M.astype(np_dtype))
     return np.ascontiguousarray(Qm.T)
+
+
+def _true_residual_confirm(eps, op):
+    """The fast path's true-residual test (the general loop's, eps/
+    krylovschur.py): each leading candidate whose estimate passes ``tol``
+    is formed (one K4 rotation), taken back to the original space
+    (``op.postprocess_vec``: the device sinvert's x = D^-1/2 u) and counts
+    only if ||A x - lambda B x|| / ||x|| on the original pencil, measured by
+    ``eps.conv_measure``, passes too.  The reference's fast path tests the
+    transformed estimate alone (slepc_tpu/eps/ks_jit.py:591, 739), which
+    for shift-and-invert lets the pencil's residual sit up to
+    ||A|| / |lambda| times above tol: a deliberate divergence."""
+    post = getattr(op, "postprocess_vec", None)
+    A, B, st = eps.A, eps.B, eps.st
+
+    def confirm(V, Q, theta, errest, tol):
+        errest = errest.copy()
+        ncv = Q.shape[0]
+        i = 0
+        while i < errest.size and errest[i] < tol:
+            u = rotate(_mat(Q[:, i: i + 1], V), V[:ncv])[0]
+            x = post(u) if post is not None else u
+            lam = float(np.asarray(st.back_transform(
+                np.array([theta[i]], np.float64)))[0])
+            r = A.mult(x) - lam * (B.mult(x) if B is not None else x)
+            rn, xn = _host(torch.linalg.vector_norm(r),
+                           torch.linalg.vector_norm(x))
+            errest[i] = eps.conv_measure(lam, rn / max(xn, 1e-300))
+            i += 1
+        return errest
+
+    return confirm
 
 
 def ks_hep_solve(eps, op, which: str) -> None:
@@ -520,8 +564,11 @@ def ks_hep_solve(eps, op, which: str) -> None:
                    eps.initial_space)).to(op.device)
     H = np.zeros((ncv + nrow0, ncv), dtype=_np_dtype(dtype))
     gen = torch.Generator(device=op.device).manual_seed(12345)
+    confirm = _true_residual_confirm(eps, op) if (
+        eps.true_residual or hasattr(op, "postprocess_vec")) else None
     if bsize > 1:
-        cycle_fn = get_ks_hep_cycle_blocked(op, gen, ncv, bsize, which)
+        cycle_fn = get_ks_hep_cycle_blocked(op, gen, ncv, bsize, which,
+                                            confirm=confirm)
     else:
         # 'delayed' hides reduction latency, which the fused sweeps already
         # do: it is 'full'.  Selective and periodic belong to explicit
@@ -531,7 +578,7 @@ def ks_hep_solve(eps, op, which: str) -> None:
                  "periodic": "partial"}.get(eps.reorth, eps.reorth)
         cycle_fn = get_ks_hep_cycle(op, gen, ncv, which, reorth=rmode,
                                     reorth_period=eps.reorth_period,
-                                    rot_mode=eps.rot_mode)
+                                    rot_mode=eps.rot_mode, confirm=confirm)
     j0, k2 = 0, 0
     theta = errest = None
     n = eps.n

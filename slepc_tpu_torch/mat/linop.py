@@ -32,7 +32,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.csr import csr_spmv, row_of_entry
+from ..ops.csr import CSR_BUDGET, csr_plan, csr_spmv, row_of_entry
 from ..ops.dia import dia_spmm, dia_spmv
 from ..sys.device import resolve_device
 
@@ -268,9 +268,11 @@ class AIJOperator(LinearOperator):
     """General sparse matrix in CSR on one device.
 
     ``rowptr`` int64 (m+1), ``cols`` int32 (nnz), ``vals`` (nnz).  ``mult``
-    is the CSR kernel K6; ``mult_h`` runs the same kernel on the CSR of A^H,
-    built on the device at the first ``mult_h`` call (a Hermitian solve
-    never pays for it).  The reference's PETSc MPIAIJ MatMult role.
+    is the CSR kernel K6 over the row-block plan of ``rowptr``, built at the
+    first ``mult`` on a card (:meth:`row_plan`); ``mult_h`` runs the same
+    kernel on the CSR of A^H, built on the device at the first ``mult_h``
+    call (a Hermitian solve never pays for it).  The reference's PETSc
+    MPIAIJ MatMult role.
     """
 
     def __init__(self, rowptr, cols, vals, shape):
@@ -282,6 +284,7 @@ class AIJOperator(LinearOperator):
         self.device = self.vals.device
         self._adjoint = None  # CSR of A^H
         self._fast = None     # routed form (fast_form)
+        self._plan = None     # K6's row blocks (row_plan)
 
     @classmethod
     def from_scipy(cls, A, dtype=None, device=None) -> "AIJOperator":
@@ -306,8 +309,16 @@ class AIJOperator(LinearOperator):
     def nnz(self):
         return int(self.cols.shape[0])
 
+    def row_plan(self):
+        """K6's row-block plan of ``rowptr`` (``ops.csr.csr_plan``), built
+        once on a card; None on the CPU, where the plain version runs."""
+        if self._plan is None and self.device.type == "cuda":
+            self._plan = csr_plan(self.rowptr, CSR_BUDGET[self.dtype])
+        return self._plan
+
     def mult(self, x: torch.Tensor) -> torch.Tensor:
-        return csr_spmv(self.rowptr, self.cols, self.vals, x, self.shape[1])
+        return csr_spmv(self.rowptr, self.cols, self.vals, x, self.shape[1],
+                        plan=self.row_plan())
 
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
         if self._adjoint is None:

@@ -38,12 +38,17 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _SIGNATURES = {
-    "slepc_csr_spmv": (_I, [_I, _I, _P, _P, _P, _P, _P, _I64, _P]),
+    "slepc_csr_spmv": (_I, [_I, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P,
+                            _I64, _I, _P, _P, _P]),
+    "slepc_csr_max_rows": (_I, []),
+    "slepc_csr_max_budget": (_I, []),
     "slepc_dia_spmv": (_I, [_I, _P, _I64, ctypes.POINTER(_I64), _I, _P, _P,
                             _I64, _P]),
     "slepc_dia_max_diags": (_I, []),
-    "slepc_dia_spmm": (_I, [_I, _P, _I64, ctypes.POINTER(_I64), _I, _P, _I64,
-                            _P, _I64, _I, _I64, _P]),
+    "slepc_dia_spmm": (_I, [_I, _P, _I64, ctypes.POINTER(_I64),
+                            ctypes.POINTER(_I), _I, _P, _I64, _P, _I64, _I,
+                            _I64, _I, _I, _P]),
+    "slepc_dia_spmm_smem": (_I64, [_I, _I, _I, _I]),
     "slepc_dia_spmm_max_b": (_I, []),
     "slepc_error_string": (ctypes.c_char_p, [_I]),
     "slepc_panel": (_I, [_I, _I, _I, _P, _I64, _I, _P, _I64, _I, _P, _P, _I64,

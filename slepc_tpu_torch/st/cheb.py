@@ -103,7 +103,8 @@ def gershgorin_upper(op) -> float:
 
     DIA: the row sums of |diags|.  AIJ: the rigorous row-sum bound
     max_i sum_j |a_ij| from the CSR arrays, computed as |A| 1 with the CSR
-    SpMV (K6 on the card; deterministic, no atomics).  The reference falls
+    SpMV (K6 on the card over the operator's own row plan: |A| shares its
+    rowptr; deterministic, no atomics).  The reference falls
     back to its power iteration for AIJ only because its hybrid pack hides
     the row sums (ROADMAP.md queue 3).  Any other operator: 30 steps of
     power iteration from a seeded ``torch.Generator``, times 1.1 -- an
@@ -113,7 +114,8 @@ def gershgorin_upper(op) -> float:
         return float(op.diags.abs().sum(dim=0).max())
     if isinstance(op, AIJOperator):
         ones = torch.ones(op.shape[1], dtype=op.dtype, device=op.device)
-        sums = csr_spmv(op.rowptr, op.cols, op.vals.abs(), ones, op.shape[1])
+        sums = csr_spmv(op.rowptr, op.cols, op.vals.abs(), ones, op.shape[1],
+                        plan=op.row_plan())
         return float(sums.max()) if sums.numel() else 0.0
     gen = torch.Generator(device=op.device).manual_seed(7)
     v = torch.randn(op.shape[0], generator=gen, dtype=op.dtype,

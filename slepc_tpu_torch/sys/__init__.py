@@ -1,11 +1,16 @@
-from .options import Options, set_global_options, get_global_options
-from .sort import Which, SortCriterion
+from .options import (Options, apply_module_options, get_global_options,
+                      set_global_options)
+from .sort import SortCriterion, Which, sort_eigenvalues
+from .events import log_event_end_sync
 from .monitor import Monitor, ConvMonitor
 
 __all__ = [
     "Options",
     "set_global_options",
     "get_global_options",
+    "apply_module_options",
+    "sort_eigenvalues",
+    "log_event_end_sync",
     "Which",
     "SortCriterion",
     "Monitor",

@@ -55,6 +55,19 @@ def log_event(name: str, flops: float = 0.0, sync: bool = False):
             ev["flops"] += flops
 
 
+def log_event_end_sync(x):
+    """Wait for the device work that produces ``x`` inside an event, so the
+    event's time covers it (the reference's placeholder blocks on a JAX
+    value): ``torch.cuda.synchronize()`` when ``x`` holds a tensor on a
+    card.  Returns ``x``."""
+    items = x if isinstance(x, (list, tuple)) else (x,)
+    for t in items:
+        if torch.is_tensor(t) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+            break
+    return x
+
+
 def log_view(stream=None) -> str:
     """Render the event table (≙ PETSc -log_view summary)."""
     lines = ["Event                          Count      Time (s)     Mflops"]

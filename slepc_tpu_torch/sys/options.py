@@ -122,3 +122,35 @@ def set_global_options(opts: Options | Dict[str, Any] | str) -> None:
 
 def get_global_options() -> Options:
     return _global_options
+
+
+def apply_module_options(obj, prefix: str, int_keys=(), float_keys=(),
+                         str_keys=(), bool_keys=(), count_key=None):
+    """Apply the global options database to a solver object -- the shared
+    SetFromOptions machinery of the non-EPS modules (the reference's
+    ``sys/options.py`` ``apply_module_options``): the keys under
+    ``prefix`` set the attributes of the same names (``type`` sets
+    ``solver``), ``target`` goes through ``obj.set_target`` when there is
+    one.  Returns the prefixed options."""
+    o = get_global_options().child(prefix)
+    if count_key and count_key in o:
+        setattr(obj, count_key, int(o[count_key]))
+    for k in int_keys:
+        if k in o:
+            setattr(obj, k, int(o[k]))
+    for k in float_keys:
+        if k in o:
+            setattr(obj, k, float(o[k]))
+    for k in str_keys:
+        if k in o:
+            setattr(obj, "solver" if k == "type" else k, str(o[k]))
+    for k in bool_keys:
+        if o.get(k, False) is True:
+            setattr(obj, k, True)
+    if "target" in o:
+        tgt = o["target"]
+        obj.target = complex(tgt) if not isinstance(tgt, (int, float)) \
+            else float(tgt)
+        if hasattr(obj, "set_target"):
+            obj.set_target(obj.target)
+    return o

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 
 class Which(enum.Enum):
@@ -83,3 +84,17 @@ class SortCriterion:
     def argsort(self, eigs: np.ndarray) -> np.ndarray:
         """Indices ordering ``eigs`` best-first (stable)."""
         return np.argsort(self.keys(eigs), kind="stable")
+
+
+def sort_eigenvalues(sc: SortCriterion, eigs, vectors=None):
+    """Sort eigenvalues best-first (and the matching eigenvector columns of
+    an (n, k) numpy array or tensor): ``SlepcSortEigenvalues``
+    (slepcsc.c:89).  Returns (eigs, perm) or (eigs, vectors, perm)."""
+    perm = sc.argsort(eigs)
+    eigs = np.asarray(eigs)[perm]
+    if vectors is None:
+        return eigs, perm
+    if torch.is_tensor(vectors):
+        return eigs, vectors[:, torch.from_numpy(perm).to(vectors.device)], \
+            perm
+    return eigs, np.asarray(vectors)[:, perm], perm

@@ -109,8 +109,106 @@ def test_csr_spmv_where_the_reference_cannot_pack(dtype, tol):
     y = top.mult(torch.from_numpy(x).to(dtype)).numpy()
     assert y[7] == 0 and y[8] == 0
     assert _rel(y, A @ x) < tol
-    assert csr.lanes_for(A.shape[0], A.nnz) == 8
-    assert csr.lanes_for(0, 0) == 2 and csr.lanes_for(10, 5000) == 32
+    # the kernel's row blocks: rows 0..m once each, none past the budget
+    # unless it is one row
+    rowptr = top.rowptr
+    _check_row_blocks(rowptr, csr.csr_row_blocks(rowptr, 16), 16,
+                      csr.CSR_MAX_ROWS)
+    assert csr.csr_plan(rowptr, 16).budget == 16
+    assert set(csr.CSR_BUDGET) == {torch.float32, torch.float64}
+
+
+def _check_row_blocks(rowptr, starts, budget, max_rows):
+    """starts: 0 .. m, strictly increasing (every row in exactly one block);
+    a block holds at most ``budget`` entries unless it is one row, at most
+    ``max_rows`` rows, and is greedy (one more row would break a limit)."""
+    rp = rowptr.numpy()
+    st = starts.numpy().astype(np.int64)
+    m = len(rp) - 1
+    assert starts.dtype == torch.int32
+    assert st[0] == 0 and st[-1] == m
+    if m == 0:
+        assert len(st) == 1
+        return
+    assert (np.diff(st) > 0).all()
+    for r0, r1 in zip(st[:-1], st[1:]):
+        nnz = rp[r1] - rp[r0]
+        assert nnz <= budget or r1 - r0 == 1
+        assert r1 - r0 <= max_rows
+        if r1 < m:
+            assert rp[r1 + 1] - rp[r0] > budget or r1 + 1 - r0 > max_rows
+
+
+def _lengths(kind):
+    rng = np.random.default_rng(5)
+    if kind == "stencil":
+        return rng.poisson(7, 3001)
+    if kind == "empty_rows":  # long runs of empty rows
+        ln = np.zeros(5000, np.int64)
+        ln[::997] = 3
+        return ln
+    if kind == "long_rows":  # rows past the budget among short ones
+        ln = rng.integers(0, 9, 2000)
+        ln[[0, 7, 8, 1999]] = [300, 257, 1000, 400]
+        return ln
+    if kind == "at_budget":  # blocks of exactly the budget
+        return np.full(640, 8)
+    if kind == "one_row":
+        return np.array([5])
+    return np.zeros(0, np.int64)  # no rows
+
+
+@pytest.mark.parametrize("budget,max_rows", [(64, 1024), (256, 16), (1, 1024)])
+@pytest.mark.parametrize("kind", ["stencil", "empty_rows", "long_rows",
+                                  "at_budget", "one_row", "no_rows"])
+def test_csr_row_blocks_cover_every_row_once_within_budget(kind, budget,
+                                                           max_rows):
+    ln = _lengths(kind)
+    rowptr = torch.from_numpy(np.concatenate([[0], np.cumsum(ln)])
+                              .astype(np.int64))
+    starts = csr.csr_row_blocks(rowptr, budget, max_rows)
+    _check_row_blocks(rowptr, starts, budget, max_rows)
+    if kind == "at_budget" and budget == 64:  # 8 rows of 8 entries a block
+        assert torch.equal(starts, torch.arange(0, 641, 8, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("budget", [64, 256])
+def test_csr_plan_cuts_long_rows_into_chunks(budget):
+    ln = _lengths("long_rows")
+    rowptr = torch.from_numpy(np.concatenate([[0], np.cumsum(ln)])
+                              .astype(np.int64))
+    plan = csr.csr_plan(rowptr, budget)
+    assert plan.chunk == csr.CSR_CHUNKS * budget
+    long_rows = np.flatnonzero(ln > budget)
+    assert plan.long_rows.tolist() == long_rows.tolist()
+    first = plan.chunk_first.numpy()
+    assert first[0] == 0 and first[-1] == plan.nchunks
+    for i, r in enumerate(long_rows):  # chunks cover the row, none empty
+        nch = first[i + 1] - first[i]
+        assert (nch - 1) * plan.chunk < ln[r] <= nch * plan.chunk
+        assert (plan.chunk_row[first[i]:first[i + 1]] == i).all()
+    # each long row is also alone in its block of the row plan
+    starts = plan.starts.numpy()
+    for r in long_rows:
+        k = np.searchsorted(starts, r)
+        assert starts[k] == r and starts[k + 1] == r + 1
+
+
+def test_csr_plan_is_checked_and_shared_by_abs_values():
+    A = _rcm_laplacian()
+    op = tst.from_scipy(A, device="cpu")
+    assert op.row_plan() is None  # the plain version needs none
+    plan = csr.csr_plan(op.rowptr, 128)
+    assert plan.m == A.shape[0] and plan.nblocks == len(plan.starts) - 1
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(A.shape[0]))
+    y = csr.csr_spmv(op.rowptr, op.cols, op.vals.abs(), x, A.shape[1],
+                     plan=plan)
+    assert _rel(y.numpy(), abs(A) @ x.numpy()) < 1e-13
+    with pytest.raises(ValueError, match="plan for"):
+        csr.csr_spmv(op.rowptr[:-1], op.cols[:-6], op.vals[:-6], x,
+                     A.shape[1], plan=plan)
+    with pytest.raises(ValueError, match="budget"):
+        csr.csr_plan(op.rowptr, csr.CSR_MAX_BUDGET + 1)
 
 
 def test_edge_shapes_of_the_plain_version():

@@ -95,3 +95,22 @@ def test_unported_eps_paths_raise(kw, match):
     eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), nev=2, **kw)
     with pytest.raises(NotImplementedError, match=match):
         eps.solve()
+
+
+@pytest.mark.parametrize("block", [1, 4])
+def test_a_window_that_amplified_nothing_raises(block):
+    # degree 450 on a small grid: the first window, clamped against
+    # lambda_1 = 0, puts lo at 0.017, below lambda_1 = 0.2995, so nothing
+    # is amplified and bulk rows get locked; the next window, clamped
+    # against their Rayleigh quotient, amplifies lambda_1 past the range
+    # bound.  The solve raises, naming the degree and the window (the
+    # reference returns a short count, or nconv 0 at b = 4; the
+    # laplacian_3d(30, 32, 34) case of ROADMAP.md shows the same)
+    from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
+
+    A = tst.laplacian_3d(8, 9, 10, device="cpu")
+    with pytest.raises(tst.EPSError, match=r"degree 450 on the window "
+                       r"\[[0-9.]+, 12\]") as err:
+        ks_cheb_smallest(A, nev=3, tol=1e-8, ncv=12, degree=450,
+                         keep_den=3, block=block)
+    assert "amplified nothing" in str(err.value)

@@ -130,3 +130,43 @@ def test_wrapper_raises_off_the_cpu_and_cuda():
         dia.dia_spmm((0,), d, torch.zeros((2, 4), device="meta"))
     with pytest.raises(ValueError):
         dia.dia_spmm((0,), torch.zeros((1, 4)), torch.zeros(4))  # not (b, n)
+
+
+FLAGSHIP_OFFSETS = (-45_000, -200, -1, 0, 1, 200, 45_000)
+N, D = dia.NEAR, dia.DIRECT
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_block_plan_stages_the_stencil_and_reads_the_far_planes(dtype, b):
+    # K5's near/far split on the flagship operator: the +-1 and +-200
+    # diagonals come from the window a block stages, +-45,000 from device
+    # memory, and the window of b rows fits two blocks on an SM
+    plan = dia.plan_spmm(FLAGSHIP_OFFSETS, 10_350_000, b, dtype)
+    elem = 8 if dtype == torch.float64 else 4
+    assert plan.tile == dia.SPMM_TILE[dtype] and plan.halo == 200
+    assert plan.where == (D, N, N, N, N, N, D)
+    assert plan.smem == b * dia.spmm_width(plan.tile, 200, elem) * elem
+    assert plan.smem <= dia.SPMM_SMEM_CAP
+    # the window covers every near offset of every row of a tile, from a
+    # 16-byte-aligned start
+    vw = 16 // elem
+    for i0 in (0, plan.tile, 7 * plan.tile):
+        ws = (i0 - plan.halo) // vw * vw
+        assert ws + dia.spmm_width(plan.tile, plan.halo, elem) \
+            >= i0 + plan.tile + plan.halo
+
+
+def test_block_plan_edges():
+    f64 = torch.float64
+    # offsets past +-n read zeros: direct, and not the halo
+    plan = dia.plan_spmm((-9, -1, 0, 1, 9), 7, 3, f64, tile=512)
+    assert plan.halo == 1 and plan.where == (D, N, N, N, D)
+    # a halo past the cap: those offsets go direct, the rest stay near
+    plan = dia.plan_spmm((-3000, -1, 0, 1, 3000), 10 ** 6, 8, f64, tile=512)
+    assert plan.halo == 1 and plan.where == (D, N, N, N, D)
+    # a tile whose own rows do not fit: every diagonal direct
+    plan = dia.plan_spmm((-1, 0, 1), 10 ** 7, 8, f64, tile=4096)
+    assert plan.where == (D,) * 3 and plan.smem == 0
+    with pytest.raises(ValueError, match="multiple"):
+        dia.plan_spmm((0,), 100, 1, f64, tile=1000)

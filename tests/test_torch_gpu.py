@@ -299,6 +299,41 @@ def test_dia_block_kernel_matches_plain(cuda, dtype, tol, b, n, offsets):
     assert torch.equal(dia.dia_spmm(offsets, d, X), Y)
 
 
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 3, 4, 8])
+@pytest.mark.parametrize("layout", ["aligned", "odd_stride", "odd_base",
+                                    "odd_n"])
+def test_dia_block_kernel_near_and_far(cuda, dtype, tol, b, layout):
+    # offsets inside the staged window, beyond it (the plan's cap: +-3000
+    # at b >= 3 in f64) and past +-n; X a row slice of a taller basis with
+    # an aligned row stride (16-byte copies), an odd one or an odd base (one
+    # element a copy); an odd n (a ragged last tile)
+    n = 20_001 if layout == "odd_n" else 20_000
+    offsets = (-30_000, -3000, -700, -5, -1, 0, 1, 5, 700, 3000, 30_000)
+    tile = 1024
+    plan = dia.plan_spmm(offsets, n, b, dtype, tile)
+    d = _rand((len(offsets), n), dtype, cuda, 2)
+    width = n + {"aligned": 8, "odd_stride": 3, "odd_base": 8, "odd_n": 5}[layout]
+    V = _rand((b + 3, width), dtype, cuda, 3)
+    start = 1 if layout == "odd_base" else 0
+    X = V[2:2 + b, start:start + n]
+    assert lib_smem(dtype, b, plan) == plan.smem
+    Y = dia.dia_spmm(offsets, d, X, tile=tile)
+    ref = dia.dia_spmm_ref(offsets, d, X)
+    scale = dia.dia_spmm_ref(offsets, d.abs(), X.abs()).max()
+    assert float((Y - ref).abs().max() / scale) <= 4 * tol
+    for _ in range(3):  # bitwise repeatable
+        assert torch.equal(dia.dia_spmm(offsets, d, X, tile=tile), Y)
+    if b >= 3 and dtype == torch.float64:  # +-3000 past the cap: direct
+        assert plan.where[1] == plan.where[9] == dia.DIRECT
+
+
+def lib_smem(dtype, b, plan):
+    code = 1 if dtype == torch.float64 else 0
+    return 0 if dia.NEAR not in plan.where else \
+        _build.load().slepc_dia_spmm_smem(code, b, plan.tile, plan.halo)
+
+
 def test_dia_block_kernel_rejects_what_it_does_not_take(cuda):
     offsets = (-1, 0, 1)
     d = torch.ones((3, 50), dtype=torch.float64, device=cuda)
@@ -358,25 +393,30 @@ def test_csr_kernel_matches_plain(cuda, dtype, tol, kind):
 @pytest.mark.parametrize("lanes,mean", [(2, 1.6), (4, 3), (8, 6), (16, 12),
                                         (32, 40)])
 def test_csr_kernel_every_lane_count(cuda, dtype, tol, lanes, mean):
-    # a mean row length that selects each instantiation of the kernel, with
-    # empty rows and rows three times longer than the lanes
+    # the mean row lengths that once selected each lane count, with empty
+    # rows and longer rows, at budgets that make a block's rows few (several
+    # lanes a row) or many (one thread a row), and past the budget
     rng = np.random.default_rng(lanes)
     lengths = rng.poisson(mean, 20_011)
     lengths[::101] = 0
     lengths[50::1009] = 3 * lanes + 1
-    assert csr.lanes_for(len(lengths), int(lengths.sum())) == lanes
-    _check_csr_kernel(cuda, dtype, tol, lengths, 20_011)
+    for budget in (64, 512, csr.CSR_BUDGET[dtype]):
+        _check_csr_kernel(cuda, dtype, tol, lengths, 20_011, budget=budget)
 
 
-def _check_csr_kernel(cuda, dtype, tol, lengths, ncols):
+def _check_csr_kernel(cuda, dtype, tol, lengths, ncols, budget=None,
+                      vals_offset=0):
     rp, cl, vl = _csr(lengths, ncols, 7)
     rowptr = torch.from_numpy(rp).to(cuda)
     cols = torch.from_numpy(cl).to(cuda)
-    vals = torch.from_numpy(vl).to(cuda, dtype)
+    # vals_offset: vals as a slice of a longer array (an unaligned base)
+    vals = torch.from_numpy(np.concatenate([np.ones(vals_offset), vl])) \
+        .to(cuda, dtype)[vals_offset:]
     x = _rand((ncols,), dtype, cuda, 8)
+    plan = None if budget is None else csr.csr_plan(rowptr, budget)
     key = "csr_spmv_f64" if dtype == torch.float64 else "csr_spmv_f32"
     before = csr.launches[key]
-    y = csr.csr_spmv(rowptr, cols, vals, x, ncols)
+    y = csr.csr_spmv(rowptr, cols, vals, x, ncols, plan=plan)
     ref = csr.csr_spmv_ref(rowptr, cols, vals, x)
     torch.cuda.synchronize()
     assert y.shape == ref.shape == (len(lengths),)
@@ -387,7 +427,58 @@ def _check_csr_kernel(cuda, dtype, tol, lengths, ncols):
         empty = torch.from_numpy(np.asarray(lengths) == 0).to(cuda)
         assert bool((y[empty] == 0).all())  # empty rows write 0
         # deterministic: no atomics, same bits every time
-        assert torch.equal(csr.csr_spmv(rowptr, cols, vals, x, ncols), y)
+        for _ in range(3):
+            assert torch.equal(csr.csr_spmv(rowptr, cols, vals, x, ncols,
+                                            plan=plan), y)
+    return rowptr, cols, vals, x, y
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind", ["one_row", "one_long_row", "long_rows",
+                                  "at_budget", "straddle", "wide", "narrow",
+                                  "hubs"])
+def test_csr_kernel_row_blocks(cuda, dtype, tol, kind):
+    # m = 1; a single row past the budget (cut into chunks); long rows
+    # among short ones; blocks of exactly the budget; rows that straddle
+    # block edges (odd lengths against a budget of 64); more columns than
+    # rows, and fewer; hub rows of 10^5 entries at the default budget
+    B = csr.CSR_BUDGET[dtype] if kind == "hubs" else 64
+    rng = np.random.default_rng(3)
+    lengths, ncols = {
+        "one_row": ([5], 7),
+        "one_long_row": ([5000], 300),
+        "long_rows": (np.where(np.arange(3001) % 500 == 7, 700,
+                               rng.integers(0, 9, 3001)), 3001),
+        "at_budget": ([8] * 800, 800),
+        "straddle": (rng.integers(1, 40, 4001) | 1, 4001),
+        "wide": (rng.poisson(7, 1000), 50_000),
+        "narrow": (rng.poisson(7, 10_000), 17),
+        "hubs": (np.where(np.isin(np.arange(50_000), [3, 30_000, 49_999]),
+                          100_000, rng.poisson(7, 50_000)), 50_000),
+    }[kind]
+    plan = csr.csr_plan(torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int64)), B)
+    if kind == "at_budget":
+        assert plan.nblocks == 100
+    _check_csr_kernel(cuda, dtype, tol, lengths, ncols, budget=B)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_csr_kernel_takes_an_unaligned_vals_slice_and_shares_its_plan(
+        cuda, dtype, tol):
+    lengths = np.random.default_rng(4).poisson(7, 30_001)
+    rowptr, cols, vals, x, y = _check_csr_kernel(
+        cuda, dtype, tol, lengths, 30_001, vals_offset=1)
+    assert vals.data_ptr() % 16 != 0
+    # |A| through the plan of A: the Gershgorin bound's call
+    op = stt.AIJOperator(rowptr, cols, vals, (len(lengths), 30_001))
+    plan = op.row_plan()
+    assert plan is op.row_plan() and plan.budget == csr.CSR_BUDGET[dtype]
+    ones = torch.ones(30_001, dtype=dtype, device=cuda)
+    got = csr.csr_spmv(rowptr, cols, vals.abs(), ones, 30_001, plan=plan)
+    want = csr.csr_spmv_ref(rowptr, cols, vals.abs(), ones)
+    assert float((got - want).abs().max() / want.abs().max()) <= 4 * tol
+    assert torch.equal(op.mult(x), y)
 
 
 def test_csr_kernel_rejects_what_it_does_not_take(cuda):
@@ -410,6 +501,10 @@ def test_csr_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="columns"):
         stt.AIJOperator(rowptr, cols, vals, (3, 4)).mult(x[:3])
     assert csr.launches == before
+    # the planner's limits are the compiled kernel's
+    lib = _build.load()
+    assert lib.slepc_csr_max_rows() == csr.CSR_MAX_ROWS
+    assert lib.slepc_csr_max_budget() == csr.CSR_MAX_BUDGET
 
 
 def test_aij_operator_routes_to_its_kernel_on_the_card(cuda):

@@ -175,3 +175,145 @@ def test_event_log_with_sync_on_cpu():
         assert ev["count"] == 1 and ev["flops"] == 10.0
     finally:
         tst.log_reset()
+
+
+# ---- the EPS surface and sys/ against slepc_tpu ---------------------------
+
+import slepc_tpu as jst
+from slepc_tpu.sys import events as jevents
+from slepc_tpu.sys import options as joptions
+from slepc_tpu.sys import sort as jsort
+from slepc_tpu_torch.sys import events as tevents
+from slepc_tpu_torch.sys import options as toptions
+from slepc_tpu_torch.sys import sort as tsort
+
+
+def _setter_driven(pkg, A, cli=""):
+    """An EPS configured by its setters alone (no constructor keywords)."""
+    eps = pkg.EPS(options=pkg.Options.from_cli(cli))
+    eps.set_operators(A)
+    eps.set_problem_type("hep")
+    eps.set_type("krylovschur")
+    eps.set_which("largest_real")
+    eps.set_dimensions(nev=4, ncv=20)
+    eps.set_tolerances(tol=1e-10, max_it=500)
+    eps.solve()
+    return eps
+
+
+def test_eps_driven_by_setters_matches_the_reference(capsys):
+    jA = jst.laplacian_2d(18, 17)
+    tA = interop.dia_from_slepc_tpu(jA, device="cpu")
+    je = _setter_driven(jst, jA)
+    te = _setter_driven(tst, tA, "-eps_view -eps_converged_reason "
+                                 "-eps_error_relative")
+    out = capsys.readouterr().out
+    assert "EPS Object:" in out and "EPS solve CONVERGED" in out \
+        and "rel.err" in out
+    assert te.get_converged() >= 4 and je.get_converged() >= 4
+    np.testing.assert_allclose(te.eigenvalues[:4], je.eigenvalues[:4].real,
+                               rtol=1e-10)
+    X = te.get_eigenvectors()  # the reference's (n, nconv) columns, a view
+    Xj = np.asarray(je.get_eigenvectors())
+    assert X.shape == (tA.shape[0], te.nconv) == Xj.shape[:1] + (te.nconv,)
+    assert X.data_ptr() == te._eigenvectors.data_ptr()
+    for i in range(4):
+        assert abs(abs(float(X[:, i].numpy() @ Xj[:, i].real)) - 1) < 1e-8
+        assert te.get_error_estimate(i) < 1e-10
+    assert te.view() == je.view()
+
+
+def test_unknown_solver_raises_eps_error_listing_the_registered():
+    A = tst.laplacian_1d(20, device="cpu")
+    with pytest.raises(tst.EPSError, match=r"unknown EPS solver 'bogus'; "
+                       r"available: \['krylovschur'\]"):
+        tst.EPS(A, problem_type="hep").set_type("bogus").solve()
+    from slepc_tpu.eps.base import EPSError as JEPSError
+
+    with pytest.raises(JEPSError, match="unknown EPS solver 'bogus'"):
+        jst.EPS(jst.laplacian_1d(20), problem_type="hep",
+                solver="bogus").solve()
+    from slepc_tpu_torch.eps import EPSSolver
+
+    assert tst.EPS._solvers["krylovschur"].__mro__[1] is EPSSolver
+
+
+@pytest.mark.parametrize("setter,args", [
+    ("set_two_sided", ()), ("set_balance", ()), ("set_extraction",
+                                                 ("harmonic",)),
+    ("set_arbitrary_selection", (abs,)), ("set_rg", (object(),)),
+    ("set_power_nonlinear", (lambda x: None,))])
+def test_setters_of_unported_variants_raise_naming_the_roadmap(setter, args):
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type="hep")
+    getattr(eps, setter)(*args)
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        eps.solve()
+
+
+def test_save_and_load_state_round_trip_across_packages(tmp_path):
+    jA = jst.laplacian_2d(18, 17)
+    tA = interop.dia_from_slepc_tpu(jA, device="cpu")
+    te = _setter_driven(tst, tA)
+    path = str(tmp_path / "state.npz")
+    te.save_state(path)
+    d = np.load(path)
+    assert d["eigenvectors"].shape == (tA.shape[0], te.nconv)
+    assert int(d["nconv"]) == te.nconv
+    warm_t = tst.EPS(tA, problem_type="hep").load_state(path)
+    warm_j = jst.EPS(jA, problem_type="hep").load_state(path)
+    assert warm_t.initial_space.shape == (tA.shape[0], 1 + te.nconv)
+    np.testing.assert_array_equal(warm_t.initial_space, warm_j.initial_space)
+    warm_t.set_which("largest_real").set_dimensions(nev=4, ncv=20)
+    warm_t.set_tolerances(tol=1e-10)
+    warm_t.solve()
+    assert warm_t.nconv >= 4 and warm_t.its <= te.its
+    np.testing.assert_allclose(warm_t.eigenvalues[:4], te.eigenvalues[:4],
+                               rtol=1e-10)
+
+
+def test_sort_eigenvalues_matches_the_reference():
+    rng = np.random.default_rng(0)
+    eigs = rng.standard_normal(9)
+    V = rng.standard_normal((5, 9))
+    for which in ("largest_magnitude", "smallest_real", "target_magnitude"):
+        want = jsort.sort_eigenvalues(jsort.SortCriterion(
+            jsort.Which(which), 0.3), eigs, V)
+        got = tsort.sort_eigenvalues(tsort.SortCriterion(
+            tsort.Which(which), 0.3), eigs, torch.from_numpy(V))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        e, perm = tsort.sort_eigenvalues(tsort.SortCriterion(
+            tsort.Which(which), 0.3), eigs)
+        np.testing.assert_array_equal(perm, want[2])
+
+
+def test_apply_module_options_matches_the_reference():
+    class Obj:
+        def set_target(self, t):
+            self.targeted = t
+
+    cli = ("-svd_nsv 3 -svd_tol 1e-7 -svd_type cross -svd_explicit "
+           "-svd_target 0.5 -svd_ncv 12")
+    got = []
+    for pkg, mod in ((jst, joptions), (tst, toptions)):
+        pkg.set_global_options(cli)
+        try:
+            obj = Obj()
+            mod.apply_module_options(obj, "svd_", int_keys=("nsv",),
+                                     float_keys=("tol",), str_keys=("type",),
+                                     bool_keys=("explicit",),
+                                     count_key="ncv")
+            got.append(vars(obj))
+        finally:
+            pkg.set_global_options(pkg.Options())
+    assert got[0] == got[1] and got[1]["solver"] == "cross" \
+        and got[1]["targeted"] == 0.5
+
+
+def test_log_event_end_sync_returns_its_value():
+    x = torch.ones(3)
+    assert tevents.log_event_end_sync(x) is x
+    assert tevents.log_event_end_sync((x, 2))[0] is x
+    y = jnp.ones(3)
+    assert jevents.log_event_end_sync(y) is y
