@@ -64,7 +64,29 @@ Phases (each failing check raises; the script then exits non-zero):
      converge): ms per column, the K2 / K3 / K4 launches, K3's share of
      the wall estimated from phase 1's per-sweep times, and every Ritz
      value inside [0, 12]; then the same restarts through ks_hep_cycle on a
-     basis held here, its kept rows orthonormal to 1e-12.
+     basis held here, its kept rows orthonormal to 1e-12;
+ 10. the non-Hermitian arm at full width: the reference's complex
+     tridiagonal deployment (bench.py:1001-1077, 2^20 rows, default_rng(5))
+     in real form, a DIA operator of 2,097,152 rows with offsets -3..3,
+     through EPS(nhep, largest magnitude, nev 12, ncv 64) in f64 at tol
+     1e-8 and f32 at tol 1e-4 (K2 / K1, K3, K4).  Gates: nconv >= 12; every
+     complex value's conjugate returned (f64, 1e-10 relative); every |lam|
+     above 0.75 max|d|; the true residual, recomputed with the kernel SpMV
+     on Re x and Im x, <= 1e-8 (f64) / 1e-3 (f32); each f32 value within
+     1e-4 relative of one of the f64 run's twelve; and the operator build,
+     at 2^10 complex rows, against numpy.linalg.eigvals to 1e-9.  Before
+     it, K2 and K1 on its operator, and K3 and K4 at its basis shapes, in
+     f64 and f32, against their plain versions;
+ 11. small non-Hermitian paths, each with its gate: markov(100) on K6
+     (SLEPc ex5), harmonic extraction (laplacian_2d(95, 97) against the
+     closed form; the 2^12 real-form deployment's pairs), balancing on a
+     badly scaled non-normal dense matrix (n = 2,000), regions (RGInterval,
+     RGEllipse) and arbitrary selection on the 2^12 deployment, STFilter
+     over [1.0, 1.05] on laplacian_2d(95, 97) as DIA and as RCM-ordered
+     CSR, subspace (ncv 20: K5 in chunks of 8), power, arnoldi and
+     lanczos (ncv 10, a dozen restarts) on a 100,000-row gapped DIA
+     operator, power + shift-and-invert and lapack on small 1-D Laplacians,
+     and GNHEP with a CSR A and a diagonal SPD B against scipy.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -77,7 +99,8 @@ JSON line, which holds only what this run measured).
 
     python3 chip_smoke.py --profile
 
-adds, after phase 9, a torch.profiler split by kernel of one more phase-9
+adds, after phase 11, a torch.profiler split by kernel of one more phase-10
+f64 solve (K2 / K3 / K4), of one more phase-9
 solve (K3's measured share of the device time), of one more phase-7 GHEP solve
 (the device-busy share of the launch-bound inner solve), the residual of
 phase 7's inner solve after 400 and 800 CG steps with the ungated solves
@@ -93,8 +116,10 @@ Launch counters are reset to 0 before phase 2 and read after phase 3 (the
 DIA path), reset again before phase 4 and read after it (the AIJ path),
 before phase 5 and after it (the blocked path), before phase 6 and after
 it (the small blocked and partial paths), before phase 7 and after
-phase 8 (the shift-and-invert paths: K2, K3, K4), and before phase 9 and
-after it (the plain cycle at full width); K7's launches are read around
+phase 8 (the shift-and-invert paths: K2, K3, K4), before phase 9 and
+after it (the plain cycle at full width), before phase 10 and after it (the
+non-Hermitian path: K2 / K1, K3, K4), and before phase 11 and after it (its
+small paths: K2, K5, K6, K3, K4); K7's launches are read around
 its yardstick measurement in phase 1.  Every kernel of each path must
 have launched.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
@@ -862,49 +887,64 @@ SINVERT_ITERS = 800
 SINVERT_TOL = 1e-8
 
 
-def sinvert_kernels(dev):
-    """K2, K3 and K4 against their plain versions at the shapes phases 7
-    and 8 give them (f64, phase 1's tolerances): K2 on each path's operator;
-    K3's three sweeps against 1, ncv and ncv + 1 basis rows of its length
-    (the first column, the last, and the basis with its residual row); K4
-    at (ncv, ncv) (the fast path's restart), (ncv, ncv // 2) (the general
-    loop keeps half) and (ncv, 1) (one Ritz vector).  Run before the
-    paths' launch counts are reset: these launches are not theirs."""
-    print("phases 7-8: K2, K3, K4 vs plain PyTorch at the shift-and-invert "
-          "paths' shapes", flush=True)
-    f64 = torch.float64
+PATH_TOL = {torch.float64: {"K2": 1e-14, "K3": 1e-13, "K4": 1e-14},
+            torch.float32: {"K1": 2e-6, "K3": 1e-5, "K4": 1e-5}}
+
+
+def path_kernels(dev, title, cases, dtype=torch.float64):
+    """K2 (K1 in f32), K3 and K4 against their plain versions at the shapes
+    a path gives them (phase 1's tolerances, ``PATH_TOL``): the SpMV on
+    each case's operator (made in ``dtype``); K3's
+    three sweeps against 1, ncv and ncv + 1 basis rows of its length (the
+    first column, the last, and the basis with its residual row); K4 at
+    (ncv, ncv) (the fast path's restart), (ncv, ncv // 2) (the general
+    loop keeps half) and (ncv, 1) (one Ritz vector).  ``cases``: (where,
+    operator maker, ncv).  Run before the paths' launch counts are reset:
+    these launches are not theirs."""
+    print(title, flush=True)
+    tol = PATH_TOL[dtype]
+    spmv = next(iter(tol))
     gen = torch.Generator(device=dev).manual_seed(8)
-    for where, A, ncv in (
-            ("phase 7, 100x102x104", stt.laplacian_3d(
-                *SINVERT_GRID, dtype=f64, device=dev), 32),
-            ("phase 8 MINRES, 8x9x10", stt.laplacian_3d(
-                8, 9, 10, dtype=f64, device=dev), 20),
-            ("phase 8 general loop, 95x97", stt.laplacian_2d(
-                95, 97, dtype=f64, device=dev), 21),
-            ("phase 8 slicing, 95x97", stt.laplacian_2d(
-                95, 97, dtype=f64, device=dev), 64),
-            ("phase 8 slicing, 1-D 1,000,000", stt.laplacian_1d(
-                1_000_000, dtype=f64, device=dev), 64)):
+    for where, make, ncv in cases:
+        A = make()
+        check(A.diags.dtype == dtype, f"{where}: operator in {A.diags.dtype}")
         n = A.shape[0]
-        x = torch.randn(n, generator=gen, dtype=f64, device=dev)
-        worst = {"K2": spmv_errors(A.offsets, A.diags, x)[1], "K3": 0.0,
+        x = torch.randn(n, generator=gen, dtype=dtype, device=dev)
+        worst = {spmv: spmv_errors(A.offsets, A.diags, x)[1], "K3": 0.0,
                  "K4": 0.0}
-        V = torch.randn((ncv + 1, n), generator=gen, dtype=f64, device=dev)
-        C = torch.randn((ncv + 1, 1), generator=gen, dtype=f64, device=dev)
+        V = torch.randn((ncv + 1, n), generator=gen, dtype=dtype, device=dev)
+        C = torch.randn((ncv + 1, 1), generator=gen, dtype=dtype, device=dev)
         for K in (1, ncv, ncv + 1):
             errs = panel_errors(V[:K], x[None], C[:K])
             worst["K3"] = max(worst["K3"], *(rel for _, rel in errs.values()))
         for P in (ncv, ncv // 2, 1):
             worst["K4"] = max(worst["K4"], rotate_errors(
-                random_q(ncv, P, dev, f64), V[:ncv])[1])
-        print(f"  {where}: n={n} nd={len(A.offsets)} ncv={ncv}  "
+                random_q(ncv, P, dev, dtype), V[:ncv])[1])
+        print(f"  {where}: n={n} nd={len(A.offsets)} ncv={ncv} "
+              f"{TAG[dtype]}  "
               + "  ".join(f"{k} {v:.3e}" for k, v in worst.items()),
               flush=True)
-        check(worst["K2"] <= 1e-14, f"{where}: K2 error {worst['K2']:.3e}")
-        check(worst["K3"] <= 1e-13, f"{where}: K3 error {worst['K3']:.3e}")
-        check(worst["K4"] <= 1e-14, f"{where}: K4 error {worst['K4']:.3e}")
+        for k, v in worst.items():
+            check(v <= tol[k], f"{where}: {k} error {v:.3e} > {tol[k]:g}")
         del A, x, V, C
     torch.cuda.empty_cache()
+
+
+def sinvert_kernels(dev):
+    """K2, K3, K4 at the shapes phases 7 and 8 give them."""
+    f64 = torch.float64
+    path_kernels(dev, "phases 7-8: K2, K3, K4 vs plain PyTorch at the "
+                 "shift-and-invert paths' shapes", (
+                     ("phase 7, 100x102x104", lambda: stt.laplacian_3d(
+                         *SINVERT_GRID, dtype=f64, device=dev), 32),
+                     ("phase 8 MINRES, 8x9x10", lambda: stt.laplacian_3d(
+                         8, 9, 10, dtype=f64, device=dev), 20),
+                     ("phase 8 general loop, 95x97", lambda: stt.laplacian_2d(
+                         95, 97, dtype=f64, device=dev), 21),
+                     ("phase 8 slicing, 95x97", lambda: stt.laplacian_2d(
+                         95, 97, dtype=f64, device=dev), 64),
+                     ("phase 8 slicing, 1-D 1,000,000", lambda: stt.laplacian_1d(
+                         1_000_000, dtype=f64, device=dev), 64)))
 
 
 def sinvert_solve(dev, where, generalized, tol=SINVERT_TOL, gate=True):
@@ -1185,6 +1225,408 @@ def phase9(dev, table):
     return wall, delta
 
 
+NHEP_LOG2 = 20  # complex rows of the non-Hermitian deployment
+NHEP_NEV, NHEP_NCV = 12, 64
+
+
+def spiral_diags(n):
+    """The reference's non-Hermitian deployment (bench.py:1001-1077), a
+    complex tridiagonal of n rows from default_rng(5): the diagonal spiral
+    r e^{i theta} with eight detached top-magnitude outliers at 3.0 -> 2.4,
+    complex off-diagonals 0.05 N(0,1), lo = 0.3 hi.  Returns the (3, n)
+    complex diagonals (offsets -1, 0, 1), rounded to complex64 as the
+    deployment builds them."""
+    rng = np.random.default_rng(5)
+    th = np.linspace(0, 4 * np.pi, n)
+    r = np.linspace(0.5, 2.0, n)
+    d = (r * np.exp(1j * th)).astype(np.complex64)
+    d[:8] = (np.linspace(3.0, 2.4, 8)
+             * np.exp(1j * np.linspace(0.3, 5.5, 8))).astype(np.complex64)
+    off = 0.05 * (rng.standard_normal(n)
+                  + 1j * rng.standard_normal(n)).astype(np.complex64)
+    lo = np.zeros(n, np.complex64)
+    hi = np.zeros(n, np.complex64)
+    hi[: n - 1] = off[: n - 1]
+    lo[1:] = off[: n - 1] * 0.3
+    return np.stack([lo, d, hi]).astype(np.complex128)
+
+
+def spiral_operator(log2n, dtype, dev):
+    """The deployment in real form: 2 * 2^log2n rows, offsets -3..3."""
+    return stt.from_complex_dia((-1, 0, 1), spiral_diags(1 << log2n),
+                                dtype=dtype, device=dev)
+
+
+def nhep_solve(A, tol, nev=NHEP_NEV, ncv=NHEP_NCV, setup=None, **kw):
+    """EPS(A, nhep, largest magnitude) on the card; returns (eps, wall,
+    launch deltas), the deltas read before any residual is recomputed."""
+    before = stt.launch_counts()
+    eps = stt.EPS(A, problem_type="nhep", nev=nev, ncv=ncv, tol=tol,
+                  options=stt.Options(), **kw)
+    if setup is not None:
+        setup(eps)
+    t0 = time.perf_counter()
+    eps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = stt.launch_counts()
+    return eps, wall, {k: counts[k] - before[k] for k in counts}
+
+
+def pair_gates(where, eps, rel):
+    """Every returned value with Im != 0 has its conjugate among the
+    returned values, to ``rel`` relative."""
+    lam = np.asarray(eps.eigenvalues[:eps.nconv])
+    for v in lam:
+        if v.imag != 0:
+            gap = np.min(np.abs(lam - np.conj(v))) / abs(v)
+            check(gap <= rel, f"{where}: {v} has no conjugate ({gap:.3e})")
+
+
+def nhep_kernels(dev):
+    """The kernels of phase 10's two solves at their shapes: K2 (f64) and
+    K1 (f32) on the 2,097,152-row operator with offsets -3..3, K3 on a
+    basis of 1, 64 and 65 rows, K4 with Q (64, kl), in f64 and in f32."""
+    for dt in (torch.float64, torch.float32):
+        path_kernels(dev, f"phase 10: {', '.join(PATH_TOL[dt])} "
+                     f"({TAG[dt]}) vs plain PyTorch at the non-Hermitian "
+                     f"path's shapes", (
+                         ("phase 10, 2^20 complex rows in real form",
+                          lambda: spiral_operator(NHEP_LOG2, dt, dev),
+                          NHEP_NCV),), dtype=dt)
+
+
+def phase10(dev):
+    """The non-Hermitian arm at full width: the reference's complex
+    deployment (2^20 rows) in real form, 2,097,152 rows, twelve eigenvalues
+    in six conjugate pairs, f64 at tol 1e-8 and f32 at tol 1e-4."""
+    n_c = 1 << NHEP_LOG2
+    print(f"phase 10: non-Hermitian Krylov-Schur at full width: the "
+          f"{n_c:,}-row complex tridiagonal deployment in real form "
+          f"({2 * n_c:,} rows, offsets -3..3), nev {NHEP_NEV} (six conjugate "
+          f"pairs), ncv {NHEP_NCV}, largest magnitude", flush=True)
+    # the operator build, at a size the host solves densely
+    small = spiral_diags(1 << 10)
+    Ac = sp.diags([small[0, 1:], small[1], small[2, :-1]], [-1, 0, 1])
+    w = np.linalg.eigvals(Ac.toarray())
+    top = w[np.argsort(-np.abs(w))][:NHEP_NEV // 2]
+    want = np.sort_complex(np.concatenate([top, top.conj()]))
+    eps, wall, _ = nhep_solve(spiral_operator(10, torch.float64, dev), 1e-8)
+    check(eps.nconv >= NHEP_NEV, f"phase 10 2^10: nconv {eps.nconv}")
+    got = np.sort_complex(np.asarray(eps.eigenvalues[:NHEP_NEV]))
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"  build check, 2^10 complex rows: nconv={eps.nconv} its={eps.its} "
+          f"wall={wall:.3f} s, max rel |lam - eigvals| = {rel:.3e}",
+          flush=True)
+    check(rel <= 1e-9, f"phase 10 2^10: eigenvalues off by {rel:.3e}")
+    dmax = float(np.abs(spiral_diags(1 << 4)[1]).max())  # the outliers
+    out = {}
+    for dt, tol, gate in ((torch.float64, 1e-8, 1e-8),
+                          (torch.float32, 1e-4, 1e-3)):
+        t = TAG[dt]
+        where = f"phase 10 {t} (tol {tol:.0e})"
+        t0 = time.perf_counter()
+        A = spiral_operator(NHEP_LOG2, dt, dev)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        eps, wall, delta = nhep_solve(A, tol)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fam = family_counts(delta, t)
+        cols = fam["SpMV"]
+        k = eps.nconv
+        lam = np.asarray(eps.eigenvalues[:k])
+        # true residuals with the kernel SpMV on Re x and Im x
+        resid = np.array([eps.compute_error(i) for i in range(k)])
+        print(f"  {where}: operator {build:.3f} s; nconv={k} restarts="
+              f"{eps.its} columns={cols} wall={wall:.3f} s "
+              f"({wall / max(cols, 1) * 1e3:.3f} ms per column) launches="
+              f"{fam} peak_mem={peak / 1e9:.2f} GB", flush=True)
+        print(f"  {where}: max true rel resid={resid.max() if k else np.inf:.3e}"
+              f" min|lam|={np.abs(lam).min() if k else 0:.6f} "
+              f"lam={np.array2string(lam[:NHEP_NEV], precision=6)}",
+              flush=True)
+        check(k >= NHEP_NEV, f"{where}: nconv {k} < {NHEP_NEV}")
+        if dt == torch.float64:
+            pair_gates(where, eps, 1e-10)
+        check(np.all(np.abs(lam) > 0.75 * dmax),
+              f"{where}: a value below the top band: {np.abs(lam).min()}")
+        check(resid.max() <= gate, f"{where}: true residual {resid.max():.3e}")
+        if dt == torch.float64:
+            lam64 = lam[:NHEP_NEV]
+        else:
+            # the f32 operator is the f64 one exactly (complex64 entries):
+            # its twelve values are the f64 run's, to the f32 tolerance
+            far = max(float(np.min(np.abs(lam64 - v))) / abs(v)
+                      for v in lam[:NHEP_NEV])
+            print(f"  {where}: max rel distance to the f64 values "
+                  f"{far:.3e}", flush=True)
+            check(far <= 1e-4, f"{where}: a value {far:.3e} from the f64 "
+                  f"run's")
+        check(all(v > 0 for v in fam.values()),
+              f"{where}: a kernel did not launch: {fam}")
+        out[t] = (wall, eps.its, cols)
+        del eps, A
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase11(dev):
+    """Small paths of the non-Hermitian slice on the card, each with its
+    own gate."""
+    f64 = torch.float64
+    print("phase 11: small non-Hermitian paths: Markov (K6), harmonic, "
+          "balancing, regions, arbitrary selection, STFilter, the other "
+          "solvers, GNHEP", flush=True)
+    # Markov chain (SLEPc ex5) on the CSR kernel
+    t0 = time.perf_counter()
+    A = stt.markov(MARKOV_M, device=dev)
+    eps, wall, delta = nhep_solve(A, 1e-9, nev=4, ncv=None, max_it=300)
+    resid = max(eps.compute_error(i) for i in range(4))
+    top = float(np.max(np.abs(eps.eigenvalues[:4])))
+    print(f"  markov({MARKOV_M}) ({A.shape[0]} rows, CSR): nconv={eps.nconv} "
+          f"its={eps.its} wall={wall:.3f} s |max|lam| - 1|={abs(top - 1):.3e} "
+          f"max true rel resid={resid:.3e} K6={delta['csr_spmv_f64']}",
+          flush=True)
+    check(eps.nconv >= 4 and abs(top - 1) <= 1e-8 and resid <= 1e-8,
+          "markov: gates")
+    check(delta["csr_spmv_f64"] > 0, "markov: K6 did not launch")
+
+    # harmonic extraction: HEP on the Schur machinery, closed form
+    A = stt.laplacian_2d(95, 97, dtype=f64, device=dev)
+    t0 = time.perf_counter()
+    eps = stt.EPS(A, problem_type="hep", nev=4, ncv=28, tol=1e-9,
+                  max_it=2000, options=stt.Options())
+    eps.set_target(0.0)
+    eps.set_st(stt.STShift([A]))
+    eps.set_which("target_magnitude")
+    eps.set_extraction("harmonic")
+    eps.solve()
+    report("harmonic HEP, target 0, laplacian_2d(95, 97)", eps,
+           stt.laplacian_2d_eigs(95, 97, k=4), t0, 1e-9)
+
+    # the phase-10 operator at 2^12 complex rows: plain, then harmonic,
+    # regions and arbitrary selection against its values
+    A = spiral_operator(12, f64, dev)
+    ref, _, _ = nhep_solve(A, 1e-10)
+    lam_ref = np.asarray(ref.eigenvalues[:ref.nconv])
+
+    def held(where, eps, count, inside=None):
+        k = eps.nconv
+        lam = np.asarray(eps.eigenvalues[:k])
+        resid = max(eps.compute_error(i) for i in range(k)) if k else np.inf
+        dist = max(np.min(np.abs(lam_ref - v)) for v in lam) if k else np.inf
+        print(f"  {where}: nconv={k} its={eps.its} "
+              f"max true rel resid={resid:.3e} max|lam - plain|={dist:.3e} "
+              f"lam={np.array2string(lam, precision=6)}", flush=True)
+        check(k >= count, f"{where}: nconv {k} < {count}")
+        check(resid <= 1e-8 and dist <= 1e-9, f"{where}: gates")
+        pair_gates(where, eps, 1e-10)
+        if inside is not None:
+            check(np.all(inside.check_inside(lam) >= 0),
+                  f"{where}: a value outside the region")
+
+    def harmonic(eps):
+        eps.set_target(3.1)
+        eps.set_st(stt.STShift([eps.A]))
+        eps.set_which("target_magnitude")
+        eps.set_extraction("harmonic")
+
+    eps, _, _ = nhep_solve(A, 1e-9, nev=2, ncv=32, setup=harmonic)
+    held("harmonic NHEP pairs, target 3.1, 2^12 spiral", eps, 2)
+    check(np.min(np.abs(eps.eigenvalues[:2] - lam_ref[0])) < 1e-9,
+          "harmonic NHEP: not the pair nearest 3.1")
+    for rg, nev in ((stt.RGInterval(1.0, np.inf, -np.inf, np.inf), 4),
+                    (stt.RGEllipse(center=2.0, radius=1.5), 2)):
+        eps, _, _ = nhep_solve(A, 1e-9, nev=nev, ncv=32,
+                               setup=lambda e: e.set_rg(rg))
+        held(f"region {type(rg).__name__}, 2^12 spiral", eps, nev, rg)
+
+    def by_real_part(eps):
+        eps.set_arbitrary_selection(lambda lam, x: -abs(complex(lam).real))
+
+    eps, _, _ = nhep_solve(A, 1e-9, nev=4, ncv=32, setup=by_real_part)
+    held("arbitrary selection (largest |Re|), 2^12 spiral", eps, 4)
+    # the returned pairs hold the four of largest |Re| (EPS.solve orders
+    # what it returns by the sort criterion, largest magnitude)
+    want = lam_ref[np.argsort(-np.abs(lam_ref.real), kind="stable")][:4]
+    got = np.asarray(eps.eigenvalues[:eps.nconv])
+    check(all(np.min(np.abs(got - v)) <= 1e-9 for v in want),
+          "arbitrary selection: not the largest |Re|")
+    del A, ref
+
+    # balancing on a badly scaled non-normal matrix
+    # (tests/test_eps_advanced.py:161-177 at n = 2,000)
+    rng = np.random.default_rng(0)
+    n = 2000
+    D = 10.0 ** rng.uniform(-3, 3, n)
+    M0 = rng.standard_normal((n, n)) / np.sqrt(n)
+    w_ref = np.linalg.eigvals(M0)
+    A = stt.DenseOperator((M0 / D[:, None]) * D[None, :], device=dev)
+    t0 = time.perf_counter()
+    eps, wall, _ = nhep_solve(A, 1e-8, nev=3, ncv=40, max_it=2000,
+                              setup=lambda e: e.set_balance())
+    lam = np.asarray(eps.eigenvalues[:3])
+    err = max(np.min(np.abs(w_ref - v)) for v in lam)
+    resid = max(eps.compute_error(i) for i in range(3))
+    print(f"  balanced NHEP, n={n}: nconv={eps.nconv} its={eps.its} "
+          f"wall={wall:.3f} s max|lam - eigvals(M0)|={err:.3e} "
+          f"max true rel resid={resid:.3e}", flush=True)
+    check(eps.nconv >= 3 and err <= 1e-7 and resid <= 1e-6,
+          "balancing: gates")
+    del A
+
+    # STFilter over an interior interval, as DIA and as RCM-ordered CSR
+    exact = stt.laplacian_2d_eigs(95, 97)
+    a, b = FILTER_INTERVAL
+    inside = exact[(exact > a) & (exact < b)]
+    csr = rcm_order(stt.laplacian_2d(95, 97, device=dev).to_scipy())
+    for kind, spmv in (("DIA", "dia_spmv_f64"), ("CSR", "csr_spmv_f64")):
+        A = (stt.laplacian_2d(95, 97, dtype=f64, device=dev) if kind == "DIA"
+             else stt.from_scipy(csr, device=dev))
+        before = stt.launch_counts()
+        t0 = time.perf_counter()
+        eps = stt.EPS(A, problem_type="hep", which="largest_real",
+                      nev=len(inside), ncv=2 * len(inside) + 10, tol=1e-8,
+                      options=stt.Options())
+        eps.set_st(stt.STFilter([A], interval=(a, b), degree=FILTER_DEGREE,
+                                spectral_range=(0.0, 8.0)))
+        eps.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k = eps.nconv
+        got = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))
+        err = max(np.min(np.abs(exact - v)) for v in got) if k else np.inf
+        resid = max(eps.compute_error(i) for i in range(k)) if k else np.inf
+        n_spmv = stt.launch_counts()[spmv] - before[spmv]
+        print(f"  STFilter [{a}, {b}] degree {FILTER_DEGREE} {kind}: "
+              f"nconv={k} of {len(inside)} inside its={eps.its} "
+              f"wall={wall:.3f} s max|lam - exact|={err:.3e} "
+              f"max true rel resid={resid:.3e} SpMV launches={n_spmv}",
+              flush=True)
+        check(k == len(inside) and err <= 1e-9 and resid <= 1e-6
+              and np.all((got > a) & (got < b)), f"STFilter {kind}: gates")
+        check(n_spmv > 0, f"STFilter {kind}: the SpMV kernel did not launch")
+        del A
+
+    # the other solvers on the reference's test problems, scaled up
+    solvers_small(dev)
+
+    # GNHEP: a nonsymmetric CSR A with an SPD diagonal B
+    n = 2000
+    rng = np.random.default_rng(4)
+    As = (sp.diags(3.0 * 0.9 ** np.arange(n))
+          + 0.01 * sp.random(n, n, density=2e-3, random_state=rng)).tocsr()
+    bd = 1.0 + 0.5 * np.sin(np.arange(n))
+    import scipy.linalg as sla
+    w = sla.eigvals(As.toarray(), np.diag(bd))
+    w = w[np.argsort(-np.abs(w))]
+    A = stt.from_scipy(As, device=dev)
+    B = stt.DIAOperator((0,), torch.from_numpy(bd[None, :]).to(dev))
+    before = stt.launch_counts()
+    t0 = time.perf_counter()
+    eps = stt.EPS(A, B, problem_type="gnhep", nev=4, tol=1e-10,
+                  options=stt.Options())
+    eps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k6 = stt.launch_counts()["csr_spmv_f64"] - before["csr_spmv_f64"]
+    got = np.asarray(eps.eigenvalues[:4])
+    err = max(np.min(np.abs(w - v)) / abs(v) for v in got)
+    resid = max(eps.compute_error(i) for i in range(4))
+    print(f"  GNHEP n={n} (CSR A, diagonal B): nconv={eps.nconv} its={eps.its}"
+          f" wall={wall:.3f} s max rel|lam - scipy eigvals|={err:.3e} "
+          f"max true rel resid={resid:.3e} K6={k6}", flush=True)
+    check(eps.nconv >= 4 and err <= 1e-9 and resid <= 1e-8 and k6 > 0,
+          "GNHEP: gates")
+
+
+MARKOV_M = 100
+FILTER_INTERVAL = (1.0, 1.05)  # 43 eigenvalues of laplacian_2d(95, 97)
+FILTER_DEGREE = 500
+
+
+def solvers_small(dev):
+    """power (with and without shift-and-invert), subspace (ncv > 8 on a
+    DIA operator: K5 in chunks), arnoldi, lanczos and lapack on the
+    reference's test problems (tests/test_eps_solvers.py), scaled up: the
+    gapped spectrum to 100,000 rows (subspace, power, arnoldi, lanczos),
+    the 1-D Laplacian to 300 rows (inverse iteration) and 500 (lapack,
+    dense by design)."""
+    f64 = torch.float64
+    import scipy.linalg as sla
+
+    # a gapped spectrum: a tridiagonal DIA, geometric diagonal
+    n = 100_000
+    dg = np.where(np.arange(n) < 80, 3.0 * 0.8 ** np.arange(n), 1e-6)
+    off = np.full(n, 1e-3)
+    top = sla.eigh_tridiagonal(dg, off[:-1], select="i",
+                               select_range=(n - 4, n - 1),
+                               eigvals_only=True)[::-1]
+    G = stt.DIAOperator((-1, 0, 1), torch.from_numpy(np.stack(
+        [off, dg, off])).to(dev, f64))
+    lap = stt.laplacian_1d(SOLVER_N, dtype=f64, device=dev)
+    lap_exact = stt.laplacian_1d_eigs(SOLVER_N)
+    for solver, A, kw, want, launched in (
+            ("subspace", G, dict(which="largest_real", nev=4, ncv=20,
+                                 max_it=500), top, ("dia_spmm",)),
+            ("power", G, dict(which="largest_magnitude", nev=2, max_it=5000,
+                              tol=1e-9), top[:2], ("dia_spmv",)),
+            # ncv 10: a dozen explicit restarts, K3 / K4 on a basis of
+            # 100,000-row columns
+            ("arnoldi", G, dict(which="largest_real", nev=4, ncv=10,
+                                max_it=2000), top,
+             ("dia_spmv", "panel_", "rotate")),
+            ("lanczos", G, dict(which="largest_real", nev=4, ncv=10,
+                                max_it=2000), top,
+             ("dia_spmv", "panel_", "rotate")),
+            ("lapack", stt.laplacian_1d(500, dtype=f64, device=dev),
+             dict(which="largest_real", nev=4),
+             stt.laplacian_1d_eigs(500)[::-1][:4], ("dia_spmv",))):
+        before = stt.launch_counts()
+        t0 = time.perf_counter()
+        eps = stt.EPS(A, problem_type="hep", solver=solver,
+                      options=stt.Options(), **kw)
+        eps.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = stt.launch_counts()  # the solve's, before the residuals'
+        n_launch = {f: sum(after[key] - before[key] for key in after
+                           if key.startswith(f) and key.endswith("f64"))
+                    for f in launched}
+        k = len(want)
+        got = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))[::-1]
+        err = float(np.max(np.abs(got - want) / np.abs(want))) \
+            if eps.nconv >= k else np.inf
+        resid = max(eps.compute_error(i) for i in range(min(k, eps.nconv)))
+        print(f"  {solver} n={A.shape[0]}: nconv={eps.nconv} its={eps.its} "
+              f"wall={wall:.3f} s max rel|lam - ref|={err:.3e} max true rel "
+              f"resid={resid:.3e} launches={n_launch}", flush=True)
+        check(eps.nconv >= k and err <= 1e-8 and resid <= 1e-7,
+              f"{solver}: gates")
+        check(all(v > 0 for v in n_launch.values()),
+              f"{solver}: a kernel did not launch: {n_launch}")
+    # power + shift-and-invert: inverse iteration toward a target
+    for shift in ("constant", "rayleigh"):
+        t0 = time.perf_counter()
+        eps = stt.EPS(lap, problem_type="hep", nev=1, solver="power",
+                      max_it=2000, options=stt.Options())
+        eps.set_target(1.01)
+        eps.power_shift_type = shift
+        eps.solve()
+        torch.cuda.synchronize()
+        want = lap_exact[np.argmin(np.abs(lap_exact - 1.01))]
+        err = abs(float(eps.eigenvalues[0]) - want) / want
+        print(f"  power + sinvert ({shift}), target 1.01, n={SOLVER_N}: "
+              f"nconv={eps.nconv} its={eps.its} wall="
+              f"{time.perf_counter() - t0:.3f} s rel|lam - exact|={err:.3e} "
+              f"resid={eps.compute_error(0):.3e}", flush=True)
+        check(eps.nconv >= 1 and err <= 1e-9, f"power sinvert {shift}: gates")
+
+
+SOLVER_N = 300
+
+
 def budget_sweep(dev, L, A, more):
     """K6 at each row-block budget (ms, CUDA events, median of 20): the
     natural and RCM-ordered flagship, RCM + random entries and the hub
@@ -1262,7 +1704,7 @@ def _swapped(what):
     swaps = []
     if "K5" in what:
         swaps.append((linop, "dia_spmm",
-                      lambda o, d, X, tile=None: dia_spmm_ref(o, d, X)))
+                      lambda o, d, X: dia_spmm_ref(o, d, X)))
     if "K3" in what:
         swaps += [(ks_jit, "panel_dots", panel_dots_ref),
                   (ks_jit, "panel_update", panel_update_ref),
@@ -1374,7 +1816,8 @@ def kernel_resources(log):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 9: phase 7's tolerance study, the "
+                        help="after phase 11: a torch.profiler split of a "
+                             "phase-10 solve, phase 7's tolerance study, the "
                              "K6 budget and K5 tile sweeps, the blocked f32 "
                              "study and a torch.profiler split of a phase-9, "
                              "a phase-7, a phase-4 and a phase-5 solve")
@@ -1435,7 +1878,24 @@ def main():
           f"phases 7-8: a kernel did not launch: {fam}")
     stt.reset_launch_counts()
     wall_plain, plain_path = phase9(dev, table)
+    nhep_kernels(dev)
+    stt.reset_launch_counts()
+    nhep_walls = phase10(dev)
+    nhep_path = stt.launch_counts()
+    print(f"  phase 10 launches: {nhep_path}", flush=True)
+    stt.reset_launch_counts()
+    phase11(dev)
+    small_nhep_path = stt.launch_counts()
+    print(f"  phase 11 launches: {small_nhep_path}", flush=True)
+    for k in ("dia_spmv_f64", "dia_spmm_f64", "csr_spmv_f64",
+              "panel_dots_f64", "panel_update_f64", "panel_update_dots_f64",
+              "rotate_f64"):
+        check(small_nhep_path[k] > 0, f"phase 11: {k} did not launch")
     if args.profile:
+        A = spiral_operator(NHEP_LOG2, torch.float64, dev)
+        profile_solve("phase 10 f64", lambda: nhep_solve(A, 1e-8)[1],
+                      plain_wall=nhep_walls["f64"][0])
+        del A
         A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
         profile_solve("phase 9", lambda: plain_solve(A, 48, 3)[1],
                       plain_wall=wall_plain)
@@ -1455,7 +1915,7 @@ def main():
         profile_solve("phase 5", lambda: flagship_solve(
             A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
-             plain_path)
+             plain_path, nhep_path, small_nhep_path)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -1484,8 +1944,10 @@ def main():
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
           f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard); plain "
-          f"cycle 10.35M rows {wall_plain:.3f} s on "
-          f"{smi_line}", flush=True)
+          f"cycle 10.35M rows {wall_plain:.3f} s; non-Hermitian 2.1M rows "
+          + ", ".join(f"{t} {w:.3f} s ({its} restarts, {cols} columns)"
+                      for t, (w, its, cols) in nhep_walls.items())
+          + f" on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """slepc_tpu_torch — the PyTorch + CUDA port of slepc_tpu, for NVIDIA Hopper.
 
-It mirrors slepc_tpu's module tree and names (``sys mat st ksp eps ops``),
+It mirrors slepc_tpu's module tree and names (``sys mat bv ds st ksp rg eps
+ops``),
 so one script can drive either package, and it never imports JAX.  Plain
 tensor code is PyTorch; every Pallas kernel of the ported slice is a CUDA
 kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
@@ -15,7 +16,14 @@ inner solves on the card, ``STCayley``, a generalized ``STShift``) and for
 all eigenvalues of an interval (spectrum slicing, certified by inertia), on
 a DIA operator, on any scipy / PETSc-binary sparse matrix (``from_scipy``,
 ``load_operator``: CSR on the device) and on a ``ShellOperator``; with KSP,
-the direct solvers, BV and DS beside it.  Kernels: the DIA SpMV (K1/K2) and
+the direct solvers, BV and DS beside it.  Non-Hermitian Krylov-Schur --
+``EPS(A[, B], problem_type="nhep" | "gnhep" | "pgnhep")`` -- with the real
+Schur form (conjugate pairs kept whole, complex eigenvectors of a real
+operator), harmonic extraction, Krylov balancing, arbitrary selection and
+regions (``RGEllipse``, ``RGInterval``, ``RGPolygon``, ``RGRing``); the
+polynomial filter ``STFilter`` for interior eigenvalues by SpMVs alone; and
+the solvers ``power`` (inverse iteration, RQI), ``subspace``, ``arnoldi``,
+``lanczos`` and ``lapack``.  Kernels: the DIA SpMV (K1/K2) and
 block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
 rotation (K4) and the stream yardstick (K7).
 
@@ -39,13 +47,16 @@ from .mat.linop import (LinearOperator, DenseOperator, ShellOperator,
 from .mat.generators import (laplacian_1d, laplacian_2d, laplacian_3d,
                              laplacian_1d_eigs, laplacian_2d_eigs,
                              laplacian_3d_eigs, from_scipy, from_dense,
-                             random_sparse)
+                             random_sparse, markov, from_complex_dia)
 from .mat.petsc_io import (load_operator, read_petsc_matrix,
                            write_petsc_matrix)
 from .st import (ST, STShift, STSinvert, STCayley, STPrecond, STShell,
-                 STSinvertDevice, SinvertCGOperator, ChebAmplifyOperator)
+                 STSinvertDevice, SinvertCGOperator, ChebAmplifyOperator,
+                 STFilter)
+from .rg import RG, RGEllipse, RGInterval, RGPolygon, RGRing
 from .ksp import KSP, DirectSolver, solve_linear
 from .bv import BV
+from .ds import DS, DSHEP, DSGHEP, DSNHEP, DSGNHEP
 from .eps import EPS, EPSConvergedReason, EPSError, ProblemType
 from .ops import launch_counts, reset_launch_counts
 
@@ -81,6 +92,8 @@ __all__ = [
     "from_scipy",
     "from_dense",
     "random_sparse",
+    "markov",
+    "from_complex_dia",
     "load_operator",
     "read_petsc_matrix",
     "write_petsc_matrix",
@@ -93,10 +106,21 @@ __all__ = [
     "STSinvertDevice",
     "SinvertCGOperator",
     "ChebAmplifyOperator",
+    "STFilter",
+    "RG",
+    "RGEllipse",
+    "RGInterval",
+    "RGPolygon",
+    "RGRing",
     "KSP",
     "DirectSolver",
     "solve_linear",
     "BV",
+    "DS",
+    "DSHEP",
+    "DSGHEP",
+    "DSNHEP",
+    "DSGNHEP",
     "EPS",
     "EPSConvergedReason",
     "EPSError",

@@ -1,4 +1,4 @@
-from .types import DS, DSHEP, DSGHEP
-from . import compact
+from .types import DS, DSHEP, DSGHEP, DSNHEP, DSGNHEP
+from . import compact, schur
 
-__all__ = ["DS", "DSHEP", "DSGHEP", "compact"]
+__all__ = ["DS", "DSHEP", "DSGHEP", "DSNHEP", "DSGNHEP", "compact", "schur"]

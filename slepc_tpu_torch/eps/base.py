@@ -4,23 +4,28 @@ The reference's public surface: ``A x = lambda x`` and ``A x = lambda B x``;
 options ``nev ncv mpd tol max_it which problem_type target interval``,
 ``-eps_true_residual``, ``-eps_conv_*``, ``-eps_cheb_degree``,
 ``-eps_block_size``, ``-eps_lanczos_reorthog``, ``-eps_partitions``,
-monitors, the post-solve viewers ``-eps_view`` / ``-eps_converged_reason``
-/ ``-eps_error_relative``, and the ST options ``-st_type -st_shift
--st_ksp_type``; the setters (``set_operators``, ``set_problem_type``,
-``set_type``, ``set_which``, ``set_dimensions``, ``set_tolerances``,
-``set_target``, ``set_interval``, ``set_st``, ...), ``solve`` through the
+``-eps_harmonic``, ``-eps_balance``, monitors, the post-solve viewers
+``-eps_view`` / ``-eps_converged_reason`` / ``-eps_error_relative``, and the
+ST options ``-st_type -st_shift -st_ksp_type`` (with ``-st_type filter``:
+``-st_filter_interval a,b -st_filter_degree d``);
+the setters (``set_operators``, ``set_problem_type``, ``set_type``,
+``set_which``, ``set_dimensions``, ``set_tolerances``, ``set_target``,
+``set_interval``, ``set_st``, ``set_rg``, ``set_balance``,
+``set_extraction``, ``set_arbitrary_selection``, ...), ``solve`` through the
 solver registry (:meth:`EPS.register`, :class:`EPSSolver`), the getters,
 ``compute_error`` (with B), ``view``, ``error_view`` and
 ``save_state`` / ``load_state``.  Eigenvectors stay on the operator's device
-as the rows of a (nconv, n) tensor; ``get_eigenvectors`` returns them in the
+as the rows of a (nconv, n) tensor -- complex for the complex pairs of a
+real non-Hermitian operator -- and ``get_eigenvectors`` returns them in the
 reference's (n, nconv) shape, as a transposed view.
 
-Only ``krylovschur`` on Hermitian (``hep``, ``ghep``) problems is
-registered.  The reference's other solvers, and the non-Hermitian,
-indefinite, harmonic, balanced, two-sided, arbitrary-selection and region
-variants (whose setters exist), raise NotImplementedError naming their
-ROADMAP item; a name the reference does not know raises :class:`EPSError`
-listing the registered ones.
+Registered: ``krylovschur`` (hep, ghep, nhep, gnhep, pgnhep), ``arnoldi``,
+``lanczos``, ``power``, ``subspace`` and ``lapack``.  The reference's other
+solvers (``gd``, ``jd``, ``lobpcg``, ``rqcg``: ROADMAP queue 1 item 11b;
+``ciss``: 11c; ``bse``: 11d; ``lyapii``: 13), the indefinite (GHIEP), BSE
+and two-sided variants (11d) and complex operators (11a-ii) raise
+NotImplementedError naming their item; a name the reference does not know
+raises :class:`EPSError` listing the registered ones.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import numpy as np
 import torch
 
 from ..mat.linop import LinearOperator
+from ..ops.rotate import rotate
+from ..st.filter import STFilter
 from ..st.st import ST, STCayley, STPrecond, STShift, STSinvert
 from ..sys.monitor import ConvMonitor, Monitor, monitor_all, monitor_first
 from ..sys.options import Options, get_global_options
@@ -62,14 +69,17 @@ class EPSError(RuntimeError):
 
 
 _DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5}
-_TODO_SOLVERS = ("only EPS 'krylovschur' on Hermitian (hep, ghep) problems "
-                 "is ported; {} is still to be ported (ROADMAP.md, queue 1, "
-                 "item 11)")
+_TODO_SOLVERS = ("EPS solver {!r} is still to be ported (ROADMAP.md, queue "
+                 "1, item {})")
+_TODO_COMPLEX = ("EPS {}: a complex operator is still to be ported "
+                 "(ROADMAP.md, queue 1, item 11a-ii: complex instantiations "
+                 "of K2, K3, K4 and K6)")
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
-# the reference's registered solvers that are not ported yet
-_REFERENCE_SOLVERS = ("arnoldi", "bse", "ciss", "gd", "jd", "lanczos",
-                      "lapack", "lobpcg", "lyapii", "power", "rqcg",
-                      "subspace")
+# the reference's registered solvers that are not ported yet, and the
+# ROADMAP item each waits for
+_REFERENCE_SOLVERS = {"gd": "11b", "jd": "11b", "lobpcg": "11b",
+                      "rqcg": "11b", "ciss": "11c", "bse": "11d",
+                      "lyapii": "13"}
 
 
 def _real_if_real(z: complex):
@@ -118,10 +128,11 @@ class EPS:
         self.slice_npart = 1
         self.slice_factorizations = 0
         self.slice_backends = ()  # DirectSolver backends the slicing used
-        # variants of the general loop that are not ported; setting one
-        # makes the solver raise (ROADMAP.md, queue 1, item 11)
+        # variants of the general loop (the two-sided one is not ported and
+        # raises, ROADMAP.md queue 1 item 11d)
         self.extraction = "ritz"
         self.balance = None
+        self.balance_its = 5
         self.two_sided = False
         self.arbitrary: Optional[Callable] = None
         self.rg = None
@@ -138,6 +149,10 @@ class EPS:
         self.cheb_block = 1
         self.cheb_budget_s = None
         self.cheb_stats = None
+        # power iteration: shift variant (constant | rayleigh | wilkinson)
+        # and steps between host reads of the constant-shift loop
+        self.power_shift_type = "constant"
+        self.power_chunk = 16
         # solve state
         self.nconv = 0
         self.its = 0
@@ -256,13 +271,15 @@ class EPS:
             self.max_it = max_it
         return self
 
-    # setters of variants that are not ported: they set the attribute the
-    # solver refuses (ROADMAP.md, queue 1, item 11)
     def set_rg(self, rg):
+        """Leave out eigenvalues outside the region ``rg`` (an ``RG``):
+        Krylov-Schur counts only the Ritz values ``rg.check_inside`` keeps."""
         self.rg = rg
         return self
 
     def set_two_sided(self, flg: bool = True):
+        """Two-sided (left and right) solve: still to be ported, the solver
+        raises (ROADMAP.md, queue 1, item 11d)."""
         self.two_sided = flg
         return self
 
@@ -282,8 +299,9 @@ class EPS:
         return self
 
     def set_power_nonlinear(self, A_of_x, B_of_x=None):
-        """Nonlinear inverse power iteration (the reference's 'power'
-        solver, not ported)."""
+        """Nonlinear inverse power iteration A(x) x = lambda B(x) x (the
+        'power' solver): ``A_of_x`` / ``B_of_x`` map the iterate (an (n,)
+        tensor) to a LinearOperator."""
         self.power_nonlinear = (A_of_x, B_of_x)
         self.solver_name = "power"
         return self
@@ -414,18 +432,18 @@ class EPS:
         sigma_opt = sto.get("shift")
         if st_type is not None:
             table = {"shift": STShift, "sinvert": STSinvert,
-                     "cayley": STCayley, "precond": STPrecond}
+                     "cayley": STCayley, "precond": STPrecond,
+                     "filter": STFilter}
             cls = table.get(str(st_type))
-            if str(st_type) == "filter":
-                raise NotImplementedError(
-                    "STFilter (-st_type filter) is still to be ported "
-                    "(ROADMAP.md, queue 1, item 10)")
             if cls is None:
                 raise EPSError(f"unknown st_type {st_type!r}; "
                                f"available: {sorted(table)}")
             sigma = _real_if_real(complex(
                 sigma_opt if sigma_opt is not None else (
                     self.target if self.target is not None else 0.0)))
+            if cls is STFilter:
+                self.st = self._filter_from_options(sto, mats)
+                return
             kw = {"ksp_opts": ksp_opts} if ksp_opts else {}
             if cls is STSinvert:
                 kw["hermitian"] = hermitian
@@ -442,6 +460,19 @@ class EPS:
                                 ksp_opts=ksp_opts or None)
         else:
             self.st = STShift(mats, sigma=0.0)
+
+    def _filter_from_options(self, sto: Options, mats) -> STFilter:
+        """``-st_type filter``: the interval from ``-st_filter_interval
+        a,b`` (else the EPS interval) and ``-st_filter_degree`` (100); the
+        spectral range is estimated."""
+        iv = sto.get("filter_interval", self.interval)
+        if iv is None:
+            raise EPSError("-st_type filter needs an interval "
+                           "(-st_filter_interval a,b or set_interval)")
+        interval = tuple(float(t) for t in iv.split(",")) \
+            if isinstance(iv, str) else tuple(iv)
+        return STFilter(mats, interval=interval,
+                        degree=int(sto.get("filter_degree", 100)))
 
     def sort_criterion(self) -> SortCriterion:
         """Sorting happens on the back-transformed values, against the
@@ -475,7 +506,7 @@ class EPS:
         cls = self._solvers.get(self.solver_name)
         if cls is None and self.solver_name in _REFERENCE_SOLVERS:
             raise NotImplementedError(_TODO_SOLVERS.format(
-                f"solver {self.solver_name!r}"))
+                self.solver_name, _REFERENCE_SOLVERS[self.solver_name]))
         if cls is None:
             raise EPSError(f"unknown EPS solver {self.solver_name!r}; "
                            f"available: {sorted(self._solvers)}")
@@ -581,10 +612,14 @@ class EPS:
     def compute_error(self, i: int, error_type: str = "relative") -> float:
         """Explicit residual ||A x - lambda B x|| / ||x|| (/|lambda| if
         relative), computed with the operators' own SpMV (reference:
-        EPSComputeError)."""
+        EPSComputeError).  A complex x of a real operator (a conjugate
+        pair's vector) is applied as its real and imaginary parts."""
         lam, x = self.get_eigenpair(i)
-        bx = self.B.mult(x) if self.B is not None else x
-        r = self.A.mult(x) - float(lam) * bx
+        lam = complex(lam)
+        if not x.is_complex() and lam.imag == 0:
+            lam = lam.real
+        bx = op_mult(self.B, x) if self.B is not None else x
+        r = op_mult(self.A, x) - lam * bx
         res = float(torch.linalg.vector_norm(r)) / max(
             float(torch.linalg.vector_norm(x)), 1e-300)
         if error_type == "relative":
@@ -644,3 +679,50 @@ class EPSSolver:
 
     def solve(self, eps: EPS) -> None:
         raise NotImplementedError
+
+
+def check_real(eps: EPS, solver: str) -> None:
+    """The port's kernels take f32 / f64: a complex operator raises naming
+    its ROADMAP item."""
+    if eps.A.dtype.is_complex or (eps.B is not None and eps.B.dtype.is_complex):
+        raise NotImplementedError(_TODO_COMPLEX.format(solver))
+
+
+def op_mult(op: LinearOperator, x: torch.Tensor) -> torch.Tensor:
+    """op x; a complex x of a real operator goes through ``mult`` as its
+    real and imaginary parts (the kernels take real vectors)."""
+    if x.is_complex() and not op.dtype.is_complex:
+        return torch.complex(op.mult(x.real.contiguous()),
+                             op.mult(x.imag.contiguous()))
+    return op.mult(x)
+
+
+def op_mult_block(op: LinearOperator, X: torch.Tensor) -> torch.Tensor:
+    """op applied to each row of the (b, n) block X through ``mult_block``
+    (K5 for a DIA operator); complex rows of a real operator as their real
+    and imaginary parts."""
+    block = LinearOperator.block_of(op)
+    if X.is_complex() and not op.dtype.is_complex:
+        return torch.complex(block(X.real.contiguous()),
+                             block(X.imag.contiguous()))
+    return block(X)
+
+
+def basis_combine(V: torch.Tensor, Y: np.ndarray) -> torch.Tensor:
+    """The rows of V combined by the columns of the host matrix Y: row p of
+    the result is sum_k Y[k, p] V[k] (X = V_cols Y in the reference's
+    layout), one K4 rotation; a complex Y (the eigenvectors of a real Schur
+    form) is two, for its real and imaginary parts."""
+    def rot(M):
+        return rotate(torch.from_numpy(np.ascontiguousarray(M)).to(
+            V.device, V.dtype), V)
+
+    if np.iscomplexobj(Y):
+        return torch.complex(rot(Y.real), rot(Y.imag))
+    return rot(Y)
+
+
+def normalize_rows(X: torch.Tensor) -> torch.Tensor:
+    """Each row of X over its 2-norm (a zero row stays zero)."""
+    nrm = torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    return X / torch.where(nrm > 0, nrm, torch.ones_like(nrm))

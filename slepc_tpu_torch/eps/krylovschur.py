@@ -1,29 +1,38 @@
-"""EPS Krylov–Schur (``slepc_tpu/eps/krylovschur.py``), Hermitian problems.
+"""EPS Krylov–Schur (``slepc_tpu/eps/krylovschur.py``).
 
-Three routes, as in the reference:
+Routes, as in the reference:
 
-  * spectrum slicing (``which=ALL`` with an interval): ``ks_slice.py``;
-  * the fast path (``ks_jit.ks_hep_solve``): standard Hermitian problem,
-    identity metric, sigma = 0 shift with which = smallest / largest, or the
-    device shift-and-invert ``STSinvertDevice`` (whose symmetrization keeps
+  * spectrum slicing (``which=ALL`` with an interval, no filter):
+    ``ks_slice.py``;
+  * the fast path (``ks_jit.ks_hep_solve``): a standard Hermitian problem
+    with the identity metric, no region, no arbitrary selection and Ritz
+    extraction, for a sigma = 0 shift with which = smallest / largest, the
+    device shift-and-invert ``STSinvertDevice`` (its symmetrization keeps
     the identity metric; the wanted pairs are the transform's
-    largest-magnitude ones);
-  * the general host-orchestrated loop below, for HEP and GHEP with any ST
-    (a host-factorized ``STSinvert`` / ``STCayley``, a generalized
-    ``STShift``), ``mpd``, locking, deflation and initial spaces,
-    ``true_residual``, ``stopping`` and monitors.
+    largest-magnitude ones), or the polynomial filter ``STFilter`` (the
+    largest of p(A), then Rayleigh quotients on A);
+  * the general host-orchestrated loop below, for everything else: HEP and
+    GHEP with any ST, and the non-Hermitian arm (``nhep``, ``gnhep``,
+    ``pgnhep``) with its real Schur form, harmonic extraction, Krylov
+    balancing, arbitrary selection and region filtering (``set_rg``), plus
+    ``mpd``, locking, deflation and initial spaces, ``true_residual``,
+    ``stopping`` and monitors.
 
 One outer iteration of the general loop: basis extension (``bv/krylov.py``:
 the ST operator's apply + CGS2 on kernel K3 per column, B-metric for GHEP),
-projected solve on the host (compact arrow + tridiagonal form when the
-thick restart left one, else LAPACK eigh), restart as one rotation on
-kernel K4.  The basis keeps the port's row layout; H and the locked values
-are host numpy.
+the projected problem on the host (HEP: compact arrow + tridiagonal form
+when the thick restart left one, else LAPACK eigh; non-Hermitian: the real
+Schur form, sorted with its 2x2 blocks whole, ``ds/schur.py``), the
+restart as one rotation on kernel K4.  A conjugate pair is never split at
+the lock or the keep boundary, so the rotated basis always matches H.  The
+eigenvectors of the non-Hermitian arm come from the locked Schur block as
+Y = eig(T) and X = V Y, two K4 rotations (real and imaginary parts) when Y
+is complex.  The basis keeps the port's row layout; H and the locked
+Schur block are host numpy.
 
-Not ported, each raising NotImplementedError naming ROADMAP queue 1 item
-11: the non-Hermitian (Schur) arm, harmonic extraction, GHIEP
-(pseudo-Lanczos), balancing, the two-sided and BSE variants, arbitrary
-selection and region filtering.  ``STFilter`` is item 10.
+Still raising NotImplementedError, naming the ROADMAP item: complex
+operators (queue 1, item 11a-ii: complex instantiations of the kernels),
+GHIEP, BSE and the two-sided variant (item 11d).
 """
 
 from __future__ import annotations
@@ -36,73 +45,143 @@ import torch
 from ..bv.bv import BV
 from ..bv.krylov import extend_dispatch
 from ..ds.compact import extract_compact, solve_arrow_hep
+from ..ds.schur import schur, sort_schur
 from ..mat.linop import LinearOperator
+from ..ops.bv import panel_update
 from ..ops.rotate import rotate
+from ..st.filter import STFilter
 from ..st.sinvert_jit import STSinvertDevice
 from ..st.st import STShift
 from ..sys.events import log_event
 from ..sys.sort import Which
-from .base import EPS, EPSConvergedReason, EPSSolver, ProblemType
+from .base import (EPS, EPSConvergedReason, EPSSolver, ProblemType,
+                   basis_combine, check_real, normalize_rows, op_mult,
+                   op_mult_block)
 from .ks_jit import ks_hep_solve
 
 _WHICH = {Which.SMALLEST_REAL: "smallest",
           Which.SMALLEST_MAGNITUDE: "smallest",
           Which.LARGEST_REAL: "largest",
           Which.LARGEST_MAGNITUDE: "largest_magnitude"}
-_TODO = "EPS krylovschur: {} is not ported (ROADMAP.md, queue 1, item 11)"
+_TODO = "EPS krylovschur: {} is not ported (ROADMAP.md, queue 1, item {})"
+_PORTED = (ProblemType.HEP, ProblemType.GHEP, ProblemType.NHEP,
+           ProblemType.GNHEP, ProblemType.PGNHEP)
 
 
 def _check_ported(eps) -> None:
-    if eps.problem_type not in (ProblemType.HEP, ProblemType.GHEP):
+    if eps.problem_type not in _PORTED:
         raise NotImplementedError(_TODO.format(
-            f"problem_type={eps.problem_type.value!r} (only 'hep' and "
-            f"'ghep' are)"))
-    for flag, what in ((eps.extraction != "ritz", "harmonic extraction"),
-                       (eps.balance, "balancing"),
-                       (eps.two_sided, "the two-sided variant"),
-                       (eps.arbitrary is not None, "arbitrary selection"),
-                       (eps.rg is not None, "region filtering (rg)")):
-        if flag:
-            raise NotImplementedError(_TODO.format(what))
+            f"problem_type={eps.problem_type.value!r}", "11d"))
+    if eps.two_sided:
+        raise NotImplementedError(_TODO.format("the two-sided variant",
+                                               "11d"))
+    check_real(eps, "krylovschur")
     if eps.problem_type == ProblemType.GHEP and eps.B is None:
         raise ValueError("problem_type='ghep' needs a B operator")
 
 
+def _pair_keys(T: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """Equalize sort keys within 2x2 blocks so pairs move together."""
+    keys = keys.copy()
+    i = 0
+    n = T.shape[0]
+    while i < n:
+        if i + 1 < n and T[i + 1, i] != 0.0:
+            kk = min(keys[i], keys[i + 1])
+            keys[i] = keys[i + 1] = kk
+            i += 2
+        else:
+            i += 1
+    return keys
+
+
+def _ritz_coefficients(T: Optional[np.ndarray], Q: np.ndarray,
+                       theta: np.ndarray) -> np.ndarray:
+    """Column i: the coefficients of the Ritz vector of theta[i] in the
+    active basis, Q Y with Y = eig(T), each column of Y taken for the
+    eigenvalue nearest theta[i].  (LAPACK's balancing may permute eig's
+    order away from the Schur form's diagonal; the reference pairs them by
+    position, slepc_tpu/eps/krylovschur.py:269, :312.)"""
+    if T is None:
+        return Q
+    w, Y = np.linalg.eig(T)
+    free = np.ones(len(w), bool)
+    pick = []
+    for t in theta:
+        j = int(np.argmin(np.where(free, np.abs(w - t), np.inf)))
+        free[j] = False
+        pick.append(j)
+    return Q @ Y[:, pick]
+
+
+def _rayleigh_values(eps: EPS, X: torch.Tensor) -> np.ndarray:
+    """Rayleigh quotients x^H A x / x^H B x of the rows of X on the
+    original operators, A (and B) applied to the whole block at once
+    (``mult_block``: K5 for a DIA operator)."""
+    AX = op_mult_block(eps.A, X)
+    num = (X.conj() * AX).sum(dim=1)
+    if eps.B is not None:
+        den = (X.conj() * op_mult_block(eps.B, X)).sum(dim=1)
+    else:
+        den = (X.abs() ** 2).sum(dim=1)
+    return (num / den).cpu().numpy()
+
+
 class KrylovSchur(EPSSolver):
-    """Krylov-Schur with locking for HEP / GHEP."""
+    """Krylov-Schur with locking; HEP / GHEP / NHEP / GNHEP / PGNHEP, with
+    the filter, harmonic, balanced, arbitrary and region variants."""
 
     keep = 0.5  # restart kept fraction
 
     def solve(self, eps) -> None:
         _check_ported(eps)
         st = eps.st
-        if eps.which == Which.ALL and eps.interval is not None:
+        if (eps.which == Which.ALL and eps.interval is not None
+                and not isinstance(st, STFilter)):
             from .ks_slice import slice_solve
 
             slice_solve(eps)
             return
+        op = st.op()
+        # harmonic extraction forces the Schur machinery even for a
+        # symmetric A (reference krylovschur.c:239)
+        use_harmonic = eps.extraction == "harmonic"
+        hermitian = (eps.is_hermitian and not use_harmonic
+                     and not st.requires_rayleigh)
+        balance_d = None
+        if (eps.balance and not hermitian and eps.B is None
+                and type(st) is STShift and st.sigma == 0):
+            from .balance import balanced_operator, krylov_balance
+
+            balance_d = krylov_balance(eps.A, its=eps.balance_its)
+            op = balanced_operator(eps.A, balance_d)
+        filtered = isinstance(st, STFilter)
+        if filtered:  # the Hermitian fast path serves filtered runs too
+            hermitian = eps.is_hermitian and not use_harmonic
         dev_sinv = isinstance(st, STSinvertDevice)
         plain_shift = isinstance(st, STShift) and st.sigma == 0 \
             and eps.B is None
-        # fast path: identity metric, no constraints (the device sinvert's
-        # diagonal-B symmetrization keeps the identity metric)
-        if (eps.deflation_space is None and (dev_sinv or (
-                plain_shift and eps.which in _WHICH))):
-            ks_hep_solve(eps, st.op(), "largest_magnitude" if dev_sinv
-                         else _WHICH[eps.which])
+        # fast path: identity metric (the device sinvert's diagonal-B
+        # symmetrization keeps it), no constraints, region or selection
+        if (hermitian and (eps.problem_type == ProblemType.HEP or dev_sinv)
+                and eps.deflation_space is None and eps.rg is None
+                and eps.arbitrary is None
+                and (plain_shift or filtered or dev_sinv)
+                and (dev_sinv or eps.which in _WHICH)):
+            w = "largest_magnitude" if dev_sinv else _WHICH[eps.which]
+            ks_hep_solve(eps, op, "largest" if filtered else w)
             return
-        self._solve_general(eps)
+        self._solve_general(eps, op, hermitian, balance_d)
 
-    def _solve_general(self, eps) -> None:
+    def _solve_general(self, eps, op, hermitian: bool,
+                       balance_d: Optional[np.ndarray]) -> None:
         st = eps.st
-        op = st.op()
         n, ncv, nev, mpd = eps.n, eps.ncv, eps.nev, eps.mpd
         A = eps.A
         dtype, device = A.dtype, A.device
-        if dtype.is_complex:
-            raise NotImplementedError(_TODO.format("a complex operator"))
         Bip: Optional[LinearOperator] = \
             eps.B if eps.problem_type == ProblemType.GHEP else None
+        use_harmonic = eps.extraction == "harmonic"
 
         def on_device(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
@@ -125,9 +204,9 @@ class KrylovSchur(EPSSolver):
         sc = eps.sort_criterion()
         k = 0  # nconv (locked)
         l = 0  # kept from the previous restart
-        eigs_locked = np.zeros(ncv)
+        eigs_locked = np.zeros(ncv, dtype=complex)
         err_locked = np.zeros(ncv)
-        theta_locked = np.zeros(ncv)
+        Tlock = np.zeros((ncv, ncv))  # the locked (real) Schur block
         breakdown_ct = 0
 
         while eps.its < eps.max_it:
@@ -142,43 +221,122 @@ class KrylovSchur(EPSSolver):
                 if breakdown_ct > 10:
                     eps.reason = EPSConvergedReason.DIVERGED_BREAKDOWN
                     break
+            S = H[k:nv, k:nv]
 
             # ---- projected solve (DS tier, host) ----
-            S = H[k:nv, k:nv]
-            Ssym = 0.5 * (S + S.T)
-            with log_event("DS_Solve", flops=9.0 * S.shape[0] ** 3):
-                dce = extract_compact(Ssym)
-                theta, Q = solve_arrow_hep(*dce) if dce is not None \
-                    else np.linalg.eigh(Ssym)
+            g_harm = None  # the harmonic translate, when one applies
+            if hermitian:
+                Ssym = 0.5 * (S + S.T)
+                with log_event("DS_Solve", flops=9.0 * S.shape[0] ** 3):
+                    dce = extract_compact(Ssym)
+                    theta, Q = solve_arrow_hep(*dce) if dce is not None \
+                        else np.linalg.eigh(Ssym)
+                Tproj = None
+            else:
+                if use_harmonic:
+                    # harmonic Ritz translate (DSTranslateHarmonic): solve
+                    # (S - tau I)^H f = e_last and S_h = S + beta^2 f
+                    # e_last^H; the Schur form and the sort use S_h, the
+                    # locking and the restart recover projections of S so
+                    # the Krylov relation stays exact
+                    tau = 0.0
+                    if eps.target is not None:
+                        tau = complex(np.asarray(
+                            st.eig_map(np.array([eps.target]))).ravel()[0])
+                        if abs(tau.imag) < 1e-300:
+                            tau = tau.real
+                    na_h = S.shape[0]
+                    e_last = np.zeros(na_h)
+                    e_last[-1] = 1.0
+                    try:
+                        f = np.linalg.solve(
+                            (S - tau * np.eye(na_h)).conj().T, e_last)
+                        if beta ** 2 * np.linalg.norm(f) < 1e8:
+                            g_harm = (beta ** 2) * f
+                            S = S + np.outer(g_harm, e_last).real
+                    except np.linalg.LinAlgError:
+                        g_harm = None
+                with log_event("DS_Solve", flops=25.0 * S.shape[0] ** 3):
+                    Tproj, Q, theta = schur(S)
 
             # ---- sort wanted-first (keys on back-transformed values) ----
-            order = np.argsort(sc.keys(st.back_transform(theta)),
-                               kind="stable")
-            theta, Q = theta[order], Q[:, order]
-            lam_approx = np.asarray(st.back_transform(theta), np.float64)
+            lam_approx = st.back_transform(theta)
+            keys = sc.keys(lam_approx)
+            if eps.arbitrary is not None:
+                # arbitrary selection (EPSSetArbitrarySelection): keys from
+                # a user function of (value, Ritz vector)
+                Yc = _ritz_coefficients(Tproj, Q, theta)
+                Xc = basis_combine(V.array[nc + k: nc + nv], Yc)
+                keys = np.array([float(eps.arbitrary(lam_approx[i], Xc[i]))
+                                 for i in range(nv - k)])
+                del Xc
+            if Tproj is None:
+                order = np.argsort(keys, kind="stable")
+                theta, Q = theta[order], Q[:, order]
+            else:
+                Tproj, Q, theta = sort_schur(Tproj, Q, _pair_keys(Tproj, keys))
+            lam_approx = st.back_transform(theta)
 
             # ---- convergence count ----
             na = nv - k
             last = Q[na - 1, :]
             resid = beta * np.abs(last)
+            if Tproj is not None:
+                # a conjugate pair shares the 2-norm of the last row
+                i = 0
+                while i < na:
+                    if i + 1 < na and Tproj[i + 1, i] != 0.0:
+                        resid[i] = resid[i + 1] = np.hypot(resid[i],
+                                                           resid[i + 1])
+                        i += 2
+                    else:
+                        i += 1
+            harmonic_on = g_harm is not None
+            if harmonic_on:
+                # per-column bound of the harmonic factorization
+                resid = np.abs(last) * float(
+                    np.sqrt(beta ** 2 + np.linalg.norm(g_harm) ** 2))
             errest = np.array([eps.conv_measure(theta[i], resid[i])
                                for i in range(na)])
             if eps.true_residual:
                 # confirm candidates with ||A x - lam B x|| on the
                 # original problem
-                Vact = V.array[nc + k: nc + nv]
+                Yc = _ritz_coefficients(Tproj, Q, theta)
+                if Tproj is not None and k > 0:
+                    # an eigenvector of the whole quasi-triangular form:
+                    # the locked part z solves (T_lock - lam) z = -C y
+                    # (C the locked rows' coupling); the reference forms
+                    # the active part alone, whose residual after a lock
+                    # carries the coupling and never passes
+                    Yc = np.vstack([np.stack([-np.linalg.solve(
+                        Tlock[:k, :k] - theta[i] * np.eye(k),
+                        H[:k, k:nv] @ Yc[:, i]) for i in range(na)], 1),
+                        Yc])
+                first = nc + k - (Yc.shape[0] - na)  # locked rows too
+                Vact = V.array[first: nc + nv]
                 i = 0
                 while i < na and errest[i] < eps.tol:
-                    x = rotate(on_device(Q[:, i: i + 1]), Vact)[0]
-                    bx = eps.B.mult(x) if eps.B is not None else x
-                    r = A.mult(x) - float(lam_approx[i]) * bx
+                    x = basis_combine(Vact, Yc[:, i: i + 1])[0]
+                    lam_i = complex(lam_approx[i])
+                    if not x.is_complex():
+                        lam_i = lam_i.real
+                    bx = op_mult(eps.B, x) if eps.B is not None else x
+                    r = op_mult(A, x) - lam_i * bx
                     rn = float(torch.linalg.vector_norm(r)) / max(
                         float(torch.linalg.vector_norm(x)), 1e-300)
-                    errest[i] = eps.conv_measure(lam_approx[i], rn)
+                    errest[i] = eps.conv_measure(lam_i, rn)
                     i += 1
+            if eps.rg is not None:
+                outside = eps.rg.check_inside(lam_approx) < 0
+                errest = np.where(outside, np.inf, errest)
             k2 = k
             while k2 < nv and errest[k2 - k] < eps.tol:
                 k2 += 1
+            if Tproj is not None:
+                # do not split a conjugate pair at the lock boundary
+                d = k2 - k
+                if 0 < d < na and Tproj[d, d - 1] != 0.0:
+                    k2 -= 1
 
             # ---- monitors, stopping ----
             eps.nconv = k2
@@ -195,27 +353,64 @@ class KrylovSchur(EPSSolver):
             else:
                 l = max(1, int(self.keep * (nv - k2)))
                 l = min(l, max(nv - k2 - 1, 0))
+                if Tproj is not None and l > 0:
+                    # nor at the keep boundary
+                    d = k2 - k + l
+                    if d < na and Tproj[d, d - 1] != 0.0:
+                        l += 1 if d + 1 < na else -1
             kl = (k2 - k) + l  # kept columns of Q
 
             # ---- lock bookkeeping ----
             eigs_locked[k:k2] = lam_approx[: k2 - k]
             err_locked[k:k2] = errest[: k2 - k]
-            theta_locked[k:k2] = theta[: k2 - k]
+            Tuse = Tproj
+            if harmonic_on:
+                # the recovered true projection: T_h - (Q^H g)(e^H Q)
+                qg = Q.conj().T @ g_harm
+                Tuse = (Tproj - np.outer(qg, last)).real
+            if Tproj is not None:
+                Tlock[k:k2, k:k2] = Tuse[: k2 - k, : k2 - k]
+                # coupling of the earlier locked vectors to the newly locked
+                # ones: the eigenvectors of a non-normal problem need it
+                Tlock[:k, k:k2] = H[:k, k:nv] @ Q[:, : k2 - k]
+            else:
+                idx = np.arange(k, k2)
+                Tlock[idx, idx] = theta[: k2 - k]
 
             if kl > 0:
+                Vact = V.array[nc + k: nc + nv]
+                arrow_beta = beta
+                if not done and harmonic_on:
+                    # the residual vector absorbs the dropped coupling:
+                    # u = beta v_res - V_act (g - Q_kept (Q^H g)_kept), from
+                    # the basis BEFORE the rotation overwrites its rows (one
+                    # K3 update; row nv is not among the rotated rows)
+                    c_u = -(g_harm - Q[:, :kl] @ qg[:kl]).real
+                    u = panel_update(Vact, on_device(-c_u[:, None]),
+                                     beta * V.array[nc + nv][None])[0]
+                    un = float(torch.linalg.vector_norm(u))
+                    if un > 0:
+                        V.array[nc + nv] = u / un
+                        arrow_beta = un
                 # ---- rotate: V[k:k+kl] = Q[:, :kl]^T V[k:nv] (K4) ----
                 with log_event("BV_MultInPlace",
                                flops=2.0 * n * (nv - k) * kl):
-                    rotate(on_device(Q[:, :kl]), V.array[nc + k: nc + nv],
+                    rotate(on_device(Q[:, :kl]), Vact,
                            out=V.array[nc + k: nc + k + kl])
-                # ---- H: locked diagonal + kept diagonal + arrow row ----
-                H = np.zeros_like(H)
-                idx = np.arange(k2)
-                H[idx, idx] = theta_locked[:k2]
+                # ---- H: locked block + kept block + arrow row ----
+                H2 = np.zeros_like(H)
+                H2[:k2, :k2] = Tlock[:k2, :k2]
                 if not done and l > 0:
-                    idx = np.arange(k2, k2 + l)
-                    H[idx, idx] = theta[k2 - k: k2 - k + l]
-                    H[k2 + l, k2: k2 + l] = beta * last[k2 - k: k2 - k + l]
+                    kept = slice(k2 - k, k2 - k + l)
+                    if Tproj is None:
+                        idx = np.arange(k2, k2 + l)
+                        H2[idx, idx] = theta[kept]
+                    else:
+                        H2[k2: k2 + l, k2: k2 + l] = Tuse[kept, kept]
+                        H2[k: k2, k2: k2 + l] = Tuse[: k2 - k, kept]
+                        H2[:k, k2: k2 + l] = H[:k, k:nv] @ Q[:, kept]
+                    H2[k2 + l, k2: k2 + l] = arrow_beta * last[kept]
+                H = H2
                 if not done:  # move the residual vector to row k2 + l
                     V.array[nc + k2 + l] = V.array[nc + nv]
             k = k2
@@ -225,10 +420,30 @@ class KrylovSchur(EPSSolver):
         # ---- finalize ----
         eps.nconv = k
         eps.V = V
-        eps.eigenvalues = np.asarray(st.back_transform(theta_locked[:k]),
-                                     np.float64).copy()
-        eps.errests = err_locked[:k].copy()
-        eps._eigenvectors = V.array[nc: nc + k].clone()
+        Vl = V.array[nc: nc + k]
+        if hermitian or k == 0:
+            X = Vl.clone()
+            lam = np.asarray(st.back_transform(np.diagonal(Tlock)[:k].copy()))
+        else:
+            # eigenvectors from the locked Schur block: X = V Y
+            w, Y = np.linalg.eig(Tlock[:k, :k])
+            lam = np.asarray(st.back_transform(w))
+            X = normalize_rows(basis_combine(Vl, Y))
+        errests = err_locked[:k].copy()
+        if st.requires_rayleigh and k > 0:
+            # filtered run: Rayleigh quotients on the original A
+            lam = _rayleigh_values(eps, X)
+            order = np.argsort(lam.real)
+            lam, X = lam[order], X[torch.from_numpy(order).to(device)]
+            errests = errests[order]
+        if balance_d is not None and k > 0:
+            X = normalize_rows(X * torch.from_numpy(balance_d).to(device,
+                                                                  dtype))
+        if hermitian:
+            lam = np.real(lam)
+        eps.eigenvalues = np.array(lam, copy=True)
+        eps.errests = errests
+        eps._eigenvectors = X
 
 
 EPS.register("krylovschur", KrylovSchur)

@@ -512,9 +512,15 @@ def _true_residual_confirm(eps, op):
         while i < errest.size and errest[i] < tol:
             u = rotate(_mat(Q[:, i: i + 1], V), V[:ncv])[0]
             x = post(u) if post is not None else u
-            lam = float(np.asarray(st.back_transform(
-                np.array([theta[i]], np.float64)))[0])
-            r = A.mult(x) - lam * (B.mult(x) if B is not None else x)
+            bx = B.mult(x) if B is not None else x
+            ax = A.mult(x)
+            if st.requires_rayleigh:  # a filter: p(A)'s theta is not lambda
+                num, den = _host(torch.dot(x, ax), torch.dot(x, bx))
+                lam = float(num / den)
+            else:
+                lam = float(np.asarray(st.back_transform(
+                    np.array([theta[i]], np.float64)))[0])
+            r = ax - lam * bx
             rn, xn = _host(torch.linalg.vector_norm(r),
                            torch.linalg.vector_norm(x))
             errest[i] = eps.conv_measure(lam, rn / max(xn, 1e-300))
@@ -582,6 +588,7 @@ def ks_hep_solve(eps, op, which: str) -> None:
     j0, k2 = 0, 0
     theta = errest = None
     n = eps.n
+    filtered = eps.st.requires_rayleigh
     while eps.its < eps.max_it:
         eps.its += 1
         with log_event("EPS_KSCycle",
@@ -592,13 +599,21 @@ def ks_hep_solve(eps, op, which: str) -> None:
         if eps.stopping is not None and eps.stopping(eps, eps.its, k2,
                                                      eps.nev):
             break
-        if k2 >= eps.nev:
+        if filtered:
+            # count the converged pairs on the filter plateau (p ~ 1): the
+            # neighbours outside the interval converge too but do not count
+            if int(np.sum(theta[:k2] > 0.5)) >= eps.nev or k2 >= ncv - 1:
+                break
+        elif k2 >= eps.nev:
             break
     eps.nconv = k2
     eps.eigenvalues = np.asarray(
         eps.st.back_transform(theta[:k2].astype(np.float64)))
     eps.errests = errest[:k2].copy()
     X = V[:k2].clone()
+    if filtered and k2 > 0:
+        _filtered_finish(eps, X)
+        return
     post = getattr(op, "postprocess_vec", None)
     if post is not None and k2 > 0:
         # transformed-space -> original-space vectors (the device
@@ -607,3 +622,24 @@ def ks_hep_solve(eps, op, which: str) -> None:
         nrm = torch.linalg.vector_norm(X, dim=1, keepdim=True)
         X /= torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     eps._eigenvectors = X
+
+
+def _filtered_finish(eps, X: torch.Tensor) -> None:
+    """A filtered run's results (the reference's ks_hep_solve tail): the
+    Rayleigh quotients of the converged rows on the original A, their true
+    residuals ||A x - lambda x|| / |lambda| (A on the whole block at once),
+    and only the pairs inside the filter's interval whose residual is below
+    max(100 tol, 1e-6), in ascending order."""
+    AX = LinearOperator.block_of(eps.A)(X)
+    lam_d = (X * AX).sum(dim=1) / (X * X).sum(dim=1)
+    res = torch.linalg.vector_norm(AX - lam_d[:, None] * X, dim=1)
+    lam, res = _host(lam_d), _host(res)
+    errs = res / np.maximum(np.abs(lam), 1e-300)
+    a, b = eps.st.interval
+    sel = (lam >= a) & (lam <= b) & (errs < max(eps.tol * 100, 1e-6))
+    idx = np.flatnonzero(sel)
+    idx = idx[np.argsort(lam[idx], kind="stable")]
+    eps.nconv = len(idx)
+    eps.eigenvalues = lam[idx].copy()
+    eps.errests = errs[idx].copy()
+    eps._eigenvectors = X[torch.from_numpy(idx).to(X.device)]

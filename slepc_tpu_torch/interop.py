@@ -13,9 +13,12 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
   operators by class name.
 * :func:`sinvert_operator_from_slepc_tpu`, :func:`st_from_slepc_tpu`,
   :func:`ksp_from_slepc_tpu`, :func:`bv_from_slepc_tpu`: a slepc_tpu
-  ``SinvertCGOperator``, ``ST*`` / ``STSinvertDevice``, ``KSP`` or ``BV``
-  (diagonals, b_diag, sigma, iters, method; basis array, constraints)
+  ``SinvertCGOperator``, ``ST*`` / ``STSinvertDevice`` / ``STFilter``,
+  ``KSP`` or ``BV`` (diagonals, b_diag, sigma, iters, method; the filter's
+  interval, degree, spectral range and damping; basis array, constraints)
   becomes the port's, so both compute the same thing.
+* :func:`rg_from_slepc_tpu`: a slepc_tpu region (ellipse, interval,
+  polygon, ring) with its complement flag and scale.
 * :func:`dia_to_padded_ds`: a port f64 operator as the (offsets, dph, dpl, n)
   arguments of ``DIAPaddedOperatorDS``.
 * :func:`basis_from_padded` / :func:`basis_to_padded`: a padded basis
@@ -33,6 +36,8 @@ from .bv.bv import BV
 from .ksp.ksp import KSP
 from .mat.linop import (AIJOperator, DenseOperator, DIAOperator,
                         DiagonalOperator, IdentityOperator)
+from .rg.rg import RGEllipse, RGInterval, RGPolygon, RGRing
+from .st.filter import STFilter
 from .st.sinvert_jit import SinvertCGOperator, STSinvertDevice
 from .st.st import STCayley, STPrecond, STShift, STSinvert
 from .sys.device import resolve_device
@@ -111,10 +116,34 @@ def st_from_slepc_tpu(jst, device=None):
                          hermitian=jst.hermitian)
     if name == "cayley":
         return STCayley(mats, sigma=sigma, nu=jst.nu, ksp_opts=jst.ksp_opts)
+    if name == "filter":
+        return STFilter(mats, interval=jst.interval, degree=jst.degree,
+                        spectral_range=jst.range, damping=jst.damping,
+                        transition=jst.transition)
     cls = {"shift": STShift, "precond": STPrecond}.get(name)
     if cls is None:
         raise TypeError(f"no port counterpart for a slepc_tpu ST {name!r}")
     return cls(mats, sigma=sigma, ksp_opts=jst.ksp_opts)
+
+
+def rg_from_slepc_tpu(jrg):
+    """A slepc_tpu RG as the port's region of the same kind (host numpy on
+    both sides), with its complement flag and scale factor."""
+    kind = type(jrg).__name__
+    if kind == "RGEllipse":
+        rg = RGEllipse(jrg.center, jrg.radius, jrg.vscale)
+    elif kind == "RGInterval":
+        rg = RGInterval(jrg.a, jrg.b, jrg.c, jrg.d)
+    elif kind == "RGPolygon":
+        rg = RGPolygon(np.array(jrg.vertices))
+    elif kind == "RGRing":
+        rg = RGRing(jrg.center, jrg.radius, jrg.vscale, jrg.start_ang,
+                    jrg.end_ang, jrg.width)
+    else:
+        raise TypeError(f"no port counterpart for a slepc_tpu {kind}")
+    rg.set_complement(jrg.complement)
+    rg.set_scale(jrg.sfactor)
+    return rg
 
 
 def ksp_from_slepc_tpu(jksp, device=None) -> KSP:

@@ -5,8 +5,11 @@ torch ops directly on ``device`` (``None``: the card, ``sys/device.py``): at
 10M rows the 3-D Laplacian materializes on the card in milliseconds, with no host array and no upload (the role of
 slepc_tpu's ``laplacian_3d_device``).  The closed-form spectra are numpy.
 General sparse input comes in through :func:`from_scipy` (an AIJOperator
-in CSR on ``device``) and :func:`random_sparse`; ``markov`` waits for the
-non-Hermitian solvers.
+in CSR on ``device``) and :func:`random_sparse`.  :func:`markov` is the
+non-symmetric Markov chain of SLEPc's ``ex5``, built with vectorized numpy
+and placed on ``device`` as CSR; :func:`from_complex_dia` turns a complex
+DIA matrix into the real operator of twice its size that acts on the
+interleaved (Re, Im) parts, so complex spectra run on the real kernels.
 """
 
 from __future__ import annotations
@@ -140,3 +143,56 @@ def random_sparse(n: int, m: int | None = None, density: float = 0.01,
     if symmetric:
         A = (A + A.T) * 0.5
     return AIJOperator.from_scipy(sp.csr_matrix(A), device=device)
+
+
+def markov(m: int, dtype=torch.float64, device=None) -> AIJOperator:
+    """Markov chain transition matrix on a triangular grid of m(m+1)/2
+    states (SLEPc ``ex5`` MatMarkovModel; the dominant eigenvalue is 1):
+    the reference's loop, entry for entry, as index arithmetic."""
+    import scipy.sparse as sp
+
+    N = m * (m + 1) // 2
+    cst = 0.5 / (m - 1)
+    # grid point (i, j), 1 <= i <= m, 1 <= j <= jmax = m - i + 1, row r
+    i = np.repeat(np.arange(1, m + 1), np.arange(m, 0, -1))
+    jmax = m - i + 1
+    start = np.concatenate([[0], np.cumsum(np.arange(m, 0, -1))[:-1]])
+    r = np.arange(N)
+    j = r - start[i - 1] + 1
+    pd = cst * (i + j - 1)
+    pu = 0.5 - cst * (i + j - 3)
+    up = j != jmax
+    north = (r[up], r[up] + 1, np.where(i[up] == 1, 2 * pd[up], pd[up]))
+    east = (r[up], r[up] + jmax[up], np.where(j[up] == 1, 2 * pd[up], pd[up]))
+    s_, w_ = j > 1, i > 1
+    south = (r[s_], r[s_] - 1, pu[s_])
+    west = (r[w_], r[w_] - jmax[w_] - 1, pu[w_])
+    rows, cols, vals = (np.concatenate(t) for t in zip(north, east, south,
+                                                       west))
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(N, N), dtype=np.float64)
+    return AIJOperator.from_scipy(A, dtype=dtype, device=device)
+
+
+def from_complex_dia(offsets, diags, dtype=torch.float64,
+                     device=None) -> DIAOperator:
+    """The real form of a complex DIA matrix A (``diags[k, i] = A[i, i +
+    offsets[k]]``, a complex (nd, n) array): the DIA operator of 2n rows
+    acting on z = (Re x_0, Im x_0, Re x_1, ...), whose 2x2 blocks are
+    [[Re a, -Im a], [Im a, Re a]].  Its spectrum is lambda(A) and its
+    conjugates.  Offset o of A becomes offsets 2o - 1, 2o, 2o + 1 (and 2o
+    +- 2 through the blocks), so a tridiagonal A is 7 real diagonals."""
+    diags = np.asarray(diags)
+    n = diags.shape[1]
+    span = [2 * o + t for o in offsets for t in (-1, 0, 1)]
+    roffs = sorted(set(span))
+    out = np.zeros((len(roffs), 2 * n))
+    for k, o in enumerate(offsets):
+        re, im = diags[k].real, diags[k].imag
+        # row 2i (Re y_i): Re a x_re at col 2(i+o), -Im a x_im at 2(i+o)+1
+        out[roffs.index(2 * o), 0::2] = re
+        out[roffs.index(2 * o + 1), 0::2] = -im
+        # row 2i+1 (Im y_i): Im a x_re at col 2(i+o), Re a x_im at 2(i+o)+1
+        out[roffs.index(2 * o - 1), 1::2] = im
+        out[roffs.index(2 * o), 1::2] = re
+    device = resolve_device(device)
+    return DIAOperator(roffs, torch.from_numpy(out).to(device, dtype))

@@ -232,7 +232,9 @@ class DIAOperator(LinearOperator):
         return dia_spmv(self.offsets, self.diags, x)
 
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
-        """Kernel K5: the diagonals are read once for all b rows of X."""
+        """Kernel K5: the diagonals are read once for every chunk of at most
+        ``SPMM_MAX_B`` (8) rows of X; a block of any height, on every
+        device."""
         self._check_len(X, "mult_block")
         return dia_spmm(self.offsets, self.diags, X)
 

@@ -6,8 +6,9 @@ outside ``[0, n)`` -- the function of the Pallas kernels in
 ``slepc_tpu/ops/dia_pallas.py`` (``dia_spmv_prepared``, ``dia_spmv_padded``,
 ``dia_spmv_padded_v3`` and the double-single ``dia_spmv_padded_ds``), on flat
 ``(n,)`` vectors.  :func:`dia_spmm` applies the same operator to the b rows
-of a ``(b, n)`` block, reading each diagonal once for all of them
-(``dia_spmv_padded_block``).  :func:`plan_spmm` tells K5 where each
+of a ``(b, n)`` block of any height, reading each diagonal once for all the
+rows of a launch (``dia_spmv_padded_block``), in launches of at most
+``SPMM_MAX_B`` rows.  :func:`plan_spmm` tells K5 where each
 diagonal's X values come from: the window of X each block stages in shared
 memory (near diagonals), or device memory (far ones).
 
@@ -35,6 +36,10 @@ launches = {"dia_spmv_f32": 0, "dia_spmv_f64": 0,
 SPMM_TILE = {torch.float64: 1024, torch.float32: 2048}
 SPMM_THREADS = 256
 SPMM_SMEM_CAP = 112 * 1024
+# K5: the most rows of X one launch takes (the kernel's kMaxB, which the
+# card checks against ``slepc_dia_spmm_max_b``); :func:`dia_spmm` launches
+# a taller block in chunks of at most this many rows
+SPMM_MAX_B = 8
 DIRECT, NEAR = 0, 1  # where K5 reads a diagonal's X values
 
 
@@ -146,25 +151,33 @@ def dia_spmv(offsets: Sequence[int], diags: torch.Tensor,
 
 def dia_spmm(offsets: Sequence[int], diags: torch.Tensor,
              X: torch.Tensor, tile: int | None = None) -> torch.Tensor:
-    """Y = (A X[m] for each row m): a new (b, n) tensor for X (b, n).  The
-    rows of X must each be contiguous; their stride may be anything (a
-    slice of a taller basis is taken as it is).  ``tile``: rows a kernel
-    block owns (default ``SPMM_TILE``; see :func:`plan_spmm`)."""
+    """Y = (A X[m] for each row m): a new (b, n) tensor for X (b, n), b any
+    height (on the card the rows go in chunks of at most ``SPMM_MAX_B``,
+    one K5 launch each).  The rows of X must each be contiguous; their
+    stride may be anything (a slice of a taller basis is taken as it is).
+    ``tile``: rows a kernel block owns (default ``SPMM_TILE``; see
+    :func:`plan_spmm`)."""
     _check("dia_spmm", offsets, diags, X, 2)
     if X.device.type == "cpu":
         return dia_spmm_ref(offsets, diags, X)
-    code, lib, offs = _kernel_args("dia_spmm", offsets, diags, X)
     b, n = X.shape
-    if not 1 <= b <= lib.slepc_dia_spmm_max_b():
-        raise ValueError(f"dia_spmm: a block of {b} vectors is more than the "
-                         f"kernel takes")
-    plan = plan_spmm(offsets, n, b, X.dtype, tile)
-    where = (ctypes.c_int * len(offsets))(*plan.where)
+    code, lib, offs = _kernel_args("dia_spmm", offsets, diags, X)
+    if lib.slepc_dia_spmm_max_b() != SPMM_MAX_B:
+        raise RuntimeError(f"dia_spmm: the kernel takes blocks of "
+                           f"{lib.slepc_dia_spmm_max_b()} rows, SPMM_MAX_B "
+                           f"says {SPMM_MAX_B}")
     Y = torch.empty((b, n), dtype=X.dtype, device=X.device)
-    rc = lib.slepc_dia_spmm(code, diags.data_ptr(), diags.stride(0), offs,
-                            where, len(offsets), X.data_ptr(), X.stride(0),
-                            Y.data_ptr(), n, b, n, plan.tile, plan.halo,
-                            _build.stream_handle(X))
-    _build.check(rc, "dia_spmm")
-    launches["dia_spmm_f64" if code else "dia_spmm_f32"] += 1
+    plans = {}
+    for i in range(0, b, SPMM_MAX_B):
+        m = min(SPMM_MAX_B, b - i)
+        if m not in plans:
+            plan = plan_spmm(offsets, n, m, X.dtype, tile)
+            plans[m] = (plan, (ctypes.c_int * len(offsets))(*plan.where))
+        plan, where = plans[m]
+        rc = lib.slepc_dia_spmm(code, diags.data_ptr(), diags.stride(0), offs,
+                                where, len(offsets), X[i].data_ptr(),
+                                X.stride(0), Y[i].data_ptr(), n, m, n,
+                                plan.tile, plan.halo, _build.stream_handle(X))
+        _build.check(rc, "dia_spmm")
+        launches["dia_spmm_f64" if code else "dia_spmm_f32"] += 1
     return Y

@@ -6,8 +6,11 @@ transform on eigenvalues (``back_transform``).  The transformed operator is
 a composition of LinearOperators on the matrices' device; the linear solves
 inside it are a direct factorization (``ksp/direct.py``: on the device for
 dense, tridiagonal and banded matrices, on the host otherwise) or an
-iterative KSP.  The device iterative tier is ``st/sinvert_jit.py``;
-``STFilter`` is still to be ported (ROADMAP.md, queue 1, item 10).
+iterative KSP.  The device iterative tier is ``st/sinvert_jit.py``; the
+polynomial filter ``STFilter`` (interior eigenvalues by SpMVs alone) is
+``st/filter.py``.  Complex shifts of a real operator and complex operators
+wait for the complex arm (ROADMAP.md, queue 1, item 11a-ii); the
+structured transforms of BSE and GHIEP for item 11d.
 
 Where the reference quietly falls back to an iterative KSP when the direct
 route raises (``slepc_tpu/st/st.py:107-108``), the port goes iterative only

@@ -86,10 +86,11 @@ def test_plain_eps_matches_reference(jax_plain):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"problem_type": "nhep"}, "item 11"),
-    # harmonic extraction (interior targets now run: shift-and-invert)
-    ({"problem_type": "hep", "which": "target_magnitude",
-      "options": tst.Options.from_cli("-eps_harmonic")}, "item 11"),
+    # the non-Hermitian arm and harmonic extraction run since the
+    # non-Hermitian slice; GHIEP and the two-sided variant wait (item 11d)
+    ({"problem_type": "ghiep"}, "item 11"),
+    ({"problem_type": "hep", "which": "largest_real",
+      "options": tst.Options.from_cli("-eps_two_sided")}, "item 11"),
 ])
 def test_unported_eps_paths_raise(kw, match):
     eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), nev=2, **kw)

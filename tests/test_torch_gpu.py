@@ -339,8 +339,8 @@ def test_dia_block_kernel_rejects_what_it_does_not_take(cuda):
     d = torch.ones((3, 50), dtype=torch.float64, device=cuda)
     X = torch.ones((9, 50), dtype=torch.float64, device=cuda)
     before = dict(dia.launches)
-    with pytest.raises(ValueError, match="block of 9"):
-        dia.dia_spmm(offsets, d, X)
+    with pytest.raises(ValueError, match="does not match"):
+        dia.dia_spmm(offsets, d, X[0])  # a vector, not a (b, n) block
     with pytest.raises(ValueError, match="dtype or device"):
         dia.dia_spmm(offsets, d, X[:4].float())
     with pytest.raises(ValueError, match="dtype or device"):
@@ -598,3 +598,215 @@ def test_block_tridiagonal_ldlt_on_the_card(cuda):
     rhs = _rand((A.shape[0],), torch.float64, cuda, 5)
     x = td.btridiag_solve(Ab, Bb, 1.5, rhs)
     assert float((A.mult(x) - 1.5 * x - rhs).norm() / rhs.norm()) <= 1e-10
+
+
+# ---- the non-Hermitian slice on the card ----------------------------------
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [9, 20, 48])
+def test_dia_mult_block_of_any_height_on_the_card(cuda, dtype, tol, b):
+    """DIAOperator.mult_block takes any b on the card, as on the CPU: K5
+    in ceil(b / 8) launches."""
+    assert _build.load().slepc_dia_spmm_max_b() == dia.SPMM_MAX_B
+    offsets = (-200, -1, 0, 1, 200)
+    n = 10_007
+    d = _rand((len(offsets), n), dtype, cuda, 0)
+    X = _rand((b, n), dtype, cuda, 1)
+    before = dict(dia.launches)
+    Y = stt.DIAOperator(offsets, d).mult_block(X)
+    ref = dia.dia_spmm_ref(offsets, d, X)
+    torch.cuda.synchronize()
+    scale = dia.dia_spmm_ref(offsets, d.abs(), X.abs()).max()
+    assert float((Y - ref).abs().max() / scale) <= 4 * tol
+    key = "dia_spmm_f64" if dtype == torch.float64 else "dia_spmm_f32"
+    assert dia.launches[key] == before[key] + -(-b // dia.SPMM_MAX_B)
+
+
+def _on_both(make, solve):
+    """The same solve on the CPU (plain versions) and on the card (kernels);
+    returns (cpu eps, card eps, the card's launch deltas)."""
+    cpu = solve(make("cpu"))
+    before = stt.launch_counts()
+    card = solve(make("cuda"))
+    after = stt.launch_counts()
+    return cpu, card, {k: after[k] - before[k] for k in after}
+
+
+def _spiral(n):
+    rng = np.random.default_rng(5)
+    th = np.linspace(0, 4 * np.pi, n)
+    r = np.linspace(0.5, 2.0, n)
+    d = (r * np.exp(1j * th)).astype(np.complex64)
+    d[:8] = (np.linspace(3.0, 2.4, 8)
+             * np.exp(1j * np.linspace(0.3, 5.5, 8))).astype(np.complex64)
+    off = 0.05 * (rng.standard_normal(n)
+                  + 1j * rng.standard_normal(n)).astype(np.complex64)
+    lo = np.zeros(n, np.complex64)
+    hi = np.zeros(n, np.complex64)
+    hi[: n - 1] = off[: n - 1]
+    lo[1:] = off[: n - 1] * 0.3
+    return np.stack([lo, d, hi]).astype(np.complex128)
+
+
+def _nhep(nev, ncv=None, tol=1e-9, setup=None, **kw):
+    def solve(A):
+        eps = stt.EPS(A, problem_type="nhep", nev=nev, ncv=ncv, tol=tol,
+                      options=stt.Options(), **kw)
+        if setup is not None:
+            setup(eps)
+        eps.solve()
+        return eps
+    return solve
+
+
+def _held(cpu, card, count, resid=1e-8):
+    assert card.nconv >= count and card.nconv == cpu.nconv
+    np.testing.assert_allclose(card.eigenvalues[:card.nconv],
+                               cpu.eigenvalues[:cpu.nconv], atol=1e-9)
+    for i in range(card.nconv):
+        assert card.compute_error(i) < resid
+
+
+@pytest.mark.parametrize("case", ["markov", "spiral", "spiral_f32",
+                                  "harmonic", "interval", "ellipse",
+                                  "arbitrary", "balance"])
+def test_nhep_paths_on_the_card(cuda, case):
+    """Phase 11's cases at a small size: the card's kernels against the
+    plain versions' trajectory on the CPU."""
+    f64 = torch.float64
+    spiral = lambda dev, dt=f64: stt.from_complex_dia(
+        (-1, 0, 1), _spiral(1 << 10), dtype=dt, device=dev)
+    if case == "markov":
+        cpu, card, d = _on_both(lambda dev: stt.markov(30, device=dev),
+                                _nhep(4, max_it=300))
+        assert d["csr_spmv_f64"] > 0
+        assert abs(np.abs(card.eigenvalues[:4]).max() - 1) < 1e-8
+    elif case in ("spiral", "spiral_f32"):
+        dt = f64 if case == "spiral" else torch.float32
+        cpu, card, d = _on_both(lambda dev: spiral(dev, dt),
+                                _nhep(12, 64, 1e-8 if dt == f64 else 1e-4))
+        t = "f64" if dt == f64 else "f32"
+        assert min(d[f"dia_spmv_{t}"], d[f"panel_dots_{t}"],
+                   d[f"rotate_{t}"]) > 0
+        if dt == torch.float32:
+            assert card.nconv >= 12
+            assert max(card.compute_error(i) for i in range(12)) < 1e-3
+            return
+    elif case == "harmonic":
+        def harmonic(eps):
+            eps.set_target(3.1)
+            eps.set_st(stt.STShift([eps.A]))
+            eps.set_which("target_magnitude")
+            eps.set_extraction("harmonic")
+        cpu, card, d = _on_both(spiral, _nhep(2, 32, setup=harmonic))
+        assert d["panel_update_f64"] > 0
+    elif case in ("interval", "ellipse"):
+        rg = (stt.RGInterval(1.0, np.inf, -np.inf, np.inf) if case ==
+              "interval" else stt.RGEllipse(center=2.0, radius=1.5))
+        cpu, card, d = _on_both(spiral, _nhep(
+            4 if case == "interval" else 2, 32,
+            setup=lambda e: e.set_rg(rg)))
+        assert np.all(rg.check_inside(card.eigenvalues[:card.nconv]) >= 0)
+    elif case == "arbitrary":
+        cpu, card, d = _on_both(spiral, _nhep(4, 32, setup=lambda e: (
+            e.set_arbitrary_selection(lambda lam, x: -abs(lam.real)))))
+    else:
+        rng = np.random.default_rng(0)
+        n = 200
+        D = 10.0 ** rng.uniform(-3, 3, n)
+        M0 = rng.standard_normal((n, n)) / np.sqrt(n)
+        Ad = (M0 / D[:, None]) * D[None, :]
+        cpu, card, d = _on_both(lambda dev: stt.DenseOperator(Ad, device=dev),
+                                _nhep(3, 40, 1e-8, max_it=300,
+                                      setup=lambda e: e.set_balance()))
+        w = np.linalg.eigvals(M0)
+        for lam in card.eigenvalues[:3]:
+            assert np.min(np.abs(w - lam)) < 1e-7
+        _held(cpu, card, 3, resid=1e-6)
+        return
+    _held(cpu, card, 2)
+
+
+@pytest.mark.parametrize("form", ["dia", "csr"])
+def test_st_filter_on_the_card(cuda, form):
+    exact = stt.laplacian_1d_eigs(200)
+    inside = exact[(exact > 1.0 + 1e-9) & (exact < 1.2)]
+
+    def make(dev):
+        A = stt.laplacian_1d(200, device=dev)
+        return A if form == "dia" else stt.from_scipy(A.to_scipy(),
+                                                      device=dev)
+
+    def solve(A):
+        eps = stt.EPS(A, problem_type="hep", which="largest_real", nev=5,
+                      ncv=40, tol=1e-6, options=stt.Options())
+        eps.set_st(stt.STFilter([A], interval=(1.0, 1.2), degree=150,
+                                spectral_range=(0.0, 4.0)))
+        eps.solve()
+        return eps
+
+    cpu, card, d = _on_both(make, solve)
+    assert d["dia_spmv_f64" if form == "dia" else "csr_spmv_f64"] > 0
+    got = np.sort(card.eigenvalues[:card.nconv])
+    got = got[got > 1.0 + 1e-9]
+    np.testing.assert_allclose(got, inside[: len(got)], atol=1e-8)
+    assert len(got) >= 3
+
+
+@pytest.mark.parametrize("solver", ["power", "subspace", "arnoldi", "lanczos",
+                                    "lapack"])
+def test_solvers_on_the_card(cuda, solver):
+    n = 100
+    exact = stt.laplacian_1d_eigs(n)
+    kw = dict(which="largest_real", nev=3, ncv=20, max_it=3000)
+    if solver == "power":
+        kw = dict(nev=1, max_it=2000)
+    launched = "dia_spmm_f64" if solver == "subspace" else "dia_spmv_f64"
+
+    def solve(A):
+        eps = stt.EPS(A, problem_type="hep", solver=solver,
+                      options=stt.Options(), **kw)
+        if solver == "power":
+            eps.set_target(1.01)
+        eps.solve()
+        return eps
+
+    cpu, card, d = _on_both(lambda dev: stt.laplacian_1d(n, device=dev),
+                            solve)
+    assert card.nconv == cpu.nconv >= kw["nev"]
+    np.testing.assert_allclose(card.eigenvalues[:card.nconv],
+                               cpu.eigenvalues[:cpu.nconv], atol=1e-9)
+    if solver != "power":  # power + sinvert solves on the card's LDL^T
+        assert d[launched] > 0
+    want = (exact[np.argmin(np.abs(exact - 1.01))] if solver == "power"
+            else np.sort(exact)[::-1][:3])
+    np.testing.assert_allclose(np.sort(card.eigenvalues[:kw["nev"]])[::-1],
+                               np.atleast_1d(want), rtol=1e-7)
+
+
+def test_gnhep_on_the_card(cuda):
+    import scipy.linalg as sla
+    import scipy.sparse as sp
+
+    n = 300
+    rng = np.random.default_rng(4)
+    As = (sp.diags(3.0 * 0.9 ** np.arange(n))
+          + 0.01 * sp.random(n, n, density=0.01, random_state=rng)).tocsr()
+    bd = 1.0 + 0.5 * np.sin(np.arange(n))
+    w = sla.eigvals(As.toarray(), np.diag(bd))
+
+    def make(dev):
+        return (stt.from_scipy(As, device=dev),
+                stt.DIAOperator((0,), torch.from_numpy(bd[None, :]).to(dev)))
+
+    def solve(AB):
+        eps = stt.EPS(*AB, problem_type="gnhep", nev=4, tol=1e-10,
+                      options=stt.Options())
+        eps.solve()
+        return eps
+
+    cpu, card, d = _on_both(make, solve)
+    assert d["csr_spmv_f64"] > 0
+    _held(cpu, card, 4)
+    for lam in card.eigenvalues[:4]:
+        assert np.min(np.abs(w - lam)) < 1e-9 * abs(lam)

@@ -181,21 +181,40 @@ def test_st_options(cli, name, method):
                 options=tst.Options.from_cli("-st_type bogus")).solve()
 
 
-@pytest.mark.parametrize("kw,setup,what", [
-    (dict(problem_type="nhep"), None, "problem_type='nhep'"),
-    (dict(problem_type="ghiep"), None, "problem_type='ghiep'"),
-    (dict(problem_type="hep"), lambda e: setattr(e, "extraction", "harmonic"),
-     "harmonic extraction"),
-    (dict(problem_type="hep"), lambda e: setattr(e, "two_sided", True),
+def _complex_op():
+    return tst.DenseOperator(np.eye(20) * (1 + 1j), device="cpu")
+
+
+# each case names a setting; since the non-Hermitian slice the real arms
+# with it run (tests/test_torch_nhep.py), so each case holds one that still
+# raises: a complex operator (item 11a-ii), GHIEP, BSE and the two-sided
+# variant (11d), and the solvers of 11b / 11c
+@pytest.mark.parametrize("make,kw,setup,what", [
+    (_complex_op, dict(problem_type="nhep"), None, "a complex operator"),
+    (None, dict(problem_type="ghiep"), None, "problem_type='ghiep'"),
+    (_complex_op, dict(problem_type="nhep"),
+     lambda e: setattr(e, "extraction", "harmonic"), "a complex operator"),
+    (None, dict(problem_type="hep"), lambda e: setattr(e, "two_sided", True),
      "two-sided"),
-    (dict(problem_type="hep"), lambda e: setattr(e, "balance", "krylov"),
-     "balancing"),
-    (dict(problem_type="hep"), lambda e: setattr(e, "arbitrary", abs),
-     "arbitrary selection"),
-    (dict(problem_type="hep", solver="lanczos"), None, "solver 'lanczos'"),
-])
-def test_unported_arms_raise_naming_the_roadmap(kw, setup, what):
-    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), **kw)
+    (_complex_op, dict(problem_type="nhep"),
+     lambda e: setattr(e, "balance", "krylov"), "a complex operator"),
+    (_complex_op, dict(problem_type="nhep"),
+     lambda e: setattr(e, "arbitrary", lambda lam, x: abs(lam)),
+     "a complex operator"),
+    (_complex_op, dict(problem_type="nhep", solver="lanczos"), None,
+     "a complex operator"),
+    (None, dict(problem_type="bse"), None, "problem_type='bse'"),
+    (None, dict(problem_type="hep", solver="gd"), None, "solver 'gd'"),
+    (None, dict(problem_type="hep", solver="ciss"), None, "solver 'ciss'"),
+    (None, dict(problem_type="hep", solver="rqcg"), None, "solver 'rqcg'"),
+], ids=["kw0-None-problem_type='nhep'", "kw1-None-problem_type='ghiep'",
+        "kw2-<lambda>-harmonic extraction", "kw3-<lambda>-two-sided",
+        "kw4-<lambda>-balancing", "kw5-<lambda>-arbitrary selection",
+        "kw6-None-solver 'lanczos'", "problem_type='bse'", "solver 'gd'",
+        "solver 'ciss'", "solver 'rqcg'"])
+def test_unported_arms_raise_naming_the_roadmap(make, kw, setup, what):
+    A = make() if make is not None else tst.laplacian_1d(20, device="cpu")
+    eps = tst.EPS(A, **kw)
     if setup is not None:
         setup(eps)
     with pytest.raises(NotImplementedError, match="queue 1, item 11") as err:
@@ -204,7 +223,15 @@ def test_unported_arms_raise_naming_the_roadmap(kw, setup, what):
 
 
 def test_st_filter_raises_naming_the_roadmap():
+    # -st_type filter builds STFilter since the non-Hermitian slice; it
+    # raises when it has no interval to filter (tests/test_torch_filter.py
+    # runs it with one)
     eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type="hep",
                   options=tst.Options.from_cli("-st_type filter"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+    with pytest.raises(tst.EPSError, match="needs an interval"):
         eps.solve()
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type="hep",
+                  options=tst.Options.from_cli(
+                      "-st_type filter -st_filter_interval 1,2"))
+    eps.setup()
+    assert isinstance(eps.st, tst.STFilter) and eps.st.interval == (1.0, 2.0)

@@ -143,3 +143,22 @@ def test_aslinearoperator_and_adjoint_of_adjoint():
     assert _rel(tst.aslinearoperator(S, device="cpu").mult(
         torch.from_numpy(x)).numpy(),
                 S @ x) < 1e-14
+
+
+@pytest.mark.parametrize("b", [9, 20, 48])
+def test_dia_mult_block_of_any_height_is_rows_of_mult(b):
+    """A block taller than K5 takes (SPMM_MAX_B = 8 rows) is rows of mult
+    on the CPU as on the card (there, in chunks of at most 8 rows: one K5
+    launch each, tests/test_torch_gpu.py)."""
+    A = tst.laplacian_2d(13, 11, device="cpu")
+    n = A.shape[0]
+    X = torch.from_numpy(np.random.default_rng(b).standard_normal((b, n)))
+    Y = A.mult_block(X)
+    assert Y.shape == (b, n)
+    for i in range(b):
+        torch.testing.assert_close(Y[i], A.mult(X[i]), rtol=0, atol=1e-15)
+    # a strided slice of a taller basis, as the subspace solver hands it
+    V = torch.zeros((b + 3, n), dtype=torch.float64)
+    V[2: b + 2] = X
+    torch.testing.assert_close(A.mult_block(V[2: b + 2]), Y, rtol=0,
+                               atol=0)

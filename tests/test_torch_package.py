@@ -89,6 +89,9 @@ _NO_CARD = [
     ("aslinearoperator", lambda: tst.aslinearoperator(np.eye(3))),
     ("load_operator", lambda: tst.load_operator("unused.petsc")),
     ("BV", lambda: tst.BV(8, 2)),
+    ("markov", lambda: tst.markov(5)),
+    ("from_complex_dia", lambda: tst.from_complex_dia(
+        (0,), np.ones((1, 4), complex))),
     ("interop", lambda: interop.dia_from_slepc_tpu(laplacian_3d(3, 3, 3))),
 ]
 
@@ -226,7 +229,8 @@ def test_eps_driven_by_setters_matches_the_reference(capsys):
 def test_unknown_solver_raises_eps_error_listing_the_registered():
     A = tst.laplacian_1d(20, device="cpu")
     with pytest.raises(tst.EPSError, match=r"unknown EPS solver 'bogus'; "
-                       r"available: \['krylovschur'\]"):
+                       r"available: \['arnoldi', 'krylovschur', 'lanczos', "
+                       r"'lapack', 'power', 'subspace'\]"):
         tst.EPS(A, problem_type="hep").set_type("bogus").solve()
     from slepc_tpu.eps.base import EPSError as JEPSError
 
@@ -238,16 +242,51 @@ def test_unknown_solver_raises_eps_error_listing_the_registered():
     assert tst.EPS._solvers["krylovschur"].__mro__[1] is EPSSolver
 
 
+def _spi_op(x):
+    xa = x.cpu().numpy()
+    A0 = tst.laplacian_1d(20, device="cpu").to_dense().numpy()
+    return tst.DenseOperator(A0 + 0.5 * np.diag(xa ** 2), device="cpu")
+
+
+# the setters of the variants the port lacks: two-sided (item 11d) on a
+# real operator, the others on a complex one (item 11a-ii); their real
+# arms run since the non-Hermitian slice (the test after this one)
 @pytest.mark.parametrize("setter,args", [
     ("set_two_sided", ()), ("set_balance", ()), ("set_extraction",
                                                  ("harmonic",)),
-    ("set_arbitrary_selection", (abs,)), ("set_rg", (object(),)),
-    ("set_power_nonlinear", (lambda x: None,))])
+    ("set_arbitrary_selection", (lambda lam, x: -abs(lam),)),
+    ("set_rg", (tst.RGInterval(1.0, np.inf, -1.0, 1.0),)),
+    ("set_power_nonlinear", (_spi_op,))])
 def test_setters_of_unported_variants_raise_naming_the_roadmap(setter, args):
-    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type="hep")
+    if setter == "set_two_sided":
+        A, pt, item = tst.laplacian_1d(20, device="cpu"), "hep", "11d"
+    else:
+        A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
+                              device="cpu")
+        pt, item = "nhep", "11a-ii"
+    eps = tst.EPS(A, problem_type=pt, nev=2, options=tst.Options())
     getattr(eps, setter)(*args)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    with pytest.raises(NotImplementedError,
+                       match=f"queue 1, item {item}"):
         eps.solve()
+
+
+@pytest.mark.parametrize("setter,args", [
+    ("set_balance", ()), ("set_extraction", ("harmonic",)),
+    ("set_arbitrary_selection", (lambda lam, x: -abs(lam),)),
+    ("set_rg", (tst.RGInterval(1.0, np.inf, -1.0, 1.0),)),
+    ("set_power_nonlinear", (_spi_op,))])
+def test_setters_of_the_non_hermitian_slice_take_effect(setter, args):
+    pt = "hep" if setter == "set_power_nonlinear" else "nhep"
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type=pt,
+                  nev=2, options=tst.Options())
+    getattr(eps, setter)(*args)
+    eps.solve()
+    assert eps.nconv >= 1 and eps.errests[0] < 1e-8
+    if setter != "set_power_nonlinear":  # A(x) is not A there
+        assert eps.compute_error(0) < 1e-8
+    if setter == "set_rg":
+        assert np.all(np.real(eps.eigenvalues[:eps.nconv]) >= 1.0)
 
 
 def test_save_and_load_state_round_trip_across_packages(tmp_path):
@@ -317,3 +356,39 @@ def test_log_event_end_sync_returns_its_value():
     assert tevents.log_event_end_sync((x, 2))[0] is x
     y = jnp.ones(3)
     assert jevents.log_event_end_sync(y) is y
+
+
+def test_the_non_hermitian_slice_is_exported_and_registered():
+    for name in ("STFilter", "RG", "RGEllipse", "RGInterval", "RGPolygon",
+                 "RGRing", "DSNHEP", "DSGNHEP", "markov", "from_complex_dia"):
+        assert name in tst.__all__ and hasattr(tst, name), name
+    from slepc_tpu_torch.st import STFilter, estimate_spectral_bounds  # noqa
+    from slepc_tpu_torch.ds import DSGNHEP, DSNHEP, schur  # noqa
+
+    assert sorted(tst.EPS._solvers) == ["arnoldi", "krylovschur", "lanczos",
+                                        "lapack", "power", "subspace"]
+    assert tst.DS.create("nhep").__class__ is tst.DSNHEP
+    assert tst.DS.create("gnhep").__class__ is tst.DSGNHEP
+    # -st_type filter builds the filter (it raised before the slice)
+    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), problem_type="hep",
+                  options=tst.Options.from_cli(
+                      "-st_type filter -st_filter_interval 1,2"))
+    assert isinstance(eps.setup().st, tst.STFilter)
+
+
+@pytest.mark.parametrize("solver", ["krylovschur", "arnoldi", "power",
+                                    "subspace"])
+def test_complex_operators_raise_naming_11a_ii(solver):
+    A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
+                          device="cpu")
+    eps = tst.EPS(A, problem_type="nhep", nev=2, solver=solver)
+    with pytest.raises(NotImplementedError, match="item 11a-ii"):
+        eps.solve()
+
+
+def test_unported_solvers_name_their_items():
+    A = tst.laplacian_1d(20, device="cpu")
+    for name, item in (("gd", "11b"), ("jd", "11b"), ("lobpcg", "11b"),
+                       ("ciss", "11c"), ("bse", "11d"), ("lyapii", "13")):
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            tst.EPS(A, problem_type="hep", solver=name).solve()
