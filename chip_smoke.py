@@ -86,7 +86,34 @@ Phases (each failing check raises; the script then exits non-zero):
      CSR, subspace (ncv 20: K5 in chunks of 8), power, arnoldi and
      lanczos (ncv 10, a dozen restarts) on a 100,000-row gapped DIA
      operator, power + shift-and-invert and lapack on small 1-D Laplacians,
-     and GNHEP with a CSR A and a diagonal SPD B against scipy.
+     and GNHEP with a CSR A and a diagonal SPD B against scipy;
+ 12. the complex slice (item 11a-ii), every kernel of it complex:
+     (a) the reference's non-Hermitian deployment natively complex: the
+     2^20-row complex tridiagonal as a 3-diagonal complex DIA operator,
+     EPS(nhep, largest magnitude, nev 6, ncv 32) in complex128 at tol 1e-8
+     and complex64 at the deployment's tol 1e-4 (K2c / K1c, K3c, K4c).
+     Gates: nconv >= 6; every |lam| above 0.75 max|d|; the true residual
+     with the kernel SpMV <= 1e-8 (c128) / 1e-3 (c64); each c128 value
+     within 1e-10 relative of one of phase 10's f64 twelve (the real form's
+     spectrum is lambda(A) and its conjugates); each c64 value within 1e-4
+     of the c128 run's; the same build at 2^10 rows against
+     numpy.linalg.eigvals to 1e-9.  (b) complex Hermitian at full width:
+     the flagship operator gauge-transformed, U L U^H with U = diag(e^{i
+     phi}), phi = 2 pi u, u from default_rng(11) (L's 7 offsets, L's
+     spectrum): phase 9's plain cycle in complex128 through EPS (ncv 48,
+     three restarts; ms per column) and the same restarts through
+     ks_hep_cycle on a basis held here, orthonormal to 1e-12; then
+     laplacian_2d(95, 97) gauge-transformed certified (nev 6, ncv 28) in
+     complex128 at tol 1e-8 (|lam - exact| <= 1e-9, true residual <= 1e-8)
+     and complex64 at tol 1e-5, as DIA (K2c / K1c) and as RCM-ordered
+     complex CSR through from_scipy (K6c).  (c) small complex paths: a
+     complex shift (STSinvert, host LU, target 0.5 + 0.01i) of the real
+     laplacian_2d(95, 97); complex GHEP with a diagonal SPD B (the same
+     values as the real pencil's); arnoldi, power and subspace on the 2^12
+     complex deployment, lanczos on the gauge-transformed 95 x 97
+     Laplacian; harmonic extraction (target 2.6 + 0.8i) and a region (the
+     first quadrant) on the 2^12 deployment.  Before each part, its
+     kernels against their plain versions at its shapes.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -112,14 +139,24 @@ at tol 1e-5 with each of K5, K3, K4 in turn swapped for its plain
 version), and a torch.profiler split by kernel of one more phase-4 solve
 and one more phase-5 solve.  Its launches are not counted.
 
+Phase 1 holds the complex instantiations too: K2c / K1c on the
+gauge-transformed flagship (timed; the library call is cuSPARSE on the
+same matrix as a complex torch.sparse_csr_tensor) and on the 2^20-row
+complex deployment, K3c at K = 49 and K4c at (48, 40) (their cuBLAS `@`
+is the library call; K4c's bound counts its operations too: 8 K P n
+flops at 20 flop/B on c128), and K6c on the gauge-transformed RCM
+flagship CSR (nnz 72,164,500; the complex torch.sparse_csr_tensor
+product beside it, or the error torch raises).
+
 Launch counters are reset to 0 before phase 2 and read after phase 3 (the
 DIA path), reset again before phase 4 and read after it (the AIJ path),
 before phase 5 and after it (the blocked path), before phase 6 and after
 it (the small blocked and partial paths), before phase 7 and after
 phase 8 (the shift-and-invert paths: K2, K3, K4), before phase 9 and
 after it (the plain cycle at full width), before phase 10 and after it (the
-non-Hermitian path: K2 / K1, K3, K4), and before phase 11 and after it (its
-small paths: K2, K5, K6, K3, K4); K7's launches are read around
+non-Hermitian path: K2 / K1, K3, K4), before phase 11 and after it (its
+small paths: K2, K5, K6, K3, K4), and before and after each of phase
+12a, 12b and 12c (the complex paths: K2c / K1c, K6c, K3c, K4c); K7's launches are read around
 its yardstick measurement in phase 1.  Every kernel of each path must
 have launched.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
@@ -156,7 +193,8 @@ from slepc_tpu_torch.ops.stream import (stream_bandwidth, stream_sum,
 from slepc_tpu_torch.native.ldl import ldl_available
 
 FLAGSHIP = (200, 225, 230)
-TAG = {torch.float32: "f32", torch.float64: "f64"}
+TAG = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
+       torch.complex128: "c128"}
 SRC = "slepc_tpu_torch/csrc/"
 # kernel entry -> (K#, source, the Pallas kernel function it replaces)
 KERNELS = {
@@ -176,6 +214,20 @@ KERNELS = {
     "csr_spmv_f64": ("K6", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
     "stream_sum_f32": ("K7", SRC + "stream.cu", "bench.py:164"),
     "stream_sum_f64": ("K7", SRC + "stream.cu", "bench.py:164"),
+    # the complex instantiations: the TPU ran complex operators through the
+    # same Pallas kernels on split real planes (slepc_tpu/ops/complex_split.py)
+    "dia_spmv_c64": ("K1c", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:463"),
+    "dia_spmv_c128": ("K2c", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:720"),
+    "panel_dots_c64": ("K3c", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:74"),
+    "panel_dots_c128": ("K3c", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:74"),
+    "panel_update_c64": ("K3c", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:115"),
+    "panel_update_c128": ("K3c", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:115"),
+    "panel_update_dots_c64": ("K3c", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:160"),
+    "panel_update_dots_c128": ("K3c", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:160"),
+    "rotate_c64": ("K4c", SRC + "rotate.cu", "slepc_tpu/ops/rotate_pallas.py:100"),
+    "rotate_c128": ("K4c", SRC + "rotate.cu", "slepc_tpu/ops/rotate_pallas.py:100"),
+    "csr_spmv_c64": ("K6c", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
+    "csr_spmv_c128": ("K6c", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
 }
 # Each kernel's time on the tree before the redesign of K5 and K6, same
 # script and shapes (PERF.md's kernel table, the earlier reading: NVIDIA
@@ -191,10 +243,13 @@ BEFORE_MS = {
     "stream_sum_f32": 0.1428, "stream_sum_f64": 0.2646,
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM;
-# 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores.
+# 67 TFLOP/s float32 outside the tensor cores (TF32 is not float32) and 67
+# TFLOP/s float64 on them (mma.sync m8n8k4, as K4 f64 runs; 34 outside).  A
+# complex kernel's real operations run at its real type's rate.
 CUBLAS = "the plain version's `@` (cuBLAS), timed once"
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
+              torch.complex64: 67e12, torch.complex128: 67e12}
 
 
 def check(cond, msg):
@@ -238,9 +293,13 @@ def record(table, name, err_abs, err_rel, tol, ms, plain_ms, nbytes, flops,
                    "library_ms": library_ms, "library": library,
                    "dtype": dtype}
     lib = f"  library {library_ms:.4f} ms ({library})" \
-        if library_ms is not None else ""
+        if library_ms is not None else f"  library: {library}" if library \
+        else ""
+    before = f" (PERF.md's earlier {BEFORE_MS[name]:.4f})" \
+        if name in BEFORE_MS else ""
     print(f"  {name:<22} err {err_rel:.3e} (tol {tol:.0e})  kernel {ms:.4f} ms"
-          f" (PERF.md's earlier {BEFORE_MS[name]:.4f})  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_flops):.4f} ms"
+          f"{before}  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_flops):.4f} ms"
+          f" ({'bytes' if t_bytes >= t_flops else 'operations'})"
           f"  {nbytes / 1e9:.3f} GB -> {nbytes / ms / 1e6:.1f} GB/s{lib}",
           flush=True)
 
@@ -280,8 +339,13 @@ def rotate_errors(Q, V):
 
 
 def random_q(K, P, dev, dtype, seed=2):
-    """P orthonormal columns of length K (a restart's rotation)."""
-    Qm, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((K, K)))
+    """P orthonormal columns of length K (a restart's rotation; complex
+    unitary columns for a complex dtype)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((K, K))
+    if dtype.is_complex:
+        M = M + 1j * rng.standard_normal((K, K))
+    Qm, _ = np.linalg.qr(M)
     return torch.from_numpy(np.ascontiguousarray(Qm[:, :P])).to(dev, dtype)
 
 
@@ -888,7 +952,9 @@ SINVERT_TOL = 1e-8
 
 
 PATH_TOL = {torch.float64: {"K2": 1e-14, "K3": 1e-13, "K4": 1e-14},
-            torch.float32: {"K1": 2e-6, "K3": 1e-5, "K4": 1e-5}}
+            torch.float32: {"K1": 2e-6, "K3": 1e-5, "K4": 1e-5},
+            torch.complex128: {"K2c": 1e-14, "K3c": 1e-13, "K4c": 1e-14},
+            torch.complex64: {"K1c": 2e-6, "K3c": 1e-5, "K4c": 1e-5}}
 
 
 def path_kernels(dev, title, cases, dtype=torch.float64):
@@ -910,15 +976,16 @@ def path_kernels(dev, title, cases, dtype=torch.float64):
         check(A.diags.dtype == dtype, f"{where}: operator in {A.diags.dtype}")
         n = A.shape[0]
         x = torch.randn(n, generator=gen, dtype=dtype, device=dev)
-        worst = {spmv: spmv_errors(A.offsets, A.diags, x)[1], "K3": 0.0,
-                 "K4": 0.0}
+        k3, k4 = list(tol)[1:]
+        worst = {spmv: spmv_errors(A.offsets, A.diags, x)[1], k3: 0.0,
+                 k4: 0.0}
         V = torch.randn((ncv + 1, n), generator=gen, dtype=dtype, device=dev)
         C = torch.randn((ncv + 1, 1), generator=gen, dtype=dtype, device=dev)
         for K in (1, ncv, ncv + 1):
             errs = panel_errors(V[:K], x[None], C[:K])
-            worst["K3"] = max(worst["K3"], *(rel for _, rel in errs.values()))
+            worst[k3] = max(worst[k3], *(rel for _, rel in errs.values()))
         for P in (ncv, ncv // 2, 1):
-            worst["K4"] = max(worst["K4"], rotate_errors(
+            worst[k4] = max(worst[k4], rotate_errors(
                 random_q(ncv, P, dev, dtype), V[:ncv])[1])
         print(f"  {where}: n={n} nd={len(A.offsets)} ncv={ncv} "
               f"{TAG[dtype]}  "
@@ -1299,7 +1366,8 @@ def nhep_kernels(dev):
 def phase10(dev):
     """The non-Hermitian arm at full width: the reference's complex
     deployment (2^20 rows) in real form, 2,097,152 rows, twelve eigenvalues
-    in six conjugate pairs, f64 at tol 1e-8 and f32 at tol 1e-4."""
+    in six conjugate pairs, f64 at tol 1e-8 and f32 at tol 1e-4.  Returns
+    ({dtype tag: (wall, restarts, columns)}, the f64 run's twelve values)."""
     n_c = 1 << NHEP_LOG2
     print(f"phase 10: non-Hermitian Krylov-Schur at full width: the "
           f"{n_c:,}-row complex tridiagonal deployment in real form "
@@ -1368,7 +1436,7 @@ def phase10(dev):
         out[t] = (wall, eps.its, cols)
         del eps, A
         torch.cuda.empty_cache()
-    return out
+    return out, lam64
 
 
 def phase11(dev):
@@ -1788,6 +1856,476 @@ def profile_solve(where, solve, plain_wall=None):
               f"{e.key[:90]}", flush=True)
 
 
+# ---- the complex slice (item 11a-ii) -------------------------------------
+
+GAUGE_SEED = 11
+
+
+def gauge_phases(n):
+    """phi = 2 pi u, u from numpy default_rng(11): the phases of the gauge
+    transform U = diag(e^{i phi})."""
+    return 2 * np.pi * np.random.default_rng(GAUGE_SEED).random(n)
+
+
+def gauge_dia(A, dtype):
+    """U A U^H of a real DIA operator A: entry (i, i + o) times
+    e^{i (phi_i - phi_{i+o})}.  It keeps A's offsets and spectrum, and is
+    complex Hermitian for a symmetric A.  Built on A's device."""
+    n = A.shape[0]
+    phi = torch.from_numpy(gauge_phases(n)).to(A.device)
+    d = A.diags.to(torch.complex128)
+    for k, o in enumerate(A.offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        if hi > lo:
+            d[k, lo:hi] *= torch.polar(torch.ones_like(phi[lo:hi]),
+                                       phi[lo:hi] - phi[lo + o:hi + o])
+    return stt.DIAOperator(A.offsets, d.to(dtype))
+
+
+def gauge_csr(M):
+    """U M U^H of a host scipy CSR matrix, with gauge_dia's phases."""
+    M = sp.csr_matrix(M)
+    phi = gauge_phases(M.shape[0])
+    rows = np.repeat(np.arange(M.shape[0]), np.diff(M.indptr))
+    vals = M.data * np.exp(1j * (phi[rows] - phi[M.indices]))
+    return sp.csr_matrix((vals, M.indices.copy(), M.indptr.copy()),
+                         shape=M.shape)
+
+
+def dia_as_torch_csr(A):
+    """A DIA operator's matrix as a torch.sparse_csr_tensor on its device:
+    the library call beside K1c / K2c (used nowhere in the port)."""
+    n = A.shape[0]
+    rows, cols, vals = [], [], []
+    for k, o in enumerate(A.offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        r = torch.arange(lo, hi, device=A.device)
+        rows.append(r)
+        cols.append(r + o)
+        vals.append(A.diags[k, lo:hi])
+    S = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                torch.cat(vals), (n, n)).coalesce()
+    return S.to_sparse_csr()
+
+
+def library_sparse_ms(S, x, ref):
+    """(ms, what) of the library's complex CSR product S @ x, held against
+    the kernel's ref; (None, the error) when torch raises for it."""
+    try:
+        y = S @ x
+    except RuntimeError as exc:  # the library call only, never the port
+        return None, f"torch.sparse_csr_tensor @ x raised: {exc}"[:200]
+    err = float((y - ref).abs().max() / ref.abs().max())
+    check(err <= (1e-12 if x.dtype == torch.complex128 else 1e-5),
+          f"library complex CSR product differs from the kernel by {err:.3e}")
+    return cuda_ms(lambda: S @ x), CUSPARSE
+
+
+def phase1_complex(dev, table, A_rcm):
+    """K1c / K2c, K3c, K4c and K6c against their plain versions."""
+    print("phase 1: the complex instantiations vs plain PyTorch: K2c / K1c on "
+          "the gauge-transformed flagship and the 2^20-row complex "
+          "deployment, K3c at K = 49, K4c at (48, 40), K6c on the "
+          "gauge-transformed RCM flagship CSR", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    n = lap.shape[0]
+    for dt, tol in ((torch.complex128, 1e-14), (torch.complex64, 2e-6)):
+        name = f"dia_spmv_{TAG[dt]}"
+        G = gauge_dia(lap, dt)
+        x = torch.randn(n, generator=gen, dtype=dt, device=dev)
+        err, rel = spmv_errors(G.offsets, G.diags, x)
+        ms = cuda_ms(lambda: dia_spmv(G.offsets, G.diags, x))
+        plain = cuda_ms(lambda: dia_spmv_ref(G.offsets, G.diags, x))
+        lib, what = library_sparse_ms(dia_as_torch_csr(G), x,
+                                      dia_spmv(G.offsets, G.diags, x))
+        elt = x.element_size()
+        S = stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+            spiral_diags(1 << NHEP_LOG2)).to(dev, dt))
+        xs = torch.randn(S.shape[0], generator=gen, dtype=dt, device=dev)
+        err_s, rel_s = spmv_errors(S.offsets, S.diags, xs)
+        ms_s = cuda_ms(lambda: dia_spmv(S.offsets, S.diags, xs))
+        nb_s = (3 + 2) * S.shape[0] * elt
+        print(f"  {name} on the 2^20-row deployment (3 diagonals): err "
+              f"{rel_s:.3e}  kernel {ms_s:.4f} ms  bound "
+              f"{nb_s / PEAK_BYTES * 1e3:.4f} ms  {nb_s / 1e6:.1f} MB -> "
+              f"{nb_s / ms_s / 1e6:.1f} GB/s", flush=True)
+        record(table, name, max(err, err_s), max(rel, rel_s), tol, ms, plain,
+               (len(G.offsets) + 2) * n * elt, 8 * G.nnz, dt, lib, what)
+        del G, x, S, xs
+        torch.cuda.empty_cache()
+    del lap
+
+    K, b, Kr, P = 49, 1, 48, 40
+    for dt, tol in ((torch.complex128, 1e-13), (torch.complex64, 1e-5)):
+        t = TAG[dt]
+        V = torch.randn((K, n), generator=gen, dtype=dt, device=dev)
+        W = torch.randn((b, n), generator=gen, dtype=dt, device=dev)
+        C = torch.randn((K, b), generator=gen, dtype=dt, device=dev)
+        elt = V.element_size()
+        errs = panel_errors(V, W, C)
+        record(table, f"panel_dots_{t}", *errs["panel_dots"], tol,
+               cuda_ms(lambda: panel_dots(V, W)),
+               cuda_ms(lambda: panel_dots_ref(V, W)),
+               (K + b) * n * elt, 8 * K * b * n, dt, library=CUBLAS)
+        record(table, f"panel_update_{t}", *errs["panel_update"], tol,
+               cuda_ms(lambda: panel_update(V, C, W)),
+               cuda_ms(lambda: panel_update_ref(V, C, W)),
+               (K + 2 * b) * n * elt, 8 * K * b * n, dt, library=CUBLAS)
+        record(table, f"panel_update_dots_{t}", *errs["panel_update_dots"],
+               tol, cuda_ms(lambda: panel_update_dots(V, C, W)),
+               cuda_ms(lambda: panel_update_dots_ref(V, C, W)),
+               (K + 2 * b) * n * elt, 16 * K * b * n, dt, library=CUBLAS)
+        Q = random_q(Kr, P, dev, dt)
+        Vr = V[:Kr]
+        record(table, f"rotate_{t}", *rotate_errors(Q, Vr),
+               1e-14 if dt == torch.complex128 else 1e-5,
+               cuda_ms(lambda: rotate(Q, Vr)),
+               cuda_ms(lambda: rotate_ref(Q, Vr)),
+               (Kr + P) * n * elt, 8 * Kr * P * n, dt, library=CUBLAS)
+        Vw = Vr.clone()
+        same = torch.equal(rotate(Q, Vw, out=Vw[:P]), rotate(Q, Vr))
+        check(same, f"rotate_{t} in place differs from out of place")
+        del V, W, C, Q, Vr, Vw
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    Ac = gauge_csr(A_rcm)
+    print(f"  host: the gauge-transformed RCM flagship CSR in "
+          f"{time.perf_counter() - t0:.3f} s (nnz {Ac.nnz})", flush=True)
+    for dt, tol in ((torch.complex128, 1e-13), (torch.complex64, 2e-6)):
+        name = f"csr_spmv_{TAG[dt]}"
+        op = stt.from_scipy(Ac, dtype=dt, device=dev)
+        x = torch.randn(op.shape[1], generator=gen, dtype=dt, device=dev)
+        rows = row_of_entry(op.rowptr)
+        y = op.mult(x)
+        y_ref = csr_spmv_ref(op.rowptr, op.cols, op.vals, x, rows)
+        err = float((y - y_ref).abs().max())
+        rel = err / float(y_ref.abs().max())
+        ms = cuda_ms(lambda: op.mult(x))
+        plain = cuda_ms(lambda: csr_spmv_ref(op.rowptr, op.cols, op.vals, x,
+                                             rows))
+        S = torch.sparse_csr_tensor(op.rowptr, op.cols.to(torch.int64),
+                                    op.vals, size=op.shape)
+        lib, what = library_sparse_ms(S, x, y)
+        elt = x.element_size()
+        nbytes = (op.nnz * (elt + 4) + (op.shape[0] + 1) * 8
+                  + 2 * op.shape[0] * elt)
+        print(f"  {name}: budget {CSR_BUDGET[dt]} entries a block",
+              flush=True)
+        record(table, name, err, rel, tol, ms, plain, nbytes, 8 * op.nnz, dt,
+               lib, what)
+        del op, x, rows, y, y_ref, S
+        torch.cuda.empty_cache()
+
+
+def phase12a(dev, lam_f64, nhep_walls):
+    """The reference's non-Hermitian deployment natively complex: 2^20 rows,
+    3 complex diagonals, nev 6, ncv 32, c128 at tol 1e-8 and c64 at 1e-4.
+    Returns the launch counts of its solves (read from zero)."""
+    n_c = 1 << NHEP_LOG2
+    nev, ncv = NHEP_NEV // 2, 32
+    for dt in (torch.complex128, torch.complex64):
+        path_kernels(dev, f"phase 12a: {', '.join(PATH_TOL[dt])} vs plain "
+                     f"PyTorch at the complex deployment's shapes", (
+                         ("phase 12a, 2^20 complex rows",
+                          lambda: stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+                              spiral_diags(n_c)).to(dev, dt)), ncv),),
+                     dtype=dt)
+    print(f"phase 12a: the non-Hermitian deployment natively complex: "
+          f"{n_c:,} rows, 3 complex diagonals, nev {nev}, ncv {ncv}, largest "
+          f"magnitude", flush=True)
+    stt.reset_launch_counts()
+    small = spiral_diags(1 << 10)
+    Ac = sp.diags([small[0, 1:], small[1], small[2, :-1]], [-1, 0, 1])
+    w = np.linalg.eigvals(Ac.toarray())
+    top = w[np.argsort(-np.abs(w))][:nev]
+    eps, wall, _ = nhep_solve(stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+        small).to(dev)), 1e-8, nev=nev, ncv=ncv)
+    check(eps.nconv >= nev, f"phase 12a 2^10: nconv {eps.nconv}")
+    got = np.asarray(eps.eigenvalues[:nev])
+    rel = max(float(np.min(np.abs(top - v))) / abs(v) for v in got)
+    print(f"  build check, 2^10 rows: nconv={eps.nconv} its={eps.its} "
+          f"wall={wall:.3f} s, max rel |lam - eigvals| = {rel:.3e}",
+          flush=True)
+    check(rel <= 1e-9, f"phase 12a 2^10: eigenvalues off by {rel:.3e}")
+    dmax = float(np.abs(spiral_diags(1 << 4)[1]).max())
+    lam128 = None
+    for dt, tol, gate in ((torch.complex128, 1e-8, 1e-8),
+                          (torch.complex64, 1e-4, 1e-3)):
+        t = TAG[dt]
+        where = f"phase 12a {t} (tol {tol:.0e})"
+        A = stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+            spiral_diags(n_c)).to(dev, dt))
+        torch.cuda.reset_peak_memory_stats(dev)
+        eps, wall, delta = nhep_solve(A, tol, nev=nev, ncv=ncv)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fam = family_counts(delta, TAG[dt])
+        cols, k = fam["SpMV"], eps.nconv
+        lam = np.asarray(eps.eigenvalues[:k])
+        resid = np.array([eps.compute_error(i) for i in range(k)])
+        real = nhep_walls["f64" if dt == torch.complex128 else "f32"]
+        print(f"  {where}: nconv={k} restarts={eps.its} columns={cols} "
+              f"wall={wall:.3f} s ({wall / max(cols, 1) * 1e3:.3f} ms per "
+              f"column) peak_mem={peak / 1e9:.2f} GB launches={fam}; phase "
+              f"10's real form: {real[0]:.3f} s, {real[2]} columns "
+              f"({real[0] / max(real[2], 1) * 1e3:.3f} ms per column)",
+              flush=True)
+        print(f"  {where}: max true rel resid={resid.max() if k else np.inf:.3e}"
+              f" lam={np.array2string(lam[:nev], precision=6)}", flush=True)
+        check(k >= nev, f"{where}: nconv {k} < {nev}")
+        check(np.all(np.abs(lam) > 0.75 * dmax),
+              f"{where}: a value below the top band: {np.abs(lam).min()}")
+        check(resid.max() <= gate, f"{where}: true residual {resid.max():.3e}")
+        if dt == torch.complex128:
+            far = max(float(np.min(np.abs(lam_f64 - v))) / abs(v)
+                      for v in lam[:nev])
+            print(f"  {where}: max rel distance to phase 10's f64 twelve "
+                  f"{far:.3e}", flush=True)
+            check(far <= 1e-10, f"{where}: a value {far:.3e} from phase 10's")
+            lam128 = lam[:nev]
+        else:
+            far = max(float(np.min(np.abs(lam128 - v))) / abs(v)
+                      for v in lam[:nev])
+            print(f"  {where}: max rel distance to the c128 values "
+                  f"{far:.3e}", flush=True)
+            check(far <= 1e-4, f"{where}: a value {far:.3e} from the c128 run's")
+        check(all(v > 0 for v in fam.values()),
+              f"{where}: a kernel did not launch: {fam}")
+        del eps, A
+        torch.cuda.empty_cache()
+    return stt.launch_counts()
+
+
+def phase12b(dev, wall_plain):
+    """Complex Hermitian at full width (the gauge-transformed flagship,
+    phase 9's plain cycle in c128) and certified on the gauge-transformed
+    laplacian_2d(95, 97) as DIA and as RCM-ordered CSR, c128 and c64.
+    Returns the launch counts of its solves (read from zero)."""
+    ncv, restarts = 48, 3
+    lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    G = gauge_dia(lap, torch.complex128)
+    del lap
+    path_kernels(dev, "phase 12b: K2c, K3c, K4c vs plain PyTorch at the "
+                 "complex Hermitian flagship's shapes",
+                 (("phase 12b, gauge-transformed flagship", lambda: G, ncv),),
+                 dtype=torch.complex128)
+    print(f"phase 12b: complex Hermitian at full width: the gauge-transformed "
+          f"200x225x230 Laplacian (c128, 10.35M rows), the plain cycle "
+          f"through EPS, ncv {ncv}, largest_real, {restarts} restarts",
+          flush=True)
+    stt.reset_launch_counts()
+    cycles = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    eps, wall = plain_solve(G, ncv, restarts, cycles)
+    peak = torch.cuda.max_memory_allocated(dev)
+    delta = stt.launch_counts()
+    fam = family_counts(delta, "c128")
+    marks = [{k: 0 for k in delta}] + [c[3] for c in cycles]
+    cols = [m1["dia_spmv_c128"] - m0["dia_spmv_c128"]
+            for m0, m1 in zip(marks, marks[1:])]
+    later = sum(cols[1:])
+    later_ms = (cycles[-1][2] - cycles[0][2]) * 1e3
+    theta = cycles[-1][1]
+    print(f"  nconv={eps.nconv} (not required) restarts={eps.its} wall="
+          f"{wall:.3f} s columns={sum(cols)} peak_mem={peak / 1e9:.2f} GB "
+          f"launches={fam}; restarts 2..{len(cycles)}: {later} columns in "
+          f"{later_ms:.1f} ms = {later_ms / max(later, 1):.3f} ms per column "
+          f"(phase 9's f64 solve: {wall_plain:.3f} s)", flush=True)
+    check(len(cycles) > 1, "phase 12b: no restarted cycle ran")
+    check(theta.min() >= 0.0 and theta.max() <= 12.0,
+          f"phase 12b: Ritz values outside [0, 12]: {theta.min()}, "
+          f"{theta.max()}")
+    check(all(v > 0 for v in fam.values()),
+          f"phase 12b: a kernel did not launch: {fam}")
+    del eps
+    V = torch.zeros((ncv + 1, G.shape[0]), dtype=torch.complex128, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    V[0] = torch.randn(G.shape[0], generator=gen, dtype=torch.complex128,
+                       device=dev)
+    V[0] /= torch.linalg.vector_norm(V[0])
+    H, j0 = np.zeros((ncv + 1, ncv), complex), 0
+    for _ in range(restarts):
+        V, H, j0 = ks_hep_cycle(G, V, H, j0, 1e-8, gen, ncv=ncv,
+                                which="largest")[:3]
+    B = V[: j0 + 1]
+    orth = float((B.conj() @ B.T - torch.eye(j0 + 1, dtype=B.dtype,
+                                             device=dev)).abs().max())
+    print(f"  {restarts} restarts through ks_hep_cycle: kept basis rows "
+          f"{j0 + 1}, max|V V^H - I| = {orth:.3e}", flush=True)
+    check(orth <= 1e-12, f"phase 12b: basis not orthonormal: {orth:.3e}")
+    del V, B, G
+    torch.cuda.empty_cache()
+
+    print("phase 12b: the gauge-transformed laplacian_2d(95, 97), nev 6, "
+          "ncv 28, smallest, as DIA (K2c / K1c) and as RCM-ordered complex "
+          "CSR (K6c), c128 at tol 1e-8 and c64 at tol 1e-5", flush=True)
+    exact = stt.laplacian_2d_eigs(95, 97, k=6)
+    L = stt.laplacian_2d(95, 97, device=dev)
+    csr = gauge_csr(rcm_order(stt.laplacian_2d(95, 97, device="cpu").to_scipy()))
+    for kind, spmv in (("DIA", "dia_spmv"), ("CSR", "csr_spmv")):
+        for dt, tol in ((torch.complex128, 1e-8), (torch.complex64, 1e-5)):
+            A = gauge_dia(L, dt) if kind == "DIA" else stt.from_scipy(
+                csr, dtype=dt, device=dev)
+            before = stt.launch_counts()
+            eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
+                          ncv=28, tol=tol, max_it=400, options=stt.Options())
+            t0 = time.perf_counter()
+            eps.solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = stt.launch_counts()
+            fam = family_counts({k: counts[k] - before[k] for k in counts},
+                                TAG[dt], spmv)
+            k = min(eps.nconv, 6)
+            lam = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))
+            err = np.abs(lam - exact[:k]) if k else np.array([np.inf])
+            resid = np.array([eps.compute_error(i) for i in range(k)])
+            where = f"phase 12b 95x97 {kind} {TAG[dt]} (tol {tol:.0e})"
+            print(f"  {where}: nconv={eps.nconv} its={eps.its} wall={wall:.3f}"
+                  f" s max|lam-exact|={err.max():.3e} max true rel resid="
+                  f"{resid.max() if k else np.inf:.3e} launches={fam}",
+                  flush=True)
+            check(eps.nconv >= 6, f"{where}: nconv {eps.nconv} < 6")
+            if dt == torch.complex128:
+                check(err.max() <= 1e-9, f"{where}: |lam - exact| "
+                      f"{err.max():.3e}")
+                check(resid.max() <= 1e-8, f"{where}: true residual "
+                      f"{resid.max():.3e}")
+            else:
+                check(np.max(err / exact) <= 1e-4, f"{where}: relative "
+                      f"error {np.max(err / exact):.3e}")
+            check(all(v > 0 for v in fam.values()),
+                  f"{where}: a kernel did not launch: {fam}")
+    return stt.launch_counts()
+
+
+def phase12c(dev):
+    """Small complex paths, each with its gate.  Returns the launch counts
+    (read from zero)."""
+    c128 = torch.complex128
+    print("phase 12c: small complex paths: a complex shift of a real "
+          "operator, complex GHEP, arnoldi / power / subspace / lanczos, "
+          "harmonic extraction and a region", flush=True)
+    stt.reset_launch_counts()
+    exact = np.asarray(stt.laplacian_2d_eigs(95, 97))
+    # the imaginary part stays below the eigenvalue spacing near 0.5 (about
+    # 1e-3): at 0.5 + 0.1i every nearby value maps to 1 / (lam - sigma) of
+    # nearly the same size (|lam - sigma| ~ 0.1 for all of them), and the
+    # Krylov run cannot separate them (nconv 0 after 970 restarts, CPU)
+    tgt = 0.5 + 0.01j
+    eps = stt.EPS(stt.laplacian_2d(95, 97, device=dev), problem_type="hep",
+                  nev=4, options=stt.Options())
+    eps.set_target(tgt)
+    eps.set_true_residual()
+    t0 = time.perf_counter()
+    eps.solve()
+    torch.cuda.synchronize()
+    want = np.sort(exact[np.argsort(np.abs(exact - tgt))[:4]])
+    got = np.sort(np.asarray(eps.eigenvalues[:4]).real)
+    resid = max((eps.compute_error(i) for i in range(min(eps.nconv, 4))),
+                default=np.inf)
+    err = float(np.abs(got - want).max()) if eps.nconv >= 4 else np.inf
+    print(f"  complex shift {tgt} (STSinvert, host LU of the complex "
+          f"matrix): nconv={eps.nconv} its={eps.its} wall="
+          f"{time.perf_counter() - t0:.3f} s max|lam-exact|={err:.3e} "
+          f"resid={resid:.3e} op dtype={eps.st.op().dtype}", flush=True)
+    check(eps.nconv >= 4 and err <= 1e-9 and resid <= 1e-8,
+          f"phase 12c complex shift: nconv {eps.nconv}, error {err:.3e}, "
+          f"residual {resid:.3e}")
+
+    L = stt.laplacian_2d(95, 97, device=dev)
+    n = L.shape[0]
+    b = torch.from_numpy(1.0 + 0.5 * np.sin(1e-3 * np.arange(n)))[None]
+    B = stt.DIAOperator((0,), b.to(dev))
+    vals = {}
+    for label, A in (("real", L), ("complex", gauge_dia(L, c128))):
+        eps = stt.EPS(A, B, problem_type="ghep", which="largest_real", nev=4,
+                      options=stt.Options())
+        t0 = time.perf_counter()
+        eps.solve()
+        torch.cuda.synchronize()
+        resid = max((eps.compute_error(i) for i in range(min(eps.nconv, 4))),
+                    default=np.inf)
+        vals[label] = np.asarray(eps.eigenvalues[:4])
+        print(f"  GHEP {label} A, diagonal SPD B: nconv={eps.nconv} its="
+              f"{eps.its} wall={time.perf_counter() - t0:.3f} s resid="
+              f"{resid:.3e} lam={np.array2string(vals[label], precision=9)}",
+              flush=True)
+        check(eps.nconv >= 4 and resid <= 1e-8,
+              f"phase 12c GHEP {label}: nconv {eps.nconv}, residual "
+              f"{resid:.3e}")
+    gap = float(np.abs(vals["complex"] - vals["real"]).max())
+    check(gap <= 1e-9, f"phase 12c GHEP: the gauge-transformed pencil's "
+          f"values differ from the real one's by {gap:.3e}")
+
+    S = stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+        spiral_diags(1 << 12)).to(dev))
+    ref = stt.EPS(S, problem_type="nhep", nev=3, ncv=24, options=stt.Options())
+    ref.solve()
+    top = np.asarray(ref.eigenvalues[:3])
+    for solver, nev in (("arnoldi", 3), ("power", 1), ("subspace", 3)):
+        eps = stt.EPS(S, problem_type="nhep", nev=nev, ncv=16, max_it=3000,
+                      solver=solver, options=stt.Options())
+        t0 = time.perf_counter()
+        eps.solve()
+        torch.cuda.synchronize()
+        k = min(eps.nconv, nev)
+        resid = max((eps.compute_error(i) for i in range(k)), default=np.inf)
+        far = max(float(np.min(np.abs(top - v))) for v in
+                  np.asarray(eps.eigenvalues[:k])) if k else np.inf
+        print(f"  {solver} on the 2^12 complex deployment: nconv={eps.nconv} "
+              f"its={eps.its} wall={time.perf_counter() - t0:.3f} s resid="
+              f"{resid:.3e} max|lam - krylovschur's| = {far:.3e}", flush=True)
+        check(k >= nev and resid <= 1e-8 and far <= 1e-8,
+              f"phase 12c {solver}: nconv {eps.nconv}, residual {resid:.3e}, "
+              f"distance {far:.3e}")
+    G = gauge_dia(L, c128)
+    eps = stt.EPS(G, problem_type="hep", which="largest_real", nev=4, ncv=28,
+                  solver="lanczos", max_it=400, options=stt.Options())
+    eps.solve()
+    err = float(np.abs(np.sort(np.asarray(eps.eigenvalues[:4]))[::-1]
+                       - np.sort(exact)[::-1][:4]).max()) \
+        if eps.nconv >= 4 else np.inf
+    print(f"  lanczos on the gauge-transformed 95x97 Laplacian: nconv="
+          f"{eps.nconv} its={eps.its} max|lam-exact|={err:.3e}", flush=True)
+    check(err <= 1e-9, f"phase 12c lanczos: |lam - exact| {err:.3e}")
+
+    eps = stt.EPS(S, problem_type="nhep", nev=2, ncv=24, max_it=300,
+                  options=stt.Options.from_cli("-st_type shift"))
+    eps.set_target(2.6 + 0.8j)
+    eps.set_which("target_magnitude")
+    eps.set_extraction("harmonic")
+    eps.solve()
+    resid = max((eps.compute_error(i) for i in range(min(eps.nconv, 2))),
+                default=np.inf)
+    print(f"  harmonic extraction, target 2.6+0.8i: nconv={eps.nconv} its="
+          f"{eps.its} resid={resid:.3e} lam="
+          f"{np.array2string(np.asarray(eps.eigenvalues[:2]), precision=6)}",
+          flush=True)
+    check(eps.nconv >= 2 and resid <= 1e-8,
+          f"phase 12c harmonic: nconv {eps.nconv}, residual {resid:.3e}")
+    region = stt.RGInterval(0.0, np.inf, 0.0, np.inf)  # the first quadrant
+    eps = stt.EPS(S, problem_type="nhep", nev=2, ncv=24, max_it=300,
+                  options=stt.Options())
+    eps.set_rg(region)
+    eps.solve()
+    lam = np.asarray(eps.eigenvalues[:eps.nconv])
+    resid = max((eps.compute_error(i) for i in range(min(eps.nconv, 2))),
+                default=np.inf)
+    print(f"  region (first quadrant): nconv={eps.nconv} its={eps.its} "
+          f"resid={resid:.3e} lam={np.array2string(lam, precision=6)}",
+          flush=True)
+    check(eps.nconv >= 2 and resid <= 1e-8
+          and np.all(region.check_inside(lam) >= 0),
+          f"phase 12c region: nconv {eps.nconv}, residual {resid:.3e}")
+    counts = stt.launch_counts()
+    for key in ("dia_spmv_c128", "panel_dots_c128", "panel_update_c128",
+                "panel_update_dots_c128", "rotate_c128"):
+        check(counts[key] > 0, f"phase 12c: {key} did not launch")
+    return counts
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -1795,7 +2333,16 @@ def kernel_resources(log):
              ("rotate_f64_kernelILi(\\d)ELb([01])E", "K4 rotate_f64<MT={}, vec={}>"),
              ("rotate_f32_kernelILb([01])E", "K4 rotate_f32<vec={}>"),
              ("dia_spmm_kernelI([df])Li(\\d)E", "K5 dia_spmm<{}, BT={}>"),
-             ("csr_spmv_kernelI([df])E", "K6 csr_spmv<{}>"))
+             ("csr_spmv_kernelI([df])E", "K6 csr_spmv<{}>"),
+             ("panel_kernelIN5slepc7ComplexI([df])EELi(\\d)ELi(\\d)ELb([01])"
+              "ELb([01])E", "K3c panel<complex {}, B={}, VW={}, update={}, "
+              "dots={}>"),
+             ("rotate_cplx_kernelIN5slepc7ComplexI([df])EELb([01])E",
+              "K4c rotate<complex {}, vec={}>"),
+             ("dia_spmv_kernelIN5slepc7ComplexI([df])EE", "K1c/K2c dia_spmv"
+              "<complex {}>"),
+             ("csr_spmv_kernelIN5slepc7ComplexI([df])EE",
+              "K6c csr_spmv<complex {}>"))
     entry, spill = None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+?)'", line)
@@ -1853,6 +2400,7 @@ def main():
     L_csr, A_csr, more_csr = phase1_csr(dev, table, host, k5_ms)
     if not args.profile:
         del L_csr, more_csr
+    phase1_complex(dev, table, A_csr)
     # the comparisons above do not count: each path is read from zero
     stt.reset_launch_counts()
     phase2(dev)
@@ -1880,7 +2428,7 @@ def main():
     wall_plain, plain_path = phase9(dev, table)
     nhep_kernels(dev)
     stt.reset_launch_counts()
-    nhep_walls = phase10(dev)
+    nhep_walls, lam_f64 = phase10(dev)
     nhep_path = stt.launch_counts()
     print(f"  phase 10 launches: {nhep_path}", flush=True)
     stt.reset_launch_counts()
@@ -1891,6 +2439,13 @@ def main():
               "panel_dots_f64", "panel_update_f64", "panel_update_dots_f64",
               "rotate_f64"):
         check(small_nhep_path[k] > 0, f"phase 11: {k} did not launch")
+    # phase 12: each part resets the counts after its kernel checks and
+    # returns what its solves launched
+    complex_paths = (phase12a(dev, lam_f64, nhep_walls),
+                     phase12b(dev, wall_plain), phase12c(dev))
+    for part, counts_12 in zip("abc", complex_paths):
+        print(f"  phase 12{part} launches: "
+              f"{ {k: v for k, v in counts_12.items() if v} }", flush=True)
     if args.profile:
         A = spiral_operator(NHEP_LOG2, torch.float64, dev)
         profile_solve("phase 10 f64", lambda: nhep_solve(A, 1e-8)[1],
@@ -1915,7 +2470,7 @@ def main():
         profile_solve("phase 5", lambda: flagship_solve(
             A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
-             plain_path, nhep_path, small_nhep_path)
+             plain_path, nhep_path, small_nhep_path) + complex_paths
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -1929,7 +2484,8 @@ def main():
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "stream_ms": row["bytes"] / rates[row["dtype"]] / 1e6,
+                        "stream_ms": row["bytes"] / rates[row["dtype"].to_real()]
+                        / 1e6,
                         "library_ms": row["library_ms"],
                         "library": row["library"] or None})
     print("kernel table (ms): kernel (PERF.md's earlier reading, not measured "
@@ -1937,7 +2493,7 @@ def main():
     for k in kernels:
         lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"  {k['name']:<28} {k['ms']:.4f} "
-              f"({BEFORE_MS[k['name'].split()[0]]:.4f}) / "
+              f"({BEFORE_MS.get(k['name'].split()[0], float('nan')):.4f}) / "
               f"{k['plain_ms']:.4f} / "
               f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
               f"{lib}  launches {k['launches']}", flush=True)
@@ -1947,6 +2503,7 @@ def main():
           f"cycle 10.35M rows {wall_plain:.3f} s; non-Hermitian 2.1M rows "
           + ", ".join(f"{t} {w:.3f} s ({its} restarts, {cols} columns)"
                       for t, (w, its, cols) in nhep_walls.items())
+          + "; complex phase 12 passed"
           + f" on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -103,9 +103,14 @@ class BV:
         rng = np.random.default_rng(seed)
         if j is None:
             vals = rng.standard_normal((self.n, self.m))
+            if self.dtype.is_complex:
+                vals = vals + 1j * rng.standard_normal((self.n, self.m))
             self.array[self.nc:] = self._tensor(vals.T)
         else:
-            self.set_column(j, rng.standard_normal(self.n))
+            v = rng.standard_normal(self.n)
+            if self.dtype.is_complex:
+                v = v + 1j * rng.standard_normal(self.n)
+            self.set_column(j, v)
 
     # -- block linear algebra ---------------------------------------------
     def mult_vec(self, q) -> torch.Tensor:
@@ -134,7 +139,7 @@ class BV:
     def norm_column(self, j: int) -> float:
         v = self.get_column(j)
         Bv = v if self.matrix is None else self.matrix.mult(v)
-        return float(torch.dot(v, Bv)) ** 0.5
+        return float(torch.vdot(v, Bv).real) ** 0.5
 
     def scale_column(self, j: int, alpha) -> None:
         self.array[self._phys(j)] *= alpha
@@ -168,7 +173,7 @@ class BV:
             self.array[: self._phys(j)], v, self._ip_mult(), passes=passes)
         # one host read: the coefficients and both norms
         host = torch.cat([c, nb[None], na[None]]).cpu().numpy()
-        nb_f, na_f = float(host[-2]), float(host[-1])
+        nb_f, na_f = float(host[-2].real), float(host[-1].real)
         # linear dependence: post-orth norm below sqrt(eps) * pre-orth norm
         # even after refinement
         lindep = abs(na_f) < max(abs(nb_f), 1e-300) * \

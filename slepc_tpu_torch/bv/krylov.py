@@ -52,10 +52,11 @@ def arnoldi_extend(op, V: torch.Tensor, H: np.ndarray, k: int, m: int,
         w = op.mult(V[nc + j])
         w, c_tot, nb, na = orthogonalize_vec(Vact, w, Bmult, passes=passes)
         host = torch.cat([c_tot, nb[None], na[None]]).cpu().numpy()
-        nrm_before, beta = abs(float(host[-2])), abs(float(host[-1]))
+        nrm_before, beta = abs(host[-2].real), abs(host[-1].real)
         is_brk = beta < eps ** 0.75 * (nrm_before + eps)
         if is_brk:
             brk = True
+            # real normals for a complex basis too, as the reference
             rnd = torch.from_numpy(rng.standard_normal(V.shape[1])).to(
                 V.device, V.dtype)
             w, _, _, na2 = orthogonalize_vec(Vact, rnd, Bmult, passes=passes)

@@ -8,7 +8,9 @@ counterpart: the caller slices.  A block X is (k, n), its rows the vectors.
 
   * Column orthogonalization is classical Gram-Schmidt with ``passes``
     sweeps (CGS2 by default), each sweep one ``panel_dots`` + one
-    ``panel_update`` on kernel K3 (``ops/bv.py``); with an identity metric
+    ``panel_update`` on kernel K3 (``ops/bv.py``; for a complex basis the
+    dots are conjugate inner products <v_k, w> = v_k^H w and the update
+    w - sum_k c_k v_k takes no conjugate); with an identity metric
     the middle sweeps are the fused ``panel_update_dots``.  A B-metric
     passes ``Bmult`` and sweeps ``panel_dots(V, B w)``.
   * Norms come back as 0-d tensors on the basis' device, so a caller that
@@ -58,7 +60,7 @@ def orthogonalize_vec(V: torch.Tensor, w: torch.Tensor,
     projection coefficients, the norms 0-d tensors in the B metric.  No
     host read.  With no rows in V, w comes back as it is."""
     Bw = w if Bmult is None else Bmult(w)
-    norm_before = _safe_sqrt(torch.dot(w, Bw))
+    norm_before = _safe_sqrt(torch.vdot(w, Bw).real)
     if V.shape[0] == 0:
         return w, torch.zeros(0, dtype=w.dtype, device=w.device), \
             norm_before, norm_before
@@ -74,7 +76,7 @@ def orthogonalize_vec(V: torch.Tensor, w: torch.Tensor,
         c_total += c
     w = panel_update(V, c, wp)[0]
     Bw = w if Bmult is None else Bmult(w)
-    return w, c_total[:, 0], norm_before, _safe_sqrt(torch.dot(w, Bw))
+    return w, c_total[:, 0], norm_before, _safe_sqrt(torch.vdot(w, Bw).real)
 
 
 # ---------------------------------------------------------------------------

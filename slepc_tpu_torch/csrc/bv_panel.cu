@@ -1,5 +1,5 @@
 // K3: the CGS2 panel sweeps on a row-major basis V (K, n) and panel W (b, n):
-//   dots          D[k, m] = sum_i V[k, i] W[m, i]
+//   dots          D[k, m] = sum_i conj(V[k, i]) W[m, i]
 //   update        Wout[m, i] = W[m, i] - sum_k C[k, m] V[k, i]
 //   update_dots   both: Wout as above, D = dots of V with Wout, V read once
 //
@@ -51,6 +51,16 @@
 // per width so that the running sums, the coefficients and the held values
 // fit the registers.  Shared memory does not grow with K beyond the G parts,
 // and G <= kMaxGroups: a taller basis is swept in row chunks by the wrapper.
+//
+// K3c: the same kernels for complex64 / complex128 (slepc::Complex): the
+// dots conjugate the basis (D = V^H W, the inner product <v_k, w_m>), the
+// update does not (Wout = W - C^T V, C the coefficients the dots gave), and
+// the update still sums the projection and subtracts it once.  A 16-byte
+// load holds two c64 or one c128 values.  Bound: bytes, as above with 8 or
+// 16 bytes an element: the same bytes per basis row as the real form of a
+// complex operator, which has twice the rows of half the width.  The
+// arithmetic (8 flops per c128 element of V) stays under the FP64 ridge.
+// No register tuning for the complex widths yet (kRows as the real ones).
 #include "common.cuh"
 
 namespace {
@@ -228,7 +238,8 @@ panel_kernel(const T* V, int64_t ldv, int K, const T* W, int64_t ldw, int b,
 #pragma unroll
         for (int m = 0; m < B; ++m) {
 #pragma unroll
-          for (int e = 0; e < VW; ++e) sum[r][m] += v[r].v[e] * w[m].v[e];
+          for (int e = 0; e < VW; ++e)
+            sum[r][m] += slepc::conj_mul(v[r].v[e], w[m].v[e]);
         }
       }
     }
@@ -348,6 +359,11 @@ cudaError_t dispatch(int dtype, int mode, int vec, const Args& a) {
     return vec ? by_width<float, 4>(mode, a) : by_width<float, 1>(mode, a);
   if (dtype == slepc::kF64)
     return vec ? by_width<double, 2>(mode, a) : by_width<double, 1>(mode, a);
+  if (dtype == slepc::kC64)
+    return vec ? by_width<slepc::c64, 2>(mode, a)
+               : by_width<slepc::c64, 1>(mode, a);
+  if (dtype == slepc::kC128)  // one c128 is a 16-byte load either way
+    return by_width<slepc::c128, 1>(mode, a);
   return cudaErrorInvalidValue;
 }
 
@@ -363,9 +379,11 @@ extern "C" int slepc_panel_rows(int b) {
 extern "C" int64_t slepc_panel_smem(int dtype, int mode, int b, int groups,
                                     int cw, int vec) {
   const int B = b == 1 ? 1 : b == 2 ? 2 : b <= 4 ? 4 : 8;
-  const int VW = vec ? (dtype == slepc::kF64 ? 2 : 4) : 1;
+  const int elt = slepc::elem_bytes(dtype);
+  if (elt == 0) return -1;
+  const int VW = vec ? 16 / elt : 1;
   return static_cast<int64_t>(smem_elems(mode != 0, mode != 1, B, groups, cw, VW)) *
-         (dtype == slepc::kF64 ? 8 : 4);
+         elt;
 }
 
 // Blocks of the sweep kernel one SM holds at this launch shape (registers,

@@ -45,6 +45,15 @@
 // The sum order depends only on the plan, so the result is bitwise
 // repeatable run to run.  A plan belongs to its rowptr and budget (the
 // wrapper passes the plan's own budget).
+//
+// K6c: the same kernel for complex64 / complex128 values and x
+// (slepc::Complex; loads through the slepc::ldg / ldcs / ldcg overloads,
+// one 8- or 16-byte access a value).  The products a block parks in shared
+// memory are twice or four times the f32 size, so the budget of entries a
+// block takes is per dtype (ops/csr.py CSR_BUDGET: c64 starts at f64's
+// 2,048, c128 at 1,024, the same shared bytes as f64; not swept yet).
+// Bound: bytes, nnz * (sizeof(T) + 4) + (m + 1) * 8 + 2 * m * sizeof(T);
+// a complex multiply-add is 8 flops for 20 bytes of (col, val) at c128.
 #include "common.cuh"
 
 namespace {
@@ -83,12 +92,13 @@ __device__ T blockwide_sum(const int* __restrict__ cols,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       c[u] = __ldcs(cols + k + u * kThreads);
-      v[u] = __ldcs(vals + k + u * kThreads);
+      v[u] = slepc::ldcs(vals + k + u * kThreads);
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] += v[u] * __ldg(x + c[u]);
+    for (int u = 0; u < 4; ++u) acc[u] += v[u] * slepc::ldg(x + c[u]);
   }
-  for (; k < k1; k += kThreads) acc[0] += __ldcs(vals + k) * __ldg(x + __ldcs(cols + k));
+  for (; k < k1; k += kThreads)
+    acc[0] += slepc::ldcs(vals + k) * slepc::ldg(x + __ldcs(cols + k));
   return block_sum((acc[0] + acc[1]) + (acc[2] + acc[3]), red);
 }
 
@@ -120,7 +130,7 @@ __device__ void long_row_chunk(const long long* __restrict__ rp,
   if (last && threadIdx.x == 0) {
     __threadfence();
     T total = T(0);
-    for (int q = c0; q < c1; ++q) total += __ldcg(partial + q);
+    for (int q = c0; q < c1; ++q) total += slepc::ldcg(partial + q);
     y[r] = total;
   }
 }
@@ -163,12 +173,12 @@ csr_spmv_kernel(const int64_t* __restrict__ rowptr, const int* __restrict__ cols
     for (int u = 0; u < kUnroll; ++u) {
       const int k = base + u * kThreads;
       c[u] = k < cnt ? __ldcs(cb + k) : 0;
-      v[u] = k < cnt ? __ldcs(vb + k) : T(0);
+      v[u] = k < cnt ? slepc::ldcs(vb + k) : T(0);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int k = base + u * kThreads;
-      if (k < cnt) prod[k] = v[u] * __ldg(x + c[u]);
+      if (k < cnt) prod[k] = v[u] * slepc::ldg(x + c[u]);
     }
   }
   __syncthreads();
@@ -185,7 +195,7 @@ csr_spmv_kernel(const int64_t* __restrict__ rowptr, const int* __restrict__ cols
     if (r < nr)
       for (int k = roff[r] + lane; k < roff[r + 1]; k += g) acc += prod[k];
     for (int s = g >> 1; s > 0; s >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, s, g);
+      acc += slepc::shfl_down(acc, s, g);
     if (lane == 0 && r < nr) y[r0 + r] = acc;
   }
 }
@@ -242,5 +252,11 @@ extern "C" int slepc_csr_spmv(int dtype, const void* rowptr, const void* cols,
   if (dtype == slepc::kF64)
     return launch<double>(rp, ci, vals, x, y, st, nblocks, budget, lr, cf, cr,
                           nchunks, chunk, partial, dn, s);
+  if (dtype == slepc::kC64)
+    return launch<slepc::c64>(rp, ci, vals, x, y, st, nblocks, budget, lr, cf,
+                              cr, nchunks, chunk, partial, dn, s);
+  if (dtype == slepc::kC128)
+    return launch<slepc::c128>(rp, ci, vals, x, y, st, nblocks, budget, lr, cf,
+                               cr, nchunks, chunk, partial, dn, s);
   return cudaErrorInvalidValue;
 }

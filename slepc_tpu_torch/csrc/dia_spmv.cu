@@ -18,6 +18,15 @@
 // Design: one thread per row in a grid-stride loop, so each diagonal row
 // and y are read/written fully coalesced; offsets travel by value in the
 // kernel's parameter space.  No shared memory, no atomics.
+//
+// K1c / K2c: the same kernel instantiated for complex64 / complex128
+// (slepc::Complex, common.cuh), for complex operators.  The TPU ran them
+// as split real planes (slepc_tpu/ops/complex_split.py, four real DIA
+// passes per apply); here one pass reads each complex diagonal once.
+// Bound: bytes, (nd + 2) * n * 8 (c64) or 16 (c128) -- 84 MB for the
+// 2^20-row, 3-diagonal c128 non-Hermitian deployment against 151 MB for
+// its 7-diagonal, 2^21-row real form.  A complex multiply-add is 8 flops
+// per 16 bytes of diagonal and x (c128), far under the FP64 ridge.
 #include "common.cuh"
 
 namespace {
@@ -269,6 +278,10 @@ extern "C" int slepc_dia_spmv(int dtype, const void* diags, int64_t ld,
     return launch<float>(diags, ld, offsets, nd, x, y, n, s);
   if (dtype == slepc::kF64)
     return launch<double>(diags, ld, offsets, nd, x, y, n, s);
+  if (dtype == slepc::kC64)
+    return launch<slepc::c64>(diags, ld, offsets, nd, x, y, n, s);
+  if (dtype == slepc::kC128)
+    return launch<slepc::c128>(diags, ld, offsets, nd, x, y, n, s);
   return cudaErrorInvalidValue;
 }
 

@@ -37,6 +37,21 @@
 //        13 mantissa bits and fails the 1e-5 gate; a split big+small TF32
 //        product needs three mma for one and two extra roundings per
 //        operand, for arithmetic that already hides under the loads here.
+//   complex (K4c, c64 / c128): out = Q^T V with Q and V complex (no
+//        conjugate), for the restarts of complex operators; a real Q on a
+//        complex V is a real K4 on view_as_real(V) (the wrapper does that),
+//        but a complex Q mixes inside the (re, im) pairs and needs this
+//        kernel.  The f32 kernel's shape: Q^T in shared memory, the V ring
+//        of kChunk rows by kTileC = 64 columns, a warp owns 8 output rows
+//        and a lane the columns lane and lane + 32 (consecutive lanes on
+//        consecutive elements), 16 complex multiply-adds for two V loads
+//        and eight broadcast Q loads.  Bound: at c128, (K + P) * n * 16
+//        bytes and 8 K P n flops; at the flagship restart shape (K = 48,
+//        P = 40) that is 20 flops a byte.  On the tensor cores (67 TFLOP/s
+//        f64, ridge 20 flops a byte) the bound is the bytes; on the FP64
+//        pipe this kernel uses (34 TFLOP/s, ridge 10) plain FMA sits near
+//        2x that bound.  mma.sync m8n8k4 as four real products is a later
+//        change.
 // At most 64 output rows a launch (8 row tiles); the wrapper splits a wider
 // Q into launches.
 #include "common.cuh"
@@ -48,6 +63,7 @@ constexpr int kTile64 = 64;        // f64: columns per tile
 constexpr int kStride64 = 68;      // f64: shared row stride (= 4 mod 16)
 constexpr int kThreads64 = 128;    // f64: 4 warps x 16 columns
 constexpr int kTile32 = 128;       // f32: columns per tile (32 lanes x 4)
+constexpr int kTileC = 64;         // complex: columns per tile (32 lanes x 2)
 constexpr int kMaxRowTiles = 8;    // 8-row tiles of output per launch
 
 using slepc::cp_async;
@@ -279,6 +295,83 @@ rotate_f32_kernel(const float* __restrict__ Q, int K, int P, const float* V,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// K4c.  blockDim.x = 32 * (row tiles of 8): warp w owns output rows
+// 8w ... 8w + 7, lane l the columns l and l + 32 of each tile.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32 * kMaxRowTiles)
+rotate_cplx_kernel(const T* __restrict__ Q, int K, int P, const T* V,
+                   int64_t ldv, T* out, int64_t ldo, int64_t n, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [K][PQ]
+  const int PQ = blockDim.x >> 2;          // 8 * warps
+  T* ring = Qs + K * PQ;                   // [stages][kChunk][kTileC]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int idx = tid; idx < K * PQ; idx += blockDim.x) {
+    const int k = idx / PQ;
+    const int p = idx % PQ;
+    Qs[idx] = p < P ? Q[static_cast<int64_t>(k) * P + p] : T(0);
+  }
+
+  const int nchunks = (K + kChunk - 1) / kChunk;
+  const int64_t ntiles = (n + kTileC - 1) / kTileC;
+  const int64_t step = gridDim.x;
+  Cursor load{static_cast<int64_t>(blockIdx.x), 0, 0};
+  auto fill = [&]() {
+    if (load.tile < ntiles) {
+      const int rows = min(kChunk, K - load.chunk * kChunk);
+      copy_chunk<T, kTileC, kTileC, VEC>(
+          ring + load.slot * (kChunk * kTileC), V, ldv, K, rows, load.chunk,
+          load.tile * kTileC, n);
+    }
+    cp_async_commit();
+    load.advance(nchunks, stages, step);
+  };
+  for (int s = 0; s < stages - 1; ++s) fill();
+
+  T acc[8][2];
+  int slot = 0;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += step) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[r][0] = acc[r][1] = T(0);
+    for (int chunk = 0; chunk < nchunks; ++chunk) {
+      cp_async_wait_for(stages);
+      __syncthreads();  // this item has landed; the slot refilled next is free
+      fill();
+      const T* vs = ring + slot * (kChunk * kTileC) + lane;
+      const T* qs = Qs + chunk * kChunk * PQ + 8 * warp;
+      const int rows = min(kChunk, K - chunk * kChunk);
+#pragma unroll 2
+      for (int kr = 0; kr < rows; ++kr) {
+        const T v0 = vs[kr * kTileC];
+        const T v1 = vs[kr * kTileC + 32];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const T q = qs[kr * PQ + r];
+          acc[r][0] += q * v0;
+          acc[r][1] += q * v1;
+        }
+      }
+      if (++slot == stages) slot = 0;
+    }
+    // every row of this tile has been read: store (out may be rows of V)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int p = warp * 8 + r;
+      if (p < P) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int64_t i = tile * kTileC + lane + 32 * j;
+          if (i < n) out[static_cast<int64_t>(p) * ldo + i] = acc[r][j];
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 struct Args {
   const void* Q; int K; int P;
   const void* V; int64_t ldv; void* out; int64_t ldo; int64_t n;
@@ -300,8 +393,12 @@ size_t smem_bytes(int dtype, int K, int P, int stages) {
     return (static_cast<size_t>(8) * row_tiles64(P) * q_stride64(kpad) +
             static_cast<size_t>(stages) * kChunk * kStride64) * sizeof(double);
   }
+  if (dtype == slepc::kF32)
+    return (static_cast<size_t>(K) * 8 * row_tiles(P) +
+            static_cast<size_t>(stages) * kChunk * kTile32) * sizeof(float);
   return (static_cast<size_t>(K) * 8 * row_tiles(P) +
-          static_cast<size_t>(stages) * kChunk * kTile32) * sizeof(float);
+          static_cast<size_t>(stages) * kChunk * kTileC) *
+         slepc::elem_bytes(dtype);
 }
 
 template <typename T, typename Kernel>
@@ -340,6 +437,12 @@ cudaError_t dispatch(int dtype, int vec, const Args& a) {
     return vec ? run<float>(rotate_f32_kernel<true>, threads, dtype, a)
                : run<float>(rotate_f32_kernel<false>, threads, dtype, a);
   }
+  const int threads = 32 * row_tiles(a.P);
+  if (dtype == slepc::kC64)
+    return vec ? run<slepc::c64>(rotate_cplx_kernel<slepc::c64, true>, threads, dtype, a)
+               : run<slepc::c64>(rotate_cplx_kernel<slepc::c64, false>, threads, dtype, a);
+  if (dtype == slepc::kC128)  // one c128 is a 16-byte copy either way
+    return run<slepc::c128>(rotate_cplx_kernel<slepc::c128, true>, threads, dtype, a);
   return cudaErrorInvalidValue;
 }
 

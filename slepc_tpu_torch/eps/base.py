@@ -23,9 +23,12 @@ Registered: ``krylovschur`` (hep, ghep, nhep, gnhep, pgnhep), ``arnoldi``,
 ``lanczos``, ``power``, ``subspace`` and ``lapack``.  The reference's other
 solvers (``gd``, ``jd``, ``lobpcg``, ``rqcg``: ROADMAP queue 1 item 11b;
 ``ciss``: 11c; ``bse``: 11d; ``lyapii``: 13), the indefinite (GHIEP), BSE
-and two-sided variants (11d) and complex operators (11a-ii) raise
-NotImplementedError naming their item; a name the reference does not know
-raises :class:`EPSError` listing the registered ones.
+and two-sided variants (11d) raise NotImplementedError naming their item,
+and so do the paths a complex operator does not take yet (11a-iii: the
+blocked cycle, ``cheb_block`` > 1 and the device shift-and-invert); a
+name the reference does not know raises :class:`EPSError` listing the
+registered ones.  Complex operators (and complex shifts of real ones)
+run in complex arithmetic (:func:`work_dtype`).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Callable, Dict, Optional, Type
 import numpy as np
 import torch
 
-from ..mat.linop import LinearOperator
+from ..mat.linop import LinearOperator, apply_by_parts
 from ..ops.rotate import rotate
 from ..st.filter import STFilter
 from ..st.st import ST, STCayley, STPrecond, STShift, STSinvert
@@ -68,12 +71,14 @@ class EPSError(RuntimeError):
     pass
 
 
-_DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5}
+_DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5,
+                torch.complex128: 1e-8, torch.complex64: 1e-5}
 _TODO_SOLVERS = ("EPS solver {!r} is still to be ported (ROADMAP.md, queue "
                  "1, item {})")
-_TODO_COMPLEX = ("EPS {}: a complex operator is still to be ported "
-                 "(ROADMAP.md, queue 1, item 11a-ii: complex instantiations "
-                 "of K2, K3, K4 and K6)")
+_TODO_COMPLEX = ("EPS {}: {} on a complex operator is still to be ported "
+                 "(ROADMAP.md, queue 1, item 11a-iii: a complex block DIA "
+                 "SpMM K5, the blocked complex cycles, a complex device "
+                 "shift-and-invert)")
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
 # the reference's registered solvers that are not ported yet, and the
 # ROADMAP item each waits for
@@ -681,43 +686,53 @@ class EPSSolver:
         raise NotImplementedError
 
 
-def check_real(eps: EPS, solver: str) -> None:
-    """The port's kernels take f32 / f64: a complex operator raises naming
-    its ROADMAP item."""
-    if eps.A.dtype.is_complex or (eps.B is not None and eps.B.dtype.is_complex):
-        raise NotImplementedError(_TODO_COMPLEX.format(solver))
+def todo_complex(solver: str, what: str) -> NotImplementedError:
+    """The error a path that a complex operator does not take yet raises,
+    naming its ROADMAP item (11a-iii)."""
+    return NotImplementedError(_TODO_COMPLEX.format(solver, what))
+
+
+def work_dtype(eps: EPS, op: LinearOperator) -> torch.dtype:
+    """The solver's arithmetic: the problem's dtype, promoted to complex when
+    the transformed operator is (a complex shift of a real operator)."""
+    return torch.promote_types(eps.A.dtype, op.dtype)
+
+
+def start_vector(rng: np.random.Generator, n: int, dtype: torch.dtype):
+    """The reference's start vector: standard normals, Re + i Im for a
+    complex dtype (drawn in that order), so both packages start alike."""
+    v = rng.standard_normal(n)
+    if dtype.is_complex:
+        v = v + 1j * rng.standard_normal(n)
+    return v
 
 
 def op_mult(op: LinearOperator, x: torch.Tensor) -> torch.Tensor:
     """op x; a complex x of a real operator goes through ``mult`` as its
     real and imaginary parts (the kernels take real vectors)."""
-    if x.is_complex() and not op.dtype.is_complex:
-        return torch.complex(op.mult(x.real.contiguous()),
-                             op.mult(x.imag.contiguous()))
-    return op.mult(x)
+    return apply_by_parts(op.mult, x, op.dtype)
 
 
 def op_mult_block(op: LinearOperator, X: torch.Tensor) -> torch.Tensor:
     """op applied to each row of the (b, n) block X through ``mult_block``
     (K5 for a DIA operator); complex rows of a real operator as their real
     and imaginary parts."""
-    block = LinearOperator.block_of(op)
-    if X.is_complex() and not op.dtype.is_complex:
-        return torch.complex(block(X.real.contiguous()),
-                             block(X.imag.contiguous()))
-    return block(X)
+    return apply_by_parts(LinearOperator.block_of(op), X, op.dtype)
 
 
 def basis_combine(V: torch.Tensor, Y: np.ndarray) -> torch.Tensor:
     """The rows of V combined by the columns of the host matrix Y: row p of
     the result is sum_k Y[k, p] V[k] (X = V_cols Y in the reference's
-    layout), one K4 rotation; a complex Y (the eigenvectors of a real Schur
-    form) is two, for its real and imaginary parts."""
+    layout), one K4 rotation; a complex Y on a real V (the eigenvectors of
+    a real Schur form) is two, for its real and imaginary parts; on a
+    complex V it is one K4c rotation (a real Y there is a real K4 on the
+    real view of V)."""
     def rot(M):
-        return rotate(torch.from_numpy(np.ascontiguousarray(M)).to(
-            V.device, V.dtype), V)
+        M = torch.from_numpy(np.ascontiguousarray(M)).to(V.device)
+        return rotate(M.to(V.dtype if M.is_complex() or not V.is_complex()
+                           else V.real.dtype), V)
 
-    if np.iscomplexobj(Y):
+    if np.iscomplexobj(Y) and not V.is_complex():
         return torch.complex(rot(Y.real), rot(Y.imag))
     return rot(Y)
 

@@ -30,9 +30,10 @@ from ..bv.orthog import gram, orthogonalize_vec
 from ..ds.schur import schur, sort_schur
 from ..mat.linop import LinearOperator
 from ..ops.rotate import rotate
-from .base import (EPS, EPSSolver, basis_combine, check_real,
-                   normalize_rows)
+from .base import (EPS, EPSSolver, basis_combine, normalize_rows,
+                   start_vector, work_dtype)
 from .krylovschur import _pair_keys, _ritz_coefficients
+from .ks_jit import _np_dtype
 
 
 def _lanczos_run_host(op, V: torch.Tensor, kstart: int, m: int, nc: int,
@@ -62,7 +63,7 @@ def _lanczos_run_host(op, V: torch.Tensor, kstart: int, m: int, nc: int,
         w = op.mult(v)
         if j > kstart:
             w = w - betas[-1] * V[nc + j - 1]
-        alpha = float(torch.dot(v, w))
+        alpha = float(torch.vdot(v, w).real)
         w = w - alpha * v
         alphas.append(alpha)
         # locked rows and deflation constraints: always (CGS2)
@@ -105,11 +106,11 @@ class _ExplicitRestartKrylov(EPSSolver):
     hermitian_only = False
 
     def solve(self, eps: EPS) -> None:
-        check_real(eps, type(self).__name__.lower())
         st = eps.st
         op = st.op()
         n, ncv, nev = eps.n, eps.ncv, eps.nev
-        dtype, device = eps.A.dtype, eps.A.device
+        dtype, device = work_dtype(eps, op), eps.A.device
+        cplx = dtype.is_complex
         hermitian = eps.is_hermitian or self.hermitian_only
         sc = eps.sort_criterion()
         Bip = eps.B if (eps.problem_type.value == "ghep"
@@ -121,7 +122,7 @@ class _ExplicitRestartKrylov(EPSSolver):
         nc = 0
         if eps.deflation_space is not None:
             nc = V.insert_constraints(eps.deflation_space.T)
-        v0 = np.random.default_rng(0).standard_normal(n)
+        v0 = start_vector(np.random.default_rng(0), n, dtype)
         if eps.initial_space is not None:
             v0 = np.asarray(eps.initial_space[:, 0])
         V.set_column(0, v0)
@@ -140,24 +141,26 @@ class _ExplicitRestartKrylov(EPSSolver):
                     op, V.array, k, ncv, nc, eps.reorth,
                     int(eps.reorth_period or 4), nsel_max=nev + 4)
             else:
-                H = np.zeros((ncv + 1, ncv))
+                H = np.zeros((ncv + 1, ncv), _np_dtype(dtype))
                 _, H, beta, _ = extend_dispatch(op, V.array, H, k, ncv,
                                                 nc=nc, Bop=Bip)
             S = H[k:ncv, k:ncv]
             na = ncv - k
             T = None
             if hermitian:
-                theta, Q = np.linalg.eigh(0.5 * (S + S.T))
+                theta, Q = np.linalg.eigh(0.5 * (S + S.conj().T))
                 theta = theta.astype(complex)
                 order = np.argsort(sc.keys(st.back_transform(theta)),
                                    kind="stable")
                 theta, Q = theta[order], Q[:, order]
             else:
                 T, Q, theta = schur(S)
-                keys = _pair_keys(T, sc.keys(st.back_transform(theta)))
+                keys = sc.keys(st.back_transform(theta))
+                if not cplx:  # a complex Schur form has no pairs
+                    keys = _pair_keys(T, keys)
                 T, Q, theta = sort_schur(T, Q, keys)
             resid = beta * np.abs(Q[na - 1, :])
-            if T is not None:
+            if T is not None and not cplx:
                 i = 0
                 while i < na:
                     if i + 1 < na and T[i + 1, i] != 0.0:
@@ -171,7 +174,7 @@ class _ExplicitRestartKrylov(EPSSolver):
             k2 = k
             while k2 < ncv and errest[k2 - k] < eps.tol:
                 k2 += 1
-            if T is not None:
+            if T is not None and not cplx:
                 d = k2 - k
                 if 0 < d < na and T[d, d - 1] != 0.0:
                     k2 -= 1

@@ -23,16 +23,19 @@ the ST operator's apply + CGS2 on kernel K3 per column, B-metric for GHEP),
 the projected problem on the host (HEP: compact arrow + tridiagonal form
 when the thick restart left one, else LAPACK eigh; non-Hermitian: the real
 Schur form, sorted with its 2x2 blocks whole, ``ds/schur.py``), the
-restart as one rotation on kernel K4.  A conjugate pair is never split at
-the lock or the keep boundary, so the rotated basis always matches H.  The
+restart as one rotation on kernel K4.  A conjugate pair of a real
+operator is never split at the lock or the keep boundary, so the rotated
+basis always matches H; a complex operator (or a complex shift of a real
+one) runs the same loop in complex arithmetic, with the complex Schur form
+(triangular: no pairs) and the complex kernels K1c / K2c, K3c, K4c, K6c.  The
 eigenvectors of the non-Hermitian arm come from the locked Schur block as
 Y = eig(T) and X = V Y, two K4 rotations (real and imaginary parts) when Y
 is complex.  The basis keeps the port's row layout; H and the locked
 Schur block are host numpy.
 
-Still raising NotImplementedError, naming the ROADMAP item: complex
-operators (queue 1, item 11a-ii: complex instantiations of the kernels),
-GHIEP, BSE and the two-sided variant (item 11d).
+Still raising NotImplementedError, naming the ROADMAP item: GHIEP, BSE
+and the two-sided variant (item 11d); on a complex operator the blocked
+cycle, ``cheb_block`` > 1 and the device shift-and-invert (item 11a-iii).
 """
 
 from __future__ import annotations
@@ -55,9 +58,9 @@ from ..st.st import STShift
 from ..sys.events import log_event
 from ..sys.sort import Which
 from .base import (EPS, EPSConvergedReason, EPSSolver, ProblemType,
-                   basis_combine, check_real, normalize_rows, op_mult,
-                   op_mult_block)
-from .ks_jit import ks_hep_solve
+                   basis_combine, normalize_rows, op_mult, op_mult_block,
+                   start_vector, todo_complex, work_dtype)
+from .ks_jit import _np_dtype, ks_hep_solve
 
 _WHICH = {Which.SMALLEST_REAL: "smallest",
           Which.SMALLEST_MAGNITUDE: "smallest",
@@ -75,7 +78,18 @@ def _check_ported(eps) -> None:
     if eps.two_sided:
         raise NotImplementedError(_TODO.format("the two-sided variant",
                                                "11d"))
-    check_real(eps, "krylovschur")
+    if eps.A.dtype.is_complex or (eps.B is not None
+                                  and eps.B.dtype.is_complex) \
+            or np.imag(eps.st.sigma) != 0:
+        if int(eps.block_size or 1) > 1:
+            raise todo_complex("krylovschur", "the blocked cycle "
+                               "(block_size > 1)")
+        if int(eps.cheb_block or 1) > 1:
+            raise todo_complex("krylovschur", "the blocked Chebyshev "
+                               "cycle (cheb_block > 1)")
+        if isinstance(eps.st, STSinvertDevice):
+            raise todo_complex("krylovschur", "the device "
+                               "shift-and-invert (STSinvertDevice)")
     if eps.problem_type == ProblemType.GHEP and eps.B is None:
         raise ValueError("problem_type='ghep' needs a B operator")
 
@@ -146,8 +160,11 @@ class KrylovSchur(EPSSolver):
         # harmonic extraction forces the Schur machinery even for a
         # symmetric A (reference krylovschur.c:239)
         use_harmonic = eps.extraction == "harmonic"
+        # a complex shift makes the transformed operator of a Hermitian
+        # problem normal, not Hermitian: the Schur arm serves it
         hermitian = (eps.is_hermitian and not use_harmonic
-                     and not st.requires_rayleigh)
+                     and not st.requires_rayleigh
+                     and np.imag(st.sigma) == 0)
         balance_d = None
         if (eps.balance and not hermitian and eps.B is None
                 and type(st) is STShift and st.sigma == 0):
@@ -178,7 +195,8 @@ class KrylovSchur(EPSSolver):
         st = eps.st
         n, ncv, nev, mpd = eps.n, eps.ncv, eps.nev, eps.mpd
         A = eps.A
-        dtype, device = A.dtype, A.device
+        dtype, device = work_dtype(eps, op), A.device
+        cplx = dtype.is_complex
         Bip: Optional[LinearOperator] = \
             eps.B if eps.problem_type == ProblemType.GHEP else None
         use_harmonic = eps.extraction == "harmonic"
@@ -196,17 +214,18 @@ class KrylovSchur(EPSSolver):
         if eps.initial_space is not None:
             v0 = eps.initial_space[:, 0]
         else:  # the reference's start vector, so both walk one trajectory
-            v0 = np.random.default_rng(0).standard_normal(n)
+            v0 = start_vector(np.random.default_rng(0), n, dtype)
         V.set_column(0, v0)
         V.orthonormalize_column(0, replace_lindep=True)
 
-        H = np.zeros((ncv + 1, ncv))
+        H = np.zeros((ncv + 1, ncv), _np_dtype(dtype))
         sc = eps.sort_criterion()
         k = 0  # nconv (locked)
         l = 0  # kept from the previous restart
         eigs_locked = np.zeros(ncv, dtype=complex)
         err_locked = np.zeros(ncv)
-        Tlock = np.zeros((ncv, ncv))  # the locked (real) Schur block
+        # the locked Schur block (real quasi-triangular, or complex)
+        Tlock = np.zeros((ncv, ncv), complex if cplx else float)
         breakdown_ct = 0
 
         while eps.its < eps.max_it:
@@ -226,11 +245,12 @@ class KrylovSchur(EPSSolver):
             # ---- projected solve (DS tier, host) ----
             g_harm = None  # the harmonic translate, when one applies
             if hermitian:
-                Ssym = 0.5 * (S + S.T)
+                Ssym = 0.5 * (S + S.conj().T)
                 with log_event("DS_Solve", flops=9.0 * S.shape[0] ** 3):
                     dce = extract_compact(Ssym)
                     theta, Q = solve_arrow_hep(*dce) if dce is not None \
                         else np.linalg.eigh(Ssym)
+                    Q = Q.astype(Ssym.dtype, copy=False)
                 Tproj = None
             else:
                 if use_harmonic:
@@ -243,17 +263,18 @@ class KrylovSchur(EPSSolver):
                     if eps.target is not None:
                         tau = complex(np.asarray(
                             st.eig_map(np.array([eps.target]))).ravel()[0])
-                        if abs(tau.imag) < 1e-300:
+                        if not cplx and abs(tau.imag) < 1e-300:
                             tau = tau.real
                     na_h = S.shape[0]
-                    e_last = np.zeros(na_h)
+                    e_last = np.zeros(na_h, S.dtype)
                     e_last[-1] = 1.0
                     try:
                         f = np.linalg.solve(
                             (S - tau * np.eye(na_h)).conj().T, e_last)
                         if beta ** 2 * np.linalg.norm(f) < 1e8:
                             g_harm = (beta ** 2) * f
-                            S = S + np.outer(g_harm, e_last).real
+                            upd = np.outer(g_harm, e_last)
+                            S = S + (upd if cplx else upd.real)
                     except np.linalg.LinAlgError:
                         g_harm = None
                 with log_event("DS_Solve", flops=25.0 * S.shape[0] ** 3):
@@ -273,15 +294,16 @@ class KrylovSchur(EPSSolver):
             if Tproj is None:
                 order = np.argsort(keys, kind="stable")
                 theta, Q = theta[order], Q[:, order]
-            else:
-                Tproj, Q, theta = sort_schur(Tproj, Q, _pair_keys(Tproj, keys))
+            else:  # a complex Schur form is triangular: no pairs to keep
+                Tproj, Q, theta = sort_schur(
+                    Tproj, Q, keys if cplx else _pair_keys(Tproj, keys))
             lam_approx = st.back_transform(theta)
 
             # ---- convergence count ----
             na = nv - k
             last = Q[na - 1, :]
             resid = beta * np.abs(last)
-            if Tproj is not None:
+            if Tproj is not None and not cplx:
                 # a conjugate pair shares the 2-norm of the last row
                 i = 0
                 while i < na:
@@ -332,7 +354,7 @@ class KrylovSchur(EPSSolver):
             k2 = k
             while k2 < nv and errest[k2 - k] < eps.tol:
                 k2 += 1
-            if Tproj is not None:
+            if Tproj is not None and not cplx:
                 # do not split a conjugate pair at the lock boundary
                 d = k2 - k
                 if 0 < d < na and Tproj[d, d - 1] != 0.0:
@@ -353,7 +375,7 @@ class KrylovSchur(EPSSolver):
             else:
                 l = max(1, int(self.keep * (nv - k2)))
                 l = min(l, max(nv - k2 - 1, 0))
-                if Tproj is not None and l > 0:
+                if Tproj is not None and not cplx and l > 0:
                     # nor at the keep boundary
                     d = k2 - k + l
                     if d < na and Tproj[d, d - 1] != 0.0:
@@ -367,7 +389,9 @@ class KrylovSchur(EPSSolver):
             if harmonic_on:
                 # the recovered true projection: T_h - (Q^H g)(e^H Q)
                 qg = Q.conj().T @ g_harm
-                Tuse = (Tproj - np.outer(qg, last)).real
+                Tuse = Tproj - np.outer(qg, last)
+                if not cplx:
+                    Tuse = Tuse.real
             if Tproj is not None:
                 Tlock[k:k2, k:k2] = Tuse[: k2 - k, : k2 - k]
                 # coupling of the earlier locked vectors to the newly locked
@@ -385,7 +409,9 @@ class KrylovSchur(EPSSolver):
                     # u = beta v_res - V_act (g - Q_kept (Q^H g)_kept), from
                     # the basis BEFORE the rotation overwrites its rows (one
                     # K3 update; row nv is not among the rotated rows)
-                    c_u = -(g_harm - Q[:, :kl] @ qg[:kl]).real
+                    c_u = -(g_harm - Q[:, :kl] @ qg[:kl])
+                    if not cplx:
+                        c_u = c_u.real
                     u = panel_update(Vact, on_device(-c_u[:, None]),
                                      beta * V.array[nc + nv][None])[0]
                     un = float(torch.linalg.vector_norm(u))
@@ -439,8 +465,8 @@ class KrylovSchur(EPSSolver):
         if balance_d is not None and k > 0:
             X = normalize_rows(X * torch.from_numpy(balance_d).to(device,
                                                                   dtype))
-        if hermitian:
-            lam = np.real(lam)
+        if hermitian or (eps.is_hermitian and not use_harmonic):
+            lam = np.real(lam)  # a Hermitian problem's values are real
         eps.eigenvalues = np.array(lam, copy=True)
         eps.errests = errests
         eps._eigenvectors = X

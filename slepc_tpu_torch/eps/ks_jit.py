@@ -68,9 +68,11 @@ def _check_rot_mode(rot_mode: str) -> None:
 
 
 def _host(*tensors) -> np.ndarray:
-    """One device-to-host read of several small tensors, flattened, f64."""
-    return torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy() \
-        .astype(np.float64)
+    """One device-to-host read of several small tensors, flattened, f64 (or
+    complex128 when one of them is complex: the CGS2 coefficients of a
+    complex basis keep their imaginary parts)."""
+    a = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    return a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
 
 
 def _mat(M, V):
@@ -101,6 +103,7 @@ class _OmegaMonitor:
     sweep must fire.  Computed in H's dtype, as the reference does."""
 
     def __init__(self, ncv: int, dtype, eps_mach: float):
+        dtype = np.finfo(dtype).dtype  # the real type of a complex H
         self.dtype = dtype
         self.eps = eps_mach
         sq0 = np.sqrt(eps_mach)  # the restarted block's pairwise drift
@@ -114,9 +117,11 @@ class _OmegaMonitor:
         dt = self.dtype
         ncv = H.shape[1]
         ar = np.arange(ncv)
-        alpha = H[ar, ar]
-        betav = H[ar + 1, ar]
-        alpha_j, beta_loc = dt.type(alpha_j), dt.type(beta_loc)
+        # the diagonal and off-diagonal taken real, as the reference does
+        # for a complex H (slepc_tpu/eps/ks_jit.py:464-466)
+        alpha = H[ar, ar].real
+        betav = H[ar + 1, ar].real
+        alpha_j, beta_loc = dt.type(np.real(alpha_j)), dt.type(beta_loc)
         beta_jm1 = betav[j - 1] if j > 0 else dt.type(0)
         anorm = max(np.abs(alpha).max(), abs(alpha_j)) \
             + 2 * max(betav.max(), beta_loc)
@@ -180,16 +185,16 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
         w = op.mult(V[j])
         lo = max(j - 1, 0)
         Vloc = V[lo: j + 1]  # the local rows v_{j-1}, v_j
-        c_np = np.zeros(j + 1)
+        c_np = np.zeros(j + 1, H.dtype)
         if monitor is not None:
             w, cl = _orth_sweeps(Vloc, w, 2)
             host = _host(cl, torch.linalg.vector_norm(w))
-            c_np[lo:], beta = host[:-1], float(host[-1])
+            c_np[lo:], beta = host[:-1], float(host[-1].real)
             if monitor.need_full(H, j, j0, c_np[j], beta):
                 w, cf = _orth_sweeps(V[: j + 1], w, passes)
                 host = _host(cf, torch.linalg.vector_norm(w))
                 c_np += host[:-1]
-                beta = float(host[-1])
+                beta = float(host[-1].real)
         elif selective:
             # local rows, then the locked rows below them, twice
             # (reference ks_jit.py:529-553)
@@ -207,13 +212,13 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
             host = _host(cl_tot, cs_tot, torch.linalg.vector_norm(w))
             c_np[lo:] = host[: j + 1 - lo]
             c_np[:nsl] += host[j + 1 - lo: -1]
-            beta = float(host[-1])
+            beta = float(host[-1].real)
         else:
             local = reorth_period > 1 and j % reorth_period != 0 and j != j0
             w, ct = _orth_sweeps(Vloc if local else V[: j + 1], w,
                                  2 if local else passes)
             host = _host(ct, torch.linalg.vector_norm(w))
-            c_np[lo if local else 0:], beta = host[:-1], float(host[-1])
+            c_np[lo if local else 0:], beta = host[:-1], float(host[-1].real)
         _finish_column(V, H, j, w, c_np, beta, gen, eps_mach)
     return V, H
 
@@ -221,7 +226,7 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
 def _projected_solve(H, ncv: int, which: str):
     beta = float(abs(H[ncv, ncv - 1]))
     S = H[:ncv, :ncv]
-    S = 0.5 * (S + S.T)
+    S = 0.5 * (S + S.conj().T)
     theta, Q = np.linalg.eigh(S)  # LAPACK, ascending (the eigh_small role)
     if which == "largest":
         theta, Q = theta[::-1], Q[:, ::-1]
@@ -479,14 +484,18 @@ def _prepare_fast_operator(op):
 
 def _init_rows(n: int, nrows: int, np_dtype, initial_space=None) -> np.ndarray:
     """nrows start vectors: the columns of ``initial_space`` first, then
-    seeded numpy normals, orthonormalized by a host QR -- the reference's
-    ``_init_rows``, so both packages start from the same block.  Returns
-    (nrows, n)."""
+    seeded numpy normals (Re + i Im for a complex dtype, drawn in that
+    order), orthonormalized by a host QR -- the reference's ``_init_rows``
+    (slepc_tpu/eps/ks_jit.py:1169-1185), so both packages start from the
+    same block.  Returns (nrows, n)."""
     rng0 = np.random.default_rng(0)
     cols = [] if initial_space is None else \
         [initial_space[:, j] for j in range(min(initial_space.shape[1], nrows))]
     while len(cols) < nrows:
-        cols.append(rng0.standard_normal(n))
+        c = rng0.standard_normal(n)
+        if np.issubdtype(np_dtype, np.complexfloating):
+            c = c + 1j * rng0.standard_normal(n)
+        cols.append(c)
     M = np.stack(cols, axis=1)
     Qm, _ = np.linalg.qr(M.astype(np_dtype))
     return np.ascontiguousarray(Qm.T)
@@ -515,14 +524,14 @@ def _true_residual_confirm(eps, op):
             bx = B.mult(x) if B is not None else x
             ax = A.mult(x)
             if st.requires_rayleigh:  # a filter: p(A)'s theta is not lambda
-                num, den = _host(torch.dot(x, ax), torch.dot(x, bx))
-                lam = float(num / den)
+                num, den = _host(torch.vdot(x, ax), torch.vdot(x, bx))
+                lam = float((num / den).real)
             else:
                 lam = float(np.asarray(st.back_transform(
                     np.array([theta[i]], np.float64)))[0])
             r = ax - lam * bx
             rn, xn = _host(torch.linalg.vector_norm(r),
-                           torch.linalg.vector_norm(x))
+                           torch.linalg.vector_norm(x)).real
             errest[i] = eps.conv_measure(lam, rn / max(xn, 1e-300))
             i += 1
         return errest
@@ -540,7 +549,9 @@ def ks_hep_solve(eps, op, which: str) -> None:
     # monotone low-end filter turns badly-separated smallest eigenvalues
     # into well-separated largest ones (eps/cheb_accel.py)
     cheb_deg = int(eps.cheb_degree or 0)
-    if cheb_deg > 0 and which == "smallest":
+    # a complex operator runs the plain cycle, as the reference's fast path
+    # does (slepc_tpu/eps/ks_jit.py:1133-1136)
+    if cheb_deg > 0 and which == "smallest" and not dtype.is_complex:
         from .cheb_accel import ks_cheb_smallest
 
         cheb_blk = int(eps.cheb_block or 1)
@@ -631,7 +642,7 @@ def _filtered_finish(eps, X: torch.Tensor) -> None:
     and only the pairs inside the filter's interval whose residual is below
     max(100 tol, 1e-6), in ascending order."""
     AX = LinearOperator.block_of(eps.A)(X)
-    lam_d = (X * AX).sum(dim=1) / (X * X).sum(dim=1)
+    lam_d = ((X.conj() * AX).sum(dim=1) / (X.abs() ** 2).sum(dim=1)).real
     res = torch.linalg.vector_norm(AX - lam_d[:, None] * X, dim=1)
     lam, res = _host(lam_d), _host(res)
     errs = res / np.maximum(np.abs(lam), 1e-300)

@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import EPS, EPSConvergedReason, EPSSolver, check_real
+from .base import (EPS, EPSConvergedReason, EPSSolver, start_vector,
+                   work_dtype)
 
 
 def _deflate(v: torch.Tensor, X: list) -> torch.Tensor:
@@ -33,19 +34,24 @@ def _deflate(v: torch.Tensor, X: list) -> torch.Tensor:
     if not X:
         return v
     Xs = torch.stack(X)
-    return v - (Xs @ v) @ Xs
+    return v - (Xs.conj() @ v) @ Xs
+
+
+def _scalar(x):
+    """A host number: float for a real value, complex for a complex one."""
+    return complex(x) if np.iscomplexobj(x) else float(x)
 
 
 class Power(EPSSolver):
     def solve(self, eps: EPS) -> None:
-        check_real(eps, "power")
         if getattr(eps, "power_nonlinear", None) is not None:
             _nonlinear_spi(eps)
             return
         st = eps.st
         op = st.op()
         n = eps.n
-        dtype, device = eps.A.dtype, eps.A.device
+        # a complex shift of a real operator works in complex arithmetic
+        dtype, device = work_dtype(eps, op), eps.A.device
         shift_type = eps.power_shift_type
         if shift_type not in ("constant", "rayleigh", "wilkinson"):
             raise ValueError(f"power shift type {shift_type!r} is not "
@@ -67,7 +73,7 @@ class Power(EPSSolver):
         chunked = shift_type != "rayleigh" and chunk > 1 and not host_solve
 
         for pair in range(eps.nev):
-            v = rng.standard_normal(n)
+            v = start_vector(rng, n, dtype)
             if eps.initial_space is not None and \
                     pair < eps.initial_space.shape[1]:
                 v = np.asarray(eps.initial_space[:, pair])
@@ -80,15 +86,16 @@ class Power(EPSSolver):
                 brk = torch.zeros((), dtype=torch.bool, device=device)
                 for _ in range(steps):
                     w = _deflate(op.mult(vj), X)
-                    th = torch.dot(vj, w)
+                    th = torch.vdot(vj, w)
                     rn = torch.linalg.vector_norm(w - th * vj)
                     nw = torch.linalg.vector_norm(w)
                     vj = w / torch.where(nw > 0, nw, torch.ones_like(nw))
                     brk = brk | (nw == 0)
                 eps.its += steps
-                host = torch.stack([th, rn, brk.to(dtype)]).cpu().numpy()
-                theta = float(host[0])
-                err = eps.conv_measure(theta, float(host[1]))
+                host = torch.stack([th, rn.to(th.dtype),
+                                    brk.to(th.dtype)]).cpu().numpy()
+                theta = _scalar(host[0])
+                err = eps.conv_measure(theta, float(host[1].real))
                 if host[2]:
                     # ||w|| hit zero inside the chunk: breakdown, not
                     # convergence
@@ -108,7 +115,7 @@ class Power(EPSSolver):
                     st.set_shift(st.back_transform(np.array([theta]))[0])
                     op = st.op()
                 w = _deflate(op.mult(vj), X)
-                theta = float(torch.dot(vj, w))
+                theta = _scalar(torch.vdot(vj, w).cpu().numpy())
                 err = eps.conv_measure(theta, float(
                     torch.linalg.vector_norm(w - theta * vj)))
                 if len(eps.monitor):
@@ -147,7 +154,7 @@ def _nonlinear_spi(eps: EPS) -> None:
     n = eps.n
     dtype, device = eps.A.dtype, eps.A.device
     rng = np.random.default_rng(0)
-    x = rng.standard_normal(n)
+    x = start_vector(rng, n, dtype)
     if eps.initial_space is not None:
         x = np.asarray(eps.initial_space[:, 0]).copy()
     x = torch.from_numpy(x / np.linalg.norm(x)).to(device, dtype)
@@ -163,14 +170,17 @@ def _nonlinear_spi(eps: EPS) -> None:
             break
         y = y / ny
         i0 = int(torch.argmax(y.abs()))
-        if float(y[i0]) < 0:
+        if y.is_complex():  # the largest entry real and positive
+            y = y * (y[i0].abs() / y[i0])
+        elif float(y[i0]) < 0:
             y = -y
         # the true residual: the operators at the new iterate (the matrix
         # is reused for the next step's solve)
         Ay_op = A_of_x(y)
         Ay = Ay_op.mult(y)
         By = B_of_x(y).mult(y) if B_of_x is not None else y
-        num, den = float(torch.dot(y, Ay)), float(torch.dot(y, By))
+        num = _scalar(torch.vdot(y, Ay).cpu().numpy())
+        den = _scalar(torch.vdot(y, By).cpu().numpy())
         lam = num / den if abs(den) > 1e-300 else num
         err = eps.conv_measure(lam, float(torch.linalg.vector_norm(
             Ay - lam * By)))

@@ -20,26 +20,28 @@ from ..bv.orthog import cholqr2, gram
 from ..ds.schur import schur, sort_schur
 from ..mat.linop import LinearOperator
 from ..ops.rotate import rotate
-from .base import (EPS, EPSSolver, basis_combine, check_real,
-                   normalize_rows)
+from .base import EPS, EPSSolver, basis_combine, normalize_rows, work_dtype
 from .krylovschur import _pair_keys
 
 
 class Subspace(EPSSolver):
     def solve(self, eps: EPS) -> None:
-        check_real(eps, "subspace")
         st = eps.st
         op = st.op()
         block = LinearOperator.block_of(op)
         n, ncv = eps.n, eps.ncv
-        dtype, device = eps.A.dtype, eps.A.device
+        dtype, device = work_dtype(eps, op), eps.A.device
+        cplx = dtype.is_complex
         hermitian = eps.is_hermitian
         sc = eps.sort_criterion()
 
         def dev(M):
             return torch.from_numpy(np.ascontiguousarray(M)).to(device, dtype)
 
-        V0 = np.random.default_rng(0).standard_normal((n, ncv))
+        rng = np.random.default_rng(0)
+        V0 = rng.standard_normal((n, ncv))
+        if cplx:  # the reference's complex start block
+            V0 = V0 + 1j * rng.standard_normal((n, ncv))
         if eps.initial_space is not None:
             k0 = min(eps.initial_space.shape[1], ncv)
             V0[:, :k0] = eps.initial_space[:, :k0]
@@ -55,13 +57,15 @@ class Subspace(EPSSolver):
             # Rayleigh-Ritz
             G = gram(V, block(V)).cpu().numpy()
             if hermitian:
-                theta, Q = np.linalg.eigh(0.5 * (G + G.T))
+                theta, Q = np.linalg.eigh(0.5 * (G + G.conj().T))
                 keys = sc.keys(st.back_transform(theta.astype(complex)))
                 order = np.argsort(keys, kind="stable")
                 theta, Q = theta[order].astype(complex), Q[:, order]
             else:
                 T, Q, theta = schur(G)
-                keys = _pair_keys(T, sc.keys(st.back_transform(theta)))
+                keys = sc.keys(st.back_transform(theta))
+                if not cplx:  # a complex Schur form has no pairs
+                    keys = _pair_keys(T, keys)
                 T, Q, theta = sort_schur(T, Q, keys)
             V = rotate(dev(Q), V)
             # residuals of the leading pairs

@@ -25,7 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..mat.linop import AIJOperator, DenseOperator, DIAOperator, LinearOperator
+from ..mat.linop import (AIJOperator, DenseOperator, DIAOperator,
+                          LinearOperator, apply_by_parts)
 from ..sys.events import log_event
 from .tridiag_device import (btridiag_inertia, btridiag_of_operator,
                              btridiag_pivots, btridiag_solve,
@@ -139,6 +140,9 @@ class DirectSolver:
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         if not self._factored:
             self._factor()
+        if b.is_complex() and not self.dtype.is_complex:
+            # a real factor and a complex right-hand side: two real solves
+            return apply_by_parts(self.solve, b, self.dtype)
         if self.backend == "tridiag_device":
             return tridiag_solve(*self._td, 0.0, b.to(self.dtype),
                                  pivots=self._td_piv)
@@ -166,6 +170,8 @@ class DirectSolver:
             self._factor()
         if self.backend in ("ldl", "tridiag_device", "btridiag_device"):
             return self.solve(b)  # symmetric factorization
+        if b.is_complex() and not self.dtype.is_complex:
+            return apply_by_parts(self.solve_h, b, self.dtype)
         if self.backend == "dense":
             vec = b.dim() == 1
             x = torch.linalg.lu_solve(self._lu, self._piv,

@@ -7,8 +7,10 @@ rows of a ``(b, n)`` block at once (the blocked Krylov-Schur cycle's SpMV).
 Formats:
 
   * :class:`DIAOperator` — diagonal-offset storage for stencil / banded
-    matrices; ``mult`` is the DIA kernel K1/K2 and ``mult_block`` the block
-    kernel K5 (``ops/dia.py``).
+    matrices; ``mult`` is the DIA kernel K1/K2 (K1c/K2c for complex64 /
+    complex128 diagonals) and ``mult_block`` the block kernel K5
+    (``ops/dia.py``; real only: a complex block is one K1c/K2c launch a
+    row).
   * :class:`AIJOperator` — general sparsity as plain CSR on the device;
     ``mult`` is the CSR kernel K6 (``ops/csr.py``).  The reference's padded
     ELL and hybrid diagonal/gather packs are TPU layouts and are not ported;
@@ -46,6 +48,15 @@ def _place(data, device) -> torch.Tensor:
         return data if device is None else data.to(resolve_device(device))
     return torch.from_numpy(np.ascontiguousarray(data)).to(
         resolve_device(device))
+
+
+def apply_by_parts(fn, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``fn`` of a real operator on x; a complex x (a complex operator's
+    vector meeting a real B, or a complex shift of a real A) goes as its
+    real and imaginary parts, each on the real kernel."""
+    if x.is_complex() and not dtype.is_complex:
+        return torch.complex(fn(x.real.contiguous()), fn(x.imag.contiguous()))
+    return fn(x)
 
 
 def as_torch_dtype(dtype) -> Optional[torch.dtype]:
@@ -163,10 +174,10 @@ class DenseOperator(LinearOperator):
         self.device = self.A.device
 
     def mult(self, x):
-        return self.A @ x
+        return apply_by_parts(lambda v: self.A @ v, x, self.dtype)
 
     def mult_h(self, x):
-        return self.A.mH @ x
+        return apply_by_parts(lambda v: self.A.mH @ v, x, self.dtype)
 
     def to_dense(self):
         return self.A
@@ -229,14 +240,20 @@ class DIAOperator(LinearOperator):
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
         self._check_len(x, "mult")
-        return dia_spmv(self.offsets, self.diags, x)
+        return apply_by_parts(lambda v: dia_spmv(self.offsets, self.diags, v),
+                              x, self.dtype)
 
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
         """Kernel K5: the diagonals are read once for every chunk of at most
         ``SPMM_MAX_B`` (8) rows of X; a block of any height, on every
-        device."""
+        device.  K5 is real only: a complex block runs one K1c / K2c
+        launch a row (``LinearOperator.mult_block``), counted as such, on
+        every device (a complex K5 is ROADMAP queue 1 item 11a-iii)."""
         self._check_len(X, "mult_block")
-        return dia_spmm(self.offsets, self.diags, X)
+        if self.dtype.is_complex:
+            return LinearOperator.mult_block(self, X)
+        return apply_by_parts(lambda V: dia_spmm(self.offsets, self.diags, V),
+                              X, self.dtype)
 
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
         """(A^H x)[i + off] += conj(d[i]) x[i]: slice updates, as the
@@ -319,8 +336,10 @@ class AIJOperator(LinearOperator):
         return self._plan
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
-        return csr_spmv(self.rowptr, self.cols, self.vals, x, self.shape[1],
-                        plan=self.row_plan())
+        return apply_by_parts(
+            lambda v: csr_spmv(self.rowptr, self.cols, self.vals, v,
+                               self.shape[1], plan=self.row_plan()),
+            x, self.dtype)
 
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
         if self._adjoint is None:
@@ -405,7 +424,7 @@ class ScaledOperator(LinearOperator):
         self.op = op
         self.alpha = alpha
         self.shape = op.shape
-        self.dtype = op.dtype
+        self.dtype = _with_coeffs(op.dtype, (alpha,))
         self.device = op.device
 
     @property
@@ -426,6 +445,14 @@ def _common(ops):
     return dtype, ops[0].device
 
 
+def _with_coeffs(dtype: torch.dtype, coeffs) -> torch.dtype:
+    """``dtype`` promoted to complex when a coefficient is complex (a
+    complex shift of a real operator maps real vectors to complex ones)."""
+    if any(np.imag(c) != 0 for c in coeffs) and not dtype.is_complex:
+        return torch.promote_types(dtype, torch.complex64)
+    return dtype
+
+
 class SumOperator(LinearOperator):
     """sum_i coeff_i * op_i (same shape)."""
 
@@ -434,6 +461,7 @@ class SumOperator(LinearOperator):
         self.coeffs = tuple(coeffs)
         self.shape = self.ops[0].shape
         self.dtype, self.device = _common(self.ops)
+        self.dtype = _with_coeffs(self.dtype, self.coeffs)
 
     @property
     def nnz(self):
@@ -529,6 +557,8 @@ def norm_estimate_randomized(A: LinearOperator, seed: int = 0) -> float:
     n = A.shape[1]
     rng = np.random.default_rng(seed)
     v = rng.standard_normal(n)
+    if A.dtype.is_complex:  # a complex start, as the reference's
+        v = v + 1j * rng.standard_normal(n)
     v = v / np.linalg.norm(v)
     w = A.mult(torch.from_numpy(v).to(A.device, A.dtype))
     return float(torch.linalg.vector_norm(w)) * float(np.sqrt(n))

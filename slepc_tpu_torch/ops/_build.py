@@ -28,7 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--threads", "0", "--split-compile", "0")
 
-DTYPE_CODE = {"torch.float32": 0, "torch.float64": 1}
+DTYPE_CODE = {"torch.float32": 0, "torch.float64": 1, "torch.complex64": 2,
+              "torch.complex128": 3}
+# the launch counters' suffix of each dtype code
+SUFFIX = ("f32", "f64", "c64", "c128")
 
 _lib = None
 build_seconds = None   # wall time of the last compile in this process, if any
@@ -145,5 +148,6 @@ def stream_handle(t) -> int:
 def dtype_code(t) -> int:
     code = DTYPE_CODE.get(str(t.dtype))
     if code is None:
-        raise TypeError(f"kernels take float32 or float64, got {t.dtype}")
+        raise TypeError(f"kernels take float32, float64, complex64 or "
+                        f"complex128, got {t.dtype}")
     return code

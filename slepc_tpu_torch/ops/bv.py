@@ -2,13 +2,15 @@
 
 On a row-major basis ``V`` (K, n) and a panel ``W`` (b, n):
 
-* ``panel_dots(V, W)``            C[k, m] = <V[k], W[m]>
+* ``panel_dots(V, W)``            C[k, m] = <V[k], W[m]> = V[k]^H W[m]
 * ``panel_update(V, C, W)``       W[m] - sum_k C[k, m] V[k]
 * ``panel_update_dots(V, C, W)``  the update plus the dots of V with the
   updated panel, reading V once
 
 -- the functions of ``slepc_tpu/ops/bv_pallas.py`` on the transposed basis of
-``slepc_tpu/eps/ks_jit.py``, for float32 and float64.  Each wrapper runs its
+``slepc_tpu/eps/ks_jit.py``, for float32 and float64, and for complex64 /
+complex128 (K3c: the dots conjugate the basis, the update does not, as the
+reference's conjugate CGS2 in ``slepc_tpu/bv/orthog.py``).  Each wrapper runs its
 plain version (``*_ref``) for tensors on the CPU, launches the kernel for
 tensors on a CUDA device, and raises for anything else.  The kernel's sums
 are deterministic (two-pass, no atomics).
@@ -28,7 +30,7 @@ import torch
 from . import _build
 
 _NAMES = ("panel_dots", "panel_update", "panel_update_dots")
-launches = {f"{name}_{t}": 0 for name in _NAMES for t in ("f32", "f64")}
+launches = {f"{name}_{t}": 0 for name in _NAMES for t in _build.SUFFIX}
 
 SMEM_LIMIT = 232_448          # bytes of shared memory a block can use
 MAX_B = 8                     # widest panel the kernel is compiled for
@@ -90,9 +92,10 @@ def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
     if b > MAX_B:
         raise ValueError(f"panel sweep: panel width {b} is more than the "
                          f"kernel takes ({MAX_B})")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernels take float32 or float64, got {dtype}")
-    elt = 8 if dtype == torch.float64 else 4
+    if str(dtype) not in _build.DTYPE_CODE:
+        raise TypeError(f"kernels take float32, float64, complex64 or "
+                        f"complex128, got {dtype}")
+    elt = dtype.itemsize
     vw = 16 // elt
     ldv = n if ldv is None else ldv
     ldw = n if ldw is None else ldw
@@ -126,7 +129,7 @@ def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
 
 
 def panel_dots_ref(V: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    return V @ W.T
+    return V.conj() @ W.T
 
 
 def panel_update_ref(V: torch.Tensor, C: torch.Tensor,
@@ -136,7 +139,7 @@ def panel_update_ref(V: torch.Tensor, C: torch.Tensor,
 
 def panel_update_dots_ref(V: torch.Tensor, C: torch.Tensor, W: torch.Tensor):
     U = panel_update_ref(V, C, W)
-    return U, V @ U.T
+    return U, panel_dots_ref(V, U)
 
 
 def _check_args(V, W, C):
@@ -234,7 +237,7 @@ def _launch(mode: int, V, W, C):
         raise ValueError(f"panel sweep: panel width {W.shape[0]} is more than "
                          f"the kernel takes")
     lib = _build.load()
-    key = f"{_NAMES[mode]}_{'f64' if code else 'f32'}"
+    key = f"{_NAMES[mode]}_{_build.SUFFIX[code]}"
 
     def sweep(m, vec, one, Vrows, Wm, Crows):
         res = _sweep(lib, code, m, vec, one, Vrows, Wm, Crows)

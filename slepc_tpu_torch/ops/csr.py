@@ -1,7 +1,9 @@
 """CSR SpMV: kernel K6 (float32 and float64), ``csrc/csr_spmv.cu``.
 
 ``y = A x`` for a CSR matrix ``(rowptr, cols, vals)``: rowptr int64 (m+1),
-cols int32 (nnz) in [0, ncols), vals float32/float64 (nnz), x flat (ncols,) -- the
+cols int32 (nnz) in [0, ncols), vals float32/float64/complex64/complex128
+(nnz; complex values run the kernel's complex instantiation K6c), x flat
+(ncols,) -- the
 function of the Pallas kernel ``slepc_tpu/ops/ell_pallas.py``
 ``hyb_spmv_padded`` (general-sparsity SpMV), without its TPU packing: the
 matrix stays plain CSR.
@@ -29,12 +31,16 @@ import torch
 
 from . import _build
 
-launches = {"csr_spmv_f32": 0, "csr_spmv_f64": 0}
+launches = {"csr_spmv_f32": 0, "csr_spmv_f64": 0, "csr_spmv_c64": 0,
+            "csr_spmv_c128": 0}
 
 _INT32_LIMIT = 2 ** 31
 # entries a row block holds, per dtype: the best of the budget sweep of
-# ``chip_smoke.py --profile`` (PERF.md)
-CSR_BUDGET = {torch.float64: 2048, torch.float32: 4096}
+# ``chip_smoke.py --profile`` (PERF.md) for f32 / f64; complex64 starts at
+# f64's budget (the same shared bytes a product) and complex128 at half of
+# it (not swept)
+CSR_BUDGET = {torch.float64: 2048, torch.float32: 4096,
+              torch.complex64: 2048, torch.complex128: 1024}
 CSR_MAX_ROWS = 1024  # rows a block holds (the kernel's kMaxRows)
 CSR_MAX_BUDGET = 16384  # the kernel's kMaxBudget
 CSR_CHUNKS = 4  # a long row's chunks hold CSR_CHUNKS * budget entries
@@ -125,6 +131,10 @@ def csr_spmv_ref(rowptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     if rows is None:
         rows = row_of_entry(rowptr)
     y = torch.zeros(rowptr.shape[0] - 1, dtype=x.dtype, device=x.device)
+    if y.is_complex():  # the (re, im) pairs as rows of a real (m, 2) view
+        torch.view_as_real(y).index_add_(0, rows,
+                                         torch.view_as_real(vals * x[cols]))
+        return y
     return y.index_add_(0, rows, vals * x[cols])
 
 
@@ -184,5 +194,5 @@ def csr_spmv(rowptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         None if partial is None else partial.data_ptr(),
         None if done is None else done.data_ptr(), _build.stream_handle(x))
     _build.check(rc, "csr_spmv")
-    launches["csr_spmv_f64" if code else "csr_spmv_f32"] += 1
+    launches["csr_spmv_" + _build.SUFFIX[code]] += 1
     return y

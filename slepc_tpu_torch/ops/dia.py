@@ -5,7 +5,10 @@
 outside ``[0, n)`` -- the function of the Pallas kernels in
 ``slepc_tpu/ops/dia_pallas.py`` (``dia_spmv_prepared``, ``dia_spmv_padded``,
 ``dia_spmv_padded_v3`` and the double-single ``dia_spmv_padded_ds``), on flat
-``(n,)`` vectors.  :func:`dia_spmm` applies the same operator to the b rows
+``(n,)`` vectors; for complex64 / complex128 the same kernel's complex
+instantiations K1c / K2c (the TPU ran a complex operator as split real
+planes, ``slepc_tpu/ops/complex_split.py``).  K5 is real only: a complex
+block goes one K1c / K2c launch a row (``DIAOperator.mult_block``).  :func:`dia_spmm` applies the same operator to the b rows
 of a ``(b, n)`` block of any height, reading each diagonal once for all the
 rows of a launch (``dia_spmv_padded_block``), in launches of at most
 ``SPMM_MAX_B`` rows.  :func:`plan_spmm` tells K5 where each
@@ -27,8 +30,8 @@ import torch
 
 from . import _build
 
-launches = {"dia_spmv_f32": 0, "dia_spmv_f64": 0,
-            "dia_spmm_f32": 0, "dia_spmm_f64": 0}
+launches = {"dia_spmv_f32": 0, "dia_spmv_f64": 0, "dia_spmv_c64": 0,
+            "dia_spmv_c128": 0, "dia_spmm_f32": 0, "dia_spmm_f64": 0}
 
 # K5: rows a block owns (the best of the tile sweep of ``chip_smoke.py
 # --profile``, PERF.md), threads a block, and the shared memory a block may
@@ -145,7 +148,7 @@ def dia_spmv(offsets: Sequence[int], diags: torch.Tensor,
                             len(offsets), x.data_ptr(), y.data_ptr(),
                             x.shape[0], _build.stream_handle(x))
     _build.check(rc, "dia_spmv")
-    launches["dia_spmv_f64" if code else "dia_spmv_f32"] += 1
+    launches["dia_spmv_" + _build.SUFFIX[code]] += 1
     return y
 
 
@@ -161,6 +164,10 @@ def dia_spmm(offsets: Sequence[int], diags: torch.Tensor,
     if X.device.type == "cpu":
         return dia_spmm_ref(offsets, diags, X)
     b, n = X.shape
+    if X.dtype.is_complex:
+        raise TypeError("dia_spmm: K5 takes float32 or float64 (a complex "
+                        "block is one dia_spmv launch a row; ROADMAP.md, "
+                        "queue 1, item 11a-iii)")
     code, lib, offs = _kernel_args("dia_spmm", offsets, diags, X)
     if lib.slepc_dia_spmm_max_b() != SPMM_MAX_B:
         raise RuntimeError(f"dia_spmm: the kernel takes blocks of "
@@ -179,5 +186,5 @@ def dia_spmm(offsets: Sequence[int], diags: torch.Tensor,
                                 X.stride(0), Y[i].data_ptr(), n, m, n,
                                 plan.tile, plan.halo, _build.stream_handle(X))
         _build.check(rc, "dia_spmm")
-        launches["dia_spmm_f64" if code else "dia_spmm_f32"] += 1
+        launches["dia_spmm_" + _build.SUFFIX[code]] += 1
     return Y

@@ -4,7 +4,9 @@
 ``Q`` (K, P) -- the function of ``slepc_tpu/ops/rotate_pallas.py``
 (``rotate_basis_ds``, double-single there, native float64 here) and of the
 XLA rotation ``slepc_tpu/eps/ks_jit.py:_rotate_basis``.  Every rotation of the
-port goes through it.  :func:`rotate` runs the plain :func:`rotate_ref` for
+port goes through it.  Complex64 / complex128 Q and V take the complex
+instantiation K4c (no conjugate: out = Q^T V); a real Q on a complex V is
+the real kernel on ``view_as_real(V)`` as a (K, 2n) basis.  :func:`rotate` runs the plain :func:`rotate_ref` for
 tensors on the CPU, launches the kernel for tensors on a CUDA device, and
 raises for anything else.  The result is a new (P, n) tensor, or ``out``
 when one is given; ``out`` may be rows of ``V`` itself (same row stride,
@@ -23,7 +25,8 @@ import torch
 
 from . import _build
 
-launches = {"rotate_f32": 0, "rotate_f64": 0}
+launches = {"rotate_f32": 0, "rotate_f64": 0, "rotate_c64": 0,
+            "rotate_c128": 0}
 
 SMEM_LIMIT = 232_448   # bytes of shared memory a block can use (227 KB)
 MAX_P = 64             # output rows of one launch (8 tiles of 8 rows)
@@ -55,17 +58,18 @@ def plan_rotate(K: int, P: int, n: int, dtype: torch.dtype, *,
     occupancy, else the shared-memory estimate.
 
     Returns a dict: ``variant`` ("mma_f64": tensor-core m8n8k4, "ffma_f32":
-    register-tiled FP32), ``vec`` (16-byte copies and stores, else 8/4-byte),
+    register-tiled FP32, "ffma_complex": K4c, complex64 / complex128), ``vec`` (16-byte copies and stores, else 8/4-byte),
     ``tile`` (columns), ``threads``, ``row_tiles`` (8-row output tiles the
     kernel computes), ``stages`` (ring depth), ``smem`` (bytes), ``grid``,
     and ``chunks``: the (p0, p1) column ranges of Q, one launch each.
     Raises ``ValueError`` for a shape no ring depth fits."""
     if K < 1 or P < 1 or n < 1:
         raise ValueError(f"rotate: empty shape K={K} P={P} n={n}")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernels take float32 or float64, got {dtype}")
+    if str(dtype) not in _build.DTYPE_CODE:
+        raise TypeError(f"kernels take float32, float64, complex64 or "
+                        f"complex128, got {dtype}")
     f64 = dtype == torch.float64
-    elt = 8 if f64 else 4
+    elt = dtype.itemsize
     width = 16 // elt
     ldv = n if ldv is None else ldv
     ldo = n if ldo is None else ldo
@@ -79,9 +83,10 @@ def plan_rotate(K: int, P: int, n: int, dtype: torch.dtype, *,
         tile, threads = 64, 128
         fixed = 8 * row_tiles * _q_stride64(-(-K // 4) * 4) * elt
         stage = CHUNK * 68 * elt
-    else:
+    else:  # f32 and the complex kernel: Q^T (K, 8 * tiles8) in shared memory
         row_tiles = tiles8
-        tile, threads = 128, 32 * tiles8
+        tile = 64 if dtype.is_complex else 128
+        threads = 32 * tiles8
         fixed = K * 8 * tiles8 * elt
         stage = CHUNK * tile * elt
     stages = next((s for s in (4, 3, 2) if fixed + s * stage <= SMEM_LIMIT),
@@ -94,7 +99,9 @@ def plan_rotate(K: int, P: int, n: int, dtype: torch.dtype, *,
     per_sm = blocks_per_sm(vec, K, pc, stages) if blocks_per_sm is not None \
         else max(1, min(SMEM_LIMIT // (smem + 1024), 2048 // threads, 8))
     grid = max(1, min(-(-n // tile), sm_count * per_sm))
-    return {"variant": "mma_f64" if f64 else "ffma_f32", "vec": vec,
+    variant = ("mma_f64" if f64 else "ffma_complex" if dtype.is_complex
+               else "ffma_f32")
+    return {"variant": variant, "vec": vec,
             "tile": tile, "threads": threads, "row_tiles": row_tiles,
             "stages": stages, "smem": smem, "grid": grid, "chunks": chunks}
 
@@ -162,8 +169,18 @@ def rotate(Q: torch.Tensor, V: torch.Tensor,
     if Q.dim() != 2 or V.dim() != 2 or Q.shape[0] != V.shape[0]:
         raise ValueError(f"rotate: Q {tuple(Q.shape)} does not match V "
                          f"{tuple(V.shape)}")
-    if Q.dtype != V.dtype or Q.device != V.device:
+    if Q.device != V.device or (Q.dtype != V.dtype and not (
+            V.dtype.is_complex and Q.dtype == V.real.dtype)):
         raise ValueError("rotate: Q and V differ in dtype or device")
+    if Q.dtype != V.dtype:
+        # a real Q mixes whole rows: the (re, im) pairs of V stay together,
+        # so it is a real rotation of the (K, 2n) real view
+        if out is not None and out.dtype != V.dtype:
+            raise ValueError("rotate: out differs from V in dtype or device")
+        res = rotate(Q, torch.view_as_real(V).flatten(1),
+                     None if out is None else torch.view_as_real(out).flatten(1))
+        return out if out is not None else torch.view_as_complex(
+            res.view(res.shape[0], -1, 2))
     if V.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rotate: no kernel for device {V.device}")
     in_place = out is not None and _check_out(Q, V, out)
@@ -197,5 +214,5 @@ def rotate(Q: torch.Tensor, V: torch.Tensor,
                               out.stride(0), n, plan["stages"], plan["grid"],
                               _build.stream_handle(V))
         _build.check(rc, "rotate")
-        launches["rotate_f64" if code else "rotate_f32"] += 1
+        launches["rotate_" + _build.SUFFIX[code]] += 1
     return out

@@ -51,6 +51,9 @@ def stream_sum(d: torch.Tensor, x: torch.Tensor,
         return y if out is None else out.copy_(y)
     if d.device.type != "cuda":
         raise ValueError(f"stream_sum: no kernel for device {d.device}")
+    if d.dtype not in (torch.float32, torch.float64):  # a real yardstick
+        raise TypeError(f"stream_sum: K7 takes float32 or float64, got "
+                        f"{d.dtype}")
     code = _build.dtype_code(d)
     y = torch.empty_like(x) if out is None else out
     if d.stride(1) != 1 or not x.is_contiguous() or not y.is_contiguous():

@@ -8,9 +8,11 @@ inside it are a direct factorization (``ksp/direct.py``: on the device for
 dense, tridiagonal and banded matrices, on the host otherwise) or an
 iterative KSP.  The device iterative tier is ``st/sinvert_jit.py``; the
 polynomial filter ``STFilter`` (interior eigenvalues by SpMVs alone) is
-``st/filter.py``.  Complex shifts of a real operator and complex operators
-wait for the complex arm (ROADMAP.md, queue 1, item 11a-ii); the
-structured transforms of BSE and GHIEP for item 11d.
+``st/filter.py``.  A complex operator, or a complex shift of a real one,
+makes the transformed operator complex: the host-direct factors are
+complex (scipy's LU), the iterative KSPs run in complex arithmetic, and
+the solvers work in the promoted dtype (``op().dtype``).  The structured
+transforms of BSE and GHIEP wait for item 11d.
 
 Where the reference quietly falls back to an iterative KSP when the direct
 route raises (``slepc_tpu/st/st.py:107-108``), the port goes iterative only
@@ -28,7 +30,7 @@ import torch
 from ..ksp.ksp import KSP, _jacobi_precond
 from ..mat.linop import (AIJOperator, DenseOperator, DIAOperator,
                          IdentityOperator, LinearOperator, ShellOperator,
-                         SumOperator)
+                         SumOperator, _with_coeffs)
 
 
 class ST:
@@ -128,9 +130,17 @@ class ST:
         return KSP(self._shifted_operator(sigma), method=method,
                    hermitian=hermitian, **opts)
 
+    def _op_dtype(self) -> torch.dtype:
+        """The transformed operator's dtype: the matrices', complex when a
+        shift (or Cayley's nu) is."""
+        dt = self.A.dtype
+        if self.B is not None:
+            dt = torch.promote_types(dt, self.B.dtype)
+        return _with_coeffs(dt, (self.sigma, getattr(self, "nu", 0.0)))
+
     def _shell(self, mv, rmv=None, nnz=None) -> ShellOperator:
         n = self.A.shape[0]
-        return ShellOperator((n, n), self.A.dtype, mv, rmv, nnz=nnz,
+        return ShellOperator((n, n), self._op_dtype(), mv, rmv, nnz=nnz,
                              device=self.A.device)
 
     # ---- interface -------------------------------------------------------

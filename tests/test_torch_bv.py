@@ -8,6 +8,7 @@ Cases and tolerances are those of tests/test_bv_pallas.py: f32, 1e-5
 relative (1e-4 for the dots of the fused update+dots).
 """
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -15,6 +16,17 @@ import torch
 
 from slepc_tpu.ops import bv_pallas as bvp
 from slepc_tpu_torch.ops import bv
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_jit_caches_dropped():
+    """The reference's jit caches keep the AIJ operators this module ran
+    (their pytree metadata holds a scipy matrix), and the reference raises
+    when a later module of the same process runs another operator of that
+    shape (tests/test_eps_krylovschur.py's Markov chain after the one of
+    tests/test_torch_nhep.py): drop them when the module ends."""
+    yield
+    jax.clear_caches()
 
 
 @pytest.mark.parametrize("K,b,R", [(9, 1, 64), (9, 3, 64), (33, 8, 384)])

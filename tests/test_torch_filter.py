@@ -10,6 +10,7 @@ same interior eigenvalues as the reference, to 1e-8 of each other and of the
 closed form.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -19,6 +20,18 @@ import slepc_tpu_torch as tst
 from slepc_tpu.st import filter as jfilter
 from slepc_tpu_torch import interop
 from slepc_tpu_torch.st import filter as tfilter
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_jit_caches_dropped():
+    """The reference's jit caches keep the AIJ operators this module ran
+    (their pytree metadata holds a scipy matrix), and the reference raises
+    when a later module of the same process runs another operator of that
+    shape (tests/test_eps_krylovschur.py's Markov chain after the one of
+    tests/test_torch_nhep.py): drop them when the module ends."""
+    yield
+    jax.clear_caches()
+
 
 _CASES = [(40, 1.0, 1.2, 0.0, 4.0), (150, 1.0, 1.2, 0.0, 4.0),
           (80, -0.3, 0.5, -1.0, 1.0), (25, 2.5, 3.9, 0.1, 4.0)]

@@ -75,7 +75,8 @@ def _panel_check(V, W, C, tol):
     U2, D2 = bv.panel_update_dots(V, C, W)
     assert float(((U2 - U_ref).abs() / uscale).max()) <= tol
     d2scale = V.abs() @ U_ref.abs().T
-    assert float(((D2 - V @ U_ref.T).abs() / d2scale).max()) <= 10 * tol
+    assert float(((D2 - bv.panel_dots_ref(V, U_ref)).abs()
+                  / d2scale).max()) <= 10 * tol
     # deterministic: no atomics, same bits every time
     assert torch.equal(bv.panel_dots(V, W), D)
     U3, D3 = bv.panel_update_dots(V, C, W)
@@ -810,3 +811,271 @@ def test_gnhep_on_the_card(cuda):
     _held(cpu, card, 4)
     for lam in card.eigenvalues[:4]:
         assert np.min(np.abs(w - lam)) < 1e-9 * abs(lam)
+
+
+# ---- the complex instantiations K1c / K2c, K3c, K4c, K6c (item 11a-ii) ----
+
+CDTYPES = [(torch.complex64, 2e-6), (torch.complex128, 1e-14)]
+SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
+
+
+def _crand(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(z).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", CDTYPES)
+@pytest.mark.parametrize("n,offsets", [
+    (1, (0,)), (7, (-9, -1, 0, 1, 9)), (1000, (-200, -1, 0, 1, 200)),
+    (45_013, (-45_000, -200, -1, 0, 1, 200, 45_000))])
+def test_complex_dia_kernel_matches_plain(cuda, dtype, tol, n, offsets):
+    d = _crand((len(offsets), n), dtype, cuda, 0)
+    x = _crand((n,), dtype, cuda, 1)
+    key = f"dia_spmv_{SUFFIX[dtype]}"
+    before = dia.launches[key]
+    y = dia.dia_spmv(offsets, d, x)
+    ref = dia.dia_spmv_ref(offsets, d, x)
+    torch.cuda.synchronize()
+    scale = dia.dia_spmv_ref(offsets, d.abs(), x.abs()).max()
+    assert float((y - ref).abs().max() / scale) <= 4 * tol
+    assert dia.launches[key] == before + 1
+    # a complex block: one launch a row, never K5 (item 11a-iii)
+    A = stt.DIAOperator(offsets, d)
+    X = _crand((3, n), dtype, cuda, 2)
+    spmm = dict(dia.launches)
+    Y = A.mult_block(X)
+    assert dia.launches[key] == before + 4
+    assert {k: v for k, v in dia.launches.items() if "spmm" in k} == \
+        {k: v for k, v in spmm.items() if "spmm" in k}
+    for m in range(3):
+        assert torch.equal(Y[m], dia.dia_spmv(offsets, d, X[m]))
+    with pytest.raises(TypeError, match="11a-iii"):
+        dia.dia_spmm(offsets, d, X)
+
+
+CPANEL_CASES = [(9, 3, 130), (33, 8, 4097), (49, 1, 100_003), (64, 2, 777),
+                (1, 1, 1), (17, 4, 4096), (65, 5, 300_004), (129, 1, 4097),
+                (129, 8, 37), (5, 2, 100_003)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-13)])
+@pytest.mark.parametrize("K,b,n", CPANEL_CASES)
+def test_complex_panel_kernels_match_plain(cuda, dtype, tol, K, b, n):
+    Vfull = _crand((K + 3, n), dtype, cuda, 2)
+    V = Vfull[:K]
+    W = _crand((b, n), dtype, cuda, 3)
+    C = _crand((K, b), dtype, cuda, 4)
+    key = f"panel_dots_{SUFFIX[dtype]}"
+    before = bv.launches[key]
+    _panel_check(V, W, C, tol)
+    assert bv.launches[key] > before
+    # the dots conjugate the basis: <v, v> is real and positive
+    G = bv.panel_dots(V[:1], V[:1])
+    assert abs(float(G.imag)) <= tol * float(G.real)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-13)])
+@pytest.mark.parametrize("layout", ["offset", "padded_rows"])
+def test_complex_panel_kernels_take_views(cuda, dtype, tol, layout):
+    K, b, n = 17, 2, 4096
+    C = _crand((K, b), dtype, cuda, 4)
+    if layout == "offset":  # one element in: c64 rows not 16-byte aligned
+        V = _crand((K + 1, n + 1), dtype, cuda, 2)[:K, 1:]
+        W = _crand((b, n + 1), dtype, cuda, 3)[:, 1:]
+    else:
+        V = _crand((K, n + 4), dtype, cuda, 2)[:, :n]
+        W = _crand((b, n + 8), dtype, cuda, 3)[:, :n]
+    _panel_check(V, W, C, tol)
+
+
+CROTATE_CASES = [(24, 18, 4101), (48, 40, 100_003), (64, 64, 333),
+                 (100, 130, 1000), (1, 1, 1), (49, 9, 130), (129, 7, 4096),
+                 (4, 4, 300_004), (48, 1, 37)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-14)])
+@pytest.mark.parametrize("K,P,n", CROTATE_CASES)
+def test_complex_rotate_kernel_matches_plain(cuda, dtype, tol, K, P, n):
+    full = _crand((K + 1, n), dtype, cuda, 5)
+    V = full[:K]
+    Q = _crand((K, P), dtype, cuda, 6)
+    key = f"rotate_{SUFFIX[dtype]}"
+    before = rotate.launches[key]
+    out = rotate.rotate(Q, V)
+    assert rotate.launches[key] == before + -(-P // rotate.MAX_P)
+    ref = rotate.rotate_ref(Q, V)
+    err = (out - ref).abs() / (Q.abs().T @ V.abs())
+    assert float(err.max()) <= _rotate_tol(dtype.to_real(), tol, K)
+    assert torch.equal(rotate.rotate(Q, V), out)
+    if P <= K:  # in place into rows of V
+        work = full.clone()
+        rotate.rotate(Q, work[:K], out=work[:P])
+        assert torch.equal(work[:P], out)
+    # a real Q on the complex basis: the real kernel on its (K, 2n) view
+    Qr = _rand((K, P), dtype.to_real(), cuda, 7)
+    real_key = "rotate_" + ("f64" if dtype == torch.complex128 else "f32")
+    before_real = rotate.launches[real_key]
+    got = rotate.rotate(Qr, V)
+    assert rotate.launches[real_key] > before_real
+    ref = rotate.rotate_ref(Qr.to(dtype), V)
+    err = (got - ref).abs() / (Qr.abs().T @ V.abs())
+    assert float(err.max()) <= _rotate_tol(dtype.to_real(), 4 * tol, K)
+
+
+def test_complex_plans_match_the_compiled_kernels(cuda):
+    lib = _build.load()
+    for dtype in (torch.complex64, torch.complex128):
+        code = _build.DTYPE_CODE[str(dtype)]
+        for K, P in [(1, 1), (48, 40), (49, 24), (129, 64), (4, 4)]:
+            plan = rotate.plan_rotate(K, P, 100_000, dtype)
+            assert plan["smem"] == lib.slepc_rotate_smem(code, K, P,
+                                                         plan["stages"])
+        for mode in (0, 1, 2):
+            for K, b, n in [(1, 1, 10), (49, 1, 4096), (52, 4, 4097),
+                            (129, 8, 4097)]:
+                if mode == 2 and not bv.fused_update_dots(K, b):
+                    continue
+                plan = bv.plan_panel(mode, K, b, n, dtype)
+                for one in plan["launches"]:
+                    assert one["smem"] == lib.slepc_panel_smem(
+                        code, mode, b, one["groups"], one["cw"],
+                        int(plan["vec"]))
+
+
+@pytest.mark.parametrize("dtype,tol", CDTYPES)
+@pytest.mark.parametrize("kind", ["empty", "tiny", "ragged", "big", "hubs"])
+def test_complex_csr_kernel_matches_plain(cuda, dtype, tol, kind):
+    if kind == "hubs":  # rows past the budget: chunks summed in order
+        rng = np.random.default_rng(3)
+        lengths = rng.poisson(5, 20_000)
+        lengths[[7, 9000]] = 50_000
+        ncols = 20_000
+    else:
+        lengths, ncols = _lengths(kind)
+    rp, cl, _ = _csr(lengths, ncols, 7)
+    rowptr = torch.from_numpy(rp).to(cuda)
+    cols = torch.from_numpy(cl).to(cuda)
+    vals = _crand((len(cl),), dtype, cuda, 9)
+    x = _crand((ncols,), dtype, cuda, 8)
+    key = f"csr_spmv_{SUFFIX[dtype]}"
+    before = csr.launches[key]
+    y = csr.csr_spmv(rowptr, cols, vals, x, ncols)
+    ref = csr.csr_spmv_ref(rowptr, cols, vals, x)
+    torch.cuda.synchronize()
+    assert csr.launches[key] == before + 1
+    scale = csr.csr_spmv_ref(rowptr, cols, vals.abs(), x.abs()).clamp_min(1)
+    assert float(((y - ref).abs() / scale).max()) <= 4 * tol
+    for _ in range(2):  # no atomics in the sums: the same bits every time
+        assert torch.equal(csr.csr_spmv(rowptr, cols, vals, x, ncols), y)
+
+
+def _gauge_2d(nx, ny, dev, dtype=torch.complex128):
+    L = stt.laplacian_2d(nx, ny, device="cpu")
+    n = L.shape[0]
+    phi = 2 * np.pi * np.random.default_rng(11).random(n)
+    d = L.diags.numpy().astype(np.complex128)
+    for k, o in enumerate(L.offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        d[k, lo:hi] *= np.exp(1j * (phi[lo:hi] - phi[lo + o:hi + o]))
+    return stt.DIAOperator(L.offsets, torch.from_numpy(d).to(dev, dtype))
+
+
+@pytest.mark.parametrize("case", ["hep_dia", "hep_csr", "hep_c64", "nhep",
+                                  "ghep", "shift", "arnoldi", "subspace"])
+def test_complex_solves_on_the_card(cuda, case):
+    """The complex paths at a small size: the card's complex kernels
+    against the plain versions' trajectory on the CPU."""
+    c128 = torch.complex128
+
+    def hep(nev=4, **kw):
+        def solve(A):
+            eps = stt.EPS(A, problem_type="hep", which="smallest_real",
+                          nev=nev, options=stt.Options(), **kw)
+            eps.solve()
+            return eps
+        return solve
+
+    if case in ("hep_dia", "hep_c64"):
+        dt = c128 if case == "hep_dia" else torch.complex64
+        cpu, card, d = _on_both(lambda dev: _gauge_2d(30, 29, dev, dt),
+                                hep(tol=1e-8 if dt == c128 else 1e-5))
+        t = SUFFIX[dt]
+        assert min(d[f"dia_spmv_{t}"], d[f"panel_dots_{t}"],
+                   d[f"panel_update_dots_{t}"], d[f"rotate_{t}"]) > 0
+        if dt == torch.complex64:
+            assert card.nconv >= 4
+            np.testing.assert_allclose(card.eigenvalues[:4],
+                                       cpu.eigenvalues[:4], rtol=1e-4)
+            return
+    elif case == "hep_csr":
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        G = _gauge_2d(30, 29, "cpu").to_scipy()
+        perm = reverse_cuthill_mckee(sp.csr_matrix(abs(G)), symmetric_mode=True)
+        G = G[perm][:, perm].tocsr()
+        cpu, card, d = _on_both(lambda dev: stt.from_scipy(G, device=dev),
+                                hep())
+        assert d["csr_spmv_c128"] > 0 and d["dia_spmv_c128"] == 0
+    elif case == "nhep":
+        cpu, card, d = _on_both(lambda dev: stt.DIAOperator(
+            (-1, 0, 1), torch.from_numpy(_spiral(1 << 10)).to(dev)),
+            _nhep(6, 32, 1e-8))
+        assert min(d["dia_spmv_c128"], d["rotate_c128"]) > 0
+    elif case == "ghep":
+        def make(dev):
+            G = _gauge_2d(30, 29, dev)
+            b = 1.0 + 0.5 * torch.sin(0.1 * torch.arange(G.shape[0]))
+            return G, stt.DIAOperator((0,), b[None].double().to(dev))
+
+        def solve(ops):
+            eps = stt.EPS(*ops, problem_type="ghep", which="largest_real",
+                          nev=3, options=stt.Options())
+            eps.solve()
+            return eps
+        cpu, card, d = _on_both(make, solve)
+        # the real B applies to complex vectors by parts, on K2
+        assert d["dia_spmv_c128"] > 0 and d["dia_spmv_f64"] > 0
+    elif case == "shift":
+        def solve(A):
+            eps = stt.EPS(A, problem_type="hep", nev=4, options=stt.Options())
+            eps.set_target(0.5 + 0.1j)
+            eps.solve()
+            return eps
+        cpu, card, d = _on_both(lambda dev: stt.laplacian_2d(30, 29,
+                                                             device=dev),
+                                solve)
+        assert d["panel_dots_c128"] > 0 and d["rotate_c128"] > 0
+        _held(cpu, card, 4, resid=1e-7)
+        return
+    else:
+        def solve(A):
+            eps = stt.EPS(A, problem_type="nhep", nev=3, ncv=16, max_it=3000,
+                          solver=case, options=stt.Options())
+            eps.solve()
+            return eps
+        cpu, card, d = _on_both(lambda dev: stt.DIAOperator(
+            (-1, 0, 1), torch.from_numpy(_spiral(1 << 10)).to(dev)), solve)
+        assert d["dia_spmv_c128"] > 0 and d["rotate_c128"] > 0
+    _held(cpu, card, 3 if case in ("ghep", "arnoldi", "subspace") else 4)
+
+
+@pytest.mark.parametrize("what", ["block_size", "cheb_block", "sinvert"])
+def test_complex_paths_of_11a_iii_raise_on_the_card(cuda, what):
+    G = _gauge_2d(12, 11, cuda)
+    eps = stt.EPS(G, problem_type="hep", which="smallest_real", nev=2,
+                  options=stt.Options())
+    if what == "block_size":
+        eps.block_size = 2
+    elif what == "cheb_block":
+        eps.cheb_degree, eps.cheb_block = 20, 2
+    else:
+        eps.set_target(0.0)
+        eps.set_st(stt.STSinvertDevice([G], sigma=0.0, iters=50))
+    before = stt.launch_counts()
+    with pytest.raises(NotImplementedError, match="item 11a-iii"):
+        eps.solve()
+    assert stt.launch_counts() == before

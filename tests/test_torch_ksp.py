@@ -15,6 +15,7 @@ indefinite one only the port is held to the dense solve.
 """
 
 import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -31,6 +32,17 @@ from slepc_tpu_torch import interop
 from slepc_tpu_torch.ksp import direct as tdirect
 from slepc_tpu_torch.ksp.iterative_jit import cg_fixed, minres_fixed
 from slepc_tpu_torch.native.ldl import ldl_available
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_jit_caches_dropped():
+    """The reference's jit caches keep the AIJ operators this module ran
+    (their pytree metadata holds a scipy matrix), and the reference raises
+    when a later module of the same process runs another operator of that
+    shape (tests/test_eps_krylovschur.py's Markov chain after the one of
+    tests/test_torch_nhep.py): drop them when the module ends."""
+    yield
+    jax.clear_caches()
 
 
 def _rel(got, want):

@@ -14,6 +14,7 @@ residual (complex eigenvectors applied as their real and imaginary parts)
 at the tolerance.
 """
 
+import jax
 import numpy as np
 import pytest
 import scipy.linalg as sla
@@ -23,6 +24,17 @@ import torch
 import slepc_tpu as jst
 import slepc_tpu_torch as tst
 from slepc_tpu_torch import interop
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_jit_caches_dropped():
+    """The reference's jit caches keep the AIJ operators this module ran
+    (their pytree metadata holds a scipy matrix), and the reference raises
+    when a later module of the same process runs another operator of that
+    shape (tests/test_eps_krylovschur.py's Markov chain after the one of
+    tests/test_torch_nhep.py): drop them when the module ends."""
+    yield
+    jax.clear_caches()
 
 
 def _both(make_ops, configure=None, resid=1e-7, **eps_kw):

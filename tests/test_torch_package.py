@@ -248,26 +248,73 @@ def _spi_op(x):
     return tst.DenseOperator(A0 + 0.5 * np.diag(xa ** 2), device="cpu")
 
 
-# the setters of the variants the port lacks: two-sided (item 11d) on a
-# real operator, the others on a complex one (item 11a-ii); their real
-# arms run since the non-Hermitian slice (the test after this one)
+def _spi_op_complex(x):
+    xa = x.cpu().numpy()
+    A0 = tst.laplacian_1d(20, device="cpu").to_dense().numpy()
+    return tst.DenseOperator(A0 * (1 + 0j) + 0.5 * np.diag(np.abs(xa) ** 2),
+                             device="cpu")
+
+
+# the variants the port lacks: two-sided (item 11d) on a real operator, and
+# the complex paths of item 11a-iii (the blocked cycle, the blocked
+# Chebyshev cycle, the device shift-and-invert), each reached through
+# another way a problem turns complex: a complex A, a complex Hermitian B,
+# a complex shift of a real A.  The setters of the non-Hermitian slice take
+# a complex operator since item 11a-ii (tests/test_torch_complex.py).  The
+# nonlinear power iteration has no blocked form: on a complex operator it
+# solves (A(x) complex Hermitian), and the case holds its residual.
 @pytest.mark.parametrize("setter,args", [
-    ("set_two_sided", ()), ("set_balance", ()), ("set_extraction",
-                                                 ("harmonic",)),
-    ("set_arbitrary_selection", (lambda lam, x: -abs(lam),)),
-    ("set_rg", (tst.RGInterval(1.0, np.inf, -1.0, 1.0),)),
-    ("set_power_nonlinear", (_spi_op,))])
+    ("set_two_sided", ()),
+    ("block_size", ("complex A",)),
+    ("block_size", ("complex shift",)),
+    ("cheb_block", ("complex B",)),
+    ("STSinvertDevice", ("complex shift",)),
+    ("set_power_nonlinear", (_spi_op_complex,))],
+    ids=["set_two_sided", "block_size-complex_A", "block_size-complex_shift",
+         "cheb_block-complex_B", "STSinvertDevice-complex_shift",
+         "set_power_nonlinear"])
 def test_setters_of_unported_variants_raise_naming_the_roadmap(setter, args):
+    L = tst.laplacian_1d(20, device="cpu")
     if setter == "set_two_sided":
-        A, pt, item = tst.laplacian_1d(20, device="cpu"), "hep", "11d"
-    else:
+        eps = tst.EPS(L, problem_type="hep", nev=2, options=tst.Options())
+        eps.set_two_sided()
+        with pytest.raises(NotImplementedError, match="queue 1, item 11d"):
+            eps.solve()
+        return
+    if setter == "set_power_nonlinear":
         A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
                               device="cpu")
-        pt, item = "nhep", "11a-ii"
-    eps = tst.EPS(A, problem_type=pt, nev=2, options=tst.Options())
-    getattr(eps, setter)(*args)
+        eps = tst.EPS(A, problem_type="hep", nev=2, options=tst.Options())
+        eps.set_power_nonlinear(*args)
+        eps.set_tolerances(tol=1e-9, max_it=200)
+        eps.solve()
+        lam, x = eps.get_eigenpair(0)
+        assert eps.nconv == 1 and x.is_complex()
+        r = _spi_op_complex(x).mult(x) - lam * x
+        assert float(torch.linalg.vector_norm(r)) < 1e-7
+        return
+    (how,) = args
+    if how == "complex A":
+        A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
+                              device="cpu")
+        eps = tst.EPS(A, problem_type="nhep", nev=2, options=tst.Options())
+    elif how == "complex B":  # Hermitian, eigenvalues 1 +- 0.2 cos(.)
+        up = np.eye(20, k=1)
+        B = tst.DenseOperator(np.eye(20) + 0.1j * (up - up.T), device="cpu")
+        eps = tst.EPS(L, B, problem_type="ghep", nev=2,
+                      options=tst.Options())
+    else:
+        eps = tst.EPS(L, problem_type="hep", nev=2, options=tst.Options())
+        eps.set_target(0.5 + 0.1j)
+        eps.set_st((tst.STSinvertDevice if setter == "STSinvertDevice"
+                    else tst.STShift)([L], sigma=0.5 + 0.1j))
+    if setter == "block_size":
+        eps.block_size = 2
+    elif setter == "cheb_block":
+        eps.cheb_degree, eps.cheb_block = 20, 2
     with pytest.raises(NotImplementedError,
-                       match=f"queue 1, item {item}"):
+                       match=rf"\({setter}.* on a complex operator .*"
+                             r"queue 1, item 11a-iii"):
         eps.solve()
 
 
@@ -379,11 +426,25 @@ def test_the_non_hermitian_slice_is_exported_and_registered():
 @pytest.mark.parametrize("solver", ["krylovschur", "arnoldi", "power",
                                     "subspace"])
 def test_complex_operators_raise_naming_11a_ii(solver):
-    A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
-                          device="cpu")
-    eps = tst.EPS(A, problem_type="nhep", nev=2, solver=solver)
-    with pytest.raises(NotImplementedError, match="item 11a-ii"):
+    """Named for the refusal it held until item 11a-ii (complex operators)
+    was ported: each solver now solves the same complex problem, held
+    against the reference (the same its and eigenvalues to 1e-9)."""
+    Ad = np.diag(np.arange(1.0, 21.0)) * (1 + 1j)
+    Ad = Ad + 0.01 * np.triu(np.ones((20, 20)), 1)  # no invariant start
+    out = []
+    for pkg in (jst, tst):
+        kw = {} if pkg is jst else {"device": "cpu"}
+        eps = pkg.EPS(pkg.DenseOperator(Ad, **kw), problem_type="nhep",
+                      nev=2, solver=solver, options=pkg.Options(),
+                      max_it=3000)
         eps.solve()
+        out.append(eps)
+    je, te = out
+    assert te.nconv == je.nconv and te.nconv >= 2 and te.its == je.its
+    np.testing.assert_allclose(te.eigenvalues[:2], je.eigenvalues[:2],
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(np.sort_complex(te.eigenvalues[:2]),
+                               [19 + 19j, 20 + 20j], atol=1e-8)
 
 
 def test_unported_solvers_name_their_items():

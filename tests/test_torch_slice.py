@@ -12,6 +12,7 @@ its bandwidth), host native LDL^T + LU (a CSR matrix, a GHEP with a
 diagonal B on a grid the block route does not take).
 """
 
+import jax
 import numpy as np
 import pytest
 import scipy.linalg as sla
@@ -23,6 +24,17 @@ from slepc_tpu_torch import interop
 from slepc_tpu_torch.eps.base import EPSConvergedReason
 from slepc_tpu_torch.eps.ks_slice import _ShiftFactorCache
 from slepc_tpu_torch.sys.events import get_event
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_jit_caches_dropped():
+    """The reference's jit caches keep the AIJ operators this module ran
+    (their pytree metadata holds a scipy matrix), and the reference raises
+    when a later module of the same process runs another operator of that
+    shape (tests/test_eps_krylovschur.py's Markov chain after the one of
+    tests/test_torch_nhep.py): drop them when the module ends."""
+    yield
+    jax.clear_caches()
 
 
 def _slice_both(make_ops, interval, problem_type="hep", npart=1):

@@ -10,6 +10,7 @@ reference quietly goes iterative (slepc_tpu/st/st.py:107-108).
 """
 
 import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -21,6 +22,18 @@ from slepc_tpu.st.st import (STCayley as JCayley, STPrecond as JPrecond,
                              STSinvert as JSinvert)
 import slepc_tpu_torch as tst
 from slepc_tpu_torch import interop
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_jit_caches_dropped():
+    """The reference's jit caches keep the AIJ operators this module ran
+    (their pytree metadata holds a scipy matrix), and the reference raises
+    when a later module of the same process runs another operator of that
+    shape (tests/test_eps_krylovschur.py's Markov chain after the one of
+    tests/test_torch_nhep.py): drop them when the module ends."""
+    yield
+    jax.clear_caches()
+
 
 N = (9, 8)
 
