@@ -113,7 +113,30 @@ Phases (each failing check raises; the script then exits non-zero):
      complex deployment, lanczos on the gauge-transformed 95 x 97
      Laplacian; harmonic extraction (target 2.6 + 0.8i) and a region (the
      first quadrant) on the 2^12 deployment.  Before each part, its
-     kernels against their plain versions at its shapes.
+     kernels against their plain versions at its shapes;
+ 13. the preconditioned and contour-integral solvers (items 11b, 11c), f64,
+     after K2, K3, K4 at the GD cycle's shapes (2^20 rows, ncv 24), K5 at
+     3 and 8 rows (2^20 and 2^18) and K6 on the CSR case, each against its
+     plain version: (a) the reference's GD deployment (bench.py:498-516,
+     nothing cut): 2^20 rows, DIA offsets (-1, 0, 1), diagonal
+     linspace(10, 30) with its first entries 1, 2, 3, off-diagonals -1;
+     nev 3, ncv 24, tol 1e-6, STPrecond; the GD cycle (max_it 200) and the
+     host loop (max_it 120), each solved twice and the second timed (wall,
+     its, expansions, ms an expansion, peak device memory).  Gates: nconv
+     >= 3, each true residual <= 1e-6 (K2), each value within 1e-10
+     relative of numpy.linalg.eigvalsh of the leading 256 x 256 block, the
+     two paths within 1e-10 of each other.  (b) on the same operator and
+     gates: JD (STPrecond, target 0, inner maxit 24), LOBPCG's chunk (no
+     preconditioner) and host loop (STPrecond), RQCG; and the GD cycle on
+     laplacian_2d(95, 97) plus seeded random entries as CSR (9,215 rows,
+     K6) against scipy's eigsh to 1e-9.  (c) CISS batched (``auto`` on the
+     card) on the (a) construction cut to 2^18 rows for the time limit,
+     RGEllipse(2, 3, 0.3), tol 1e-8, Rayleigh-Ritz and Hankel: inner
+     iterations, buckets, refactored points, wall, peak memory; gates
+     nconv = 3 and the values within 1e-10 (Rayleigh-Ritz) or 1e-7
+     (Hankel: values of the moment pencil, first order in the residual)
+     relative of the leading block's; then the factorized mode on
+     laplacian_1d(100) against the closed form.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -137,7 +160,9 @@ hub order, f64 and f32, beside the DIA kernel on the same matrix) and of
 K5's tile (b = 1, 4, 8), the blocked f32 study (phase 6's f32 blocked solve
 at tol 1e-5 with each of K5, K3, K4 in turn swapped for its plain
 version), and a torch.profiler split by kernel of one more phase-4 solve
-and one more phase-5 solve.  Its launches are not counted.
+and one more phase-5 solve; after phase 13, a torch.profiler split and a
+cProfile split (host seconds by function) of one more solve of each of
+phase 13a's two GD paths.  Its launches are not counted.
 
 Phase 1 holds the complex instantiations too: K2c / K1c on the
 gauge-transformed flagship (timed; the library call is cuSPARSE on the
@@ -156,9 +181,11 @@ phase 8 (the shift-and-invert paths: K2, K3, K4), before phase 9 and
 after it (the plain cycle at full width), before phase 10 and after it (the
 non-Hermitian path: K2 / K1, K3, K4), before phase 11 and after it (its
 small paths: K2, K5, K6, K3, K4), and before and after each of phase
-12a, 12b and 12c (the complex paths: K2c / K1c, K6c, K3c, K4c); K7's launches are read around
+12a, 12b and 12c (the complex paths: K2c / K1c, K6c, K3c, K4c) and of
+phase 13a, 13b and 13c (K2, K3, K4, K5; K6; K5); K7's launches are read around
 its yardstick measurement in phase 1.  Every kernel of each path must
-have launched.  The last three lines
+have launched.  The JSON kernel table's ``launches_p13`` is phase 13's
+share of ``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -2326,6 +2353,332 @@ def phase12c(dev):
     return counts
 
 
+# ---- phase 13: the preconditioned and contour-integral solvers ----------
+
+GD_LOG2 = 20   # the reference's GD deployment, bench.py:498-516: 2^20 rows
+CISS_LOG2 = 18  # 13c: the same construction cut to 2^18 rows (time limit)
+GD_NEV, GD_NCV, GD_TOL = 3, 24, 1e-6
+GD_REL = 1e-10  # the values against the leading-block reference
+CISS_TOL = 1e-8
+# Hankel's values come from the moment pencil itself, not as Rayleigh
+# quotients, so their error is first order in the residual (4.1e-8 at 2^18
+# rows: 3.2e-8 relative; the reference's own Hankel test holds 1e-7,
+# tests/test_eps_advanced.py:192); Rayleigh-Ritz holds GD_REL
+HANKEL_REL = 1e-7
+P13_TOL = {"K2": 1e-14, "K3": 1e-13, "K4": 1e-14, "K5": 1e-13, "K6": 1e-13}
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def gd_operator(log2n, dev):
+    """The reference's GD operator (bench.py:498-510): tridiagonal, the
+    diagonal linspace(10, 30) with its first three entries 1, 2, 3, both
+    off-diagonals -1; f64 DIA."""
+    n = 1 << log2n
+    dg = np.linspace(10.0, 30.0, n)
+    dg[:3] = [1.0, 2.0, 3.0]
+    lo = np.zeros(n)
+    hi = np.zeros(n)
+    hi[:-1] = -1.0
+    lo[1:] = -1.0
+    return stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+        np.stack([lo, dg, hi])).to(dev))
+
+
+def gd_reference(log2n, k=GD_NEV, m=256):
+    """The k smallest eigenvalues of the operator's leading m x m block
+    (numpy.linalg.eigvalsh): its eigenvectors decay like 1/6 a row, so the
+    cut is far below 1e-10."""
+    n = 1 << log2n
+    dg = np.linspace(10.0, 30.0, n)[:m]
+    dg[:3] = [1.0, 2.0, 3.0]
+    T = np.diag(dg) - np.diag(np.ones(m - 1), 1) - np.diag(np.ones(m - 1), -1)
+    return np.linalg.eigvalsh(T)[:k]
+
+
+def peak_gb(dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" \
+        else float("nan")
+
+
+def timed_solve(dev, eps):
+    """eps.solve() timed to the device's end; (wall s, peak device GB)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    eps.solve()
+    sync(dev)
+    return time.perf_counter() - t0, peak_gb(dev)
+
+
+def value_gates(where, eps, ref, k, rel, resid_tol):
+    """nconv >= k, each of the k values within ``rel`` relative of ``ref``,
+    each true residual ||A x - lam x|| / |lam| (the operator's kernel) at
+    most ``resid_tol``.  Returns the sorted values."""
+    check(eps.nconv >= k, f"{where}: nconv {eps.nconv} < {k}")
+    lam = np.sort(np.asarray(eps.eigenvalues[:eps.nconv]).real)[:k]
+    err = float(np.max(np.abs(lam - ref) / np.abs(ref)))
+    resid = max(eps.compute_error(i) for i in range(k))
+    print(f"  {where}: lam={np.array2string(lam, precision=10)} max rel "
+          f"|lam - ref|={err:.3e} max true rel resid={resid:.3e}", flush=True)
+    check(err <= rel, f"{where}: relative error {err:.3e} > {rel:g}")
+    check(resid <= resid_tol, f"{where}: residual {resid:.3e} > {resid_tol:g}")
+    return lam
+
+
+def spmm_errors(A, X):
+    """Relative error of K5 against its plain version on the rows of X."""
+    Y_ref = dia_spmm_ref(A.offsets, A.diags, X)
+    err = float((dia_spmm(A.offsets, A.diags, X) - Y_ref).abs().max())
+    return err / float(Y_ref.abs().max())
+
+
+def gd_kernels(dev, csr):
+    """K2, K3, K4 at the GD cycle's shapes (2^20 rows, up to ncv = 24 basis
+    rows), K5 at the block paths' heights (3 rows: LOBPCG's X; 8: a full
+    launch of a Davidson basis or a CISS bucket's rows at 2^18) and K6 on
+    the 13b CSR case, each against its plain version; before the counts of
+    phase 13 are reset (these launches are not its)."""
+    path_kernels(dev, "phase 13: K2, K3, K4 vs plain PyTorch at the GD "
+                 "cycle's shapes", (("phase 13a, 2^20 rows",
+                                     lambda: gd_operator(GD_LOG2, dev),
+                                     GD_NCV),))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for log2n, b in ((GD_LOG2, 3), (GD_LOG2, 8), (CISS_LOG2, 8)):
+        A = gd_operator(log2n, dev)
+        V = torch.randn((b + 2, A.shape[0]), generator=gen,
+                        dtype=torch.float64, device=dev)
+        rel = spmm_errors(A, V[1:1 + b])  # a slice of a taller block
+        print(f"  K5 at 2^{log2n} rows, b={b}: err {rel:.3e}", flush=True)
+        check(rel <= P13_TOL["K5"], f"phase 13 K5 b={b}: {rel:.3e}")
+        del A, V
+    x = torch.randn(csr.shape[0], generator=gen, dtype=torch.float64,
+                    device=dev)
+    y_ref = csr_spmv_ref(csr.rowptr, csr.cols, csr.vals, x)
+    y = csr_spmv(csr.rowptr, csr.cols, csr.vals, x, csr.shape[1],
+                 plan=csr.row_plan())
+    rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+    print(f"  K6 on the 13b CSR case (n={csr.shape[0]}, nnz={csr.nnz}): "
+          f"err {rel:.3e}", flush=True)
+    check(rel <= P13_TOL["K6"], f"phase 13 K6: {rel:.3e}")
+    torch.cuda.empty_cache()
+
+
+def launched(where, counts, keys):
+    for key in keys:
+        check(counts[key] > 0, f"{where}: {key} did not launch")
+
+
+def gd_eps(A, solver, max_it, precond=True):
+    eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=GD_NEV,
+                  ncv=GD_NCV, tol=GD_TOL, max_it=max_it, solver=solver,
+                  options=stt.Options())
+    if precond:
+        eps.set_st(stt.STPrecond([A]))
+    return eps
+
+
+def phase13a(dev):
+    """The reference's GD deployment at full width: the GD cycle and the
+    host loop.  Returns ({path: (wall, its, expansions, peak GB)}, launch
+    counts)."""
+    print(f"phase 13a: GD at 2^{GD_LOG2} rows (bench.py:498-516), nev "
+          f"{GD_NEV}, ncv {GD_NCV}, tol {GD_TOL:g}, f64, STPrecond: the GD "
+          f"cycle (max_it 200) and the host loop (max_it 120)", flush=True)
+    A = gd_operator(GD_LOG2, dev)
+    ref = gd_reference(GD_LOG2)
+    print(f"  leading 256 x 256 block: {np.array2string(ref, precision=10)}",
+          flush=True)
+    stt.reset_launch_counts()
+    out, lams = {}, {}
+    for fused, max_it in ((True, 200), (False, 120)):
+        where = "phase 13a GD " + ("cycle" if fused else "host loop")
+        # two solves, the second timed (as bench.py:517-528 times them)
+        for _ in range(2):
+            eps = gd_eps(A, "gd", max_it)
+            eps.gd_fused = fused
+            wall, peak = timed_solve(dev, eps)
+        out[where] = (wall, eps.its, eps.expansions, peak)
+        print(f"  {where}: wall={wall:.3f} s its={eps.its} expansions="
+              f"{eps.expansions} ({wall / max(eps.expansions, 1) * 1e3:.3f} "
+              f"ms an expansion) peak {peak:.2f} GB", flush=True)
+        lams[fused] = value_gates(where, eps, ref, GD_NEV, GD_REL, GD_TOL)
+    agree = float(np.max(np.abs(lams[True] - lams[False]) / np.abs(ref)))
+    print(f"  cycle vs host loop: max rel {agree:.3e}", flush=True)
+    check(agree <= GD_REL, f"phase 13a: cycle and host loop differ {agree:.3e}")
+    counts = stt.launch_counts()
+    launched("phase 13a", counts, ("dia_spmv_f64", "dia_spmm_f64",
+                                   "panel_dots_f64", "panel_update_f64",
+                                   "panel_update_dots_f64", "rotate_f64"))
+    return out, counts
+
+
+def gd_csr_case(dev):
+    """laplacian_2d(95, 97) plus seeded symmetric random entries: 9,215
+    rows on the CSR kernel (too many distinct offsets for DIA routing)."""
+    M = with_random_entries(stt.laplacian_2d(95, 97, device=dev).to_scipy(),
+                            seed=5)
+    return M, stt.from_scipy(M, device=dev)
+
+
+def phase13b(dev, csr_pair):
+    """JD, LOBPCG (chunk and host loop) and RQCG on 13a's operator, and the
+    GD cycle on a CSR matrix.  Returns ({solve: wall}, launch counts)."""
+    print(f"phase 13b: JD, LOBPCG (chunk, host loop), RQCG at 2^{GD_LOG2} "
+          f"rows, 13a's gates; the GD cycle on laplacian_2d(95, 97) with "
+          f"random entries as CSR (K6)", flush=True)
+    A = gd_operator(GD_LOG2, dev)
+    ref = gd_reference(GD_LOG2)
+    stt.reset_launch_counts()
+    walls = {}
+    runs = (("JD (STPrecond, target 0, inner maxit 24)", "jd", 200, True,
+             ("dia_spmv_f64", "dia_spmm_f64", "panel_dots_f64", "rotate_f64")),
+            ("LOBPCG chunk (no preconditioner)", "lobpcg", 2000, False,
+             ("dia_spmm_f64",)),
+            ("LOBPCG host loop (STPrecond)", "lobpcg", 2000, True,
+             ("dia_spmm_f64",)),
+            ("RQCG", "rqcg", 5000, False, ("dia_spmv_f64", "dia_spmm_f64")))
+    for name, solver, max_it, precond, keys in runs:
+        where = f"phase 13b {name}"
+        eps = gd_eps(A, solver, max_it, precond=precond)
+        if solver == "jd":
+            # without a target JD's fix rule shifts by the Rayleigh quotient
+            # from the first step, and from a random start it converges
+            # into the bulk near 8 (as the reference's does); the target 0
+            # (which = target_magnitude: here the smallest) steers it
+            eps.set_target(0.0)
+            eps.jd_inner_maxit = 24
+        before = stt.launch_counts()
+        wall, peak = timed_solve(dev, eps)
+        walls[name] = wall
+        after = stt.launch_counts()
+        print(f"  {where}: wall={wall:.3f} s its={eps.its} expansions="
+              f"{eps.expansions} peak {peak:.2f} GB", flush=True)
+        launched(where, {k: after[k] - before[k] for k in after}, keys)
+        value_gates(where, eps, ref, GD_NEV, GD_REL, GD_TOL)
+    del A
+    M, Ac = csr_pair
+    check(Ac.fast_form() is Ac, "phase 13b CSR: the matrix routed to DIA")
+    import scipy.sparse.linalg as spla
+
+    ref_csr = np.sort(spla.eigsh(M, k=GD_NEV, sigma=0.0,
+                                 return_eigenvectors=False))
+    where = "phase 13b GD cycle on CSR"
+    eps = stt.EPS(Ac, problem_type="hep", which="smallest_real", nev=GD_NEV,
+                  tol=GD_TOL, max_it=2000, solver="gd", options=stt.Options())
+    before = stt.launch_counts()
+    wall, peak = timed_solve(dev, eps)
+    walls["GD cycle on CSR"] = wall
+    after = stt.launch_counts()
+    print(f"  {where}: n={M.shape[0]} nnz={M.nnz} wall={wall:.3f} s its="
+          f"{eps.its} expansions={eps.expansions}", flush=True)
+    launched(where, {k: after[k] - before[k] for k in after},
+             ("csr_spmv_f64", "panel_dots_f64", "panel_update_f64",
+              "panel_update_dots_f64", "rotate_f64"))
+    lam = value_gates(where, eps, ref_csr, GD_NEV, np.inf, GD_TOL)
+    err = float(np.max(np.abs(lam - ref_csr)))
+    print(f"  {where}: max |lam - eigsh|={err:.3e}", flush=True)
+    check(err <= 1e-9, f"{where}: |lam - eigsh| {err:.3e}")
+    return walls, stt.launch_counts()
+
+
+def phase13c(dev):
+    """CISS batched on the card (the 13a construction cut to 2^18 rows),
+    Rayleigh-Ritz and Hankel; the factorized mode once on laplacian_1d(100).
+    Returns ({solve: (wall, peak GB)}, launch counts)."""
+    print(f"phase 13c: CISS batched at 2^{CISS_LOG2} rows (13a's operator, "
+          f"cut from 2^{GD_LOG2} for the time limit), RGEllipse(2, 3, 0.3), "
+          f"tol {CISS_TOL:g}", flush=True)
+    A = gd_operator(CISS_LOG2, dev)
+    ref = gd_reference(CISS_LOG2)
+    print(f"  leading 256 x 256 block: {np.array2string(ref, precision=10)}",
+          flush=True)
+    stt.reset_launch_counts()
+    out = {}
+    for extraction in ("rr", "hankel"):
+        where = f"phase 13c CISS {extraction}"
+        eps = stt.EPS(A, problem_type="hep", solver="ciss", tol=CISS_TOL,
+                      options=stt.Options())
+        eps.set_rg(stt.RGEllipse(center=2.0, radius=3.0, vscale=0.3))
+        eps.ciss_extraction = extraction
+        wall, peak = timed_solve(dev, eps)
+        out[where] = (wall, peak)
+        check(hasattr(eps, "ciss_inner_iters"),
+              f"{where}: auto did not pick the batched solves on the card")
+        print(f"  {where}: wall={wall:.3f} s its={eps.its} inner iters="
+              f"{eps.ciss_inner_iters} buckets={eps.ciss_inner_buckets} "
+              f"refactored points="
+              f"{getattr(eps, 'ciss_refactored_points', [])} peak "
+              f"{peak:.2f} GB", flush=True)
+        check(eps.nconv == GD_NEV, f"{where}: nconv {eps.nconv} != {GD_NEV}")
+        value_gates(where, eps, ref, GD_NEV,
+                    HANKEL_REL if extraction == "hankel" else GD_REL,
+                    100 * CISS_TOL)
+    del A
+    counts = stt.launch_counts()
+    launched("phase 13c", counts, ("dia_spmm_f64",))
+    L = stt.laplacian_1d(100, device=dev)
+    exact = stt.laplacian_1d_eigs(100)
+    inside = np.sort(exact[np.abs(exact - 0.65) < 0.16])
+    eps = stt.EPS(L, problem_type="hep", solver="ciss", tol=1e-9,
+                  options=stt.Options())
+    eps.set_rg(stt.RGEllipse(center=0.65, radius=0.16, vscale=0.3))
+    eps.ciss_solver = "factorized"
+    wall, _ = timed_solve(dev, eps)
+    lam = np.sort(np.asarray(eps.eigenvalues).real)
+    err = float(np.abs(lam - inside).max()) if eps.nconv == len(inside) \
+        else np.inf
+    print(f"  phase 13c CISS factorized, laplacian_1d(100): nconv="
+          f"{eps.nconv} (want {len(inside)}) max|lam - exact|={err:.3e} "
+          f"wall={wall:.3f} s", flush=True)
+    check(err <= 1e-8, f"phase 13c factorized: nconv {eps.nconv}, {err:.3e}")
+    return out, counts
+
+
+def host_profile(where, solve, top=12):
+    """cProfile over ``solve()``: the host functions that take the most
+    time of their own (a host-bound solve's split)."""
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    solve()
+    prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(top)
+    print(f"profile: cProfile over one {where} solve (host seconds)",
+          flush=True)
+    for line in out.getvalue().splitlines():
+        if line.strip() and ("/" in line or "{" in line or "ncalls" in line):
+            print("  " + line.strip()[:150], flush=True)
+
+
+def profile_gd(dev, gd_walls):
+    """torch.profiler and cProfile over one more solve of each of 13a's
+    paths (the GD cycle and the host loop)."""
+    A = gd_operator(GD_LOG2, dev)
+    for fused in (True, False):
+        where = "phase 13a GD " + ("cycle" if fused else "host loop")
+
+        def solve():
+            eps = gd_eps(A, "gd", 200 if fused else 120)
+            eps.gd_fused = fused
+            wall, _ = timed_solve(dev, eps)
+            print(f"  {where}: {wall:.4f} s, {eps.expansions} expansions",
+                  flush=True)
+            return wall
+
+        profile_solve(where, solve, plain_wall=gd_walls[where][0])
+        host_profile(where, solve)
+    del A
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -2367,7 +2720,9 @@ def main():
                              "phase-10 solve, phase 7's tolerance study, the "
                              "K6 budget and K5 tile sweeps, the blocked f32 "
                              "study and a torch.profiler split of a phase-9, "
-                             "a phase-7, a phase-4 and a phase-5 solve")
+                             "a phase-7, a phase-4 and a phase-5 solve; after "
+                             "phase 13: torch.profiler and cProfile splits of "
+                             "its two GD paths")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2446,6 +2801,23 @@ def main():
     for part, counts_12 in zip("abc", complex_paths):
         print(f"  phase 12{part} launches: "
               f"{ {k: v for k, v in counts_12.items() if v} }", flush=True)
+    # phase 13: the kernels at its shapes, then each part read from zero
+    t13 = time.perf_counter()
+    csr_pair = gd_csr_case(dev)
+    gd_kernels(dev, csr_pair[1])
+    gd_walls, gd_path = phase13a(dev)
+    p13b_walls, p13b_path = phase13b(dev, csr_pair)
+    ciss_walls, ciss_path = phase13c(dev)
+    del csr_pair
+    p13_paths = (gd_path, p13b_path, ciss_path)
+    for part, counts_13 in zip("abc", p13_paths):
+        print(f"  phase 13{part} launches: "
+              f"{ {k: v for k, v in counts_13.items() if v} }", flush=True)
+    p13 = {k: sum(p[k] for p in p13_paths) for k in gd_path}
+    print(f"  phase 13 wall (kernel checks and solves): "
+          f"{time.perf_counter() - t13:.3f} s", flush=True)
+    if args.profile:
+        profile_gd(dev, gd_walls)
     if args.profile:
         A = spiral_operator(NHEP_LOG2, torch.float64, dev)
         profile_solve("phase 10 f64", lambda: nhep_solve(A, 1e-8)[1],
@@ -2470,7 +2842,8 @@ def main():
         profile_solve("phase 5", lambda: flagship_solve(
             A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
-             plain_path, nhep_path, small_nhep_path) + complex_paths
+             plain_path, nhep_path, small_nhep_path) + complex_paths \
+        + p13_paths
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -2480,6 +2853,7 @@ def main():
         kernels.append({"name": f"{key} ({knum})", "route": "cuda",
                         "source": src, "replaces": replaces,
                         "launches": counts[key],
+                        "launches_p13": p13[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -2496,14 +2870,19 @@ def main():
               f"({BEFORE_MS.get(k['name'].split()[0], float('nan')):.4f}) / "
               f"{k['plain_ms']:.4f} / "
               f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
-              f"{lib}  launches {k['launches']}", flush=True)
+              f"{lib}  launches {k['launches']} (phase 13: "
+              f"{k['launches_p13']})", flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
           f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard); plain "
           f"cycle 10.35M rows {wall_plain:.3f} s; non-Hermitian 2.1M rows "
           + ", ".join(f"{t} {w:.3f} s ({its} restarts, {cols} columns)"
                       for t, (w, its, cols) in nhep_walls.items())
-          + "; complex phase 12 passed"
+          + "; complex phase 12 passed; phase 13 "
+          + ", ".join(f"{w} {t[0]:.3f} s ({t[2]} expansions)"
+                      for w, t in gd_walls.items())
+          + ", " + ", ".join(f"{w} {t:.3f} s" for w, t in p13b_walls.items())
+          + ", " + ", ".join(f"{w} {t[0]:.3f} s" for w, t in ciss_walls.items())
           + f" on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -23,7 +23,10 @@ operator), harmonic extraction, Krylov balancing, arbitrary selection and
 regions (``RGEllipse``, ``RGInterval``, ``RGPolygon``, ``RGRing``); the
 polynomial filter ``STFilter`` for interior eigenvalues by SpMVs alone; and
 the solvers ``power`` (inverse iteration, RQI), ``subspace``, ``arnoldi``,
-``lanczos`` and ``lapack``.  Kernels: the DIA SpMV (K1/K2) and
+``lanczos`` and ``lapack``; the preconditioned solvers ``gd`` / ``jd``
+(with the GD cycle), ``lobpcg`` and ``rqcg`` under ``STPrecond``, and the
+contour-integral ``ciss`` (``parallel/tasks.py``'s batched shifted solves,
+``sys/contour.py``).  Kernels: the DIA SpMV (K1/K2) and
 block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
 rotation (K4) and the stream yardstick (K7).
 

@@ -4,5 +4,9 @@ from . import power  # "power"
 from . import subspace  # "subspace"
 from . import explicit  # "arnoldi", "lanczos"
 from . import lapack  # "lapack"
+from . import davidson  # "gd", "jd" (and the GD cycle, gd_jit)
+from . import lobpcg  # "lobpcg"
+from . import rqcg  # "rqcg"
+from . import ciss  # "ciss"
 
 __all__ = ["EPS", "EPSConvergedReason", "EPSError", "EPSSolver", "ProblemType"]

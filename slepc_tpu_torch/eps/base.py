@@ -4,6 +4,7 @@ The reference's public surface: ``A x = lambda x`` and ``A x = lambda B x``;
 options ``nev ncv mpd tol max_it which problem_type target interval``,
 ``-eps_true_residual``, ``-eps_conv_*``, ``-eps_cheb_degree``,
 ``-eps_block_size``, ``-eps_lanczos_reorthog``, ``-eps_partitions``,
+``-eps_gd_blocksize`` / ``-eps_jd_blocksize``, ``-eps_jd_fix``,
 ``-eps_harmonic``, ``-eps_balance``, monitors, the post-solve viewers
 ``-eps_view`` / ``-eps_converged_reason`` / ``-eps_error_relative``, and the
 ST options ``-st_type -st_shift -st_ksp_type`` (with ``-st_type filter``:
@@ -20,9 +21,11 @@ real non-Hermitian operator -- and ``get_eigenvectors`` returns them in the
 reference's (n, nconv) shape, as a transposed view.
 
 Registered: ``krylovschur`` (hep, ghep, nhep, gnhep, pgnhep), ``arnoldi``,
-``lanczos``, ``power``, ``subspace`` and ``lapack``.  The reference's other
-solvers (``gd``, ``jd``, ``lobpcg``, ``rqcg``: ROADMAP queue 1 item 11b;
-``ciss``: 11c; ``bse``: 11d; ``lyapii``: 13), the indefinite (GHIEP), BSE
+``lanczos``, ``power``, ``subspace``, ``lapack``, the preconditioned solvers
+``gd``, ``jd`` (``eps/davidson.py``, with the fused GD cycle of
+``eps/gd_jit.py``), ``lobpcg`` and ``rqcg``, and the contour-integral
+``ciss``.  The reference's other solvers (``bse``: ROADMAP queue 1 item 11d;
+``lyapii``: 13), the indefinite (GHIEP), BSE
 and two-sided variants (11d) raise NotImplementedError naming their item,
 and so do the paths a complex operator does not take yet (11a-iii: the
 blocked cycle, ``cheb_block`` > 1 and the device shift-and-invert); a
@@ -82,9 +85,7 @@ _TODO_COMPLEX = ("EPS {}: {} on a complex operator is still to be ported "
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
 # the reference's registered solvers that are not ported yet, and the
 # ROADMAP item each waits for
-_REFERENCE_SOLVERS = {"gd": "11b", "jd": "11b", "lobpcg": "11b",
-                      "rqcg": "11b", "ciss": "11c", "bse": "11d",
-                      "lyapii": "13"}
+_REFERENCE_SOLVERS = {"bse": "11d", "lyapii": "13"}
 
 
 def _real_if_real(z: complex):
@@ -158,9 +159,31 @@ class EPS:
         # and steps between host reads of the constant-shift loop
         self.power_shift_type = "constant"
         self.power_chunk = 16
+        # Davidson (gd, jd): the fused GD cycle unless gd_fused is False,
+        # corrections per step (-eps_gd_blocksize / -eps_jd_blocksize), the
+        # corrections a restart keeps, JD's fix and inner GMRES steps
+        self.gd_fused = True
+        self.davidson_bs = 1
+        self.davidson_plusk = 1
+        self.jd_fix = 0.01
+        self.jd_inner_maxit = 24
+        # LOBPCG: iterations of the fused chunk between host reads (its
+        # block size, ``lobpcg_blocksize``, defaults to max(nev, 4) at solve)
+        self.lobpcg_chunk = 8
+        # CISS: point solves ("auto" | "batched" | "factorized"), adaptive
+        # per-point tolerances, extraction ("rr" | "hankel"), task mesh
+        self.ciss_solver = "auto"
+        self.ciss_adaptive = True
+        self.ciss_extraction = "rr"
+        self.ciss_task_mesh = None
         # solve state
         self.nconv = 0
         self.its = 0
+        # search-space expansions (basis-growth steps: the fused GD cycle
+        # runs ncv - j0 of them per ``its``, the host loop about one) and
+        # operator applications of the Davidson host loop
+        self.expansions = 0
+        self.matvecs = 0
         self.reason = EPSConvergedReason.ITERATING
         self.eigenvalues: np.ndarray = np.array([])
         self.errests: np.ndarray = np.array([])
@@ -222,6 +245,11 @@ class EPS:
             self.block_size = int(o["block_size"])
         if "cheb_degree" in o:  # Chebyshev-amplified smallest-end path
             self.cheb_degree = int(o["cheb_degree"])
+        if "gd_blocksize" in o or "jd_blocksize" in o:
+            self.davidson_bs = int(o.get("gd_blocksize",
+                                         o.get("jd_blocksize", 1)))
+        if "jd_fix" in o:
+            self.jd_fix = float(o["jd_fix"])
         # monitors (reference -eps_monitor / _all / _conv, epsmon.c)
         if o.get("monitor", False) is True:
             self.monitor.add(monitor_first)
@@ -519,6 +547,8 @@ class EPS:
             self.setup()
         self.its = 0
         self.nconv = 0
+        self.expansions = 0
+        self.matvecs = 0
         self.reason = EPSConvergedReason.ITERATING
         cls().solve(self)
         if self.reason == EPSConvergedReason.ITERATING:

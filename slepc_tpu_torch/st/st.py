@@ -294,7 +294,9 @@ class STPrecond(ST):
     def preconditioner(self, sigma: Optional[complex] = None):
         """Approximate inverse of (A - sigma B) as a closure."""
         sig = self.sigma if sigma is None else sigma
-        if self._has_explicit_matrix():
+        if sig != 0 and self._has_explicit_matrix():
+            # the diagonal of the explicit A - sigma B (at sigma 0, A's own:
+            # no host round trip)
             M = _jacobi_precond(self._shifted_explicit(sig))
         else:
             M = _jacobi_precond(self._shifted_operator(sig))

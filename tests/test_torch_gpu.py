@@ -1079,3 +1079,94 @@ def test_complex_paths_of_11a_iii_raise_on_the_card(cuda, what):
     with pytest.raises(NotImplementedError, match="item 11a-iii"):
         eps.solve()
     assert stt.launch_counts() == before
+
+
+# ---- the preconditioned and contour-integral solvers (items 11b, 11c) ----
+
+def _gd_case(dev, n=4096):
+    """tests/test_round3.py's variable diagonal as a DIA operator."""
+    d = np.linspace(1.0, 50.0, n)
+    lo = np.r_[0.0, -np.ones(n - 1)]
+    hi = np.r_[-np.ones(n - 1), 0.0]
+    return stt.DIAOperator((-1, 0, 1), np.stack([lo, d, hi]), device=dev)
+
+
+@pytest.mark.parametrize("solver,keys", [
+    ("gd", ("dia_spmv_f64", "panel_dots_f64", "panel_update_f64",
+            "panel_update_dots_f64", "rotate_f64")),
+    ("gd_host", ("dia_spmm_f64", "panel_dots_f64", "rotate_f64")),
+    ("jd", ("dia_spmv_f64", "dia_spmm_f64", "panel_dots_f64")),
+    ("lobpcg", ("dia_spmm_f64",)),
+    ("lobpcg_precond", ("dia_spmm_f64",)),
+    ("rqcg", ("dia_spmv_f64", "dia_spmm_f64"))])
+def test_preconditioned_solvers_on_the_card(cuda, solver, keys):
+    """Each solver at its CPU tests' size on a DIA operator: the same values
+    as on the CPU, and its kernels launched (the GD cycle: K2, K3, K4; the
+    block paths: K5)."""
+    name = solver.split("_")[0]
+
+    tol = 1e-6 if name == "rqcg" else 1e-8
+
+    def solve(A):
+        eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=3,
+                      ncv=20, tol=tol, max_it=6000, solver=name,
+                      options=stt.Options())
+        if solver in ("gd", "gd_host", "jd", "lobpcg_precond"):
+            eps.set_st(stt.STPrecond([A]))
+        if solver == "gd_host":
+            eps.gd_fused = False
+        if solver == "jd":
+            eps.set_target(0.0)
+        eps.solve()
+        return eps
+
+    cpu, card, d = _on_both(_gd_case, solve)
+    assert card.nconv == cpu.nconv >= 3
+    np.testing.assert_allclose(np.sort(card.eigenvalues[:3]),
+                               np.sort(cpu.eigenvalues[:3]), rtol=0,
+                               atol=1e-9)
+    for key in keys:
+        assert d[key] > 0, (key, d)
+    assert max(card.compute_error(i) for i in range(3)) < 10 * tol
+
+
+def test_gd_cycle_on_csr_on_the_card(cuda):
+    """The GD cycle on a CSR matrix that is not DIA-shaped: K6."""
+    import scipy.sparse as sp
+
+    M = (stt.laplacian_2d(24, 23, device="cpu").to_scipy()
+         + sp.random(552, 552, density=0.02, random_state=3)).tocsr()
+    M = (0.5 * (M + M.T)).tocsr()
+
+    def solve(A):
+        eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=3,
+                      tol=1e-8, max_it=3000, solver="gd",
+                      options=stt.Options())
+        eps.solve()
+        return eps
+
+    cpu, card, d = _on_both(lambda dev: stt.from_scipy(M, device=dev), solve)
+    assert card.nconv == cpu.nconv >= 3
+    np.testing.assert_allclose(card.eigenvalues[:3], cpu.eigenvalues[:3],
+                               rtol=0, atol=1e-9)
+    assert d["csr_spmv_f64"] > 0 and d["rotate_f64"] > 0
+
+
+def test_ciss_batched_on_the_card(cuda):
+    """CISS with ``auto`` on a CUDA DIA operator: the batched solves (the
+    real operator on the complex blocks by parts: K5)."""
+    n = 200
+    exact = stt.laplacian_1d_eigs(n)
+    want = exact[(exact > 0.5) & (exact < 0.8)]
+    A = stt.laplacian_1d(n, device=cuda)
+    eps = stt.EPS(A, problem_type="hep", solver="ciss", tol=1e-8,
+                  options=stt.Options())
+    eps.set_rg(stt.RGEllipse(center=0.65, radius=0.15, vscale=0.4))
+    before = stt.launch_counts()
+    eps.solve()
+    after = stt.launch_counts()
+    assert eps.ciss_inner_iters > 0  # auto picked the batched solves
+    assert after["dia_spmm_f64"] > before["dia_spmm_f64"]
+    assert eps.nconv == len(want)
+    np.testing.assert_allclose(np.sort(eps.eigenvalues.real), want,
+                               rtol=0, atol=1e-8)

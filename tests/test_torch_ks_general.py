@@ -209,12 +209,26 @@ def _complex_hermitian_op():
     return 0.5 * (Ad + Ad.conj().T)
 
 
+def _laplacian_20():
+    """The real cases' numpy matrix: laplacian_1d(20), dense."""
+    return jst.laplacian_1d(20).to_scipy().toarray()
+
+
+def _ciss_region(eps):
+    """An ellipse around five of laplacian_1d(20)'s values (0.53 .. 1.59),
+    each package's own RGEllipse."""
+    pkg = tst if isinstance(eps, tst.EPS) else jst
+    eps.set_rg(pkg.RGEllipse(center=1.0, radius=0.6))
+
+
 # each case names a setting.  The real arms with it run since the
 # non-Hermitian slice (tests/test_torch_nhep.py) and its complex arms since
 # item 11a-ii: each complex case (what=None) now solves its setting on a
 # complex operator and is held against the reference (the same its and
-# nconv, eigenvalues to 1e-9).  The others hold an arm that still raises:
-# GHIEP, BSE and the two-sided variant (11d), and the solvers of 11b / 11c
+# nconv, eigenvalues to 1e-9).  The solvers of items 11b / 11c (gd, ciss,
+# rqcg) solve laplacian_1d(20) and are held the same way since they were
+# ported.  The others hold an arm that still raises: GHIEP, BSE and the
+# two-sided variant (11d)
 @pytest.mark.parametrize("make,kw,setup,what", [
     (_complex_op, dict(problem_type="nhep"), None, None),
     (None, dict(problem_type="ghiep"), None, "problem_type='ghiep'"),
@@ -230,9 +244,11 @@ def _complex_hermitian_op():
     (_complex_hermitian_op, dict(problem_type="nhep", solver="lanczos"),
      None, None),
     (None, dict(problem_type="bse"), None, "problem_type='bse'"),
-    (None, dict(problem_type="hep", solver="gd"), None, "solver 'gd'"),
-    (None, dict(problem_type="hep", solver="ciss"), None, "solver 'ciss'"),
-    (None, dict(problem_type="hep", solver="rqcg"), None, "solver 'rqcg'"),
+    (_laplacian_20, dict(problem_type="hep", solver="gd"), None, None),
+    (_laplacian_20, dict(problem_type="hep", solver="ciss"), _ciss_region,
+     None),
+    (_laplacian_20, dict(problem_type="hep", solver="rqcg",
+                         which="smallest_real", max_it=3000), None, None),
 ], ids=["kw0-None-problem_type='nhep'", "kw1-None-problem_type='ghiep'",
         "kw2-<lambda>-harmonic extraction", "kw3-<lambda>-two-sided",
         "kw4-<lambda>-balancing", "kw5-<lambda>-arbitrary selection",
@@ -247,14 +263,18 @@ def test_unported_arms_raise_naming_the_roadmap(make, kw, setup, what):
         for pkg in (jst, tst):
             A = pkg.DenseOperator(Ad) if pkg is jst \
                 else pkg.DenseOperator(Ad, device="cpu")
-            eps = pkg.EPS(A, nev=3, ncv=12, max_it=500,
-                          options=pkg.Options.from_cli(cli), **kw)
+            eps = pkg.EPS(A, options=pkg.Options.from_cli(cli),
+                          **{"nev": 3, "ncv": 12, "max_it": 500, **kw})
             if setup is not None:
                 setup(eps)
             eps.solve()
             out.append(eps)
         je, te = out
-        assert te.nconv == je.nconv and te.nconv >= 3 and te.its == je.its
+        assert te.nconv == je.nconv and te.nconv >= 3
+        # RQCG's nonlinear CG amplifies rounding: its step counts differ by
+        # a few percent (tests/test_torch_lobpcg.py)
+        assert te.its == je.its or (kw.get("solver") == "rqcg"
+                                    and abs(te.its - je.its) <= 0.1 * je.its)
         np.testing.assert_allclose(te.eigenvalues[:3], je.eigenvalues[:3],
                                    rtol=0, atol=1e-9)
         w = np.linalg.eigvals(Ad)

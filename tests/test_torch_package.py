@@ -229,8 +229,9 @@ def test_eps_driven_by_setters_matches_the_reference(capsys):
 def test_unknown_solver_raises_eps_error_listing_the_registered():
     A = tst.laplacian_1d(20, device="cpu")
     with pytest.raises(tst.EPSError, match=r"unknown EPS solver 'bogus'; "
-                       r"available: \['arnoldi', 'krylovschur', 'lanczos', "
-                       r"'lapack', 'power', 'subspace'\]"):
+                       r"available: \['arnoldi', 'ciss', 'gd', 'jd', "
+                       r"'krylovschur', 'lanczos', 'lapack', 'lobpcg', "
+                       r"'power', 'rqcg', 'subspace'\]"):
         tst.EPS(A, problem_type="hep").set_type("bogus").solve()
     from slepc_tpu.eps.base import EPSError as JEPSError
 
@@ -412,8 +413,12 @@ def test_the_non_hermitian_slice_is_exported_and_registered():
     from slepc_tpu_torch.st import STFilter, estimate_spectral_bounds  # noqa
     from slepc_tpu_torch.ds import DSGNHEP, DSNHEP, schur  # noqa
 
-    assert sorted(tst.EPS._solvers) == ["arnoldi", "krylovschur", "lanczos",
-                                        "lapack", "power", "subspace"]
+    # the preconditioned and contour solvers (items 11b, 11c) since they
+    # were ported
+    assert sorted(tst.EPS._solvers) == ["arnoldi", "ciss", "gd", "jd",
+                                        "krylovschur", "lanczos", "lapack",
+                                        "lobpcg", "power", "rqcg",
+                                        "subspace"]
     assert tst.DS.create("nhep").__class__ is tst.DSNHEP
     assert tst.DS.create("gnhep").__class__ is tst.DSGNHEP
     # -st_type filter builds the filter (it raised before the slice)
@@ -449,7 +454,26 @@ def test_complex_operators_raise_naming_11a_ii(solver):
 
 def test_unported_solvers_name_their_items():
     A = tst.laplacian_1d(20, device="cpu")
-    for name, item in (("gd", "11b"), ("jd", "11b"), ("lobpcg", "11b"),
-                       ("ciss", "11c"), ("bse", "11d"), ("lyapii", "13")):
+    for name, item in (("bse", "11d"), ("lyapii", "13")):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             tst.EPS(A, problem_type="hep", solver=name).solve()
+
+
+def test_the_preconditioned_and_contour_slice_is_in_the_import_checks():
+    """The modules of items 11b / 11c are among those the JAX-free import
+    check (test_import_leaves_jax_out) walks and whose sources
+    test_sources_do_not_import_jax reads."""
+    import pkgutil
+
+    walked = {info.name for info in pkgutil.walk_packages(
+        tst.__path__, "slepc_tpu_torch.")}
+    new = {"slepc_tpu_torch.parallel", "slepc_tpu_torch.parallel.tasks",
+           "slepc_tpu_torch.sys.contour", "slepc_tpu_torch.eps.davidson",
+           "slepc_tpu_torch.eps.gd_jit", "slepc_tpu_torch.eps.lobpcg",
+           "slepc_tpu_torch.eps.rqcg", "slepc_tpu_torch.eps.ciss"}
+    assert new <= walked, new - walked
+    sources = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "slepc_tpu_torch").rglob("*.py")}
+    for mod in new:
+        path = mod.replace(".", "/")
+        assert f"{path}.py" in sources or f"{path}/__init__.py" in sources
