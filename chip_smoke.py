@@ -14,8 +14,11 @@ Phases (each failing check raises; the script then exits non-zero):
      Beside every kernel: its bound (bytes / 3.35 TB/s or operations / peak,
      whichever is larger), its bytes at K7's measured rate, and one PyTorch
      library call computing the same function (cuSPARSE CSR product for
-     the SpMV kernels, the cuBLAS `@` that is the plain version of K3/K4,
-     einsum for K7).  The CSR
+     the SpMV kernels; for K3 / K4, torch.addmm(W, C.mT, V, alpha=-1) for
+     the update, the fastest of a few one-call forms of the dots (each
+     form's time printed), the update's call plus the dots' for
+     update+dots, which no one call computes, and Q.mT @ V for the
+     rotation; einsum for K7).  The CSR
      kernel K6 runs, beside its plain version and cuSPARSE, on the flagship
      built as a scipy CSR matrix and reordered with reverse Cuthill-McKee
      (an irregular pattern), on that matrix plus seeded symmetric random
@@ -159,17 +162,20 @@ test), a sweep of K6's row-block budget (natural, RCM, RCM + random and
 hub order, f64 and f32, beside the DIA kernel on the same matrix) and of
 K5's tile (b = 1, 4, 8), the blocked f32 study (phase 6's f32 blocked solve
 at tol 1e-5 with each of K5, K3, K4 in turn swapped for its plain
-version), and a torch.profiler split by kernel of one more phase-4 solve
-and one more phase-5 solve; after phase 13, a torch.profiler split and a
+version), a torch.profiler split by kernel of one more phase-4 solve
+and one more phase-5 solve, K4c's ring-depth sweep at (48, 40) and a
+torch.profiler split of one more phase-12b c128 cycle (K3c's and K4c's
+shares of its device time); after phase 13, a torch.profiler split and a
 cProfile split (host seconds by function) of one more solve of each of
 phase 13a's two GD paths.  Its launches are not counted.
 
 Phase 1 holds the complex instantiations too: K2c / K1c on the
 gauge-transformed flagship (timed; the library call is cuSPARSE on the
 same matrix as a complex torch.sparse_csr_tensor) and on the 2^20-row
-complex deployment, K3c at K = 49 and K4c at (48, 40) (their cuBLAS `@`
-is the library call; K4c's bound counts its operations too: 8 K P n
-flops at 20 flop/B on c128), and K6c on the gauge-transformed RCM
+complex deployment, K3c at K = 49 (in complex128 also at panel widths 2
+and 4, with update+dots as its route and, where that is the fused kernel,
+as the two sweeps) and K4c at (48, 40), in place too (K4c's bound counts
+its operations too: 8 K P n flops), and K6c on the gauge-transformed RCM
 flagship CSR (nnz 72,164,500; the complex torch.sparse_csr_tensor
 product beside it, or the error torch raises).
 
@@ -191,6 +197,7 @@ are the kernel table as JSON, the nvidia-smi line, and
 """
 
 import argparse
+import ctypes
 import json
 import logging
 import re
@@ -207,7 +214,8 @@ import slepc_tpu_torch as stt
 from slepc_tpu_torch.ops import _build
 from slepc_tpu_torch.ops.csr import (CSR_BUDGET, csr_plan, csr_spmv,
                                      csr_spmv_ref, row_of_entry)
-from slepc_tpu_torch.ops.bv import (panel_dots, panel_dots_ref, panel_update,
+from slepc_tpu_torch.ops.bv import (fused_update_dots, panel_dots,
+                                    panel_dots_ref, panel_update,
                                     panel_update_dots, panel_update_dots_ref,
                                     panel_update_ref, plan_panel)
 from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
@@ -256,9 +264,10 @@ KERNELS = {
     "csr_spmv_c64": ("K6c", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
     "csr_spmv_c128": ("K6c", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
 }
-# Each kernel's time on the tree before the redesign of K5 and K6, same
-# script and shapes (PERF.md's kernel table, the earlier reading: NVIDIA
-# H100 80GB HBM3, 700.00 W), ms
+# Each kernel's time before its last redesign, same script and shapes
+# (PERF.md's kernel table: the real kernels as read before the redesign of
+# K5 and K6, K3c / K4c as read before theirs; NVIDIA H100 80GB HBM3, 700.00
+# W), ms
 BEFORE_MS = {
     "dia_spmv_f32": 0.1786, "dia_spmv_f64": 0.2782,
     "dia_spmm_f32": 0.3912, "dia_spmm_f64": 0.5675,
@@ -268,12 +277,16 @@ BEFORE_MS = {
     "rotate_f32": 1.6316, "rotate_f64": 2.8121,
     "csr_spmv_f32": 0.7137, "csr_spmv_f64": 0.6377,
     "stream_sum_f32": 0.1428, "stream_sum_f64": 0.2646,
+    "panel_dots_c64": 1.5188, "panel_dots_c128": 3.1399,
+    "panel_update_c64": 1.6131, "panel_update_c128": 3.2063,
+    "panel_update_dots_c64": 1.7635, "panel_update_dots_c128": 3.3712,
+    "rotate_c64": 6.4573, "rotate_c128": 14.2526,
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM;
 # 67 TFLOP/s float32 outside the tensor cores (TF32 is not float32) and 67
-# TFLOP/s float64 on them (mma.sync m8n8k4, as K4 f64 runs; 34 outside).  A
+# TFLOP/s float64 on them (mma.sync, as K4 f64 and K4c c128 run; 34
+# outside).  A
 # complex kernel's real operations run at its real type's rate.
-CUBLAS = "the plain version's `@` (cuBLAS), timed once"
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
               torch.complex64: 67e12, torch.complex128: 67e12}
@@ -308,8 +321,6 @@ def record(table, name, err_abs, err_rel, tol, ms, plain_ms, nbytes, flops,
     and every output written once; flops: the operations on them)."""
     check(np.isfinite(err_rel) and err_rel <= tol,
           f"{name}: relative error {err_rel:.3e} > {tol:.0e}")
-    if library == CUBLAS:  # K3 / K4: the plain version is the library call
-        library_ms = plain_ms
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     table[name] = {"max_abs_err": err_abs, "rel_err": err_rel, "ms": ms,
@@ -363,6 +374,59 @@ def rotate_errors(Q, V):
     """(max abs, max scaled by sum |products|) error of K4."""
     err = (rotate(Q, V) - rotate_ref(Q, V)).abs()
     return float(err.max()), float((err / (Q.abs().T @ V.abs())).max())
+
+
+def dots_forms(V, W):
+    """One-call library forms of K3's dots D = V^H W (used nowhere in the
+    port): a trailing .conj() or .mH is a view, not a kernel."""
+    if not V.dtype.is_complex:
+        forms = {"V @ W.mT": lambda: V @ W.mT}
+        if W.shape[0] == 1:
+            forms["torch.mv(V, W[0])"] = lambda: torch.mv(V, W[0])
+        return forms
+    forms = {"V.conj() @ W.mT": lambda: V.conj() @ W.mT,
+             "(V @ W.mH).conj()": lambda: (V @ W.mH).conj(),
+             "(W.conj() @ V.mT).mH": lambda: (W.conj() @ V.mT).mH}
+    if W.shape[0] == 1:
+        forms["torch.mv(V, W[0].conj()).conj()"] = \
+            lambda: torch.mv(V, W[0].conj()).conj()
+    return forms
+
+
+def library_panel(V, W, C, tol):
+    """The library's time for each of K3's three functions on these inputs
+    (used nowhere in the port): {sweep: (ms, what)}.  The update is one
+    call, torch.addmm(W, C.mT, V, alpha=-1); the dots, the fastest of the
+    one-call forms of dots_forms, each held against the plain version first
+    (every form's time is printed); update+dots has no single call: the
+    update's call plus the fastest dots call, two calls summed."""
+    D_ref = panel_dots_ref(V, W)
+    scale = V.abs() @ W.abs().T
+    times = {}
+    for what, fn in dots_forms(V, W).items():
+        got = fn().reshape(D_ref.shape)
+        err = float(((got - D_ref).abs() / scale).max())
+        check(err <= tol, f"library dots form {what}: error {err:.3e}")
+        times[what] = cuda_ms(fn)
+    best = min(times, key=times.get)
+    U_ref = panel_update_ref(V, C, W)
+    U = torch.addmm(W, C.mT, V, alpha=-1)
+    err = float(((U - U_ref).abs() / (W.abs() + C.abs().T @ V.abs())).max())
+    check(err <= tol, f"library update torch.addmm: error {err:.3e}")
+    upd = cuda_ms(lambda: torch.addmm(W, C.mT, V, alpha=-1))
+    print("  library dots forms (ms): " + ", ".join(
+        f"{w} {t:.4f}" for w, t in times.items()), flush=True)
+    return {"panel_dots": (times[best], best),
+            "panel_update": (upd, "torch.addmm(W, C.mT, V, alpha=-1)"),
+            "panel_update_dots": (
+                upd + times[best],
+                f"torch.addmm + {best}: two calls, their times summed")}
+
+
+def library_rotate(Q, V):
+    """The library's time for K4's function, one call Q.mT @ V (used
+    nowhere in the port): (ms, what)."""
+    return cuda_ms(lambda: Q.mT @ V), "Q.mT @ V"
 
 
 def random_q(K, P, dev, dtype, seed=2):
@@ -450,18 +514,20 @@ def phase1(dev, table):
         C = torch.randn((K, b), generator=gen, dtype=dt, device=dev)
         elt = V.element_size()
         errs = panel_errors(V, W, C)
+        lib = library_panel(V, W, C, tol)
         record(table, f"panel_dots_{t}", *errs["panel_dots"], tol,
                cuda_ms(lambda: panel_dots(V, W)),
                cuda_ms(lambda: panel_dots_ref(V, W)),
-               (K + b) * n * elt, 2 * K * b * n, dt, library=CUBLAS)
+               (K + b) * n * elt, 2 * K * b * n, dt, *lib["panel_dots"])
         record(table, f"panel_update_{t}", *errs["panel_update"], tol,
                cuda_ms(lambda: panel_update(V, C, W)),
                cuda_ms(lambda: panel_update_ref(V, C, W)),
-               (K + 2 * b) * n * elt, 2 * K * b * n, dt, library=CUBLAS)
+               (K + 2 * b) * n * elt, 2 * K * b * n, dt, *lib["panel_update"])
         record(table, f"panel_update_dots_{t}", *errs["panel_update_dots"],
                tol, cuda_ms(lambda: panel_update_dots(V, C, W)),
                cuda_ms(lambda: panel_update_dots_ref(V, C, W)),
-               (K + 2 * b) * n * elt, 4 * K * b * n, dt, library=CUBLAS)
+               (K + 2 * b) * n * elt, 4 * K * b * n, dt,
+               *lib["panel_update_dots"])
 
         Kr, P = 48, 40
         Q = random_q(Kr, P, dev, dt)
@@ -470,7 +536,7 @@ def phase1(dev, table):
                1e-14 if dt == torch.float64 else 1e-5,
                cuda_ms(lambda: rotate(Q, Vr)),
                cuda_ms(lambda: rotate_ref(Q, Vr)),
-               (Kr + P) * n * elt, 2 * Kr * P * n, dt, library=CUBLAS)
+               (Kr + P) * n * elt, 2 * Kr * P * n, dt, *library_rotate(Q, Vr))
         # in place (the restart's call: out = V[:P], no copy-back) on a copy
         # of the basis; bitwise the out-of-place result
         Vw = Vr.clone()
@@ -1848,10 +1914,12 @@ def blocked_f32_study(dev, max_it=1000):
               f", last {np.array2string(E[-1], precision=2)}", flush=True)
 
 
-def profile_solve(where, solve, plain_wall=None):
+def profile_solve(where, solve, plain_wall=None, shares=None):
     """torch.profiler over ``solve()``, which returns the wall time.
     ``plain_wall``: the same solve's wall without the profiler (its host
-    overhead stretches a launch-bound solve; kernel times stay)."""
+    overhead stretches a launch-bound solve; kernel times stay).
+    ``shares``: {label: name fragments}, each label's share of the device
+    time (the kernels whose names hold one of its fragments)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1881,6 +1949,11 @@ def profile_solve(where, solve, plain_wall=None):
         print(f"  {ms:10.1f} ms {e.count:7d} calls {ms / e.count:8.4f} ms/call "
               f"{100 * ms / (wall * 1e3):5.1f}% {e.device_type.name:<5} "
               f"{e.key[:90]}", flush=True)
+    for label, parts in (shares or {}).items():
+        ms = sum(e.self_device_time_total for e in kernels
+                 if any(p in e.key for p in parts)) / 1e3
+        print(f"  {label}: {ms:.1f} ms, {100 * ms / max(busy, 1e-9):.1f}% of "
+              f"the device time", flush=True)
 
 
 # ---- the complex slice (item 11a-ii) -------------------------------------
@@ -1991,28 +2064,39 @@ def phase1_complex(dev, table, A_rcm):
         C = torch.randn((K, b), generator=gen, dtype=dt, device=dev)
         elt = V.element_size()
         errs = panel_errors(V, W, C)
+        lib = library_panel(V, W, C, tol)
         record(table, f"panel_dots_{t}", *errs["panel_dots"], tol,
                cuda_ms(lambda: panel_dots(V, W)),
                cuda_ms(lambda: panel_dots_ref(V, W)),
-               (K + b) * n * elt, 8 * K * b * n, dt, library=CUBLAS)
+               (K + b) * n * elt, 8 * K * b * n, dt, *lib["panel_dots"])
         record(table, f"panel_update_{t}", *errs["panel_update"], tol,
                cuda_ms(lambda: panel_update(V, C, W)),
                cuda_ms(lambda: panel_update_ref(V, C, W)),
-               (K + 2 * b) * n * elt, 8 * K * b * n, dt, library=CUBLAS)
+               (K + 2 * b) * n * elt, 8 * K * b * n, dt, *lib["panel_update"])
         record(table, f"panel_update_dots_{t}", *errs["panel_update_dots"],
                tol, cuda_ms(lambda: panel_update_dots(V, C, W)),
                cuda_ms(lambda: panel_update_dots_ref(V, C, W)),
-               (K + 2 * b) * n * elt, 16 * K * b * n, dt, library=CUBLAS)
+               (K + 2 * b) * n * elt, 16 * K * b * n, dt,
+               *lib["panel_update_dots"])
         Q = random_q(Kr, P, dev, dt)
         Vr = V[:Kr]
         record(table, f"rotate_{t}", *rotate_errors(Q, Vr),
                1e-14 if dt == torch.complex128 else 1e-5,
                cuda_ms(lambda: rotate(Q, Vr)),
                cuda_ms(lambda: rotate_ref(Q, Vr)),
-               (Kr + P) * n * elt, 8 * Kr * P * n, dt, library=CUBLAS)
+               (Kr + P) * n * elt, 8 * Kr * P * n, dt, *library_rotate(Q, Vr))
+        # in place (the restart's call: out = V[:P]) on a copy of the basis,
+        # bitwise the out-of-place result, and the same bits a second time
         Vw = Vr.clone()
         same = torch.equal(rotate(Q, Vw, out=Vw[:P]), rotate(Q, Vr))
         check(same, f"rotate_{t} in place differs from out of place")
+        check(torch.equal(rotate(Q, Vr), rotate(Q, Vr)),
+              f"rotate_{t}: two calls differ")
+        ms_in = cuda_ms(lambda: rotate(Q, Vw, out=Vw[:P]))
+        print(f"  rotate_{t} in place ({Kr}, {P}): {ms_in:.4f} ms "
+              f"({(Kr + P) * n * elt / ms_in / 1e6:.1f} GB/s)", flush=True)
+        if dt == torch.complex128:
+            wide_panels(V, gen, tol)
         del V, W, C, Q, Vr, Vw
         torch.cuda.empty_cache()
 
@@ -2043,6 +2127,90 @@ def phase1_complex(dev, table, A_rcm):
         record(table, name, err, rel, tol, ms, plain, nbytes, 8 * op.nnz, dt,
                lib, what)
         del op, x, rows, y, y_ref, S
+        torch.cuda.empty_cache()
+
+
+def wide_panels(V, gen, tol):
+    """K3c in complex128 at panel widths 2 and 4 on the first 49 rows of V:
+    each sweep, checked against its plain version, beside its bound and the
+    library's calls, and update+dots as the route fused_update_dots gives
+    it, beside the two sweeps where that route is the fused kernel."""
+    n, dt = V.shape[1], V.dtype
+    for K, b in ((49, 2), (49, 4)):
+        Vk = V[:K]
+        W = torch.randn((b, n), generator=gen, dtype=dt, device=V.device)
+        C = torch.randn((K, b), generator=gen, dtype=dt, device=V.device)
+        errs = panel_errors(Vk, W, C)
+        worst = max(e[1] for e in errs.values())
+        check(worst <= tol, f"K3c c128 K={K} b={b}: error {worst:.3e}")
+        lib = library_panel(Vk, W, C, tol)
+        fused = fused_update_dots(K, b, dt)
+        ms = {"panel_dots": cuda_ms(lambda: panel_dots(Vk, W)),
+              "panel_update": cuda_ms(lambda: panel_update(Vk, C, W)),
+              "panel_update_dots": cuda_ms(lambda: panel_update_dots(Vk, C, W))}
+        elt = V.element_size()
+        nbytes = {"panel_dots": (K + b) * n * elt,
+                  "panel_update": (K + 2 * b) * n * elt,
+                  "panel_update_dots": (K + 2 * b) * n * elt}
+        for name, t in ms.items():
+            print(f"  {name}_c128 K={K} b={b}: kernel {t:.4f} ms  bound "
+                  f"{nbytes[name] / PEAK_BYTES * 1e3:.4f} ms  library "
+                  f"{lib[name][0]:.4f} ms ({lib[name][1]})"
+                  + ("" if name != "panel_update_dots" else
+                     f"  [{'fused' if fused else 'two sweeps'}]"), flush=True)
+        if fused:  # the other route: the update sweep, then the dots sweep
+            two = cuda_ms(lambda: panel_dots(Vk, panel_update(Vk, C, W)))
+            print(f"  update+dots_c128 K={K} b={b} as two sweeps: {two:.4f} ms"
+                  f" (fused {ms['panel_update_dots']:.4f})", flush=True)
+        del W, C
+
+
+def ring_sweep(dev):
+    """K4c at the restart shape (48, 40), n = 10.35M, at every ring depth
+    that fits, each with the blocks an SM the compiled kernel holds at it
+    and the grid the planner gives that occupancy: the study behind
+    plan_rotate's choice for the complex types (the most blocks an SM, the
+    deepest ring of those)."""
+    lib = _build.load()
+    n, K, P = FLAGSHIP[0] * FLAGSHIP[1] * FLAGSHIP[2], 48, 40
+    gen = torch.Generator(device=dev).manual_seed(14)
+    print("profile: K4c's ring depth at (48, 40), n = 10,350,000", flush=True)
+    for dt in (torch.complex128, torch.complex64):
+        code = _build.DTYPE_CODE[str(dt)]
+        V = torch.randn((K, n), generator=gen, dtype=dt, device=dev)
+        Q = random_q(K, P, dev, dt)
+        out = torch.empty((P, n), dtype=dt, device=dev)
+        want = rotate(Q, V)
+
+        def blocks(stages):
+            got = ctypes.c_int(0)
+            _build.check(lib.slepc_rotate_occupancy(
+                code, 1, K, P, stages, ctypes.byref(got)), "occupancy")
+            return got.value
+
+        plan = plan_rotate(K, P, n, dt, blocks_per_sm=lambda vec, k, p, s:
+                           blocks(s))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for stages in (2, 3, 4):
+            if lib.slepc_rotate_smem(code, K, P, stages) > 232_448:
+                continue
+            per_sm = blocks(stages)
+            grid = min(-(-n // plan["tile"]), sms * per_sm)
+
+            def launch():
+                _build.check(lib.slepc_rotate(
+                    code, 1, Q.data_ptr(), K, P, V.data_ptr(), n,
+                    out.data_ptr(), n, n, stages, grid,
+                    _build.stream_handle(V)), "rotate")
+
+            launch()
+            check(torch.equal(out, want), f"K4c {TAG[dt]} ring {stages}: "
+                  f"differs from the planned launch")
+            print(f"  rotate_{TAG[dt]} ring depth {stages}: {per_sm} blocks an "
+                  f"SM, grid {grid}: {cuda_ms(launch):.4f} ms"
+                  + (" (the planner's)" if stages == plan["stages"] else ""),
+                  flush=True)
+        del V, Q, out, want
         torch.cuda.empty_cache()
 
 
@@ -2128,7 +2296,8 @@ def phase12b(dev, wall_plain):
     """Complex Hermitian at full width (the gauge-transformed flagship,
     phase 9's plain cycle in c128) and certified on the gauge-transformed
     laplacian_2d(95, 97) as DIA and as RCM-ordered CSR, c128 and c64.
-    Returns the launch counts of its solves (read from zero)."""
+    Returns the launch counts of its solves (read from zero) and the wall of
+    the full-width cycle."""
     ncv, restarts = 48, 3
     lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
     G = gauge_dia(lap, torch.complex128)
@@ -2183,6 +2352,7 @@ def phase12b(dev, wall_plain):
     check(orth <= 1e-12, f"phase 12b: basis not orthonormal: {orth:.3e}")
     del V, B, G
     torch.cuda.empty_cache()
+    wall_cycle = wall
 
     print("phase 12b: the gauge-transformed laplacian_2d(95, 97), nev 6, "
           "ncv 28, smallest, as DIA (K2c / K1c) and as RCM-ordered complex "
@@ -2224,7 +2394,7 @@ def phase12b(dev, wall_plain):
                       f"error {np.max(err / exact):.3e}")
             check(all(v > 0 for v in fam.values()),
                   f"{where}: a kernel did not launch: {fam}")
-    return stt.launch_counts()
+    return stt.launch_counts(), wall_cycle
 
 
 def phase12c(dev):
@@ -2690,8 +2860,8 @@ def kernel_resources(log):
              ("panel_kernelIN5slepc7ComplexI([df])EELi(\\d)ELi(\\d)ELb([01])"
               "ELb([01])E", "K3c panel<complex {}, B={}, VW={}, update={}, "
               "dots={}>"),
-             ("rotate_cplx_kernelIN5slepc7ComplexI([df])EELb([01])E",
-              "K4c rotate<complex {}, vec={}>"),
+             ("rotate_c128_kernelILi(\\d)E", "K4c rotate_c128<MT={}>"),
+             ("rotate_c64_kernelILb([01])E", "K4c rotate_c64<vec={}>"),
              ("dia_spmv_kernelIN5slepc7ComplexI([df])EE", "K1c/K2c dia_spmv"
               "<complex {}>"),
              ("csr_spmv_kernelIN5slepc7ComplexI([df])EE",
@@ -2719,8 +2889,10 @@ def main():
                         help="after phase 11: a torch.profiler split of a "
                              "phase-10 solve, phase 7's tolerance study, the "
                              "K6 budget and K5 tile sweeps, the blocked f32 "
-                             "study and a torch.profiler split of a phase-9, "
-                             "a phase-7, a phase-4 and a phase-5 solve; after "
+                             "study, K4c's ring-depth sweep and a "
+                             "torch.profiler split of a phase-9, a phase-12b "
+                             "(c128), a phase-7, a phase-4 and a phase-5 "
+                             "solve; after "
                              "phase 13: torch.profiler and cProfile splits of "
                              "its two GD paths")
     args = parser.parse_args()
@@ -2796,8 +2968,9 @@ def main():
         check(small_nhep_path[k] > 0, f"phase 11: {k} did not launch")
     # phase 12: each part resets the counts after its kernel checks and
     # returns what its solves launched
-    complex_paths = (phase12a(dev, lam_f64, nhep_walls),
-                     phase12b(dev, wall_plain), phase12c(dev))
+    counts_12a = phase12a(dev, lam_f64, nhep_walls)
+    counts_12b, wall_12b = phase12b(dev, wall_plain)
+    complex_paths = (counts_12a, counts_12b, phase12c(dev))
     for part, counts_12 in zip("abc", complex_paths):
         print(f"  phase 12{part} launches: "
               f"{ {k: v for k, v in counts_12.items() if v} }", flush=True)
@@ -2826,7 +2999,14 @@ def main():
         A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
         profile_solve("phase 9", lambda: plain_solve(A, 48, 3)[1],
                       plain_wall=wall_plain)
+        G = gauge_dia(A, torch.complex128)
         del A
+        ring_sweep(dev)
+        profile_solve("phase 12b c128 cycle", lambda: plain_solve(G, 48, 3)[1],
+                      plain_wall=wall_12b, shares={
+                          "K3c": ("panel_kernel", "reduce_partials"),
+                          "K4c": ("rotate_c128",)})
+        del G
         profile_solve("phase 7 GHEP", lambda: sinvert_solve(
             dev, "profiled phase 7 GHEP", generalized=True)[1],
             plain_wall=wall_sinv)

@@ -47,9 +47,9 @@
 // a fixed order: no atomics, so a run gives the same bits every time.
 // The panel width is a template parameter (1, 2, 4, 8; a width between two
 // of them runs the next one with its spare rows masked; update_dots is not
-// compiled at 8, where it spills: the wrapper runs two sweeps), and kRows is chosen
-// per width so that the running sums, the coefficients and the held values
-// fit the registers.  Shared memory does not grow with K beyond the G parts,
+// compiled at 8, where it spills: the wrapper runs two sweeps), and kRows is
+// chosen per element type and width so that the running sums, the
+// coefficients and the held values fit the registers.  Shared memory does not grow with K beyond the G parts,
 // and G <= kMaxGroups: a taller basis is swept in row chunks by the wrapper.
 //
 // K3c: the same kernels for complex64 / complex128 (slepc::Complex): the
@@ -60,7 +60,21 @@
 // 16 bytes an element: the same bytes per basis row as the real form of a
 // complex operator, which has twice the rows of half the width.  The
 // arithmetic (8 flops per c128 element of V) stays under the FP64 ridge.
-// No register tuning for the complex widths yet (kRows as the real ones).
+// Registers set kRows per element type: a thread's basis values are kRows
+// 16-byte packs whatever the type, but a running sum (and a coefficient) is
+// one register for f32, two for f64 and c64, four for c128, and the kernel
+// has 128 registers a thread (512-thread blocks).  c128 holds 7, 4, 4, 1
+// rows at widths 1, 2, 4, 8 (7 at width 1: the cycle's 49 basis rows fill
+// 7 row groups with no idle row, and the dots hold three blocks an SM where
+// 8 rows held two; the dots and the update then measured ahead of the
+// library's one call, with 8 rows behind it) and its update+dots keeps the
+// coefficients in shared memory at every width (the real plan, 8, 8, 4, 4
+// rows with coefficients in registers below width 4, spilled its
+// update+dots at widths 1, 2 and 4).  Its update+dots is not compiled from width 4 up (64
+// running sums of four registers): the wrapper runs the two sweeps there.
+// Two rows a thread at width 4 would fit it, but then K = 49 takes two row
+// chunks, each rereading and rewriting the panel.  c64 takes the real plan
+// but 2 rows at width 8, where its update spilled.
 #include "common.cuh"
 
 namespace {
@@ -69,8 +83,18 @@ constexpr int kMaxGroups = 16;  // row groups (warps down the rows) per block
 constexpr int kMaxThreads = 512;
 constexpr int kReduceThreads = 256;
 
-// Basis rows a thread holds, per compiled panel width.
-__host__ __device__ constexpr int rows_for(int B) { return B <= 2 ? 8 : 4; }
+// The dtype code of an element type.
+template <typename T> constexpr int kCode = slepc::kF32;
+template <> constexpr int kCode<double> = slepc::kF64;
+template <> constexpr int kCode<slepc::c64> = slepc::kC64;
+template <> constexpr int kCode<slepc::c128> = slepc::kC128;
+
+// Basis rows a thread holds, per dtype code and compiled panel width.
+__host__ __device__ constexpr int rows_for(int dtype, int B) {
+  return dtype == slepc::kC128 ? (B == 1 ? 7 : B <= 4 ? 4 : 1)
+         : dtype == slepc::kC64 && B == 8 ? 2
+         : B <= 2 ? 8 : 4;
+}
 
 template <typename T, int VW>
 struct alignas(sizeof(T) * VW) Pack {
@@ -101,16 +125,27 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, VW>& x) {
 // two blocks fit an SM, and without the early fetch no load would be in
 // flight while the block sits in its barriers.
 __host__ __device__ constexpr bool wide(int B) { return B >= 4; }
+// The update's coefficients in shared memory: the wide panels, and c128's
+// update+dots.
+__host__ __device__ constexpr bool coef_shared(int dtype, int B, bool dots) {
+  return wide(B) || (dtype == slepc::kC128 && dots);
+}
+// Whether the fused update + dots is compiled at width B.
+__host__ __device__ constexpr bool fused(int dtype, int B) {
+  return B < (dtype == slepc::kC128 ? 4 : 8);
+}
 
 // Elements of shared memory a block of G groups and CT column threads needs.
-__host__ __device__ inline size_t smem_elems(bool update, bool dots, int B,
-                                             int G, int cw, int VW) {
+__host__ __device__ inline size_t smem_elems(int dtype, bool update, bool dots,
+                                             int B, int G, int cw, int VW) {
+  const int R = rows_for(dtype, B);
   const size_t tc = static_cast<size_t>(32) * cw * VW;
   size_t need = 0;
   if (update) need = 2 * static_cast<size_t>(G) * B * tc;   // the G parts
   if (update && dots) need += 2 * static_cast<size_t>(B) * tc;  // summed panel
-  if (update && wide(B)) need += static_cast<size_t>(G) * rows_for(B) * B;
-  const size_t red = dots ? static_cast<size_t>(G) * cw * rows_for(B) * B : 0;
+  if (update && coef_shared(dtype, B, dots))
+    need += static_cast<size_t>(G) * R * B;
+  const size_t red = dots ? static_cast<size_t>(G) * cw * R * B : 0;
   return need > red ? need : red;
 }
 
@@ -119,8 +154,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 panel_kernel(const T* V, int64_t ldv, int K, const T* W, int64_t ldw, int b,
              const T* __restrict__ C, T* Wout, int64_t ldo,
              T* __restrict__ partial, int64_t n, int cw) {
-  constexpr int R = rows_for(B);
-  constexpr bool kCoefShared = kUpdate && wide(B);
+  constexpr int R = rows_for(kCode<T>, B);
+  constexpr bool kCoefShared = kUpdate && coef_shared(kCode<T>, B, kDots);
   constexpr bool kFetchAhead = kUpdate && wide(B);
   using P = Pack<T, VW>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -310,7 +345,8 @@ template <typename T, int B, int VW, bool kUpdate, bool kDots>
 cudaError_t run(const Args& a) {
   auto kernel = panel_kernel<T, B, VW, kUpdate, kDots>;
   const int threads = 32 * a.groups * a.cw;
-  const size_t smem = smem_elems(kUpdate, kDots, B, a.groups, a.cw, VW) * sizeof(T);
+  const size_t smem =
+      smem_elems(kCode<T>, kUpdate, kDots, B, a.groups, a.cw, VW) * sizeof(T);
   cudaError_t err = slepc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (a.blocks_per_sm != nullptr)
@@ -327,18 +363,21 @@ cudaError_t run(const Args& a) {
   return cudaGetLastError();
 }
 
-// The fused update + dots is not compiled at width 8: its 32 running sums
-// beside the held values spill, and an update sweep followed by a dots sweep
-// is the faster there (the wrapper runs those).
+// The fused update + dots is not compiled at width 8 (c128: from 4 up): its
+// running sums beside the held values spill, and an update sweep followed
+// by a dots sweep is the faster there (the wrapper runs those).
 template <typename T, int B, int VW>
 cudaError_t by_mode(int mode, const Args& a) {
   if (mode == 0) return run<T, B, VW, false, true>(a);
   if (mode == 1) return run<T, B, VW, true, false>(a);
-  if constexpr (B < 8) {
+  if constexpr (fused(kCode<T>, B)) {
     if (mode == 2) return run<T, B, VW, true, true>(a);
   }
   return cudaErrorInvalidValue;
 }
+
+// The compiled width that runs a panel of b rows.
+int width_of(int b) { return b == 1 ? 1 : b == 2 ? 2 : b <= 4 ? 4 : 8; }
 
 template <typename T, int VW>
 cudaError_t by_width(int mode, const Args& a) {
@@ -353,8 +392,9 @@ cudaError_t dispatch(int dtype, int mode, int vec, const Args& a) {
       a.groups > kMaxGroups || a.cw < 1 ||
       32 * a.groups * a.cw > kMaxThreads)
     return cudaErrorInvalidValue;
-  const int B = a.b == 1 ? 1 : a.b == 2 ? 2 : a.b <= 4 ? 4 : 8;
-  if (a.K > a.groups * rows_for(B)) return cudaErrorInvalidValue;
+  const int B = width_of(a.b);
+  if (a.K > a.groups * rows_for(dtype, B))
+    return cudaErrorInvalidValue;
   if (dtype == slepc::kF32)
     return vec ? by_width<float, 4>(mode, a) : by_width<float, 1>(mode, a);
   if (dtype == slepc::kF64)
@@ -371,19 +411,20 @@ cudaError_t dispatch(int dtype, int mode, int vec, const Args& a) {
 
 extern "C" int slepc_panel_max_b() { return 8; }
 extern "C" int slepc_panel_max_groups() { return kMaxGroups; }
-// Basis rows a thread holds at panel width b.
-extern "C" int slepc_panel_rows(int b) {
-  return rows_for(b == 1 ? 1 : b == 2 ? 2 : b <= 4 ? 4 : 8);
+// Basis rows a thread holds at panel width b for a dtype code (0 for an
+// unknown code).
+extern "C" int slepc_panel_rows(int dtype, int b) {
+  return slepc::elem_bytes(dtype) == 0 ? 0 : rows_for(dtype, width_of(b));
 }
 // Dynamic shared memory, in bytes, of one block of the sweep kernel.
 extern "C" int64_t slepc_panel_smem(int dtype, int mode, int b, int groups,
                                     int cw, int vec) {
-  const int B = b == 1 ? 1 : b == 2 ? 2 : b <= 4 ? 4 : 8;
+  const int B = width_of(b);
   const int elt = slepc::elem_bytes(dtype);
   if (elt == 0) return -1;
   const int VW = vec ? 16 / elt : 1;
-  return static_cast<int64_t>(smem_elems(mode != 0, mode != 1, B, groups, cw, VW)) *
-         elt;
+  return static_cast<int64_t>(
+             smem_elems(dtype, mode != 0, mode != 1, B, groups, cw, VW)) * elt;
 }
 
 // Blocks of the sweep kernel one SM holds at this launch shape (registers,

@@ -58,7 +58,7 @@ _SIGNATURES = {
                          _P, _I, _I, _I, _P, _I64, _P]),
     "slepc_panel_max_b": (_I, []),
     "slepc_panel_max_groups": (_I, []),
-    "slepc_panel_rows": (_I, [_I]),
+    "slepc_panel_rows": (_I, [_I, _I]),
     "slepc_panel_smem": (_I64, [_I, _I, _I, _I, _I, _I]),
     "slepc_panel_occupancy": (_I, [_I, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(_I)]),

@@ -35,37 +35,48 @@ launches = {f"{name}_{t}": 0 for name in _NAMES for t in _build.SUFFIX}
 SMEM_LIMIT = 232_448          # bytes of shared memory a block can use
 MAX_B = 8                     # widest panel the kernel is compiled for
 MAX_GROUPS = 16               # row groups (warps down the rows) of a block
-ROWS = {1: 8, 2: 8, 4: 4, 8: 4}   # compiled width -> basis rows a thread holds
+WIDTHS = (1, 2, 4, 8)         # the compiled panel widths
+# element type -> compiled width -> basis rows a thread holds
+# (csrc/bv_panel.cu rows_for): a thread holds that many 16-byte packs, and a
+# running sum is 1 (f32), 2 (f64, c64) or 4 (c128) registers
+_REAL_ROWS = {1: 8, 2: 8, 4: 4, 8: 4}
+ROWS = {torch.float32: _REAL_ROWS, torch.float64: _REAL_ROWS,
+        torch.complex64: {1: 8, 2: 8, 4: 4, 8: 2},
+        torch.complex128: {1: 7, 2: 4, 4: 4, 8: 1}}
 _occupancy = {}               # (code, mode, b, groups, cw, vec) -> blocks/SM
 
 
-def fused_update_dots(K: int, b: int) -> bool:
+def fused_update_dots(K: int, b: int,
+                      dtype: torch.dtype = torch.float64) -> bool:
     """Whether update+dots is one kernel reading V once.  It is two sweeps
     (the updates, then the dots with the finished panel; V read twice) for a
-    basis taller than one block's reach, and at the compiled width 8, where
-    the fused kernel's 32 running sums beside its held values spill and the
-    two sweeps are the faster."""
+    basis taller than one block's reach, and at the compiled width 8
+    (complex128: from 4 up), where the fused kernel's running sums beside
+    its held values spill and the two sweeps are the faster."""
     width = _compiled_width(b)
-    return K <= MAX_GROUPS * ROWS[width] and width < 8
+    return (K <= MAX_GROUPS * ROWS[dtype][width]
+            and width < (4 if dtype == torch.complex128 else 8))
 
 
 def _compiled_width(b: int) -> int:
-    return next(w for w in ROWS if b <= w)
+    return next(w for w in WIDTHS if b <= w)
 
 
 def _block_smem(mode: int, width: int, groups: int, cw: int, vw: int,
-                elt: int) -> int:
+                dtype: torch.dtype) -> int:
     """Bytes of shared memory of one block (csrc/bv_panel.cu smem_elems)."""
     tc = 32 * cw * vw
+    rows = ROWS[dtype][width]
     need = 0
     if mode:
         need = 2 * groups * width * tc
     if mode == 2:
         need += 2 * width * tc
-    if mode and width >= 4:  # the coefficients, for the wide panels
-        need += groups * ROWS[width] * width
-    red = groups * cw * ROWS[width] * width if mode != 1 else 0
-    return max(need, red) * elt
+    if mode and (width >= 4 or (mode == 2 and dtype == torch.complex128)):
+        # the coefficients, for the wide panels and c128's update+dots
+        need += groups * rows * width
+    red = groups * cw * rows * width if mode != 1 else 0
+    return max(need, red) * dtype.itemsize
 
 
 def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
@@ -82,9 +93,12 @@ def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
     ``launches``: one dict per row chunk [k0, k1) of the basis with its
     ``groups`` (row groups), ``cw`` (warps across the columns), ``threads``,
     ``tile`` (columns), ``smem`` (bytes) and ``grid``."""
+    if str(dtype) not in _build.DTYPE_CODE:
+        raise TypeError(f"kernels take float32, float64, complex64 or "
+                        f"complex128, got {dtype}")
     if mode not in (0, 1, 2):
         raise ValueError(f"panel sweep: no mode {mode}")
-    if mode == 2 and b <= MAX_B and not fused_update_dots(K, b):
+    if mode == 2 and b <= MAX_B and not fused_update_dots(K, b, dtype):
         raise ValueError(f"panel sweep: update+dots at K={K}, b={b} is an "
                          f"update sweep and a dots sweep, planned each")
     if K < 1 or b < 1 or n < 1:
@@ -92,9 +106,6 @@ def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
     if b > MAX_B:
         raise ValueError(f"panel sweep: panel width {b} is more than the "
                          f"kernel takes ({MAX_B})")
-    if str(dtype) not in _build.DTYPE_CODE:
-        raise TypeError(f"kernels take float32, float64, complex64 or "
-                        f"complex128, got {dtype}")
     elt = dtype.itemsize
     vw = 16 // elt
     ldv = n if ldv is None else ldv
@@ -106,7 +117,7 @@ def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
     if not vec:
         vw = 1
     width = _compiled_width(b)
-    rows = ROWS[width]
+    rows = ROWS[dtype][width]
     reach = MAX_GROUPS * rows
     out = []
     for k0 in range(0, K, reach):
@@ -116,7 +127,7 @@ def plan_panel(mode: int, K: int, b: int, n: int, dtype: torch.dtype, *,
         threads = 32 * groups * cw
         one = {"k0": k0, "k1": k1, "groups": groups, "cw": cw,
                "threads": threads, "tile": 32 * cw * vw,
-               "smem": _block_smem(mode, width, groups, cw, vw, elt)}
+               "smem": _block_smem(mode, width, groups, cw, vw, dtype)}
         if one["smem"] > SMEM_LIMIT:
             raise ValueError(f"panel sweep: {one['smem']} bytes of shared "
                              f"memory, more than the {SMEM_LIMIT} a block "
@@ -221,7 +232,7 @@ def _run_plan(mode: int, V, W, C, plan_for, sweep):
             return Wm, None
         return Wm, (Ds[0] if len(Ds) == 1 else torch.cat(Ds))
 
-    if mode == 2 and not fused_update_dots(V.shape[0], W.shape[0]):
+    if mode == 2 and not fused_update_dots(V.shape[0], W.shape[0], V.dtype):
         U, _ = run(1, W)
         return U, run(0, U)[1]
     U, D = run(mode, W)

@@ -5,8 +5,10 @@
 (``rotate_basis_ds``, double-single there, native float64 here) and of the
 XLA rotation ``slepc_tpu/eps/ks_jit.py:_rotate_basis``.  Every rotation of the
 port goes through it.  Complex64 / complex128 Q and V take the complex
-instantiation K4c (no conjugate: out = Q^T V); a real Q on a complex V is
-the real kernel on ``view_as_real(V)`` as a (K, 2n) basis.  :func:`rotate` runs the plain :func:`rotate_ref` for
+kernels K4c (no conjugate: out = Q^T V; complex128 as a real product of
+twice the size on the f64 tensor cores, complex64 on the FP32 pipe); a real
+Q on a complex V is the real kernel on ``view_as_real(V)`` as
+a (K, 2n) basis.  :func:`rotate` runs the plain :func:`rotate_ref` for
 tensors on the CPU, launches the kernel for tensors on a CUDA device, and
 raises for anything else.  The result is a new (P, n) tensor, or ``out``
 when one is given; ``out`` may be rows of ``V`` itself (same row stride,
@@ -47,6 +49,10 @@ def _q_stride64(kpad: int) -> int:
     return kpad + (4 - kpad % 16) % 16
 
 
+def _q_stride128(kpad: int) -> int:
+    return kpad + (2 - kpad % 8) % 8
+
+
 def plan_rotate(K: int, P: int, n: int, dtype: torch.dtype, *,
                 ldv: int | None = None, ldo: int | None = None,
                 v_base: int = 0, out_base: int = 0, sm_count: int = 132,
@@ -57,18 +63,20 @@ def plan_rotate(K: int, P: int, n: int, dtype: torch.dtype, *,
     (vec, K, widest launch's P, stages) giving the compiled kernel's
     occupancy, else the shared-memory estimate.
 
-    Returns a dict: ``variant`` ("mma_f64": tensor-core m8n8k4, "ffma_f32":
-    register-tiled FP32, "ffma_complex": K4c, complex64 / complex128), ``vec`` (16-byte copies and stores, else 8/4-byte),
-    ``tile`` (columns), ``threads``, ``row_tiles`` (8-row output tiles the
-    kernel computes), ``stages`` (ring depth), ``smem`` (bytes), ``grid``,
-    and ``chunks``: the (p0, p1) column ranges of Q, one launch each.
-    Raises ``ValueError`` for a shape no ring depth fits."""
+    Returns a dict: ``variant`` ("mma_f64": tensor-core m8n8k4; "mma_c128":
+    complex128 as its real form, tensor-core m16n8k4; "ffma_f32" /
+    "ffma_c64": register-tiled FP32), ``vec`` (16-byte copies and stores,
+    else 8/4-byte; a complex128 is 16 bytes either way), ``tile``
+    (columns), ``threads``, ``row_tiles`` (8-row output tiles the kernel
+    computes), ``stages`` (ring depth), ``smem`` (bytes), ``grid``,
+    ``max_p`` (output rows of one launch) and ``chunks``: the (p0, p1)
+    column ranges of Q, one launch each.  Raises ``ValueError`` for a shape
+    no ring depth fits."""
     if K < 1 or P < 1 or n < 1:
         raise ValueError(f"rotate: empty shape K={K} P={P} n={n}")
     if str(dtype) not in _build.DTYPE_CODE:
         raise TypeError(f"kernels take float32, float64, complex64 or "
                         f"complex128, got {dtype}")
-    f64 = dtype == torch.float64
     elt = dtype.itemsize
     width = 16 // elt
     ldv = n if ldv is None else ldv
@@ -78,32 +86,45 @@ def plan_rotate(K: int, P: int, n: int, dtype: torch.dtype, *,
     chunks = [(p0, min(p0 + MAX_P, P)) for p0 in range(0, P, MAX_P)]
     pc = chunks[0][1]  # the widest launch
     tiles8 = -(-pc // 8)
-    if f64:
+    if dtype in (torch.float64, torch.complex128):  # the tensor cores
         row_tiles = next(t for t in (1, 2, 4, 5, 6, 8) if tiles8 <= t)
-        tile, threads = 64, 128
-        fixed = 8 * row_tiles * _q_stride64(-(-K // 4) * 4) * elt
-        stage = CHUNK * 68 * elt
-    else:  # f32 and the complex kernel: Q^T (K, 8 * tiles8) in shared memory
+        tile, threads = 64, (128 if dtype == torch.float64 else 256)
+        sq = (_q_stride64(-(-K // 4) * 4) if dtype == torch.float64
+              else _q_stride128(-(-K // 2) * 2))
+        fixed = 8 * row_tiles * sq * elt
+        stage = CHUNK * 68 * elt  # ring rows of 68 elements
+    else:  # FP32 FFMA: Q^T (K, 8 * tiles8) in shared memory
         row_tiles = tiles8
-        tile = 64 if dtype.is_complex else 128
+        tile = 128
         threads = 32 * tiles8
         fixed = K * 8 * tiles8 * elt
         stage = CHUNK * tile * elt
-    stages = next((s for s in (4, 3, 2) if fixed + s * stage <= SMEM_LIMIT),
-                  None)
-    if stages is None:
+    fits = [s for s in (4, 3, 2) if fixed + s * stage <= SMEM_LIMIT]
+    if not fits:
         raise ValueError(
             f"rotate: Q ({K}, {P}) of {dtype} needs {fixed + 2 * stage} bytes "
             f"of shared memory, more than the {SMEM_LIMIT} a block can use")
+
+    def occupancy(s):
+        if blocks_per_sm is not None:
+            return blocks_per_sm(vec, K, pc, s)
+        return max(1, min(SMEM_LIMIT // (fixed + s * stage + 1024),
+                          2048 // threads, 8))
+
+    # the real kernels take the deepest ring that fits; the complex ones,
+    # whose products hold a warp longer, the ring that gives the most blocks
+    # an SM, the deepest of those (chip_smoke.py --profile sweeps the depth)
+    stages = fits[0] if not dtype.is_complex else max(
+        fits, key=lambda s: (occupancy(s), s))
     smem = fixed + stages * stage
-    per_sm = blocks_per_sm(vec, K, pc, stages) if blocks_per_sm is not None \
-        else max(1, min(SMEM_LIMIT // (smem + 1024), 2048 // threads, 8))
+    per_sm = occupancy(stages)
     grid = max(1, min(-(-n // tile), sm_count * per_sm))
-    variant = ("mma_f64" if f64 else "ffma_complex" if dtype.is_complex
-               else "ffma_f32")
+    variant = {torch.float32: "ffma_f32", torch.float64: "mma_f64",
+               torch.complex64: "ffma_c64", torch.complex128: "mma_c128"}[dtype]
     return {"variant": variant, "vec": vec,
             "tile": tile, "threads": threads, "row_tiles": row_tiles,
-            "stages": stages, "smem": smem, "grid": grid, "chunks": chunks}
+            "stages": stages, "smem": smem, "grid": grid, "max_p": MAX_P,
+            "chunks": chunks}
 
 
 def _same_rows(out: torch.Tensor, V: torch.Tensor) -> bool | None:

@@ -381,7 +381,7 @@ def test_panel_sweeps_in_row_chunks_match_plain(K, b):
     def plan_for(m, Wm):
         return bv.plan_panel(m, K, b, n, torch.float64)
 
-    reach = 16 * bv.ROWS[bv._compiled_width(b)]
+    reach = 16 * bv.ROWS[torch.float64][bv._compiled_width(b)]
     chunks = [(k0, min(k0 + reach, K)) for k0 in range(0, K, reach)]
     U, D = bv._run_plan(0, V, W, None, plan_for, sweep)
     assert U is None and calls == [(0, *c) for c in chunks]

@@ -224,20 +224,148 @@ def test_rotate_plain_version_matches_numpy(K, P, dtype):
                                        (torch.complex128, 16)])
 def test_complex_launch_plans(dtype, elt):
     """K3c / K4c plan with the complex element sizes: a 16-byte load is two
-    c64 or one c128 value; shared memory scales with the element."""
+    c64 or one c128 value; K4c c128 is the real form on the f64 tensor cores
+    (8 warps of 8 complex columns, Q^T as complex rows of a stride = 2 mod
+    8, ring rows of 68 complex), K4c c64 the FP32 register tile (a warp of
+    8 rows, a lane of 4 complex columns, 128 columns a tile); both take the
+    ring depth that gives the most blocks an SM."""
     n = 10_000_000
     pl = bv.plan_panel(2, 49, 1, n, dtype)
     assert pl["vec"] and pl["launches"][0]["tile"] == 32 * (16 // elt)
     assert pl["launches"][0]["smem"] == bv._block_smem(
         2, 1, pl["launches"][0]["groups"], pl["launches"][0]["cw"],
-        16 // elt, elt)
+        16 // elt, dtype)
     pr = rotate.plan_rotate(48, 40, n, dtype)
-    assert pr["variant"] == "ffma_complex" and pr["tile"] == 64
-    assert pr["threads"] == 32 * 5
-    assert pr["smem"] == (48 * 40 + pr["stages"] * rotate.CHUNK * 64) * elt
+    if dtype == torch.complex128:
+        assert pr["variant"] == "mma_c128" and pr["tile"] == 64
+        assert pr["threads"] == 256 and pr["row_tiles"] == 5
+        assert pr["smem"] == (40 * 50 + pr["stages"] * rotate.CHUNK * 68) * elt
+    else:
+        assert pr["variant"] == "ffma_c64" and pr["tile"] == 128
+        assert pr["threads"] == 32 * 5
+        assert pr["smem"] == (48 * 40 + pr["stages"] * rotate.CHUNK * 128) * elt
     # an odd n on c64 takes 8-byte copies; c128 is 16 bytes either way
     assert rotate.plan_rotate(48, 40, n + 1, dtype)["vec"] == \
         (dtype == torch.complex128)
+    # the ring depth with the most blocks an SM, the deepest of those
+    occ = {2: 3, 3: 3, 4: 2}
+    got = rotate.plan_rotate(48, 40, n, dtype,
+                             blocks_per_sm=lambda vec, K, P, s: occ[s])
+    assert got["stages"] == 3 and got["grid"] == 132 * 3
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("K,P,n,base", [
+    (49, 40, 10_350_000, 0),      # K not a multiple of 4 (nor of 2: c128 pads)
+    (47, 33, 4097, 0),            # odd n: c64's narrow copies
+    (3, 9, 130, 8),               # a base 8 bytes off: c64's narrow copies
+    (130, 130, 1000, 0),          # Q wider than one launch
+    (48, 200, 100_003, 0),        # three launches and a ragged last one
+    (1, 1, 1, 0)])
+def test_complex_rotate_plan_cases(dtype, K, P, n, base):
+    plan = rotate.plan_rotate(K, P, n, dtype, v_base=base, out_base=base)
+    mp = plan["max_p"]
+    assert mp == rotate.MAX_P == 64
+    assert plan["chunks"] == [(p0, min(p0 + mp, P)) for p0 in range(0, P, mp)]
+    pc = plan["chunks"][0][1]
+    assert 8 * plan["row_tiles"] >= pc and plan["threads"] % 32 == 0
+    assert 2 <= plan["stages"] <= 4 and plan["smem"] <= rotate.SMEM_LIMIT
+    elt = dtype.itemsize
+    # a c128 row is 16-byte aligned whatever n is (its base always is)
+    assert plan["vec"] == (n % (16 // elt) == 0 and base % 16 == 0)
+    if dtype == torch.complex128:
+        kpad = -(-K // 2) * 2
+        sq = rotate._q_stride128(kpad)
+        assert sq >= kpad and sq % 8 == 2
+        assert plan["smem"] == (8 * plan["row_tiles"] * sq + plan["stages"]
+                                * rotate.CHUNK * 68) * elt
+    else:
+        assert plan["smem"] == (K * 8 * plan["row_tiles"] + plan["stages"]
+                                * rotate.CHUNK * 128) * elt
+    assert 1 <= plan["grid"] <= -(-n // plan["tile"])
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_rotate_plan_refuses_a_q_too_tall(dtype):
+    # the ring shrinks first; past two stages no block holds Q^T
+    K = {torch.complex64: 350, torch.complex128: 180}[dtype]
+    assert rotate.plan_rotate(K, 64, 1000, dtype)["stages"] < 4
+    with pytest.raises(ValueError, match="shared memory"):
+        rotate.plan_rotate(2 * K, 64, 1000, dtype)
+    with pytest.raises(ValueError, match="empty"):
+        rotate.plan_rotate(0, 4, 10, dtype)
+    # a quarter of that height fits
+    assert rotate.plan_rotate(K // 4, 64, 1000, dtype)["smem"] <= \
+        rotate.SMEM_LIMIT
+
+
+def _real_form(Q):
+    """The A operand K4c c128 forms lane by lane from Q^T in shared memory
+    (csrc/rotate.cu): the (2P, 2K) real matrix whose product with the
+    (2K, n) real view of V, row 2k + part holding part (Re, Im) of V[k],
+    is Re Q^T V (rows 0..P-1, an m16 tile's rows g) over Im Q^T V (rows
+    P..2P-1, its rows g + 8): Qr for an even k4 index and -Qi for an odd
+    one in the Re rows, Qi and Qr in the Im rows."""
+    K, P = Q.shape
+    A = Q.real.new_empty((2 * P, 2 * K))
+    A[:P, 0::2], A[:P, 1::2] = Q.real.T, -Q.imag.T
+    A[P:, 0::2], A[P:, 1::2] = Q.imag.T, Q.real.T
+    return A
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("K,P", [(48, 40), (49, 33), (1, 1), (7, 64)])
+def test_rotate_real_form_matches_plain(dtype, K, P):
+    """K4c c128's real form of the product is Re and Im of Q^T V."""
+    rng = np.random.default_rng(K + P)
+    n = 33
+    Q = torch.from_numpy(_cplx(rng, (K, P), dtype))
+    V = torch.from_numpy(_cplx(rng, (K, n), dtype))
+    A = _real_form(Q)
+    B = torch.view_as_real(V).permute(0, 2, 1).reshape(2 * K, n)
+    got = torch.complex(*(A @ B).split(P))
+    assert _rel(got.numpy(), rotate.rotate_ref(Q, V).numpy()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,rows", [
+    (torch.float32, {1: 8, 2: 8, 4: 4, 8: 4}),
+    (torch.float64, {1: 8, 2: 8, 4: 4, 8: 4}),
+    (torch.complex64, {1: 8, 2: 8, 4: 4, 8: 2}),
+    (torch.complex128, {1: 7, 2: 4, 4: 4, 8: 1})])
+def test_panel_rows_per_type(dtype, rows):
+    """K3's rows a thread holds, per element type and compiled width: the
+    plan's reach (16 row groups) and its row chunks follow them."""
+    assert bv.ROWS[dtype] == rows
+    for b in range(1, 9):
+        width = bv._compiled_width(b)
+        plan = bv.plan_panel(0, 130, b, 4096, dtype)
+        assert plan["rows"] == rows[width]
+        reach = bv.MAX_GROUPS * rows[width]
+        assert [(o["k0"], o["k1"]) for o in plan["launches"]] == [
+            (k0, min(k0 + reach, 130)) for k0 in range(0, 130, reach)]
+
+
+@pytest.mark.parametrize("dtype,fused", [
+    (torch.float64, {(49, 1): True, (49, 2): True, (64, 4): True,
+                     (65, 4): False, (49, 8): False, (128, 2): True}),
+    (torch.complex64, {(49, 1): True, (49, 2): True, (64, 4): True,
+                       (65, 4): False, (49, 8): False, (128, 2): True}),
+    (torch.complex128, {(49, 1): True, (49, 2): True, (64, 2): True,
+                        (65, 2): False, (49, 3): False, (4, 4): False,
+                        (112, 1): True, (113, 1): False})])
+def test_fused_update_dots_per_type(dtype, fused):
+    """update+dots is one kernel within a block's reach below width 8, and
+    below width 4 for complex128; else the update and dots sweeps, which
+    plan_panel plans each."""
+    for (K, b), want in fused.items():
+        assert bv.fused_update_dots(K, b, dtype) == want
+        if want:
+            assert bv.plan_panel(2, K, b, 1000, dtype)["launches"]
+        else:
+            with pytest.raises(ValueError, match="planned each"):
+                bv.plan_panel(2, K, b, 1000, dtype)
+    assert bv.fused_update_dots(49, 4) == bv.fused_update_dots(
+        49, 4, torch.float64)  # the real plan is the default
 
 
 def test_complex_dtype_codes_and_launch_counters():

@@ -11,6 +11,8 @@ strided basis prefixes, offsets at and past the vector ends, empty CSR rows
 and rows far longer than the lanes the CSR kernel gives a row.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -126,8 +128,10 @@ def test_panel_plan_matches_the_compiled_kernel(cuda):
     lib = _build.load()
     assert lib.slepc_panel_max_b() == bv.MAX_B
     assert lib.slepc_panel_max_groups() == bv.MAX_GROUPS
-    for b in range(1, 9):
-        assert lib.slepc_panel_rows(b) == bv.ROWS[bv._compiled_width(b)]
+    for dtype in bv.ROWS:
+        for b in range(1, 9):
+            assert lib.slepc_panel_rows(_build.DTYPE_CODE[str(dtype)], b) == \
+                bv.ROWS[dtype][bv._compiled_width(b)]
     for dtype in (torch.float32, torch.float64):
         code = 0 if dtype == torch.float32 else 1
         for mode in (0, 1, 2):
@@ -856,7 +860,11 @@ def test_complex_dia_kernel_matches_plain(cuda, dtype, tol, n, offsets):
 
 CPANEL_CASES = [(9, 3, 130), (33, 8, 4097), (49, 1, 100_003), (64, 2, 777),
                 (1, 1, 1), (17, 4, 4096), (65, 5, 300_004), (129, 1, 4097),
-                (129, 8, 37), (5, 2, 100_003)]
+                (129, 8, 37), (5, 2, 100_003),
+                # c128 holds 4 / 2 rows a thread at widths 2 / 4: one block's
+                # reach is 64 / 32 rows, past it row chunks and two sweeps
+                (49, 2, 100_003), (49, 4, 4097), (65, 2, 300_004),
+                (65, 4, 777), (32, 4, 100_003)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
@@ -893,7 +901,8 @@ def test_complex_panel_kernels_take_views(cuda, dtype, tol, layout):
 
 CROTATE_CASES = [(24, 18, 4101), (48, 40, 100_003), (64, 64, 333),
                  (100, 130, 1000), (1, 1, 1), (49, 9, 130), (129, 7, 4096),
-                 (4, 4, 300_004), (48, 1, 37)]
+                 (4, 4, 300_004), (48, 1, 37), (49, 33, 10_007),
+                 (130, 130, 4097), (48, 40, 2_000_003)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
@@ -911,10 +920,14 @@ def test_complex_rotate_kernel_matches_plain(cuda, dtype, tol, K, P, n):
     err = (out - ref).abs() / (Q.abs().T @ V.abs())
     assert float(err.max()) <= _rotate_tol(dtype.to_real(), tol, K)
     assert torch.equal(rotate.rotate(Q, V), out)
-    if P <= K:  # in place into rows of V
-        work = full.clone()
-        rotate.rotate(Q, work[:K], out=work[:P])
-        assert torch.equal(work[:P], out)
+    if P <= K:  # in place into rows of V; the other rows stay
+        for r0 in (0, K - P):
+            work = full.clone()
+            rotate.rotate(Q, work[:K], out=work[r0: r0 + P])
+            assert torch.equal(work[r0: r0 + P], out)
+            keep = torch.ones(K + 1, dtype=torch.bool, device=cuda)
+            keep[r0: r0 + P] = False
+            assert torch.equal(work[keep], full[keep])
     # a real Q on the complex basis: the real kernel on its (K, 2n) view
     Qr = _rand((K, P), dtype.to_real(), cuda, 7)
     real_key = "rotate_" + ("f64" if dtype == torch.complex128 else "f32")
@@ -928,16 +941,29 @@ def test_complex_rotate_kernel_matches_plain(cuda, dtype, tol, K, P, n):
 
 def test_complex_plans_match_the_compiled_kernels(cuda):
     lib = _build.load()
+    assert lib.slepc_rotate_max_p() == rotate.MAX_P
     for dtype in (torch.complex64, torch.complex128):
         code = _build.DTYPE_CODE[str(dtype)]
-        for K, P in [(1, 1), (48, 40), (49, 24), (129, 64), (4, 4)]:
+        # every row-tile variant of both kernels (P of 1 .. 64 rows), K odd
+        # and even, and Q wider than one launch
+        for K, P in [(1, 1), (48, 40), (49, 24), (129, 64), (4, 4), (3, 9),
+                     (49, 33), (47, 48), (130, 130), (400, 8)]:
             plan = rotate.plan_rotate(K, P, 100_000, dtype)
-            assert plan["smem"] == lib.slepc_rotate_smem(code, K, P,
-                                                         plan["stages"])
+            assert plan["max_p"] == lib.slepc_rotate_max_p()
+            assert plan["smem"] == lib.slepc_rotate_smem(
+                code, K, min(P, plan["max_p"]), plan["stages"])
+            blocks = ctypes.c_int(0)
+            assert lib.slepc_rotate_occupancy(
+                code, int(plan["vec"]), K, min(P, plan["max_p"]),
+                plan["stages"], ctypes.byref(blocks)) == 0
+            assert blocks.value >= 1
+        for b in range(1, 9):
+            assert lib.slepc_panel_rows(code, b) == \
+                bv.ROWS[dtype][bv._compiled_width(b)]
         for mode in (0, 1, 2):
             for K, b, n in [(1, 1, 10), (49, 1, 4096), (52, 4, 4097),
-                            (129, 8, 4097)]:
-                if mode == 2 and not bv.fused_update_dots(K, b):
+                            (129, 8, 4097), (49, 2, 4096), (32, 4, 4096)]:
+                if mode == 2 and not bv.fused_update_dots(K, b, dtype):
                     continue
                 plan = bv.plan_panel(mode, K, b, n, dtype)
                 for one in plan["launches"]:
