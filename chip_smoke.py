@@ -139,7 +139,41 @@ Phases (each failing check raises; the script then exits non-zero):
      nconv = 3 and the values within 1e-10 (Rayleigh-Ritz) or 1e-7
      (Hankel: values of the moment pencil, first order in the residual)
      relative of the leading block's; then the factorized mode on
-     laplacian_1d(100) against the closed form.
+     laplacian_1d(100) against the closed form;
+ 14. the structured variants (item 11d), after every kernel of its paths
+     at their shapes (K2c, K3c, K4c at 14a's; K2, K3, K4 at 14b's and K6
+     on its anti-identity; K3 / K3c, K4 / K4c at test18's and the BSE
+     bases', a real Q on the projected c128 basis' real view) and the
+     adjoint DIA route (DIAOperator.mult_h: one K2c / K2 launch on the
+     adjoint's diagonals) against the slice-update form on the 2^20
+     deployment in c128 and in f64 (its real form); each part's launch
+     counts are read from zero around its solves alone: (a) phase
+     12a's c128 solve with set_two_sided() (2^20 rows, nev 6, ncv 32, tol
+     1e-8): nconv >= 6, right residuals (K2c) and left residuals ||A^H y -
+     conj(lam) y|| / (|lam| ||y||) (the adjoint route) <= 1e-8, the values
+     within 1e-10 of phase 12a's, max |y_i^H x_j| / (|y_i| |x_j|) over i !=
+     j <= 2 tol max|lam| / min gap, K2c launches >= 2 x the columns of a
+     side, K3c and K4c launched; the build at 2^10 rows against
+     scipy.linalg.eig(left=True) (values 1e-9, each left vector within sin
+     1e-8); wall, restarts, columns, ms a column, the coupling's share,
+     peak memory and phase 12a's wall printed.  (b) GHIEP: the reference's
+     test18 pencil (dense, target 0, nev 4, ncv 20) to its published
+     digits; the same pencil on laplacian_2d(95, 97) (A DIA on K2, B the
+     anti-identity as CSR on K6), host-factorized STSinvert at target 0,
+     nev 4, ncv 20, tol 1e-8 with the true-residual test: nconv >= 4, ||A
+     x - lam B x|| / (|lam| ||x||) <= 1e-8 with the kernels, the values
+     within 1e-9 of ARPACK on A^-1 B; whether the GNHEP re-solve ran; a
+     2,000-row pencil with complex pairs (A tridiagonal, B = diag(-1, 1,
+     ...), both DIA, largest real, nev 3, ncv 16): the GNHEP re-solve ran
+     on the card and the CPU, residual <= 1e-8, values within 1e-9 of the
+     CPU's and 1e-8 of ARPACK on B A.  (c)
+     BSE at n = 8,192 (H 16,384 x 16,384), R and C dense on the card by
+     the reference's recipe (default_rng(3)): Shao and projected (real),
+     the complex definite variant (M factored on the card), nev 4, tol
+     1e-9: nconv >= 4, ||H z - lam z|| / (|lam| ||z||) <= 1e-9, values
+     within 1e-8 of the truth computed on the card (real: eigvalsh(L^T (R
+     - C) L), R + C = L L^T; complex: the positive eigvalsh(L^H J L), M =
+     L L^H), K3 / K3c and K4 / K4c launched.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -188,10 +222,11 @@ after it (the plain cycle at full width), before phase 10 and after it (the
 non-Hermitian path: K2 / K1, K3, K4), before phase 11 and after it (its
 small paths: K2, K5, K6, K3, K4), and before and after each of phase
 12a, 12b and 12c (the complex paths: K2c / K1c, K6c, K3c, K4c) and of
-phase 13a, 13b and 13c (K2, K3, K4, K5; K6; K5); K7's launches are read around
-its yardstick measurement in phase 1.  Every kernel of each path must
-have launched.  The JSON kernel table's ``launches_p13`` is phase 13's
-share of ``launches``.  The last three lines
+phase 13a, 13b and 13c (K2, K3, K4, K5; K6; K5) and of phase 14a, 14b
+and 14c (K2c, K3c, K4c; K2, K6, K3, K4; K3, K4, K3c, K4c); K7's launches
+are read around its yardstick measurement in phase 1.  Every kernel of
+each path must have launched.  The JSON kernel table's ``launches_p13`` /
+``launches_p14`` are phase 13's / 14's shares of ``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -371,8 +406,9 @@ def panel_errors(V, W, C):
 
 
 def rotate_errors(Q, V):
-    """(max abs, max scaled by sum |products|) error of K4."""
-    err = (rotate(Q, V) - rotate_ref(Q, V)).abs()
+    """(max abs, max scaled by sum |products|) error of K4 (a real Q on a
+    complex V: K4 on V's real view, against the product in V's dtype)."""
+    err = (rotate(Q, V) - rotate_ref(Q.to(V.dtype), V)).abs()
     return float(err.max()), float((err / (Q.abs().T @ V.abs())).max())
 
 
@@ -1053,40 +1089,72 @@ PATH_TOL = {torch.float64: {"K2": 1e-14, "K3": 1e-13, "K4": 1e-14},
 def path_kernels(dev, title, cases, dtype=torch.float64):
     """K2 (K1 in f32), K3 and K4 against their plain versions at the shapes
     a path gives them (phase 1's tolerances, ``PATH_TOL``): the SpMV on
-    each case's operator (made in ``dtype``); K3's
-    three sweeps against 1, ncv and ncv + 1 basis rows of its length (the
-    first column, the last, and the basis with its residual row); K4 at
-    (ncv, ncv) (the fast path's restart), (ncv, ncv // 2) (the general
-    loop keeps half) and (ncv, 1) (one Ritz vector).  ``cases``: (where,
-    operator maker, ncv).  Run before the paths' launch counts are reset:
-    these launches are not theirs."""
+    each case's operator (made in ``dtype``), and K3 and K4 as
+    ``basis_errors`` runs them.  ``cases``: (where, operator maker, ncv).
+    Run before the paths' launch counts are reset: these launches are not
+    theirs."""
     print(title, flush=True)
     tol = PATH_TOL[dtype]
-    spmv = next(iter(tol))
+    spmv, k3, k4 = tol
     gen = torch.Generator(device=dev).manual_seed(8)
     for where, make, ncv in cases:
         A = make()
         check(A.diags.dtype == dtype, f"{where}: operator in {A.diags.dtype}")
         n = A.shape[0]
         x = torch.randn(n, generator=gen, dtype=dtype, device=dev)
-        k3, k4 = list(tol)[1:]
-        worst = {spmv: spmv_errors(A.offsets, A.diags, x)[1], k3: 0.0,
-                 k4: 0.0}
-        V = torch.randn((ncv + 1, n), generator=gen, dtype=dtype, device=dev)
-        C = torch.randn((ncv + 1, 1), generator=gen, dtype=dtype, device=dev)
-        for K in (1, ncv, ncv + 1):
-            errs = panel_errors(V[:K], x[None], C[:K])
-            worst[k3] = max(worst[k3], *(rel for _, rel in errs.values()))
-        for P in (ncv, ncv // 2, 1):
-            worst[k4] = max(worst[k4], rotate_errors(
-                random_q(ncv, P, dev, dtype), V[:ncv])[1])
+        worst = {spmv: spmv_errors(A.offsets, A.diags, x)[1]}
+        worst[k3], worst[k4] = basis_errors(dev, gen, x, ncv)
         print(f"  {where}: n={n} nd={len(A.offsets)} ncv={ncv} "
               f"{TAG[dtype]}  "
               + "  ".join(f"{k} {v:.3e}" for k, v in worst.items()),
               flush=True)
         for k, v in worst.items():
             check(v <= tol[k], f"{where}: {k} error {v:.3e} > {tol[k]:g}")
-        del A, x, V, C
+        del A, x
+    torch.cuda.empty_cache()
+
+
+def basis_errors(dev, gen, x, ncv, q_dtype=None):
+    """Worst scaled errors (K3, K4) against the plain versions on a random
+    basis of ncv + 1 rows of x's length and dtype: K3's three sweeps
+    against 1, ncv and ncv + 1 rows (the first column, the last, and the
+    basis with its residual row), K4 at (ncv, ncv) (the fast path's
+    restart), (ncv, ncv // 2) (the general loop keeps half) and (ncv, 1)
+    (one Ritz vector), with Q in ``q_dtype`` (x's by default; a real Q on a
+    complex basis is K4 on the basis' real view)."""
+    n, dtype = x.shape[0], x.dtype
+    V = torch.randn((ncv + 1, n), generator=gen, dtype=dtype, device=dev)
+    C = torch.randn((ncv + 1, 1), generator=gen, dtype=dtype, device=dev)
+    k3 = k4 = 0.0
+    for K in (1, ncv, ncv + 1):
+        errs = panel_errors(V[:K], x[None], C[:K])
+        k3 = max(k3, *(rel for _, rel in errs.values()))
+    for P in (ncv, ncv // 2, 1):
+        k4 = max(k4, rotate_errors(random_q(ncv, P, dev, q_dtype or dtype),
+                                   V[:ncv])[1])
+    return k3, k4
+
+
+def basis_kernels(dev, title, cases):
+    """K3 and K4 against their plain versions (``basis_errors``) at the
+    shapes of paths whose operators are dense, so have no SpMV kernel.
+    ``cases``: (where, rows, ncv, basis dtype, Q dtype).  Run before the
+    paths' launch counts are reset."""
+    print(title, flush=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for where, n, ncv, dtype, q_dtype in cases:
+        x = torch.randn(n, generator=gen, dtype=dtype, device=dev)
+        _, k3, k4 = PATH_TOL[dtype]
+        if q_dtype != dtype:
+            k4 = "K4"  # the real view
+        tol = {k3: PATH_TOL[dtype][k3], k4: PATH_TOL[q_dtype][k4]}
+        worst = dict(zip(tol, basis_errors(dev, gen, x, ncv, q_dtype)))
+        print(f"  {where}: n={n} ncv={ncv} basis {TAG[dtype]} Q "
+              f"{TAG[q_dtype]}  "
+              + "  ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+              flush=True)
+        for k, v in worst.items():
+            check(v <= tol[k], f"{where}: {k} error {v:.3e} > {tol[k]:g}")
     torch.cuda.empty_cache()
 
 
@@ -2217,7 +2285,8 @@ def ring_sweep(dev):
 def phase12a(dev, lam_f64, nhep_walls):
     """The reference's non-Hermitian deployment natively complex: 2^20 rows,
     3 complex diagonals, nev 6, ncv 32, c128 at tol 1e-8 and c64 at 1e-4.
-    Returns the launch counts of its solves (read from zero)."""
+    Returns the launch counts of its solves (read from zero), the c128
+    values and the c128 (wall, restarts, columns)."""
     n_c = 1 << NHEP_LOG2
     nev, ncv = NHEP_NEV // 2, 32
     for dt in (torch.complex128, torch.complex64):
@@ -2279,6 +2348,7 @@ def phase12a(dev, lam_f64, nhep_walls):
                   f"{far:.3e}", flush=True)
             check(far <= 1e-10, f"{where}: a value {far:.3e} from phase 10's")
             lam128 = lam[:nev]
+            run128 = (wall, eps.its, cols)
         else:
             far = max(float(np.min(np.abs(lam128 - v))) / abs(v)
                       for v in lam[:nev])
@@ -2289,7 +2359,7 @@ def phase12a(dev, lam_f64, nhep_walls):
               f"{where}: a kernel did not launch: {fam}")
         del eps, A
         torch.cuda.empty_cache()
-    return stt.launch_counts()
+    return stt.launch_counts(), lam128, run128
 
 
 def phase12b(dev, wall_plain):
@@ -2849,6 +2919,462 @@ def profile_gd(dev, gd_walls):
     del A
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the structured variants (item 11d)
+# ---------------------------------------------------------------------------
+
+TS_NEV, TS_NCV, TS_TOL = 6, 32, 1e-8  # phase 12a's c128 solve, two-sided
+GHIEP_GRID = (95, 97)  # the small paths' grid (phases 2, 6, 8)
+GHIEP_TOL = 1e-8
+# a symmetric tridiagonal A against B = diag(-1, 1, -1, ...): the
+# projection has complex pairs, so the GHIEP loop re-solves as GNHEP
+PAIRS_N, PAIRS_NEV, PAIRS_NCV = 2000, 3, 16
+# n = 8,192 transitions: H is 16,384 x 16,384 (R, C 0.5 GB each in f64,
+# 1.07 GB in c128), a mid-size BSE whose dense truth fits the run's time
+BSE_N = 8192
+BSE_TOL = 1e-9
+
+
+def dia_mult_h_slices(A, x):
+    """A^H x by one slice update a diagonal (y[i + o] += conj(d[i]) x[i]):
+    the plain version the adjoint DIA route is held against."""
+    n = A.shape[0]
+    y = torch.zeros_like(x)
+    for k, off in enumerate(A.offsets):
+        lo, hi = max(0, -off), min(n, n - off)
+        if hi > lo:
+            y[lo + off:hi + off] += A.diags[k, lo:hi].conj() * x[lo:hi]
+    return y
+
+
+def pairs_pencil(n, dev):
+    """(A, B, B A as scipy CSR) of the complex-pairs pencil: A symmetric
+    tridiagonal, diagonal linspace(-2, 2, n), couplings 0.2 N(0, 1) from
+    default_rng(3); B = diag(-1, 1, -1, ...), so B^-1 A = B A."""
+    rng = np.random.default_rng(3)
+    lo = 0.2 * rng.standard_normal(n)
+    lo[0] = 0.0
+    d = np.stack([lo, np.linspace(-2.0, 2.0, n), np.roll(lo, -1)])
+    om = np.where(np.arange(n) % 2 == 0, -1.0, 1.0)
+    A = stt.DIAOperator((-1, 0, 1), d, device=dev)
+    B = stt.DIAOperator((0,), om[None], device=dev)
+    As = sp.diags([lo[1:], d[1], lo[1:]], [-1, 0, 1])
+    return A, B, (sp.diags(om) @ As).tocsr()
+
+
+def spiral_dia(log2n, dev, dtype=torch.complex128):
+    return stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+        spiral_diags(1 << log2n)).to(dev, dtype))
+
+
+def phase14_kernels(dev):
+    """Every kernel of phase 14 against its plain version at the shapes its
+    paths give it, before the counts of phase 14 are reset (these launches
+    are not its): K2c, K3c and K4c at 14a's (the 2^20 deployment, ncv 32);
+    K2, K3 and K4 at 14b's (the 95 x 97 grid and the complex-pairs pencil,
+    ncv 20 and 16; test18's 100 rows, ncv 20, dense) and K6 on its
+    anti-identity; K3 / K3c and K4 / K4c at 14c's (Shao's f64 basis of
+    8,192 rows and the projected variant's c128 one, rotated by a real Q on
+    its real view, ncv 19; the complex variant's c128 basis of 16,384 rows,
+    ncv 23); and the adjoint DIA route (DIAOperator.mult_h: one K2c / K2
+    launch on the adjoint's diagonals) against the slice-update form on
+    14a's deployment, in c128 (2^20 rows) and f64 (its real form, 2^21
+    rows)."""
+    f64, c128 = torch.float64, torch.complex128
+    path_kernels(dev, "phase 14: K2c, K3c, K4c vs plain PyTorch at phase "
+                 "14a's shapes", (("phase 14a, 2^20 complex rows",
+                                   lambda: spiral_dia(NHEP_LOG2, dev),
+                                   TS_NCV),), dtype=c128)
+    path_kernels(dev, "phase 14: K2, K3, K4 vs plain PyTorch at phase 14b's "
+                 "shapes", ((f"phase 14b, {GHIEP_GRID[0]}x{GHIEP_GRID[1]}",
+                             lambda: stt.laplacian_2d(*GHIEP_GRID,
+                                                      device=dev), 20),
+                            (f"phase 14b complex pairs, {PAIRS_N} rows",
+                             lambda: pairs_pencil(PAIRS_N, dev)[0],
+                             PAIRS_NCV)))
+    basis_kernels(dev, "phase 14: K3 / K3c, K4 / K4c vs plain PyTorch at the "
+                  "dense paths' shapes (14b's test18, 14c's BSE)", (
+                      ("phase 14b test18", 100, 20, f64, f64),
+                      ("phase 14c Shao", BSE_N, 19, f64, f64),
+                      ("phase 14c projected", BSE_N, 19, c128, f64),
+                      ("phase 14c complex variant", 2 * BSE_N, 23, c128,
+                       c128)))
+    n = GHIEP_GRID[0] * GHIEP_GRID[1]
+    B = stt.from_scipy(anti_identity(n), device=dev)
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(15),
+                    dtype=f64, device=dev)
+    y_ref = csr_spmv_ref(B.rowptr, B.cols, B.vals, x)
+    y = csr_spmv(B.rowptr, B.cols, B.vals, x, n, plan=B.row_plan())
+    rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+    print(f"  K6 on phase 14b's anti-identity (n={n}): err {rel:.3e}",
+          flush=True)
+    check(rel <= P13_TOL["K6"], f"phase 14 K6: {rel:.3e}")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for dt, make in ((torch.complex128, lambda: spiral_dia(NHEP_LOG2, dev)),
+                     (torch.float64, lambda: spiral_operator(
+                         NHEP_LOG2, torch.float64, dev))):
+        A = make()
+        x = torch.randn(A.shape[0], generator=gen, dtype=dt, device=dev)
+        before = stt.launch_counts()
+        y = A.mult_h(x)
+        after = stt.launch_counts()
+        launched_ = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+        ref = dia_mult_h_slices(A, x)
+        rel = float((y - ref).abs().max() / ref.abs().max())
+        ms = cuda_ms(lambda: A.mult_h(x))
+        plain = cuda_ms(lambda: dia_mult_h_slices(A, x))
+        print(f"  adjoint DIA route, {TAG[dt]} n={A.shape[0]:,} offsets "
+              f"{A.offsets}: err {rel:.3e} launches {launched_} kernel "
+              f"{ms:.4f} ms, slice updates {plain:.4f} ms", flush=True)
+        key = "dia_spmv_" + TAG[dt]
+        check(launched_ == {key: 1}, f"phase 14 mult_h {TAG[dt]}: launches "
+              f"{launched_}")
+        check(rel <= 1e-14, f"phase 14 mult_h {TAG[dt]}: error {rel:.3e}")
+        del A, x, y, ref
+    torch.cuda.empty_cache()
+
+
+def two_sided_eps(A, tol=TS_TOL):
+    eps = stt.EPS(A, problem_type="nhep", nev=TS_NEV, ncv=TS_NCV, tol=tol,
+                  options=stt.Options())
+    eps.set_two_sided()
+    return eps
+
+
+def sin_angle(y, y_ref):
+    """sin of the angle between two vectors (numpy)."""
+    y = y / np.linalg.norm(y)
+    y_ref = y_ref / np.linalg.norm(y_ref)
+    return float(np.linalg.norm(y - y_ref * np.vdot(y_ref, y)))
+
+
+def phase14a(dev, lam_12a, run_12a):
+    """Two-sided Krylov-Schur at full width: the reference's non-Hermitian
+    deployment natively complex (2^20 rows, 3 complex diagonals, c128), nev
+    6, ncv 32, tol 1e-8, which gives the left eigenvectors too.  Returns
+    the launch counts of that solve (read from zero) and (wall, restarts,
+    columns, coupling share)."""
+    import scipy.linalg as sla
+
+    n_c = 1 << NHEP_LOG2
+    print(f"phase 14a: two-sided Krylov-Schur on the non-Hermitian "
+          f"deployment: {n_c:,} rows, 3 complex diagonals, c128, nev "
+          f"{TS_NEV}, ncv {TS_NCV}, tol {TS_TOL:g}", flush=True)
+    # the build check at 2^10 rows against dense left and right vectors,
+    # before the counts are reset: its launches are not the main path's
+    small = spiral_diags(1 << 10)
+    Ad = sp.diags([small[0, 1:], small[1], small[2, :-1]],
+                  [-1, 0, 1]).toarray()
+    w, VL = sla.eig(Ad, left=True, right=False)
+    eps = two_sided_eps(stt.DIAOperator((-1, 0, 1), torch.from_numpy(
+        small).to(dev)))
+    eps.solve()
+    check(eps.nconv >= TS_NEV, f"phase 14a 2^10: nconv {eps.nconv}")
+    rel = ang = 0.0
+    for i in range(TS_NEV):
+        lam = complex(eps.eigenvalues[i])
+        j = int(np.argmin(np.abs(w - lam)))
+        rel = max(rel, abs(w[j] - lam) / abs(lam))
+        ang = max(ang, sin_angle(eps.get_left_eigenvector(i).cpu().numpy(),
+                                 VL[:, j]))
+    print(f"  build check, 2^10 rows: nconv={eps.nconv} its={eps.its} max "
+          f"rel |lam - eig| = {rel:.3e}, max sin(left vector, "
+          f"scipy.linalg.eig(left=True)) = {ang:.3e}", flush=True)
+    check(rel <= 1e-9, f"phase 14a 2^10: eigenvalues off by {rel:.3e}")
+    check(ang <= 1e-8, f"phase 14a 2^10: a left vector off by {ang:.3e}")
+    del eps
+    A = spiral_dia(NHEP_LOG2, dev)
+    eps = two_sided_eps(A)
+    stt.reset_launch_counts()
+    wall, peak = timed_solve(dev, eps)
+    delta = stt.launch_counts()
+    k, cols = eps.nconv, eps.expansions
+    lam = np.asarray(eps.eigenvalues[:k])
+    right = np.array([eps.compute_error(i) for i in range(k)])  # K2c
+    left = []
+    for i in range(k):  # the adjoint DIA route (K2c)
+        y = eps.get_left_eigenvector(i)
+        r = A.mult_h(y) - complex(lam[i]).conjugate() * y
+        left.append(float(torch.linalg.vector_norm(r))
+                    / (abs(lam[i]) * float(torch.linalg.vector_norm(y))))
+    left = np.array(left)
+    X = eps._eigenvectors[:k]
+    Y = eps._left_eigenvectors[:k]
+    G = (Y.conj() @ X.mT).abs().cpu().numpy() / np.outer(
+        torch.linalg.vector_norm(Y, dim=1).cpu().numpy(),
+        torch.linalg.vector_norm(X, dim=1).cpu().numpy())
+    biorth = float(np.max(G - np.diag(np.diag(G))))
+    # Biorthogonality bound: with r = A x_j - lam_j x_j and s = A^H y_i -
+    # conj(lam_i) y_i, y_i^H A x_j = lam_j y_i^H x_j + y_i^H r =
+    # lam_i y_i^H x_j + s^H x_j, so |y_i^H x_j| / (|y_i| |x_j|) <=
+    # (|r| / |x_j| + |s| / |y_i|) / |lam_i - lam_j| <= 2 tol max|lam| /
+    # min gap, with both residuals gated at tol relative to |lam| below
+    gap = min(abs(lam[i] - lam[j]) for i in range(k) for j in range(k)
+              if i != j)
+    bound = 2 * TS_TOL * float(np.abs(lam).max()) / gap
+    fam = family_counts(delta, "c128")
+    share = eps.coupling_seconds / wall
+    print(f"  two-sided c128: nconv={k} restarts={eps.its} columns={cols} "
+          f"(a side) wall={wall:.3f} s ({wall / max(cols, 1) * 1e3:.3f} ms "
+          f"per column) coupling {eps.coupling_seconds:.3f} s "
+          f"({share * 100:.1f}% of the wall) peak_mem={peak:.2f} GB "
+          f"launches={fam}; phase 12a's one-sided c128: {run_12a[0]:.3f} s, "
+          f"{run_12a[1]} restarts, {run_12a[2]} columns", flush=True)
+    far = max(float(np.min(np.abs(lam_12a - v))) / abs(v) for v in lam[:TS_NEV])
+    print(f"  two-sided c128: max right rel resid={right.max():.3e} max left "
+          f"rel resid={left.max():.3e} max rel distance to phase 12a's "
+          f"values {far:.3e} max |y_i^H x_j| / (|y_i| |x_j|), i != j: "
+          f"{biorth:.3e} (bound 2 tol max|lam| / min gap = {bound:.3e}, gap "
+          f"{gap:.3f}) lam={np.array2string(lam[:TS_NEV], precision=6)}",
+          flush=True)
+    check(k >= TS_NEV, f"phase 14a: nconv {k} < {TS_NEV}")
+    check(right.max() <= TS_TOL, f"phase 14a: right residual {right.max():.3e}")
+    check(left.max() <= TS_TOL, f"phase 14a: left residual {left.max():.3e}")
+    check(far <= 1e-10, f"phase 14a: a value {far:.3e} from phase 12a's")
+    check(biorth <= bound, f"phase 14a: biorthogonality {biorth:.3e} > "
+          f"{bound:.3e}")
+    check(delta["dia_spmv_c128"] >= 2 * cols,
+          f"phase 14a: K2c launched {delta['dia_spmv_c128']} times for "
+          f"{cols} columns a side")
+    launched("phase 14a", delta, ("panel_dots_c128", "panel_update_c128",
+                                  "rotate_c128"))
+    its = eps.its
+    del eps, A, X, Y
+    torch.cuda.empty_cache()
+    return delta, (wall, its, cols, share)
+
+
+def test18_matrices(m=10):
+    """The reference's test18.c pencil: the unscaled 5-point Laplacian of an
+    m x m grid and the anti-identity B (B[i, N-1-i] = 1)."""
+    Ad = stt.laplacian_2d(m, m, device="cpu").to_dense().numpy()
+    return Ad, np.fliplr(np.eye(m * m))
+
+
+def anti_identity(n):
+    return sp.csr_matrix((np.ones(n), (np.arange(n), np.arange(n)[::-1])),
+                         shape=(n, n))
+
+
+def phase14b(dev):
+    """GHIEP: the reference's test18 pencil (dense, target 0, nev 4, ncv
+    20) against its published digits, and the same pencil on the small
+    paths' grid 95 x 97 (A DIA on K2, B the anti-identity as CSR on K6),
+    host-factorized STSinvert at target 0, nev 4, ncv 20, tol 1e-8, true
+    residual, against ARPACK on A^-1 B; then the complex-pairs pencil,
+    which re-solves as GNHEP (``pairs_case``).  Returns the launch counts
+    of the solves (read from zero) and the walls."""
+    import scipy.sparse.linalg as spla
+
+    print("phase 14b: GHIEP (pseudo-Lanczos): test18, the 95 x 97 "
+          "Laplacian against the anti-identity, and a pencil with complex "
+          "pairs", flush=True)
+    stt.reset_launch_counts()
+    Ad, Bd = test18_matrices()
+    eps = stt.EPS(stt.DenseOperator(Ad, device=dev),
+                  stt.DenseOperator(Bd, device=dev), problem_type="ghiep",
+                  nev=4, ncv=20, options=stt.Options())
+    eps.set_target(0.0)
+    wall18, _ = timed_solve(dev, eps)
+    got = np.sort(np.round(np.real(eps.eigenvalues[:4]), 5))
+    want = np.sort([0.16203, -0.39851, -0.39851, 0.63499])
+    print(f"  test18: nconv={eps.nconv} its={eps.its} wall={wall18:.3f} s "
+          f"GNHEP re-solve: {eps.gnhep_resolve} values {got}", flush=True)
+    check(eps.nconv >= 4 and np.abs(got - want).max() <= 1.1e-5,
+          f"phase 14b test18: {got} against {want}")
+    nx, ny = GHIEP_GRID
+    n = nx * ny
+    A = stt.laplacian_2d(nx, ny, device=dev)
+    Bs = anti_identity(n)
+    B = stt.from_scipy(Bs, device=dev)
+    check(type(B).__name__ == "AIJOperator", f"phase 14b: B is {type(B)}")
+    eps = stt.EPS(A, B, problem_type="ghiep", nev=4, ncv=20, tol=GHIEP_TOL,
+                  options=stt.Options())
+    eps.set_target(0.0)
+    eps.set_true_residual()
+    before = stt.launch_counts()
+    wall, peak = timed_solve(dev, eps)
+    after = stt.launch_counts()
+    path = dict(after)
+    delta = {k: after[k] - before[k] for k in after}
+    lu = spla.splu(A.to_scipy().tocsc())
+    mu = spla.eigs(spla.LinearOperator((n, n), matvec=lambda x: lu.solve(
+        Bs @ x), dtype=float), k=4, which="LM", return_eigenvectors=False)
+    ref = np.sort_complex(1.0 / mu)
+    k = eps.nconv
+    lam = np.asarray(eps.eigenvalues[:k])
+    resid = np.array([eps.compute_error(i) for i in range(k)])  # K2, K6
+    rel = max(float(np.min(np.abs(ref - v))) / abs(v) for v in lam[:4])
+    print(f"  {nx}x{ny} ({n:,} rows): nconv={k} its={eps.its} wall="
+          f"{wall:.3f} s peak_mem={peak:.2f} GB GNHEP re-solve: "
+          f"{eps.gnhep_resolve} backend {eps.st.ksp._direct.backend} "
+          f"launches { {k: v for k, v in delta.items() if v} }", flush=True)
+    print(f"  {nx}x{ny}: lam={np.array2string(np.real(lam[:4]), precision=9)}"
+          f" max true rel resid={resid.max():.3e} max rel |lam - ARPACK|="
+          f"{rel:.3e}", flush=True)
+    check(k >= 4, f"phase 14b {nx}x{ny}: nconv {k}")
+    check(resid.max() <= GHIEP_TOL, f"phase 14b: residual {resid.max():.3e}")
+    check(rel <= 1e-9, f"phase 14b: values {rel:.3e} from ARPACK")
+    launched("phase 14b", delta, ("dia_spmv_f64", "csr_spmv_f64",
+                                  "panel_dots_f64", "panel_update_f64",
+                                  "rotate_f64"))
+    del eps, A, B
+    torch.cuda.empty_cache()
+    wall_pairs, pairs = pairs_case(dev)
+    path = {k: v + pairs[k] for k, v in path.items()}
+    return path, {"test18": wall18, f"{nx}x{ny}": wall,
+                  f"complex pairs {PAIRS_N}": wall_pairs}
+
+
+def pairs_case(dev):
+    """The GNHEP re-solve on the card: the complex-pairs pencil (A and B
+    DIA on K2), largest real, nev 3, ncv 16, against the same solve on the
+    host's CPU (values to 1e-9 relative) and ARPACK on B A (to tol).
+    Returns the wall and the solve's launch counts (read from zero)."""
+    import scipy.sparse.linalg as spla
+
+    def make(where):
+        A, B, BA = pairs_pencil(PAIRS_N, where)
+        return stt.EPS(A, B, problem_type="ghiep", nev=PAIRS_NEV,
+                       ncv=PAIRS_NCV, which="largest_real", tol=GHIEP_TOL,
+                       options=stt.Options()), BA
+
+    eps, BA = make(dev)
+    stt.reset_launch_counts()
+    wall, _ = timed_solve(dev, eps)
+    counts = stt.launch_counts()
+    host, _ = make("cpu")
+    host.solve()
+    k = eps.nconv
+    lam = np.sort_complex(np.asarray(eps.eigenvalues[:PAIRS_NEV], complex))
+    lam_h = np.sort_complex(np.asarray(host.eigenvalues[:PAIRS_NEV], complex))
+    mu = np.sort_complex(spla.eigs(BA, k=PAIRS_NEV, which="LR", tol=1e-13,
+                                   return_eigenvectors=False))
+    resid = np.array([eps.compute_error(i) for i in range(k)])  # K2
+    rel_h = float(np.max(np.abs(lam - lam_h) / np.abs(lam_h)))
+    rel_a = float(np.max(np.abs(lam - mu) / np.abs(mu)))
+    print(f"  complex pairs, {PAIRS_N} rows: nconv={k} its={eps.its} (CPU: "
+          f"{host.nconv}, {host.its}) wall={wall:.3f} s GNHEP re-solve: "
+          f"{eps.gnhep_resolve} (CPU: {host.gnhep_resolve}) lam="
+          f"{np.array2string(lam.real, precision=9)} max rel resid="
+          f"{resid.max():.3e} max rel |lam - CPU| = {rel_h:.3e}, |lam - "
+          f"ARPACK| = {rel_a:.3e} launches "
+          f"{ {key: v for key, v in counts.items() if v} }", flush=True)
+    check(eps.gnhep_resolve and host.gnhep_resolve,
+          "phase 14b complex pairs: the GNHEP re-solve did not run")
+    check(k >= PAIRS_NEV and host.nconv >= PAIRS_NEV,
+          f"phase 14b complex pairs: nconv {k} (CPU {host.nconv})")
+    check(resid.max() <= GHIEP_TOL,
+          f"phase 14b complex pairs: residual {resid.max():.3e}")
+    check(rel_h <= 1e-9, f"phase 14b complex pairs: {rel_h:.3e} from the CPU")
+    check(rel_a <= GHIEP_TOL,
+          f"phase 14b complex pairs: {rel_a:.3e} from ARPACK")
+    launched("phase 14b complex pairs", counts, (
+        "dia_spmv_f64", "panel_dots_f64", "panel_update_f64", "rotate_f64"))
+    del eps, host
+    return wall, counts
+
+
+def bse_blocks(n, complex_, dev):
+    """R Hermitian (+ 2n I) and C (complex) symmetric by the reference's
+    recipe (tests/test_round4.py:191-205, default_rng(3)), on the card."""
+    rng = np.random.default_rng(3)
+
+    def draw():
+        M = rng.standard_normal((n, n))
+        if complex_:
+            M = M + 1j * rng.standard_normal((n, n))
+        return torch.from_numpy(M).to(dev)
+
+    R = draw()
+    R = 0.5 * (R + R.mH)
+    R.diagonal().add_(2 * n)
+    C = draw()
+    return R, 0.5 * (C + C.mT)
+
+
+def bse_truth(R, C, k=4):
+    """The k smallest positive eigenvalues of H = [R C; -conj(C) -conj(R)],
+    computed on the card: real, lambda^2 = eigvalsh(L^T (R - C) L) with R +
+    C = L L^T; complex, the positive eigenvalues of eigvalsh(L^H J L) with
+    M = [R C; conj(C) conj(R)] = L L^H, J = diag(I, -I)."""
+    if not R.is_complex():
+        L = torch.linalg.cholesky(R + C)
+        return torch.linalg.eigvalsh(L.mT @ (R - C) @ L)[:k].sqrt() \
+            .cpu().numpy()
+    n = R.shape[0]
+    L = torch.linalg.cholesky(torch.cat([torch.cat([R, C], 1),
+                                         torch.cat([C.conj(), R.conj()], 1)]))
+    JL = L.clone()
+    JL[n:] *= -1
+    T = L.mH @ JL
+    del L, JL
+    ev = torch.linalg.eigvalsh(T).cpu().numpy()
+    return np.sort(ev[ev > 0])[:k]
+
+
+def phase14c(dev):
+    """BSE at n = 8,192 (H is 16,384 x 16,384), R and C dense on the card:
+    Shao (real, auto) and projected (real), the complex definite variant
+    (auto, smallest), each nev 4 at tol 1e-9, against the truth computed
+    on the card.  Returns the launch counts of the three solves (each read
+    from zero) and the walls."""
+    n = BSE_N
+    print(f"phase 14c: BSE at n = {n:,} (H {2 * n:,} x {2 * n:,}), dense R, "
+          f"C on the card, nev 4, tol {BSE_TOL:g}", flush=True)
+    walls, path = {}, {}
+    for complex_, variants in ((False, ("auto", "projected")),
+                               (True, ("auto",))):
+        t0 = time.perf_counter()
+        R, C = bse_blocks(n, complex_, dev)
+        sync(dev)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        truth = bse_truth(R, C)
+        t_truth = time.perf_counter() - t0
+        H = stt.create_bse(stt.DenseOperator(R), stt.DenseOperator(C))
+        tag = TAG[R.dtype]
+        print(f"  {tag}: blocks built in {t_build:.3f} s, truth "
+              f"(Cholesky + eigvalsh on the card) in {t_truth:.3f} s: "
+              f"{np.array2string(truth, precision=10)}", flush=True)
+        for variant in variants:
+            where = f"phase 14c {tag} {variant}"
+            eps = stt.EPS(H, problem_type="bse", nev=4, tol=BSE_TOL,
+                          options=stt.Options())
+            eps.bse_variant = variant
+            stt.reset_launch_counts()
+            wall, peak = timed_solve(dev, eps)
+            delta = stt.launch_counts()
+            path = {k: path.get(k, 0) + v for k, v in delta.items()}
+            k = eps.nconv
+            lam = np.asarray(eps.eigenvalues[:k], dtype=float)
+            Z = eps._eigenvectors[:k]
+            resid = np.array([float(torch.linalg.vector_norm(
+                H.mult(Z[i]) - lam[i] * Z[i])) / (abs(lam[i]) * float(
+                    torch.linalg.vector_norm(Z[i]))) for i in range(k)])
+            rel = float(np.max(np.abs(np.sort(lam)[:4] - truth) / truth)) \
+                if k >= 4 else np.inf
+            walls[f"{tag} {variant}"] = wall
+            print(f"  {where}: nconv={k} its={eps.its} wall={wall:.3f} s "
+                  f"peak_mem={peak:.2f} GB max rel |lam - truth|={rel:.3e} "
+                  f"max rel resid={resid.max() if k else np.inf:.3e} "
+                  f"launches { {k: v for k, v in delta.items() if v} }",
+                  flush=True)
+            check(k >= 4, f"{where}: nconv {k}")
+            check(resid.max() <= BSE_TOL, f"{where}: residual "
+                  f"{resid.max():.3e}")
+            check(rel <= 1e-8, f"{where}: values {rel:.3e} from the truth")
+            rot = "rotate_" + ("c128" if complex_ else "f64")
+            dots = "panel_dots_" + ("c128" if complex_ or variant ==
+                                    "projected" else "f64")
+            launched(where, delta, (dots, rot))
+            del eps, Z
+        del H, R, C
+        torch.cuda.empty_cache()
+    return path, walls
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -2968,7 +3494,7 @@ def main():
         check(small_nhep_path[k] > 0, f"phase 11: {k} did not launch")
     # phase 12: each part resets the counts after its kernel checks and
     # returns what its solves launched
-    counts_12a = phase12a(dev, lam_f64, nhep_walls)
+    counts_12a, lam_12a, run_12a = phase12a(dev, lam_f64, nhep_walls)
     counts_12b, wall_12b = phase12b(dev, wall_plain)
     complex_paths = (counts_12a, counts_12b, phase12c(dev))
     for part, counts_12 in zip("abc", complex_paths):
@@ -2991,6 +3517,20 @@ def main():
           f"{time.perf_counter() - t13:.3f} s", flush=True)
     if args.profile:
         profile_gd(dev, gd_walls)
+    # phase 14: the kernels at its shapes, then each part read from zero
+    t14 = time.perf_counter()
+    phase14_kernels(dev)
+    ts_path, ts_run = phase14a(dev, lam_12a, run_12a)
+    gh_path, gh_walls = phase14b(dev)
+    bse_path, bse_walls = phase14c(dev)
+    p14_paths = (ts_path, gh_path, bse_path)
+    for part, counts_14 in zip("abc", p14_paths):
+        print(f"  phase 14{part} launches: "
+              f"{ {k: v for k, v in counts_14.items() if v} }", flush=True)
+    p14 = {k: sum(p[k] for p in p14_paths) for k in ts_path}
+    wall_14 = time.perf_counter() - t14
+    print(f"  phase 14 wall (kernel checks and solves): {wall_14:.3f} s",
+          flush=True)
     if args.profile:
         A = spiral_operator(NHEP_LOG2, torch.float64, dev)
         profile_solve("phase 10 f64", lambda: nhep_solve(A, 1e-8)[1],
@@ -3023,7 +3563,7 @@ def main():
             A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              plain_path, nhep_path, small_nhep_path) + complex_paths \
-        + p13_paths
+        + p13_paths + p14_paths
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -3034,6 +3574,7 @@ def main():
                         "source": src, "replaces": replaces,
                         "launches": counts[key],
                         "launches_p13": p13[key],
+                        "launches_p14": p14[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -3051,7 +3592,8 @@ def main():
               f"{k['plain_ms']:.4f} / "
               f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
               f"{lib}  launches {k['launches']} (phase 13: "
-              f"{k['launches_p13']})", flush=True)
+              f"{k['launches_p13']}, phase 14: {k['launches_p14']})",
+              flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
           f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard); plain "
@@ -3063,7 +3605,13 @@ def main():
                       for w, t in gd_walls.items())
           + ", " + ", ".join(f"{w} {t:.3f} s" for w, t in p13b_walls.items())
           + ", " + ", ".join(f"{w} {t[0]:.3f} s" for w, t in ciss_walls.items())
-          + f" on {smi_line}", flush=True)
+          + f"; phase 14 two-sided 2^20 c128 {ts_run[0]:.3f} s ({ts_run[1]} "
+          f"restarts, {ts_run[2]} columns a side, coupling "
+          f"{ts_run[3] * 100:.1f}%), GHIEP "
+          + ", ".join(f"{w} {t:.3f} s" for w, t in gh_walls.items())
+          + ", BSE n=8192 "
+          + ", ".join(f"{w} {t:.3f} s" for w, t in bse_walls.items())
+          + f", phase 14 {wall_14:.3f} s on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,12 @@ the solvers ``power`` (inverse iteration, RQI), ``subspace``, ``arnoldi``,
 ``lanczos`` and ``lapack``; the preconditioned solvers ``gd`` / ``jd``
 (with the GD cycle), ``lobpcg`` and ``rqcg`` under ``STPrecond``, and the
 contour-integral ``ciss`` (``parallel/tasks.py``'s batched shifted solves,
-``sys/contour.py``).  Kernels: the DIA SpMV (K1/K2) and
+``sys/contour.py``).  The structured variants: the two-sided
+Krylov-Schur (``set_two_sided``: left eigenvectors,
+``get_left_eigenvector``), the indefinite pencil (``problem_type="ghiep"``,
+pseudo-Lanczos) and the Bethe-Salpeter solver (``create_bse``,
+``problem_type="bse"``), with the block divide-and-conquer of ``ds/bdc.py``.
+Kernels: the DIA SpMV (K1/K2) and
 block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
 rotation (K4) and the stream yardstick (K7).
 
@@ -47,6 +52,7 @@ from .mat.linop import (LinearOperator, DenseOperator, ShellOperator,
                         ScaledOperator, SumOperator, ProductOperator,
                         AdjointOperator, DiagonalOperator, aslinearoperator,
                         norm_estimate_randomized)
+from .mat.structured import MatBSE, create_bse, create_tile
 from .mat.generators import (laplacian_1d, laplacian_2d, laplacian_3d,
                              laplacian_1d_eigs, laplacian_2d_eigs,
                              laplacian_3d_eigs, from_scipy, from_dense,
@@ -59,7 +65,7 @@ from .st import (ST, STShift, STSinvert, STCayley, STPrecond, STShell,
 from .rg import RG, RGEllipse, RGInterval, RGPolygon, RGRing
 from .ksp import KSP, DirectSolver, solve_linear
 from .bv import BV
-from .ds import DS, DSHEP, DSGHEP, DSNHEP, DSGNHEP
+from .ds import DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP
 from .eps import EPS, EPSConvergedReason, EPSError, ProblemType
 from .ops import launch_counts, reset_launch_counts
 
@@ -124,6 +130,11 @@ __all__ = [
     "DSGHEP",
     "DSNHEP",
     "DSGNHEP",
+    "DSGHIEP",
+    "DSNHEPTS",
+    "create_tile",
+    "create_bse",
+    "MatBSE",
     "EPS",
     "EPSConvergedReason",
     "EPSError",

@@ -7,11 +7,12 @@ are one contiguous row prefix.  The ``nc`` leading rows are constraints
 (deflation space); logical index j is physical row ``nc + j``, as in the
 reference.  The sweeps run on kernel K3 (``panel_dots(V, B w)`` for a
 B-metric) and ``mult_in_place`` on kernel K4.  Methods update ``array`` in
-place.
+place.  An indefinite metric (``set_matrix(B, indef=True)``, GHIEP) keeps
+the signature ``omega`` (+-1 a row, host numpy): the sweeps scale their
+coefficients by it and the norms are signed.  ``biorthogonalize_column``
+is the two-sided primitive, on K3.
 
-Not ported: the ``omega`` signature of indefinite metrics (GHIEP, ROADMAP
-queue 1 item 11), ``biorthogonalize_column`` (two-sided solvers, item 11)
-and the TSQR block type (item 16).
+Not ported: the TSQR block type (ROADMAP queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.bv import panel_dots, panel_update
 from ..ops.rotate import rotate
 from ..sys.device import resolve_device
 from . import orthog as _orth
@@ -55,6 +57,8 @@ class BV:
         self.l = 0
         self.k = m
         self.matrix = None  # B inner-product LinearOperator
+        self.indef = False
+        self.omega: Optional[np.ndarray] = None  # (nc + m,) signature
         self.orthog_refine = OrthogRefine.IFNEEDED
         self.orthog_block = OrthogBlockType.CHOL
 
@@ -64,9 +68,13 @@ class BV:
             raise ValueError(f"active window [{l}, {k}) outside [0, {self.m}]")
         self.l, self.k = l, k
 
-    def set_matrix(self, B) -> None:
-        """Set the inner-product matrix (x, y) = y^H B x."""
+    def set_matrix(self, B, indef: bool = False) -> None:
+        """Set the inner-product matrix (x, y) = y^H B x; ``indef``: B is
+        indefinite and the rows carry a signature (all +1 to start)."""
         self.matrix = B
+        self.indef = indef
+        if indef and self.omega is None:
+            self.omega = np.ones(self.m + self.nc)
 
     def _ip_mult(self):
         """The metric application (None when there is no B)."""
@@ -95,6 +103,8 @@ class BV:
         Q, _ = _orth.cholqr2(C, self._ip_mult())
         self.array = torch.cat([Q, self.array])
         self.nc += C.shape[0]
+        if self.omega is not None:
+            self.omega = np.concatenate([np.ones(C.shape[0]), self.omega])
         return self.nc
 
     def set_random(self, seed: int = 0, j: Optional[int] = None) -> None:
@@ -137,9 +147,12 @@ class BV:
                           By[None])[:, 0]
 
     def norm_column(self, j: int) -> float:
+        """||v_j||_B; for an indefinite metric the signed v^H B v itself,
+        as the reference returns it."""
         v = self.get_column(j)
         Bv = v if self.matrix is None else self.matrix.mult(v)
-        return float(torch.vdot(v, Bv).real) ** 0.5
+        nsq = float(torch.vdot(v, Bv).real)
+        return nsq if self.indef else nsq ** 0.5
 
     def scale_column(self, j: int, alpha) -> None:
         self.array[self._phys(j)] *= alpha
@@ -164,20 +177,26 @@ class BV:
         if lindep and replace_lindep:
             self.set_random(seed=j + 12345, j=j)
             _, norm, lindep = self.orthogonalize_column(j)
-        self.scale_column(j, 1.0 / (norm if norm != 0 else 1.0))
+        if self.indef:  # the signed norm's sign is the row's signature
+            self.omega[self._phys(j)] = 1.0 if norm >= 0 else -1.0
+            norm_abs = abs(norm)
+            self.scale_column(j, 1.0 / (norm_abs if norm_abs != 0 else 1.0))
+        else:
+            self.scale_column(j, 1.0 / (norm if norm != 0 else 1.0))
         return c, norm, lindep
 
     def _orth_against(self, j: int, v: torch.Tensor):
         passes = 1 if self.orthog_refine == OrthogRefine.NEVER else 2
         v_new, c, nb, na = _orth.orthogonalize_vec(
-            self.array[: self._phys(j)], v, self._ip_mult(), passes=passes)
+            self.array[: self._phys(j)], v, self._ip_mult(), passes=passes,
+            omega=self.omega[: self._phys(j)] if self.indef else None)
         # one host read: the coefficients and both norms
         host = torch.cat([c, nb[None], na[None]]).cpu().numpy()
         nb_f, na_f = float(host[-2].real), float(host[-1].real)
         # linear dependence: post-orth norm below sqrt(eps) * pre-orth norm
-        # even after refinement
-        lindep = abs(na_f) < max(abs(nb_f), 1e-300) * \
-            float(torch.finfo(self.dtype).eps) ** 0.5
+        # even after refinement (1e-7 for an indefinite metric)
+        lindep = abs(na_f) < max(abs(nb_f), 1e-300) * (
+            1e-7 if self.indef else float(torch.finfo(self.dtype).eps) ** 0.5)
         return v_new, host[self.nc:-2], na_f, bool(lindep)
 
     def orthogonalize(self, block_type: Optional[OrthogBlockType] = None):
@@ -190,7 +209,7 @@ class BV:
         if bt == OrthogBlockType.CHOL:
             Q, R = _orth.cholqr2(X, Bmult)
         elif bt == OrthogBlockType.SVQB:
-            Q, R = _orth.svqb(X, Bmult)
+            Q, R = _orth.svqb(X, Bmult, self.omega[sl] if self.indef else None)
         elif bt == OrthogBlockType.GS:
             Q, R = _orth.mgs_block(X, Bmult)
         else:
@@ -202,3 +221,24 @@ class BV:
         """The logical vectors as the COLUMNS of an (n, m) host array (the
         reference's layout)."""
         return self.array[self.nc:].cpu().numpy().T
+
+
+def biorthogonalize_column(V: BV, W: BV, j: int) -> torch.Tensor:
+    """Two-sided (bi)orthogonalization of vector j of V and of W against
+    the vectors before it in the cross basis, twice: v -= V_<j (W_<j^H v),
+    w -= W_<j (V_<j^H w) (one K3 dots and one K3 update each), so that
+    <w_i, v_j> = <w_j, v_i> = 0 for i < j when W_<j^H V_<j = I -- the
+    two-sided Lanczos primitive (reference BVBiorthogonalizeColumn).
+    Returns the normalization factor <w_j, v_j> (a 0-d tensor on the
+    device), whose sign and size feed the two-sided recurrence."""
+    v = V.get_column(j)[None]
+    w = W.get_column(j)[None]
+    for _ in range(2):
+        if j > 0:
+            Vprev = V.array[V._phys(0): V._phys(j)]
+            Wprev = W.array[W._phys(0): W._phys(j)]
+            v = panel_update(Vprev, panel_dots(Wprev, v), v)
+            w = panel_update(Wprev, panel_dots(Vprev, w), w)
+    V.set_column(j, v[0])
+    W.set_column(j, w[0])
+    return torch.vdot(w[0], v[0])

@@ -9,10 +9,13 @@ coefficients and the two norms).
 
 Full reorthogonalization serves both Arnoldi and Lanczos (Hermitian and
 B-Hermitian operators): the Lanczos tridiagonal is read off the projected
-coefficients.  Not ported: ``arnoldi_extend_host`` and the
-``host_callback`` routing (PyTorch runs eagerly, so an operator whose apply
-is a host solve goes through the same loop) and the ``omega`` signatures of
-the pseudo-Lanczos recurrence (GHIEP, ROADMAP queue 1 item 11).
+coefficients.  The pseudo-Lanczos recurrence of an indefinite B (GHIEP)
+passes the signature ``omega`` (host numpy, updated in place): the sweeps
+scale their coefficients by it (``bv/orthog.py``), H's subdiagonal takes the
+signed norm and omega the sign of each new vector.  Not ported:
+``arnoldi_extend_host`` and the ``host_callback`` routing (PyTorch runs
+eagerly, so an operator whose apply is a host solve goes through the same
+loop).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from .orthog import orthogonalize_vec
 
 def arnoldi_extend(op, V: torch.Tensor, H: np.ndarray, k: int, m: int,
                    nc: int = 0, Bop=None, passes: int = 2,
-                   rng: Optional[np.random.Generator] = None):
+                   rng: Optional[np.random.Generator] = None,
+                   omega: Optional[np.ndarray] = None):
     """Extend an Arnoldi factorization A V_k = V_k H_k from k to m vectors.
 
     Args:
@@ -39,6 +43,8 @@ def arnoldi_extend(op, V: torch.Tensor, H: np.ndarray, k: int, m: int,
       k, m: extend vectors [k, m).
       Bop:  optional inner-product operator (B metric, GHEP).
       rng:  numpy generator for breakdown restarts (seeded by default).
+      omega: optional (nc + mmax+1,) signature for an indefinite B
+            (pseudo-Lanczos, GHIEP), updated in place.
     Returns:
       (V, H, beta, breakdown): beta = |H[m, m-1]|, breakdown True if a
       linear dependence forced a random restart vector.
@@ -50,21 +56,27 @@ def arnoldi_extend(op, V: torch.Tensor, H: np.ndarray, k: int, m: int,
     for j in range(k, m):
         Vact = V[: nc + j + 1]
         w = op.mult(V[nc + j])
-        w, c_tot, nb, na = orthogonalize_vec(Vact, w, Bmult, passes=passes)
+        om = None if omega is None else omega[: nc + j + 1]
+        w, c_tot, nb, na = orthogonalize_vec(Vact, w, Bmult, passes=passes,
+                                             omega=om)
         host = torch.cat([c_tot, nb[None], na[None]]).cpu().numpy()
         nrm_before, beta = abs(host[-2].real), abs(host[-1].real)
+        sgn = -1.0 if host[-1].real < 0 else 1.0
         is_brk = beta < eps ** 0.75 * (nrm_before + eps)
         if is_brk:
             brk = True
             # real normals for a complex basis too, as the reference
             rnd = torch.from_numpy(rng.standard_normal(V.shape[1])).to(
                 V.device, V.dtype)
-            w, _, _, na2 = orthogonalize_vec(Vact, rnd, Bmult, passes=passes)
+            w, _, _, na2 = orthogonalize_vec(Vact, rnd, Bmult, passes=passes,
+                                             omega=om)
             beta = abs(float(na2))
         torch.div(w, beta if beta > 0 else 1.0, out=V[nc + j + 1])
         H[:, j] = 0
         H[: j + 1, j] = host[nc: nc + j + 1]
-        H[j + 1, j] = 0.0 if is_brk else beta
+        H[j + 1, j] = 0.0 if is_brk else sgn * beta
+        if omega is not None:
+            omega[nc + j + 1] = sgn
     return V, H, (abs(H[m, m - 1]) if m > 0 else 0.0), brk
 
 
@@ -85,11 +97,11 @@ def lanczos_extend(op, V, alpha: np.ndarray, beta_arr: np.ndarray, k: int,
     return V, H[ar, ar].copy(), H[ar + 1, ar].copy(), beta, brk
 
 
-def extend_dispatch(op, V, H, k, m, nc=0, Bop=None):
+def extend_dispatch(op, V, H, k, m, nc=0, Bop=None, omega=None):
     """The extension under its ``BV_MatArnoldi`` event (flops: SpMV + CGS2
-    per column)."""
+    per column); ``omega`` as in :func:`arnoldi_extend`."""
     n = V.shape[1]
     nnz = getattr(op, "nnz", 2 * n)
     with log_event("BV_MatArnoldi",
                    flops=(m - k) * (2.0 * nnz + 8.0 * n * m)):
-        return arnoldi_extend(op, V, H, k, m, nc, Bop)
+        return arnoldi_extend(op, V, H, k, m, nc, Bop, omega=omega)

@@ -15,13 +15,17 @@ counterpart: the caller slices.  A block X is (k, n), its rows the vectors.
     passes ``Bmult`` and sweeps ``panel_dots(V, B w)``.
   * Norms come back as 0-d tensors on the basis' device, so a caller that
     wants one host read per column can make it.
+  * An indefinite metric (GHIEP's pseudo-Lanczos) passes the signature
+    ``omega`` (+-1 a basis row): each sweep's coefficients are scaled,
+    h = c * omega, between the dots sweep and the update sweep, so K3 runs
+    unchanged; the norms are signed, sign(w^H B w) sqrt|w^H B w|.
   * Block orthonormalization: CholeskyQR / CholeskyQR2 (Gram on K3,
     Cholesky of the small Gram matrix on the host in LAPACK, triangular
-    solve as a rotation on kernel K4), SVQB and modified Gram-Schmidt.
+    solve as a rotation on kernel K4), SVQB (with a signature too) and
+    modified Gram-Schmidt.
 
 Not ported: ``tsqr`` / ``tsqr_shard_map`` (the multi-device TSQR, ROADMAP
-queue 1 item 16) and the ``omega`` signatures of indefinite metrics (GHIEP,
-item 11).
+queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -53,28 +57,38 @@ def gram(V: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
 
 
 def orthogonalize_vec(V: torch.Tensor, w: torch.Tensor,
-                      Bmult: Optional[Callable] = None, passes: int = 2):
+                      Bmult: Optional[Callable] = None, passes: int = 2,
+                      omega: Optional[np.ndarray] = None):
     """Orthogonalize w against the rows of V (CGS, ``passes`` sweeps).
 
     Returns (w, c_total, norm_before, norm_after): c_total (K,) the summed
-    projection coefficients, the norms 0-d tensors in the B metric.  No
-    host read.  With no rows in V, w comes back as it is."""
+    projection coefficients, the norms 0-d tensors in the B metric (signed
+    for an indefinite one).  ``omega``: the (K,) signature of V's rows;
+    each sweep subtracts sum_k c_k omega_k V[k].  No host read.  With no
+    rows in V, w comes back as it is."""
     Bw = w if Bmult is None else Bmult(w)
     norm_before = _safe_sqrt(torch.vdot(w, Bw).real)
     if V.shape[0] == 0:
         return w, torch.zeros(0, dtype=w.dtype, device=w.device), \
             norm_before, norm_before
+    om = None if omega is None else torch.from_numpy(
+        np.ascontiguousarray(omega, dtype=np.float64)).to(
+            w.device, w.real.dtype)[:, None]
+
+    def h(c):
+        return c if om is None else c * om
+
     wp = w[None]
     c = panel_dots(V, Bw[None])
     c_total = c.clone()
     for _ in range(passes - 1):
         if Bmult is None:
-            wp, c = panel_update_dots(V, c, wp)
+            wp, c = panel_update_dots(V, h(c), wp)
         else:
-            wp = panel_update(V, c, wp)
+            wp = panel_update(V, h(c), wp)
             c = panel_dots(V, Bmult(wp[0])[None])
         c_total += c
-    w = panel_update(V, c, wp)[0]
+    w = panel_update(V, h(c), wp)[0]
     Bw = w if Bmult is None else Bmult(w)
     return w, c_total[:, 0], norm_before, _safe_sqrt(torch.vdot(w, Bw).real)
 
@@ -134,12 +148,16 @@ def cholqr2(X: torch.Tensor, Bmult: Optional[Callable] = None):
     return Q, R2 @ R1
 
 
-def svqb(X: torch.Tensor, Bmult: Optional[Callable] = None):
+def svqb(X: torch.Tensor, Bmult: Optional[Callable] = None,
+         omega: Optional[np.ndarray] = None):
     """SVQB orthonormalization (Stathopoulos & Wu): scale by the Gram
-    diagonal, eigendecompose, Q_cols = X_cols D^-1/2 U Lambda^-1/2.
-    Returns (Q, T) with Q = T^T X."""
+    diagonal, eigendecompose, Q_cols = X_cols D^-1/2 U Lambda^-1/2; with a
+    signature ``omega`` (indefinite metric) the Gram's rows are scaled by
+    it first.  Returns (Q, T) with Q = T^T X."""
     eps = float(torch.finfo(X.dtype).eps)
     G = _gram_host(X, Bmult)
+    if omega is not None:
+        G = G * np.asarray(omega)[:, None]
     ds = 1.0 / np.sqrt(np.abs(np.real(np.diagonal(G))) + eps)
     lam, U = np.linalg.eigh(_herm(G * ds[:, None] * ds[None, :]))
     T = (ds[:, None] * U) * (1.0 / np.sqrt(np.abs(lam) + eps))[None, :]

@@ -1,4 +1,5 @@
-from .types import DS, DSHEP, DSGHEP, DSNHEP, DSGNHEP
-from . import compact, schur
+from .types import DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP
+from . import bdc, compact, schur
 
-__all__ = ["DS", "DSHEP", "DSGHEP", "DSNHEP", "DSGNHEP", "compact", "schur"]
+__all__ = ["DS", "DSHEP", "DSGHEP", "DSGHIEP", "DSNHEP", "DSNHEPTS",
+           "DSGNHEP", "bdc", "compact", "schur"]

@@ -1,7 +1,7 @@
 """Compact (tridiagonal + arrow) projected-problem storage for DSHEP
-(``slepc_tpu/ds/compact.py``; host numpy, as in the reference).  The GHIEP
-arm (``solve_arrow_ghiep``) waits for the indefinite solvers (ROADMAP.md,
-queue 1, item 11).
+(``slepc_tpu/ds/compact.py``; host numpy, as in the reference), with the
+GHIEP arm ``solve_arrow_ghiep`` (the pseudo-Lanczos compact form, solved by
+``DSGHIEP`` on the expanded matrix).
 
 Reference: src/sys/classes/ds/impls/hep/dshep.c — the DS tier stores the
 projected matrix of a Lanczos / thick-restart recurrence in COMPACT form:
@@ -165,3 +165,15 @@ def extract_compact(S: np.ndarray, rtol: float = 1e-13):
     if np.abs(S - arrow_expand(d, e, k)).max() > 10 * tol:
         return None
     return d, e, k
+
+
+def solve_arrow_ghiep(d: np.ndarray, e: np.ndarray, omega: np.ndarray,
+                      k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Compact GHIEP form: T x = lambda Omega x, Omega = diag(+-1).  The
+    indefinite HZ / HR reduction is replaced by ``DSGHIEP`` on the
+    expanded matrix (projected sizes are <= mpd); the compact storage stays
+    at the interface, so a pseudo-Lanczos recurrence never assembles T
+    itself."""
+    from .types import DSGHIEP
+
+    return DSGHIEP().solve(arrow_expand(d, e, k), np.asarray(omega))

@@ -2,13 +2,15 @@
 
 Host-side classes over numpy / LAPACK, as in the reference: the small
 (ncv x ncv) projected problem of each outer iteration is solved on the
-host.  Ported: :class:`DS` (registry), :class:`DSHEP`, :class:`DSGHEP`
-(the Hermitian Krylov-Schur loop), :class:`DSNHEP` (real or complex Schur
-form, ``ds/schur.py``) and :class:`DSGNHEP` (ordered QZ), the types of the
-non-Hermitian arm.  The two-sided, indefinite, SVD and polynomial types
-wait for their solvers (ROADMAP.md, queue 1, items 11d, 12-15);
-``DSHEP.solve_block_tridiag`` waits with the block divide-and-conquer
-(``ds/bdc.py``, item 11d).
+host.  Ported: :class:`DS` (registry), :class:`DSHEP` (with the block
+divide-and-conquer of ``ds/bdc.py`` behind ``solve_block_tridiag``),
+:class:`DSGHEP` (the Hermitian Krylov-Schur loop), :class:`DSNHEP` (real or
+complex Schur form, ``ds/schur.py``), :class:`DSNHEPTS` (right and left
+pairs, two-sided), :class:`DSGHIEP` (the symmetric / signature pencil of
+pseudo-Lanczos, by the hyperbolic-Jacobi stand-in for the HZ iteration,
+:func:`_hz_hyperbolic_jacobi`) and :class:`DSGNHEP` (ordered QZ).  The SVD
+and polynomial types wait for their solvers (ROADMAP.md, queue 1, items
+12-15).
 """
 
 from __future__ import annotations
@@ -51,6 +53,19 @@ class DSHEP(DS):
             alpha, beta,
             lapack_driver="stevd" if len(alpha) >= 256 else "auto")
 
+    def solve_block_tridiag(self, Ds, Es, tau: float = 0.0,
+                            force: bool = False):
+        """Symmetric block-tridiagonal projected problem (diagonal blocks
+        Ds, subdiagonal blocks Es), the blocked-Lanczos DS shape: the block
+        divide-and-conquer with deflation (``ds/bdc.py``) when ``force`` or
+        a truncation ``tau`` > 0 asks for it, else a dense eigh (LAPACK's
+        dsyevd wins for full-rank couplings at DS sizes)."""
+        from .bdc import bdc_eig, block_tridiag_dense
+
+        if force or tau > 0.0:
+            return bdc_eig(Ds, Es, tau=tau)
+        return np.linalg.eigh(block_tridiag_dense(Ds, Es))
+
     def sort(self, w, Q, keys):
         perm = np.argsort(np.asarray(keys), kind="stable")
         return w[perm], Q[:, perm]
@@ -77,6 +92,129 @@ class DSNHEP(DS):
 
     def vectors(self, T, Q):
         return _schur.schur_eigvectors(T, Q)  # (eigs, X)
+
+
+class DSNHEPTS(DS):
+    """NHEP with left eigenvectors (two-sided): right pairs from the Schur
+    form of A, left from that of A^H, matched by eigenvalue (each right
+    lambda takes the unused left value nearest conj(lambda))."""
+
+    def solve(self, A: np.ndarray):
+        T, Q, _ = _schur.schur(A)
+        w, X = _schur.schur_eigvectors(T, Q)
+        Tl, Ql, _ = _schur.schur(np.asarray(A).conj().T)
+        wl, Y = _schur.schur_eigvectors(Tl, Ql)
+        return w, X, Y[:, match_conj(w, wl)]
+
+
+def match_conj(w_right, w_left) -> np.ndarray:
+    """pick with w_left[pick[i]] the unused left value nearest
+    conj(w_right[i]), taken in the order of w_right."""
+    w_left = np.asarray(w_left)
+    used = np.zeros(len(w_left), bool)
+    pick = np.zeros(len(w_right), int)
+    for i, lam in enumerate(np.asarray(w_right)):
+        j = int(np.argmin(np.abs(w_left - np.conj(lam))
+                          + np.where(used, np.inf, 0.0)))
+        used[j] = True
+        pick[i] = j
+    return pick
+
+
+def _hz_hyperbolic_jacobi(T: np.ndarray, omega: np.ndarray,
+                          max_sweeps: int = 30, tol: float = 1e-14):
+    """The HZ iteration's role for the real symmetric / signature pencil
+    (T, Omega), Omega = diag(+-1): one-sided trigonometric-hyperbolic
+    Jacobi (Veselic).  It accumulates an Omega-orthogonal G (G^T Omega G =
+    Omega) with G^T T G diagonal: same-sign index pairs take Givens
+    rotations, opposite-sign pairs hyperbolic ones, so the signature is
+    kept exactly and the eigenvectors come out Omega-orthonormal.
+
+    Needs T definite (the definite-type GHIEP regime): then every
+    hyperbolic pivot has |2 T_ij| < T_ii + T_jj and the sweeps converge
+    quadratically; an indefinite T (complex pairs possible) stops with
+    converged=False.  Returns (w, G, converged), w real with T g = w Omega
+    g."""
+    A = np.array(T, dtype=float, copy=True)
+    n = A.shape[0]
+    om = np.asarray(omega).real
+    G = np.eye(n)
+    nrm0 = max(np.linalg.norm(A, "fro"), 1e-300)
+
+    def off_norm():
+        return np.sqrt(max(np.linalg.norm(A, "fro") ** 2
+                           - np.linalg.norm(np.diag(A)) ** 2, 0.0))
+
+    for _ in range(max_sweeps):
+        if off_norm() <= tol * nrm0:
+            return np.diag(A) * om, G, True
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                aij = A[i, j]
+                if abs(aij) <= 1e-30:
+                    continue
+                aii, ajj = A[i, i], A[j, j]
+                if om[i] == om[j]:  # trigonometric: symmetric Jacobi
+                    tau = (ajj - aii) / (2.0 * aij)
+                    t = np.sign(tau) / (abs(tau) + np.hypot(1.0, tau)) \
+                        if tau != 0 else 1.0
+                    c = 1.0 / np.sqrt(1.0 + t * t)
+                    s = t * c
+                    R = np.array([[c, s], [-s, c]])
+                else:
+                    # hyperbolic [[ch, sh], [sh, ch]] (Omega-orthogonal for
+                    # opposite signs): tanh(2y) = -2 aij / (aii + ajj)
+                    den = aii + ajj
+                    if abs(2.0 * aij) >= abs(den):
+                        return np.diag(A) * om, G, False
+                    th2 = -2.0 * aij / den
+                    t = th2 / (1.0 + np.sqrt(1.0 - th2 * th2))  # tanh(y)
+                    ch = 1.0 / np.sqrt(1.0 - t * t)
+                    R = np.array([[ch, t * ch], [t * ch, ch]])
+                idx = [i, j]
+                A[idx, :] = R.T @ A[idx, :]
+                A[:, idx] = A[:, idx] @ R
+                G[:, idx] = G[:, idx] @ R
+    return np.diag(A) * om, G, off_norm() <= 1e-8 * nrm0
+
+
+class DSGHIEP(DS):
+    """Generalized Hermitian-indefinite: T x = lambda Omega x with Omega =
+    diag(+-1), the pseudo-Lanczos projected problem.  A real symmetric T
+    of one sign solves by the hyperbolic-Jacobi stand-in for the HZ
+    iteration (:func:`_hz_hyperbolic_jacobi`: real values, Omega-orthonormal
+    vectors); any other pencil (or a Jacobi breakdown) by eig(Omega T) with
+    each vector Omega-normalized, real when every value is."""
+
+    def solve(self, T: np.ndarray, omega: np.ndarray):
+        T = np.asarray(T)
+        omega = np.asarray(omega).real
+        if not np.iscomplexobj(T):
+            Ts = 0.5 * (T + T.T)
+            if np.allclose(T, Ts, rtol=1e-12, atol=1e-14):
+                sgn = 0  # the sign of T, if it has one
+                for s in (1, -1):
+                    try:
+                        np.linalg.cholesky(s * Ts + 1e-14 * np.eye(len(Ts)))
+                        sgn = s
+                        break
+                    except np.linalg.LinAlgError:
+                        pass
+                if sgn:
+                    w, G, ok = _hz_hyperbolic_jacobi(sgn * Ts, omega)
+                    if ok:
+                        w = sgn * w
+                        order = np.argsort(w)
+                        return w[order], G[:, order]
+        w, X = np.linalg.eig(omega[:, None] * T)  # Omega T
+        for j in range(X.shape[1]):  # x^H Omega x = +-1 where possible
+            s = np.real(X[:, j].conj() @ (omega * X[:, j]))
+            if abs(s) > np.finfo(float).eps:
+                X[:, j] /= np.sqrt(abs(s))
+        if np.all(np.abs(w.imag) <= 1e-12 * (1 + np.abs(w.real))):
+            w = w.real
+            X = X.real if not np.iscomplexobj(T) else X
+        return w, X
 
 
 class DSGNHEP(DS):

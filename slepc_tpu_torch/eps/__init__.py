@@ -8,5 +8,6 @@ from . import davidson  # "gd", "jd" (and the GD cycle, gd_jit)
 from . import lobpcg  # "lobpcg"
 from . import rqcg  # "rqcg"
 from . import ciss  # "ciss"
+from . import bse  # "bse" (also dispatched from krylovschur)
 
 __all__ = ["EPS", "EPSConvergedReason", "EPSError", "EPSSolver", "ProblemType"]

@@ -20,18 +20,22 @@ as the rows of a (nconv, n) tensor -- complex for the complex pairs of a
 real non-Hermitian operator -- and ``get_eigenvectors`` returns them in the
 reference's (n, nconv) shape, as a transposed view.
 
-Registered: ``krylovschur`` (hep, ghep, nhep, gnhep, pgnhep), ``arnoldi``,
-``lanczos``, ``power``, ``subspace``, ``lapack``, the preconditioned solvers
-``gd``, ``jd`` (``eps/davidson.py``, with the fused GD cycle of
-``eps/gd_jit.py``), ``lobpcg`` and ``rqcg``, and the contour-integral
-``ciss``.  The reference's other solvers (``bse``: ROADMAP queue 1 item 11d;
-``lyapii``: 13), the indefinite (GHIEP), BSE
-and two-sided variants (11d) raise NotImplementedError naming their item,
-and so do the paths a complex operator does not take yet (11a-iii: the
-blocked cycle, ``cheb_block`` > 1 and the device shift-and-invert); a
-name the reference does not know raises :class:`EPSError` listing the
-registered ones.  Complex operators (and complex shifts of real ones)
-run in complex arithmetic (:func:`work_dtype`).
+Registered: ``krylovschur`` (hep, ghep, nhep, gnhep, pgnhep, ghiep, bse;
+the two-sided variant with ``set_two_sided``), ``bse`` (``eps/bse.py``),
+``arnoldi``, ``lanczos``, ``power``, ``subspace``, ``lapack``, the
+preconditioned solvers ``gd``, ``jd`` (``eps/davidson.py``, with the fused
+GD cycle of ``eps/gd_jit.py``), ``lobpcg`` and ``rqcg``, and the
+contour-integral ``ciss``.  A two-sided solve returns the left eigenvectors
+(``get_left_eigenvector``): from the coupled Krylov-Schur
+(``eps/ks_twosided.py``), else from a second run on the adjoint problem
+(:meth:`EPS._solve_left`; a copy of the right ones for a Hermitian problem
+with B = I).  The reference's ``lyapii`` (ROADMAP queue 1 item 13) raises
+NotImplementedError naming its item, and so do the paths a complex
+operator does not take yet (11a-iii: the blocked cycle, ``cheb_block`` > 1
+and the device shift-and-invert); a name the reference does not know
+raises :class:`EPSError` listing the registered ones.  Complex operators
+(and complex shifts of real ones) run in complex arithmetic
+(:func:`work_dtype`).
 """
 
 from __future__ import annotations
@@ -85,7 +89,7 @@ _TODO_COMPLEX = ("EPS {}: {} on a complex operator is still to be ported "
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
 # the reference's registered solvers that are not ported yet, and the
 # ROADMAP item each waits for
-_REFERENCE_SOLVERS = {"bse": "11d", "lyapii": "13"}
+_REFERENCE_SOLVERS = {"lyapii": "13"}
 
 
 def _real_if_real(z: complex):
@@ -134,12 +138,14 @@ class EPS:
         self.slice_npart = 1
         self.slice_factorizations = 0
         self.slice_backends = ()  # DirectSolver backends the slicing used
-        # variants of the general loop (the two-sided one is not ported and
-        # raises, ROADMAP.md queue 1 item 11d)
+        # variants of the general loop; two_sided also asks for the left
+        # eigenvectors; bse_variant picks the BSE solver's method (auto |
+        # projected)
         self.extraction = "ritz"
         self.balance = None
         self.balance_its = 5
         self.two_sided = False
+        self.bse_variant = "auto"
         self.arbitrary: Optional[Callable] = None
         self.rg = None
         # Krylov-Schur fast-path settings (the attributes ks_hep_solve
@@ -188,6 +194,7 @@ class EPS:
         self.eigenvalues: np.ndarray = np.array([])
         self.errests: np.ndarray = np.array([])
         self._eigenvectors: Optional[torch.Tensor] = None
+        self._left_eigenvectors: Optional[torch.Tensor] = None
         opts = options if options is not None else get_global_options()
         self.options = opts.child(prefix) if opts.prefix == "" else opts
         self._apply_options()
@@ -311,8 +318,8 @@ class EPS:
         return self
 
     def set_two_sided(self, flg: bool = True):
-        """Two-sided (left and right) solve: still to be ported, the solver
-        raises (ROADMAP.md, queue 1, item 11d)."""
+        """Two-sided (left and right) solve: the left eigenvectors come back
+        too (:meth:`get_left_eigenvector`)."""
         self.two_sided = flg
         return self
 
@@ -550,7 +557,11 @@ class EPS:
         self.expansions = 0
         self.matvecs = 0
         self.reason = EPSConvergedReason.ITERATING
+        self._left_eigenvectors = None
         cls().solve(self)
+        if self.two_sided and self.nconv > 0 \
+                and self._left_eigenvectors is None:
+            self._solve_left()
         if self.reason == EPSConvergedReason.ITERATING:
             self.reason = (EPSConvergedReason.CONVERGED_TOL
                            if self.nconv >= self.nev else EPSConvergedReason.DIVERGED_ITS)
@@ -559,8 +570,10 @@ class EPS:
             perm = self.sort_criterion().argsort(self.eigenvalues[: self.nconv])
             self.eigenvalues[: self.nconv] = self.eigenvalues[perm]
             self.errests[: self.nconv] = self.errests[perm]
-            self._eigenvectors = self._eigenvectors[
-                torch.from_numpy(perm).to(self._eigenvectors.device)]
+            idx = torch.from_numpy(perm).to(self._eigenvectors.device)
+            self._eigenvectors = self._eigenvectors[idx]
+            if self._left_eigenvectors is not None:
+                self._left_eigenvectors = self._left_eigenvectors[idx]
         if self._reason_view_on_solve:
             verb = "CONVERGED" if self.reason.value > 0 else "DIVERGED"
             print(f"EPS solve {verb}: {self.nconv} eigenpairs, reason "
@@ -570,6 +583,33 @@ class EPS:
         if self._error_view_on_solve:
             self.error_view()
         return self
+
+    def _solve_left(self):
+        """Two-sided without the coupled variant: the left eigenvectors
+        from a run on the adjoint problem A^H y = conj(lambda) B^H y with
+        the same solver and settings, each right pair matched to the
+        unused left value nearest conj(lambda) (the reference's dual run);
+        for a Hermitian problem with B = I, a copy of the right vectors."""
+        from ..ds.types import match_conj
+        from ..mat.linop import AdjointOperator
+
+        if self.is_hermitian and self.B is None:
+            self._left_eigenvectors = self._eigenvectors.clone()
+            return
+        left = EPS(AdjointOperator(self.A),
+                   None if self.B is None else AdjointOperator(self.B),
+                   problem_type=self.problem_type.value, which=self.which,
+                   nev=self.nev, ncv=self.ncv, tol=self.tol,
+                   max_it=self.max_it, solver=self.solver_name,
+                   target=(np.conj(self.target) if self.target is not None
+                           else None), options=Options())
+        left.solve()
+        if left.nconv == 0:
+            return
+        pick = match_conj(self.eigenvalues[: self.nconv],
+                          left.eigenvalues[: left.nconv])
+        self._left_eigenvectors = left._eigenvectors[
+            torch.from_numpy(pick).to(left._eigenvectors.device)]
 
     # -- checkpoint / resume ------------------------------------------------
     def save_state(self, path: str):
@@ -633,6 +673,13 @@ class EPS:
         """(lambda_i, x_i) with x_i a tensor on the operator's device."""
         lam = self.get_eigenvalue(i)
         return lam, self._eigenvectors[i]
+
+    def get_left_eigenvector(self, i: int) -> torch.Tensor:
+        """y_i, with y_i^H A = lambda_i y_i^H (two-sided solves), a tensor
+        on the operator's device."""
+        if self._left_eigenvectors is None:
+            raise EPSError("no left eigenvectors (enable two_sided)")
+        return self._left_eigenvectors[i]
 
     def get_eigenvectors(self) -> torch.Tensor:
         """The converged eigenvectors as the reference's (n, nconv) columns:

@@ -4,6 +4,12 @@ Routes, as in the reference:
 
   * spectrum slicing (``which=ALL`` with an interval, no filter):
     ``ks_slice.py``;
+  * ``problem_type="bse"``: the structure-preserving BSE solver
+    (``eps/bse.py``);
+  * ``set_two_sided()`` on a problem that is not Hermitian with B = I, when
+    the transformed operator has an adjoint apply: the coupled two-sided
+    Krylov-Schur (``eps/ks_twosided.py``); otherwise the one-sided solve
+    here and the left vectors from ``EPS._solve_left``;
   * the fast path (``ks_jit.ks_hep_solve``): a standard Hermitian problem
     with the identity metric, no region, no arbitrary selection and Ritz
     extraction, for a sigma = 0 shift with which = smallest / largest, the
@@ -16,7 +22,11 @@ Routes, as in the reference:
     ``pgnhep``) with its real Schur form, harmonic extraction, Krylov
     balancing, arbitrary selection and region filtering (``set_rg``), plus
     ``mpd``, locking, deflation and initial spaces, ``true_residual``,
-    ``stopping`` and monitors.
+    ``stopping`` and monitors; and the pseudo-Lanczos arm of GHIEP (an
+    indefinite B): a B-indefinite basis with the signature omega of its
+    vectors, the projected pencil by ``DSGHIEP``, the signatures of the
+    locked and kept vectors carried over a restart, and a re-solve as GNHEP
+    when the projection has complex pairs.
 
 One outer iteration of the general loop: basis extension (``bv/krylov.py``:
 the ST operator's apply + CGS2 on kernel K3 per column, B-metric for GHEP),
@@ -33,9 +43,9 @@ Y = eig(T) and X = V Y, two K4 rotations (real and imaginary parts) when Y
 is complex.  The basis keeps the port's row layout; H and the locked
 Schur block are host numpy.
 
-Still raising NotImplementedError, naming the ROADMAP item: GHIEP, BSE
-and the two-sided variant (item 11d); on a complex operator the blocked
-cycle, ``cheb_block`` > 1 and the device shift-and-invert (item 11a-iii).
+Still raising NotImplementedError, naming the ROADMAP item: on a complex
+operator the blocked cycle, ``cheb_block`` > 1 and the device
+shift-and-invert (item 11a-iii).
 """
 
 from __future__ import annotations
@@ -49,7 +59,8 @@ from ..bv.bv import BV
 from ..bv.krylov import extend_dispatch
 from ..ds.compact import extract_compact, solve_arrow_hep
 from ..ds.schur import schur, sort_schur
-from ..mat.linop import LinearOperator
+from ..ds.types import DSGHIEP
+from ..mat.linop import LinearOperator, ShellOperator
 from ..ops.bv import panel_update
 from ..ops.rotate import rotate
 from ..st.filter import STFilter
@@ -66,18 +77,9 @@ _WHICH = {Which.SMALLEST_REAL: "smallest",
           Which.SMALLEST_MAGNITUDE: "smallest",
           Which.LARGEST_REAL: "largest",
           Which.LARGEST_MAGNITUDE: "largest_magnitude"}
-_TODO = "EPS krylovschur: {} is not ported (ROADMAP.md, queue 1, item {})"
-_PORTED = (ProblemType.HEP, ProblemType.GHEP, ProblemType.NHEP,
-           ProblemType.GNHEP, ProblemType.PGNHEP)
 
 
 def _check_ported(eps) -> None:
-    if eps.problem_type not in _PORTED:
-        raise NotImplementedError(_TODO.format(
-            f"problem_type={eps.problem_type.value!r}", "11d"))
-    if eps.two_sided:
-        raise NotImplementedError(_TODO.format("the two-sided variant",
-                                               "11d"))
     if eps.A.dtype.is_complex or (eps.B is not None
                                   and eps.B.dtype.is_complex) \
             or np.imag(eps.st.sigma) != 0:
@@ -156,6 +158,21 @@ class KrylovSchur(EPSSolver):
 
             slice_solve(eps)
             return
+        if eps.problem_type == ProblemType.BSE:
+            from .bse import KrylovSchurBSE
+
+            KrylovSchurBSE().solve(eps)
+            return
+        if eps.two_sided and not (eps.is_hermitian and eps.B is None):
+            # the coupled variant needs the transformed operator's adjoint;
+            # without one EPS._solve_left runs the dual problem afterwards
+            op_try = st.op()
+            if not (isinstance(op_try, ShellOperator)
+                    and op_try._rmatvec is None):
+                from .ks_twosided import twosided_solve
+
+                twosided_solve(eps)
+                return
         op = st.op()
         # harmonic extraction forces the Schur machinery even for a
         # symmetric A (reference krylovschur.c:239)
@@ -182,7 +199,7 @@ class KrylovSchur(EPSSolver):
         # symmetrization keeps it), no constraints, region or selection
         if (hermitian and (eps.problem_type == ProblemType.HEP or dev_sinv)
                 and eps.deflation_space is None and eps.rg is None
-                and eps.arbitrary is None
+                and eps.arbitrary is None and not eps.two_sided
                 and (plain_shift or filtered or dev_sinv)
                 and (dev_sinv or eps.which in _WHICH)):
             w = "largest_magnitude" if dev_sinv else _WHICH[eps.which]
@@ -197,8 +214,10 @@ class KrylovSchur(EPSSolver):
         A = eps.A
         dtype, device = work_dtype(eps, op), A.device
         cplx = dtype.is_complex
-        Bip: Optional[LinearOperator] = \
-            eps.B if eps.problem_type == ProblemType.GHEP else None
+        # GHIEP's B is indefinite: the pseudo-Lanczos arm
+        indefinite = eps.problem_type == ProblemType.GHIEP
+        Bip: Optional[LinearOperator] = eps.B if eps.problem_type in (
+            ProblemType.GHEP, ProblemType.GHIEP) else None
         use_harmonic = eps.extraction == "harmonic"
 
         def on_device(x):
@@ -207,7 +226,7 @@ class KrylovSchur(EPSSolver):
         # ---- basis setup ----
         V = BV(n, ncv + 1, dtype, device=device)
         if Bip is not None:
-            V.set_matrix(Bip)
+            V.set_matrix(Bip, indef=indefinite)
         nc = 0
         if eps.deflation_space is not None:
             nc = V.insert_constraints(eps.deflation_space.T)
@@ -219,6 +238,13 @@ class KrylovSchur(EPSSolver):
         V.orthonormalize_column(0, replace_lindep=True)
 
         H = np.zeros((ncv + 1, ncv), _np_dtype(dtype))
+        omega = None
+        if indefinite:
+            # the extension's signature, the start vector's own sign
+            # included (the reference starts from all +1 and ignores it)
+            omega = V.omega.copy() if V.indef else np.ones(ncv + 1 + nc)
+            eps.gnhep_resolve = False  # set when the re-solve below runs
+        omega_locked = np.ones(ncv)
         sc = eps.sort_criterion()
         k = 0  # nconv (locked)
         l = 0  # kept from the previous restart
@@ -234,7 +260,7 @@ class KrylovSchur(EPSSolver):
 
             # ---- extension ----
             _, H, beta, brk = extend_dispatch(op, V.array, H, k + l, nv,
-                                              nc=nc, Bop=Bip)
+                                              nc=nc, Bop=Bip, omega=omega)
             if brk:
                 breakdown_ct += 1
                 if breakdown_ct > 10:
@@ -252,6 +278,28 @@ class KrylovSchur(EPSSolver):
                         else np.linalg.eigh(Ssym)
                     Q = Q.astype(Ssym.dtype, copy=False)
                 Tproj = None
+            elif indefinite:
+                om_act = omega[nc + k: nc + nv]
+                with log_event("DS_Solve", flops=9.0 * S.shape[0] ** 3):
+                    theta, Q = DSGHIEP().solve(0.5 * (S + S.conj().T), om_act)
+                Tproj = None
+                if np.iscomplexobj(Q) and np.abs(Q.imag).max() > 1e-10 * max(
+                        np.abs(Q.real).max(), 1e-300):
+                    # the indefinite pencil has complex conjugate pairs in
+                    # this projection: the signature bookkeeping assumes a
+                    # real spectrum, so re-solve as GNHEP (the reference's
+                    # test18 expects the same output with
+                    # -eps_gen_non_hermitian)
+                    eps.problem_type = ProblemType.GNHEP
+                    eps.gnhep_resolve = True
+                    st._op = None
+                    try:
+                        self.solve(eps)
+                    finally:
+                        eps.problem_type = ProblemType.GHIEP
+                    return
+                if not cplx:
+                    theta, Q = np.real(theta), np.real(Q)
             else:
                 if use_harmonic:
                     # harmonic Ritz translate (DSTranslateHarmonic): solve
@@ -400,6 +448,11 @@ class KrylovSchur(EPSSolver):
             else:
                 idx = np.arange(k, k2)
                 Tlock[idx, idx] = theta[: k2 - k]
+            if indefinite:
+                # the signature of each rotated vector: sign of diag(Q^H
+                # Omega Q)
+                sig = np.real(np.einsum("ij,i,ij->j", Q.conj(), om_act, Q))
+                omega_locked[k:k2] = np.sign(sig[: k2 - k])
 
             if kl > 0:
                 Vact = V.array[nc + k: nc + nv]
@@ -436,9 +489,25 @@ class KrylovSchur(EPSSolver):
                         H2[k: k2, k2: k2 + l] = Tuse[: k2 - k, kept]
                         H2[:k, k2: k2 + l] = H[:k, k:nv] @ Q[:, kept]
                     H2[k2 + l, k2: k2 + l] = arrow_beta * last[kept]
+                    if indefinite:
+                        # H holds V^H B op V (op V = V Omega H): a kept
+                        # Ritz vector q (T q = theta Omega q) has q^H B op q
+                        # = sig theta, and the residual row is omega_nv
+                        # beta (e^T Q); the reference keeps theta and beta
+                        # (e^T Q), which leaves the next projection
+                        # inconsistent (ROADMAP queue 3)
+                        H2[idx, idx] *= np.sign(sig[kept])
+                        H2[k2 + l, k2: k2 + l] *= omega[nc + nv]
                 H = H2
                 if not done:  # move the residual vector to row k2 + l
                     V.array[nc + k2 + l] = V.array[nc + nv]
+                    if indefinite:
+                        om2 = omega.copy()
+                        om2[nc + k: nc + k2] = omega_locked[k:k2]
+                        om2[nc + k2 + l] = omega[nc + nv]
+                        om2[nc + k2: nc + k2 + l] = np.sign(
+                            sig[k2 - k: k2 - k + l])
+                        omega[:] = om2
             k = k2
             if done:
                 break
@@ -447,9 +516,11 @@ class KrylovSchur(EPSSolver):
         eps.nconv = k
         eps.V = V
         Vl = V.array[nc: nc + k]
-        if hermitian or k == 0:
+        if hermitian or indefinite or k == 0:
             X = Vl.clone()
             lam = np.asarray(st.back_transform(np.diagonal(Tlock)[:k].copy()))
+            if indefinite:  # complex, as the reference returns them
+                lam = lam.astype(complex)
         else:
             # eigenvectors from the locked Schur block: X = V Y
             w, Y = np.linalg.eig(Tlock[:k, :k])

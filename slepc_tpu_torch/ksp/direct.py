@@ -220,14 +220,20 @@ class DirectSolver:
 
 
 def tridiag_inertia(d: np.ndarray, e: np.ndarray) -> Tuple[int, int, int]:
-    """Inertia of a symmetric tridiagonal matrix by the LDL^T / Sturm
-    recurrence on the host: q_1 = d_1, q_i = d_i - e_{i-1}^2 / q_{i-1}."""
+    """Inertia of a Hermitian tridiagonal matrix by the LDL^H / Sturm
+    recurrence on the host: q_1 = Re d_1, q_i = Re d_i - |e_{i-1}|^2 /
+    q_{i-1} (a complex Hermitian matrix has a real diagonal; its pivots are
+    real).  The reference squares e and compares a complex pivot with 0
+    (``slepc_tpu/ksp/direct.py:261-277``), which miscounts a complex
+    matrix."""
+    d = np.real(np.asarray(d))
+    e2 = np.abs(np.asarray(e)) ** 2
     n = len(d)
     neg = zero = pos = 0
     q = 0.0
     tiny = np.finfo(float).tiny
     for i in range(n):
-        q = d[i] - (e[i - 1] ** 2 / q if i > 0 else 0.0)
+        q = d[i] - (e2[i - 1] / q if i > 0 else 0.0)
         if q == 0.0:
             zero += 1
             q = tiny  # perturb past the singularity
@@ -239,22 +245,25 @@ def tridiag_inertia(d: np.ndarray, e: np.ndarray) -> Tuple[int, int, int]:
 
 
 def banded_ldlt_inertia(A, bw: int) -> Tuple[int, int, int]:
-    """Inertia of a symmetric banded matrix via unpivoted banded LDL^T on
-    the host.  Adequate for the definite-shifted matrices slicing
-    produces; a zero pivot is counted and perturbed."""
+    """Inertia of a Hermitian banded matrix via unpivoted banded LDL^H on
+    the host, on a band of A's dtype: the pivots are real (their real
+    parts) and the update takes the conjugate of the column, so a complex
+    Hermitian A counts its own inertia (the reference writes A into a real
+    band, ``slepc_tpu/ksp/direct.py:296``, and counts Re(A)'s).  Adequate
+    for the definite-shifted matrices slicing produces; a zero pivot is
+    counted and perturbed."""
     import scipy.sparse as sp
 
     A = sp.csr_matrix(A)
     n = A.shape[0]
-    band = np.zeros((bw + 1, n))  # band[i - j, j] = A[i, j], lower part
-    Ac = A.tocoo()
-    for i, j, v in zip(Ac.row, Ac.col, Ac.data):
-        if 0 <= i - j <= bw:
-            band[i - j, j] = v
+    band = np.zeros((bw + 1, n), dtype=np.result_type(A.dtype, np.float64))
+    Ac = A.tocoo()  # band[i - j, j] = A[i, j], lower part
+    lower = (Ac.row - Ac.col >= 0) & (Ac.row - Ac.col <= bw)
+    band[(Ac.row - Ac.col)[lower], Ac.col[lower]] = Ac.data[lower]
     neg = zero = pos = 0
     tiny = np.finfo(float).tiny
     for k in range(n):
-        piv = band[0, k]
+        piv = float(np.real(band[0, k]))
         if piv == 0.0:
             zero += 1
             piv = tiny
@@ -266,8 +275,9 @@ def banded_ldlt_inertia(A, bw: int) -> Tuple[int, int, int]:
         if lim > 0:
             col = band[1: lim + 1, k] / piv  # L[k+1..k+lim, k]
             for r in range(lim):
-                # column j = k+1+r: A[j+s, j] -= L[j+s,k] * piv * L[j,k]
-                band[: lim - r, k + 1 + r] -= col[r] * band[r + 1: lim + 1, k]
+                # column j = k+1+r: A[j+s, j] -= L[j+s,k] piv conj(L[j,k])
+                band[: lim - r, k + 1 + r] -= np.conj(col[r]) * \
+                    band[r + 1: lim + 1, k]
             band[1: lim + 1, k] = col  # store L
     return neg, zero, pos
 

@@ -8,7 +8,9 @@ Formats:
 
   * :class:`DIAOperator` — diagonal-offset storage for stencil / banded
     matrices; ``mult`` is the DIA kernel K1/K2 (K1c/K2c for complex64 /
-    complex128 diagonals) and ``mult_block`` the block kernel K5
+    complex128 diagonals), ``mult_h`` the same kernel on the adjoint's
+    diagonals (built once, on the device) and ``mult_block`` the block
+    kernel K5
     (``ops/dia.py``; real only: a complex block is one K1c/K2c launch a
     row).
   * :class:`AIJOperator` — general sparsity as plain CSR on the device;
@@ -220,6 +222,7 @@ class DIAOperator(LinearOperator):
         self.shape = tuple(shape) if shape is not None else (n, n)
         self.dtype = self.diags.dtype
         self.device = self.diags.device
+        self._adjoint: Optional["DIAOperator"] = None
 
     @property
     def nnz(self):
@@ -255,17 +258,28 @@ class DIAOperator(LinearOperator):
         return apply_by_parts(lambda V: dia_spmm(self.offsets, self.diags, V),
                               X, self.dtype)
 
+    def adjoint(self) -> "DIAOperator":
+        """A^H as a DIAOperator, built on A's device at the first call and
+        kept: A[i, i + o] = d[i] makes A^H[r, r - o] = conj(d[r - o]), so
+        diagonal o of A becomes diagonal -o of A^H with entries e[r] =
+        conj(d[r - o]) for max(0, o) <= r < min(n, n + o), zero outside."""
+        if self._adjoint is None:
+            n = self.shape[0]
+            e = torch.zeros((len(self.offsets), n), dtype=self.dtype,
+                            device=self.device)
+            for k, off in enumerate(self.offsets):
+                lo, hi = max(0, off), min(n, n + off)
+                if hi > lo:
+                    e[k, lo:hi] = self.diags[k, lo - off:hi - off].conj()
+            self._adjoint = DIAOperator(tuple(-o for o in self.offsets), e,
+                                        shape=self.shape[::-1])
+        return self._adjoint
+
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
-        """(A^H x)[i + off] += conj(d[i]) x[i]: slice updates, as the
-        reference's rolls (no kernel there either)."""
+        """A^H x on the same kernel as ``mult`` (K1/K2, K1c/K2c), over the
+        adjoint's diagonals (:meth:`adjoint`)."""
         self._check_len(x, "mult_h")
-        n = self.shape[0]
-        y = torch.zeros_like(x)
-        for k, off in enumerate(self.offsets):
-            lo, hi = max(0, -off), min(n, n - off)
-            if hi > lo:
-                y[lo + off:hi + off] += self.diags[k, lo:hi].conj() * x[lo:hi]
-        return y
+        return self.adjoint().mult(x)
 
     def to_scipy(self):
         import scipy.sparse as sp

@@ -11,8 +11,10 @@ polynomial filter ``STFilter`` (interior eigenvalues by SpMVs alone) is
 ``st/filter.py``.  A complex operator, or a complex shift of a real one,
 makes the transformed operator complex: the host-direct factors are
 complex (scipy's LU), the iterative KSPs run in complex arithmetic, and
-the solvers work in the promoted dtype (``op().dtype``).  The structured
-transforms of BSE and GHIEP wait for item 11d.
+the solvers work in the promoted dtype (``op().dtype``).  There are no
+structured transforms: GHIEP runs through these STs with B as an
+indefinite metric, and BSE applies its operator with the metric alone
+(``eps/bse.py``, a shift that does no B-solve).
 
 Where the reference quietly falls back to an iterative KSP when the direct
 route raises (``slepc_tpu/st/st.py:107-108``), the port goes iterative only

@@ -85,17 +85,38 @@ def test_plain_eps_matches_reference(jax_plain):
     assert x0.shape == (18 * 17,) and eps.compute_error(0) < 1e-8
 
 
-@pytest.mark.parametrize("kw,match", [
-    # the non-Hermitian arm and harmonic extraction run since the
-    # non-Hermitian slice; GHIEP and the two-sided variant wait (item 11d)
-    ({"problem_type": "ghiep"}, "item 11"),
-    ({"problem_type": "hep", "which": "largest_real",
-      "options": tst.Options.from_cli("-eps_two_sided")}, "item 11"),
-])
-def test_unported_eps_paths_raise(kw, match):
-    eps = tst.EPS(tst.laplacian_1d(20, device="cpu"), nev=2, **kw)
-    with pytest.raises(NotImplementedError, match=match):
+# GHIEP (no B: the identity metric, signature +1 throughout) and the
+# two-sided variant (a Hermitian problem: the general loop, the left
+# vectors a copy of the right ones) raised NotImplementedError until item
+# 11d was ported; each now solves and is held against the reference (the
+# same nconv and its, the values to 1e-10).  The ids are the ones the
+# raising cases had.
+@pytest.mark.parametrize("kw", [
+    {"problem_type": "ghiep"},
+    {"problem_type": "hep", "which": "largest_real", "cli": "-eps_two_sided"},
+], ids=["kw0-item 11", "kw1-item 11"])
+def test_ghiep_and_two_sided_paths_solve_as_the_reference(kw):
+    kw = dict(kw)
+    cli = kw.pop("cli", "")
+    out = []
+    for pkg in (jst, tst):
+        A = pkg.laplacian_1d(20) if pkg is jst else \
+            pkg.laplacian_1d(20, device="cpu")
+        eps = pkg.EPS(A, nev=2, options=pkg.Options.from_cli(cli), **kw)
         eps.solve()
+        out.append(eps)
+    je, te = out
+    assert te.nconv == je.nconv >= 2 and te.its == je.its
+    np.testing.assert_allclose(np.real(te.eigenvalues[:2]),
+                               np.real(je.eigenvalues[:2]), rtol=0, atol=1e-10)
+    exact = np.sort(tst.laplacian_1d_eigs(20))[::-1][:2]
+    np.testing.assert_allclose(np.real(te.eigenvalues[:2]), exact, rtol=0,
+                               atol=1e-10)
+    if te.two_sided:
+        for i in range(2):
+            y = te.get_left_eigenvector(i)
+            assert te.compute_error(i) < 1e-8
+            assert torch.equal(y, te._eigenvectors[i])
 
 
 @pytest.mark.parametrize("block", [1, 4])

@@ -87,7 +87,8 @@ def test_dia_plain_version_matches_split_pallas(kind, dtype):
     y = dia.dia_spmv(offsets, torch.from_numpy(d), torch.from_numpy(x))
     assert y.dtype == TORCH[dtype]
     assert _rel(y.numpy(), yj) < TOL[dtype]
-    # and the operator class: mult, mult_h (slice updates) and mult_block
+    # and the operator class: mult, mult_h (the adjoint's diagonals, on
+    # the same kernel) and mult_block
     # (one mult a row for a complex block) against scipy
     A = tst.DIAOperator(offsets, d, device="cpu")
     As = A.to_scipy()

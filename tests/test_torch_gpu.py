@@ -1196,3 +1196,116 @@ def test_ciss_batched_on_the_card(cuda):
     assert eps.nconv == len(want)
     np.testing.assert_allclose(np.sort(eps.eigenvalues.real), want,
                                rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype,key,tol", [
+    (torch.float32, "dia_spmv_f32", 2e-6), (torch.float64, "dia_spmv_f64", 1e-14),
+    (torch.complex64, "dia_spmv_c64", 2e-6),
+    (torch.complex128, "dia_spmv_c128", 1e-14)])
+def test_dia_mult_h_runs_on_the_dia_kernel(cuda, dtype, key, tol):
+    """A^H x on the card: the adjoint's diagonals are built once, on the
+    card, and each mult_h is one K1/K2/K1c/K2c launch (no slice update per
+    diagonal), against A^H x from the CPU operator."""
+    n, offsets = 45_013, (-200, -1, 0, 3, 45_000)
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((len(offsets), n))
+    x = rng.standard_normal(n)
+    if dtype.is_complex:
+        d = d + 1j * rng.standard_normal(d.shape)
+        x = x + 1j * rng.standard_normal(n)
+    ref = stt.DIAOperator(offsets, d, device="cpu").mult_h(torch.from_numpy(x))
+    A = stt.DIAOperator(offsets, torch.from_numpy(d).to(cuda, dtype))
+    xt = torch.from_numpy(x).to(cuda, dtype)
+    for call in range(2):
+        before = stt.launch_counts()
+        y = A.mult_h(xt)
+        after = stt.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {key: 1}
+    assert A.adjoint().diags.device == xt.device
+    err = (y.cpu().to(ref.dtype) - ref).abs().max() / ref.abs().max()
+    assert float(err) <= 10 * tol
+
+
+@pytest.mark.parametrize("case", ["two_sided_dia", "ghiep", "ghiep_pairs",
+                                  "bse_projected", "bse_complex"])
+def test_structured_variants_on_the_card(cuda, case):
+    """The paths of item 11d on CUDA operators, each on its kernels, held
+    against the same solve on the CPU."""
+    def run(dev):
+        if case == "two_sided_dia":
+            rng = np.random.default_rng(7)
+            n = 3000
+            lo = 0.3 * rng.standard_normal(n)
+            hi = 0.3 * rng.standard_normal(n)
+            lo[0] = hi[-1] = 0.0
+            A = stt.DIAOperator((-1, 0, 1), np.stack(
+                [lo, np.linspace(0.0, 3.0, n), hi]), device=dev)
+            eps = stt.EPS(A, problem_type="nhep", nev=4, ncv=24,
+                          which="largest_real", options=stt.Options())
+            eps.set_two_sided()
+        elif case == "ghiep":
+            n = 400
+            A = stt.laplacian_1d(n, device=dev)
+            om = np.where(np.arange(n) % 3 == 0, -1.0, 1.0)
+            B = stt.DIAOperator((0,), om[None], device=dev)
+            eps = stt.EPS(A, B, problem_type="ghiep", nev=3, ncv=16,
+                          options=stt.Options())
+            eps.set_target(0.3)
+        elif case == "ghiep_pairs":
+            # a projection with complex pairs: the loop re-solves as GNHEP
+            rng = np.random.default_rng(3)
+            n = 600
+            lo = 0.2 * rng.standard_normal(n)
+            lo[0] = 0.0
+            A = stt.DIAOperator((-1, 0, 1), np.stack(
+                [lo, np.linspace(-2.0, 2.0, n), np.roll(lo, -1)]), device=dev)
+            om = np.where(np.arange(n) % 2 == 0, -1.0, 1.0)
+            B = stt.DIAOperator((0,), om[None], device=dev)
+            eps = stt.EPS(A, B, problem_type="ghiep", nev=3, ncv=16,
+                          which="largest_real", options=stt.Options())
+        else:
+            rng = np.random.default_rng(3)
+            n = 64
+            cx = case == "bse_complex"
+            R = rng.standard_normal((n, n)) + (1j * rng.standard_normal(
+                (n, n)) if cx else 0)
+            R = 0.5 * (R + R.conj().T) + 2 * n * np.eye(n)
+            C = rng.standard_normal((n, n)) + (1j * rng.standard_normal(
+                (n, n)) if cx else 0)
+            C = 0.5 * (C + C.T)
+            H = stt.create_bse(stt.DenseOperator(R, device=dev),
+                               stt.DenseOperator(C, device=dev))
+            eps = stt.EPS(H, problem_type="bse", nev=4, tol=1e-9,
+                          options=stt.Options())
+            eps.bse_variant = "projected" if case == "bse_projected" \
+                else "auto"
+        before = stt.launch_counts()
+        eps.solve()
+        after = stt.launch_counts()
+        return eps, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    te, counts = run(cuda)
+    ce, _ = run("cpu")
+    assert te.nconv >= 3 and te.nconv == ce.nconv
+    lam, lam_c = (np.sort_complex(np.asarray(e.eigenvalues[:3], complex))
+                  for e in (te, ce))
+    np.testing.assert_allclose(lam, lam_c, rtol=1e-9, atol=0)
+    if case == "two_sided_dia":
+        # the real operator on the complex bases by parts: K2
+        assert counts["dia_spmv_f64"] > 0 and counts["rotate_c128"] > 0
+        assert counts["panel_dots_c128"] > 0
+        lam0 = complex(te.eigenvalues[0])
+        y = te.get_left_eigenvector(0)
+        yh = te.A.mult_h(y) - lam0.conjugate() * y
+        assert float(torch.linalg.vector_norm(yh)) < 1e-7 * float(
+            torch.linalg.vector_norm(y)) * abs(lam0)
+    elif case in ("ghiep", "ghiep_pairs"):
+        assert counts["dia_spmv_f64"] > 0  # B, the metric
+        assert counts["rotate_f64"] > 0 and counts["panel_dots_f64"] > 0
+        assert te.gnhep_resolve is ce.gnhep_resolve is (case == "ghiep_pairs")
+    elif case == "bse_projected":
+        assert counts["panel_dots_c128"] > 0 and counts["rotate_f64"] > 0
+    else:
+        assert counts["panel_dots_c128"] > 0

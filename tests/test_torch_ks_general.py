@@ -221,74 +221,83 @@ def _ciss_region(eps):
     eps.set_rg(pkg.RGEllipse(center=1.0, radius=0.6))
 
 
-# each case names a setting.  The real arms with it run since the
-# non-Hermitian slice (tests/test_torch_nhep.py) and its complex arms since
-# item 11a-ii: each complex case (what=None) now solves its setting on a
-# complex operator and is held against the reference (the same its and
-# nconv, eigenvalues to 1e-9).  The solvers of items 11b / 11c (gd, ciss,
-# rqcg) solve laplacian_1d(20) and are held the same way since they were
-# ported.  The others hold an arm that still raises: GHIEP, BSE and the
-# two-sided variant (11d)
-@pytest.mark.parametrize("make,kw,setup,what", [
-    (_complex_op, dict(problem_type="nhep"), None, None),
-    (None, dict(problem_type="ghiep"), None, "problem_type='ghiep'"),
+def _complex_bse_blocks():
+    """R Hermitian (+ 2n I) and C complex symmetric, n = 10, as
+    tests/test_round4.py:191-205 builds them: H = [R C; -conj(C)
+    -conj(R)] is 20 x 20."""
+    rng = np.random.default_rng(3)
+    n = 10
+    R = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    R = 0.5 * (R + R.conj().T) + 2 * n * np.eye(n)
+    C = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return R, 0.5 * (C + C.T)
+
+
+# each case names a setting, and each solves its setting against the
+# reference (the same its and nconv, eigenvalues to 1e-9).  The real arms
+# run since the non-Hermitian slice (tests/test_torch_nhep.py), the complex
+# ones (a complex operator) since item 11a-ii; the solvers of items 11b /
+# 11c (gd, ciss, rqcg) solve laplacian_1d(20).  The cases of item 11d
+# raised NotImplementedError until it was ported and keep their ids: GHIEP
+# (complex Hermitian A, no B: the projection is complex, so it re-solves as
+# GNHEP in both packages), the two-sided variant (the coupled Krylov-Schur
+# on a complex operator) and BSE (a complex definite MatBSE).
+@pytest.mark.parametrize("make,kw,setup", [
+    (_complex_op, dict(problem_type="nhep"), None),
+    (_complex_hermitian_op, dict(problem_type="ghiep"), None),
     (_complex_op, dict(problem_type="nhep", which="target_magnitude",
                        target=10.3 + 5.1j, cli="-st_type shift"),
-     lambda e: setattr(e, "extraction", "harmonic"), None),
-    (None, dict(problem_type="hep"), lambda e: setattr(e, "two_sided", True),
-     "two-sided"),
+     lambda e: setattr(e, "extraction", "harmonic")),
     (_complex_op, dict(problem_type="nhep"),
-     lambda e: setattr(e, "balance", "krylov"), None),
+     lambda e: setattr(e, "two_sided", True)),
     (_complex_op, dict(problem_type="nhep"),
-     lambda e: setattr(e, "arbitrary", lambda lam, x: -abs(lam)), None),
+     lambda e: setattr(e, "balance", "krylov")),
+    (_complex_op, dict(problem_type="nhep"),
+     lambda e: setattr(e, "arbitrary", lambda lam, x: -abs(lam))),
     (_complex_hermitian_op, dict(problem_type="nhep", solver="lanczos"),
-     None, None),
-    (None, dict(problem_type="bse"), None, "problem_type='bse'"),
-    (_laplacian_20, dict(problem_type="hep", solver="gd"), None, None),
-    (_laplacian_20, dict(problem_type="hep", solver="ciss"), _ciss_region,
      None),
+    (_complex_bse_blocks, dict(problem_type="bse"), None),
+    (_laplacian_20, dict(problem_type="hep", solver="gd"), None),
+    (_laplacian_20, dict(problem_type="hep", solver="ciss"), _ciss_region),
     (_laplacian_20, dict(problem_type="hep", solver="rqcg",
-                         which="smallest_real", max_it=3000), None, None),
+                         which="smallest_real", max_it=3000), None),
 ], ids=["kw0-None-problem_type='nhep'", "kw1-None-problem_type='ghiep'",
         "kw2-<lambda>-harmonic extraction", "kw3-<lambda>-two-sided",
         "kw4-<lambda>-balancing", "kw5-<lambda>-arbitrary selection",
         "kw6-None-solver 'lanczos'", "problem_type='bse'", "solver 'gd'",
         "solver 'ciss'", "solver 'rqcg'"])
-def test_unported_arms_raise_naming_the_roadmap(make, kw, setup, what):
-    if what is None:  # a complex operator: solved, against the reference
-        Ad = make()
-        kw = dict(kw)
-        cli = kw.pop("cli", "")
-        out = []
-        for pkg in (jst, tst):
-            A = pkg.DenseOperator(Ad) if pkg is jst \
-                else pkg.DenseOperator(Ad, device="cpu")
-            eps = pkg.EPS(A, options=pkg.Options.from_cli(cli),
-                          **{"nev": 3, "ncv": 12, "max_it": 500, **kw})
-            if setup is not None:
-                setup(eps)
-            eps.solve()
-            out.append(eps)
-        je, te = out
-        assert te.nconv == je.nconv and te.nconv >= 3
-        # RQCG's nonlinear CG amplifies rounding: its step counts differ by
-        # a few percent (tests/test_torch_lobpcg.py)
-        assert te.its == je.its or (kw.get("solver") == "rqcg"
-                                    and abs(te.its - je.its) <= 0.1 * je.its)
-        np.testing.assert_allclose(te.eigenvalues[:3], je.eigenvalues[:3],
-                                   rtol=0, atol=1e-9)
-        w = np.linalg.eigvals(Ad)
-        for lam in te.eigenvalues[:3]:
-            assert np.min(np.abs(w - lam)) < 1e-8
-        assert max(te.compute_error(i) for i in range(3)) < 1e-7
-        return
-    A = make() if make is not None else tst.laplacian_1d(20, device="cpu")
-    eps = tst.EPS(A, **kw)
-    if setup is not None:
-        setup(eps)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11") as err:
+def test_each_arm_solves_as_the_reference(make, kw, setup):
+    Ad = make()
+    kw = dict(kw)
+    cli = kw.pop("cli", "")
+    out = []
+    for pkg in (jst, tst):
+        dev = {} if pkg is jst else {"device": "cpu"}
+        if isinstance(Ad, tuple):  # the BSE blocks
+            A = pkg.create_bse(*(pkg.DenseOperator(M, **dev) for M in Ad))
+        else:
+            A = pkg.DenseOperator(Ad, **dev)
+        eps = pkg.EPS(A, options=pkg.Options.from_cli(cli),
+                      **{"nev": 3, "ncv": 12, "max_it": 500, **kw})
+        if setup is not None:
+            setup(eps)
         eps.solve()
-    assert what in str(err.value)
+        out.append(eps)
+    je, te = out
+    assert te.nconv == je.nconv and te.nconv >= 3
+    # RQCG's nonlinear CG amplifies rounding: its step counts differ by
+    # a few percent (tests/test_torch_lobpcg.py)
+    assert te.its == je.its or (kw.get("solver") == "rqcg"
+                                and abs(te.its - je.its) <= 0.1 * je.its)
+    np.testing.assert_allclose(te.eigenvalues[:3], je.eigenvalues[:3],
+                               rtol=0, atol=1e-9)
+    if isinstance(Ad, tuple):
+        R, C = Ad
+        Ad = np.block([[R, C], [-C.conj(), -R.conj()]])
+    w = np.linalg.eigvals(Ad)
+    for lam in te.eigenvalues[:3]:
+        assert np.min(np.abs(w - lam)) < 1e-8
+    assert max(te.compute_error(i) for i in range(3)) < 1e-7
 
 
 def test_st_filter_raises_naming_the_roadmap():

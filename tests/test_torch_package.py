@@ -229,7 +229,7 @@ def test_eps_driven_by_setters_matches_the_reference(capsys):
 def test_unknown_solver_raises_eps_error_listing_the_registered():
     A = tst.laplacian_1d(20, device="cpu")
     with pytest.raises(tst.EPSError, match=r"unknown EPS solver 'bogus'; "
-                       r"available: \['arnoldi', 'ciss', 'gd', 'jd', "
+                       r"available: \['arnoldi', 'bse', 'ciss', 'gd', 'jd', "
                        r"'krylovschur', 'lanczos', 'lapack', 'lobpcg', "
                        r"'power', 'rqcg', 'subspace'\]"):
         tst.EPS(A, problem_type="hep").set_type("bogus").solve()
@@ -256,32 +256,50 @@ def _spi_op_complex(x):
                              device="cpu")
 
 
-# the variants the port lacks: two-sided (item 11d) on a real operator, and
-# the complex paths of item 11a-iii (the blocked cycle, the blocked
-# Chebyshev cycle, the device shift-and-invert), each reached through
-# another way a problem turns complex: a complex A, a complex Hermitian B,
-# a complex shift of a real A.  The setters of the non-Hermitian slice take
-# a complex operator since item 11a-ii (tests/test_torch_complex.py).  The
-# nonlinear power iteration has no blocked form: on a complex operator it
-# solves (A(x) complex Hermitian), and the case holds its residual.
+# set_two_sided on a real operator raised until item 11d was ported; it now
+# solves, Hermitian (the left vectors a copy of the right ones) and
+# non-Hermitian (the coupled Krylov-Schur), against the reference.
+@pytest.mark.parametrize("pt", ["hep", "nhep"])
+def test_set_two_sided_solves_as_the_reference(pt):
+    L = tst.laplacian_1d(20, device="cpu")
+    out = []
+    for pkg in (jst, tst):
+        A = pkg.laplacian_1d(20) if pkg is jst else L
+        eps = pkg.EPS(A, problem_type=pt, nev=2, options=pkg.Options())
+        eps.set_two_sided()
+        eps.solve()
+        out.append(eps)
+    je, te = out
+    assert te.nconv == je.nconv >= 2 and te.its == je.its
+    np.testing.assert_allclose(np.real(te.eigenvalues[:2]),
+                               np.real(je.eigenvalues[:2]), rtol=0,
+                               atol=1e-10)
+    Ld = L.to_dense().numpy()
+    for i in range(2):
+        y = te.get_left_eigenvector(i).numpy()
+        lam = np.conj(te.eigenvalues[i])
+        assert np.linalg.norm(Ld.T @ y - lam * y) < 1e-7
+
+
+# The variants the port lacks: the complex paths of item 11a-iii (the
+# blocked cycle, the blocked Chebyshev cycle, the device shift-and-invert),
+# each reached through another way a problem turns complex: a complex A, a
+# complex Hermitian B, a complex shift of a real A.  The setters of the
+# non-Hermitian slice take a complex operator since item 11a-ii
+# (tests/test_torch_complex.py).  The nonlinear power iteration has no
+# blocked form: on a complex operator it solves (A(x) complex Hermitian),
+# and the case holds its residual.
 @pytest.mark.parametrize("setter,args", [
-    ("set_two_sided", ()),
     ("block_size", ("complex A",)),
     ("block_size", ("complex shift",)),
     ("cheb_block", ("complex B",)),
     ("STSinvertDevice", ("complex shift",)),
     ("set_power_nonlinear", (_spi_op_complex,))],
-    ids=["set_two_sided", "block_size-complex_A", "block_size-complex_shift",
+    ids=["block_size-complex_A", "block_size-complex_shift",
          "cheb_block-complex_B", "STSinvertDevice-complex_shift",
          "set_power_nonlinear"])
 def test_setters_of_unported_variants_raise_naming_the_roadmap(setter, args):
     L = tst.laplacian_1d(20, device="cpu")
-    if setter == "set_two_sided":
-        eps = tst.EPS(L, problem_type="hep", nev=2, options=tst.Options())
-        eps.set_two_sided()
-        with pytest.raises(NotImplementedError, match="queue 1, item 11d"):
-            eps.solve()
-        return
     if setter == "set_power_nonlinear":
         A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
                               device="cpu")
@@ -413,9 +431,9 @@ def test_the_non_hermitian_slice_is_exported_and_registered():
     from slepc_tpu_torch.st import STFilter, estimate_spectral_bounds  # noqa
     from slepc_tpu_torch.ds import DSGNHEP, DSNHEP, schur  # noqa
 
-    # the preconditioned and contour solvers (items 11b, 11c) since they
-    # were ported
-    assert sorted(tst.EPS._solvers) == ["arnoldi", "ciss", "gd", "jd",
+    # the preconditioned and contour solvers (items 11b, 11c) and bse
+    # (11d) since they were ported
+    assert sorted(tst.EPS._solvers) == ["arnoldi", "bse", "ciss", "gd", "jd",
                                         "krylovschur", "lanczos", "lapack",
                                         "lobpcg", "power", "rqcg",
                                         "subspace"]
@@ -453,10 +471,15 @@ def test_complex_operators_raise_naming_11a_ii(solver):
 
 
 def test_unported_solvers_name_their_items():
+    """lyapii waits for item 13; bse (item 11d) is registered since it was
+    ported, and refuses an operator that is not a MatBSE, as the
+    reference's does."""
     A = tst.laplacian_1d(20, device="cpu")
-    for name, item in (("bse", "11d"), ("lyapii", "13")):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            tst.EPS(A, problem_type="hep", solver=name).solve()
+    with pytest.raises(NotImplementedError, match="item 13\\)"):
+        tst.EPS(A, problem_type="hep", solver="lyapii").solve()
+    assert "bse" in tst.EPS._solvers
+    with pytest.raises(ValueError, match="MatBSE"):
+        tst.EPS(A, problem_type="hep", solver="bse").solve()
 
 
 def test_the_preconditioned_and_contour_slice_is_in_the_import_checks():
@@ -470,7 +493,10 @@ def test_the_preconditioned_and_contour_slice_is_in_the_import_checks():
     new = {"slepc_tpu_torch.parallel", "slepc_tpu_torch.parallel.tasks",
            "slepc_tpu_torch.sys.contour", "slepc_tpu_torch.eps.davidson",
            "slepc_tpu_torch.eps.gd_jit", "slepc_tpu_torch.eps.lobpcg",
-           "slepc_tpu_torch.eps.rqcg", "slepc_tpu_torch.eps.ciss"}
+           "slepc_tpu_torch.eps.rqcg", "slepc_tpu_torch.eps.ciss",
+           # and those of item 11d
+           "slepc_tpu_torch.eps.bse", "slepc_tpu_torch.eps.ks_twosided",
+           "slepc_tpu_torch.mat.structured", "slepc_tpu_torch.ds.bdc"}
     assert new <= walked, new - walked
     sources = {p.relative_to(ROOT).as_posix()
                for p in (ROOT / "slepc_tpu_torch").rglob("*.py")}
