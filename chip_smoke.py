@@ -173,7 +173,42 @@ Phases (each failing check raises; the script then exits non-zero):
      1e-9: nconv >= 4, ||H z - lam z|| / (|lam| ||z||) <= 1e-9, values
      within 1e-8 of the truth computed on the card (real: eigvalsh(L^T (R
      - C) L), R + C = L L^T; complex: the positive eigvalsh(L^H J L), M =
-     L L^H), K3 / K3c and K4 / K4c launched.
+     L L^H), K3 / K3c and K4 / K4c launched;
+ 12d. (run after 12c) the complex blocked cycle (item 11a-iii), after K5c,
+     K3c at panel width 4 and K4c at (4, 4) and (ncv, ncv) against their
+     plain versions at its shapes: three restarts of EPS(block_size = 4,
+     ncv = 48, largest_real) on the gauge-transformed 200x225x230
+     Laplacian in c128 (the twin of phases 9 and 12b; it need not
+     converge): ms per column, K5c / K3c / K4c launched and no single-row
+     K2c, every Ritz value inside [0, 12], and the same restarts through
+     ks_hep_cycle_blocked on a basis held here, its kept rows orthonormal
+     to 1e-12; the gauge-transformed laplacian_2d(95, 97) with block_size
+     4, ncv 28, nev 6 certified in c128 at tol 1e-9 (|lam - exact| <=
+     1e-9) and c64 at tol 1e-5 (relative 1e-4); cheb_block = 4 with degree
+     20 on it runs the plain cycle (the same values and restarts as
+     cheb_block = 1, no Chebyshev statistics, no K5c launch); the complex
+     STSinvertDevice refuses, with no launch;
+ 15. SVD (item 12) at full width: the discrete gradient G = [I (x) I (x)
+     D_x; I (x) D_y (x) I; D_z (x) I (x) I] of phase 7's 100x102x104 grid
+     (D_d the (n_d + 1) x n_d difference matrix with Dirichlet boundary
+     edges, unknowns x fastest: G^T G is phase 7's 7-point Laplacian, so
+     sigma = sqrt(laplacian_3d_eigs)), 3,213,608 x 1,060,800, nnz
+     6,364,800, f64, built with scipy and taken through from_scipy (CSR:
+     K6 for G and for its adjoint).  After K6 on G and G^H and K3 / K4 at
+     the bases' shapes against their plain versions: SVD(nsv 10, ncv 32,
+     tol 1e-8, largest) with trlanczos and with cross (EPS on G^T G, two
+     K6 launches an apply).  Gates: nconv >= 10; the ten sigma within
+     1e-9 sigma_1 of the ten largest of the closed form; compute_error <=
+     1e-7 (K6); V^H V orthonormal to 1e-10, U^H U to 1e-8; K6, K3, K4
+     launched.  Wall, restarts, GK steps, launches and peak memory
+     printed.  Then the small paths on the card, each against numpy /
+     scipy: cyclic, randomized and lapack on tests/test_modules.py's 120 x
+     80 matrix, both GSVD routes (joint bidiagonalization, cross pencil)
+     and the HSVD on tests/test_modules_advanced.py's pairs, the Grcar
+     values to four decimals, and a c128 trlanczos on the gradient of a
+     30x32x34 grid with phases on its unknowns (G U^H: the same sigma, on
+     K6c); their kernels against their plain versions at their shapes
+     first.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -199,11 +234,16 @@ at tol 1e-5 with each of K5, K3, K4 in turn swapped for its plain
 version), a torch.profiler split by kernel of one more phase-4 solve
 and one more phase-5 solve, K4c's ring-depth sweep at (48, 40) and a
 torch.profiler split of one more phase-12b c128 cycle (K3c's and K4c's
-shares of its device time); after phase 13, a torch.profiler split and a
+shares of its device time), of one more phase-12d c128 blocked cycle
+(K5c's, K3c's, K4c's shares) and of one more phase-15 trlanczos solve
+(K6's, K3's, K4's shares); after phase 13, a torch.profiler split and a
 cProfile split (host seconds by function) of one more solve of each of
 phase 13a's two GD paths.  Its launches are not counted.
 
-Phase 1 holds the complex instantiations too: K2c / K1c on the
+Phase 1 holds the complex instantiations too: K5c (c128, c64) at b = 4
+on the gauge-transformed flagship beside the four K2c / K1c launches it
+replaces and cuSPARSE's complex CSR product with the (n, 4) block; K2c /
+K1c on the
 gauge-transformed flagship (timed; the library call is cuSPARSE on the
 same matrix as a complex torch.sparse_csr_tensor) and on the 2^20-row
 complex deployment, K3c at K = 49 (in complex128 also at panel widths 2
@@ -223,10 +263,13 @@ non-Hermitian path: K2 / K1, K3, K4), before phase 11 and after it (its
 small paths: K2, K5, K6, K3, K4), and before and after each of phase
 12a, 12b and 12c (the complex paths: K2c / K1c, K6c, K3c, K4c) and of
 phase 13a, 13b and 13c (K2, K3, K4, K5; K6; K5) and of phase 14a, 14b
-and 14c (K2c, K3c, K4c; K2, K6, K3, K4; K3, K4, K3c, K4c); K7's launches
-are read around its yardstick measurement in phase 1.  Every kernel of
-each path must have launched.  The JSON kernel table's ``launches_p13`` /
-``launches_p14`` are phase 13's / 14's shares of ``launches``.  The last three lines
+and 14c (K2c, K3c, K4c; K2, K6, K3, K4; K3, K4, K3c, K4c), of phase 12d
+(K5c, K3c, K4c; K2c) and of phase 15's full-width and small parts (K6, K3,
+K4; K6c, K3c, K4c); K7's launches are read around its yardstick
+measurement in phase 1.  Every kernel of each path must have launched.
+The JSON kernel table's ``launches_p13`` / ``launches_p14`` /
+``launches_p12d`` / ``launches_p15`` are those phases' shares of
+``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -241,6 +284,7 @@ import sys
 import time
 
 import numpy as np
+import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 from scipy.sparse.csgraph import reverse_cuthill_mckee
@@ -254,7 +298,7 @@ from slepc_tpu_torch.ops.bv import (fused_update_dots, panel_dots,
                                     panel_update_dots, panel_update_dots_ref,
                                     panel_update_ref, plan_panel)
 from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
-from slepc_tpu_torch.eps.ks_jit import ks_hep_cycle
+from slepc_tpu_torch.eps.ks_jit import ks_hep_cycle, ks_hep_cycle_blocked
 from slepc_tpu_torch.ops.dia import (SPMM_TILE, dia_spmm, dia_spmm_ref,
                                      dia_spmv, dia_spmv_ref, plan_spmm)
 from slepc_tpu_torch.ops.rotate import plan_rotate, rotate, rotate_ref
@@ -272,6 +316,8 @@ KERNELS = {
     "dia_spmv_f64": ("K2", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:720"),
     "dia_spmm_f32": ("K5", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:280"),
     "dia_spmm_f64": ("K5", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:280"),
+    "dia_spmm_c64": ("K5c", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:280"),
+    "dia_spmm_c128": ("K5c", SRC + "dia_spmv.cu", "slepc_tpu/ops/dia_pallas.py:280"),
     "panel_dots_f32": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:74"),
     "panel_dots_f64": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:74"),
     "panel_update_f32": ("K3", SRC + "bv_panel.cu", "slepc_tpu/ops/bv_pallas.py:115"),
@@ -316,6 +362,9 @@ BEFORE_MS = {
     "panel_update_c64": 1.6131, "panel_update_c128": 3.2063,
     "panel_update_dots_c64": 1.7635, "panel_update_dots_c128": 3.3712,
     "rotate_c64": 6.4573, "rotate_c128": 14.2526,
+    # K5c's earlier route: a complex block as four K1c / K2c launches, one a
+    # row (PERF.md: 4 x 0.3017 / 4 x 0.5507 ms)
+    "dia_spmm_c64": 1.207, "dia_spmm_c128": 2.203,
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM;
 # 67 TFLOP/s float32 outside the tensor cores (TF32 is not float32) and 67
@@ -1368,12 +1417,14 @@ def phase8(dev):
         del A
 
 
-def plain_solve(A, ncv, restarts, cycles=None):
+def plain_solve(A, ncv, restarts, cycles=None, block_size=1):
     """The plain EPS(krylovschur, hep) solve of phase 9, stopped after
-    ``restarts`` restarts.  ``cycles`` collects, at each restart, (converged
-    count, Ritz values, host clock, launch counts).  Returns (eps, wall)."""
+    ``restarts`` restarts (phase 12d: the blocked cycle, ``block_size``).
+    ``cycles`` collects, at each restart, (converged count, Ritz values,
+    host clock, launch counts).  Returns (eps, wall)."""
     eps = stt.EPS(A, problem_type="hep", which="largest_real", nev=4,
                   ncv=ncv, tol=1e-8, max_it=restarts, options=stt.Options())
+    eps.block_size = block_size
     if cycles is not None:
         eps.monitor.add(lambda _e, _its, k2, theta, _err: cycles.append(
             (int(k2), np.array(theta, np.float64), time.perf_counter(),
@@ -3375,6 +3426,481 @@ def phase14c(dev):
     return path, walls
 
 
+# ---- item 11a-iii: K5c and the complex blocked cycle (phase 1, 12d) ------
+
+def phase1_k5c(dev, table):
+    """K5c (c128, c64) at b = 4 on the gauge-transformed flagship, against
+    its plain version, beside the route it replaces (four K2c / K1c
+    launches, one a row) and the library's complex CSR product with the
+    (n, 4) block."""
+    print("phase 1: K5c (complex block DIA SpMM) vs plain PyTorch on the "
+          "gauge-transformed flagship at b = 4, beside four K2c / K1c calls "
+          "and cuSPARSE's complex CSR product with the (n, 4) block",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    n, b = lap.shape[0], 4
+    for dt, tol in ((torch.complex128, 1e-14), (torch.complex64, 2e-6)):
+        G = gauge_dia(lap, dt)
+        nd = len(G.offsets)
+        V = torch.randn((b + 8, n), generator=gen, dtype=dt, device=dev)
+        X = V[3:3 + b]  # a slice of a taller basis, as the cycle hands it
+        plan = plan_spmm(G.offsets, n, b, dt)
+        Y = dia_spmm(G.offsets, G.diags, X)
+        Y_ref = dia_spmm_ref(G.offsets, G.diags, X)
+        err = float((Y - Y_ref).abs().max())
+        rel = err / float(Y_ref.abs().max())
+        ms = cuda_ms(lambda: dia_spmm(G.offsets, G.diags, X))
+        plain = cuda_ms(lambda: dia_spmm_ref(G.offsets, G.diags, X))
+        rows = cuda_ms(lambda: [dia_spmv(G.offsets, G.diags, X[m])
+                                for m in range(b)])
+        S = dia_as_torch_csr(G)
+        lib, what = library_sparse_ms(S, X.T.contiguous(), Y.T)
+        elt = X.element_size()
+        name = f"dia_spmm_{TAG[dt]}"
+        print(f"  {TAG[dt]}: tile {plan.tile}, halo {plan.halo}, diagonals "
+              f"(d direct, n near) {''.join('dn'[w] for w in plan.where)}, "
+              f"{plan.smem} bytes staged a block; the route it replaces, "
+              f"{b} K{'2c' if dt == torch.complex128 else '1c'} calls: "
+              f"{rows:.4f} ms ({b * (nd + 2) * n * elt / 1e9:.3f} GB)",
+              flush=True)
+        record(table, name, err, rel, tol, ms, plain, (nd + 2 * b) * n * elt,
+               8 * G.nnz * b, dt, lib, what)
+        del G, V, X, Y, Y_ref, S
+        torch.cuda.empty_cache()
+    del lap
+
+
+def block_errors(dev, gen, A, ncv, b):
+    """Worst relative errors (K5c, K3c, K4c) of the blocked cycle's kernels
+    against their plain versions at its shapes: K5c on b rows of a taller
+    basis, K3c's three sweeps at panel width b against b, ncv and ncv + b
+    rows, K4c at (b, b) (SVQB's factors) and (ncv, ncv) (the restart)."""
+    dt, n = A.diags.dtype, A.shape[0]
+    V = torch.randn((ncv + b, n), generator=gen, dtype=dt, device=dev)
+    X = V[2:2 + b]
+    ref = dia_spmm_ref(A.offsets, A.diags, X)
+    k5 = float((dia_spmm(A.offsets, A.diags, X) - ref).abs().max()
+               / ref.abs().max())
+    W = torch.randn((b, n), generator=gen, dtype=dt, device=dev)
+    C = torch.randn((ncv + b, b), generator=gen, dtype=dt, device=dev)
+    k3 = max(rel for K in (b, ncv, ncv + b)
+             for _, rel in panel_errors(V[:K], W, C[:K]).values())
+    k4 = max(rotate_errors(random_q(K, K, dev, dt), V[:K])[1]
+             for K in (b, ncv))
+    return k5, k3, k4
+
+
+def blocked_kernels(dev, title, cases):
+    """``block_errors`` for each (where, operator, ncv, b) of ``cases``,
+    gated at phase 1's tolerances (K5c at its SpMV's); run before the
+    paths' launch counts are reset."""
+    print(title, flush=True)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for where, A, ncv, b in cases:
+        dt = A.diags.dtype
+        spmv, k3, k4 = PATH_TOL[dt]
+        tol = {"K5c": PATH_TOL[dt][spmv], k3: PATH_TOL[dt][k3],
+               k4: PATH_TOL[dt][k4]}
+        worst = dict(zip(tol, block_errors(dev, gen, A, ncv, b)))
+        print(f"  {where}: n={A.shape[0]} ncv={ncv} b={b} {TAG[dt]}  "
+              + "  ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+              flush=True)
+        for k, v in worst.items():
+            check(v <= tol[k], f"{where}: {k} error {v:.3e} > {tol[k]:g}")
+    torch.cuda.empty_cache()
+
+
+def blocked_family(counts, tag):
+    return {"K5c": counts[f"dia_spmm_{tag}"],
+            "K3c": min(counts[f"panel_dots_{tag}"],
+                       counts[f"panel_update_{tag}"],
+                       counts[f"panel_update_dots_{tag}"]),
+            "K4c": counts[f"rotate_{tag}"]}
+
+
+def phase12d(dev):
+    """The complex blocked cycle (item 11a-iii): three restarts at full
+    width, the small certified solves, cheb_block on a complex operator and
+    the complex device shift-and-invert's refusal.  Returns (launch counts
+    of its solves and restarts, read from zero after its kernel checks; ms
+    a column of the full-width cycle)."""
+    ncv, b, restarts = 48, 4, 3
+    lap = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+    G = gauge_dia(lap, torch.complex128)
+    del lap
+    L = stt.laplacian_2d(95, 97, device=dev)
+    small = {dt: gauge_dia(L, dt) for dt in (torch.complex128,
+                                             torch.complex64)}
+    blocked_kernels(dev, "phase 12d: K5c, K3c, K4c vs plain PyTorch at the "
+                    "blocked cycle's shapes", (
+                        ("phase 12d, gauge-transformed flagship", G, ncv, b),
+                        ("phase 12d, 95x97 c128", small[torch.complex128],
+                         28, b),
+                        ("phase 12d, 95x97 c64", small[torch.complex64],
+                         28, b)))
+    print(f"phase 12d: the complex blocked cycle at full width: the "
+          f"gauge-transformed 200x225x230 Laplacian (c128, 10.35M rows), "
+          f"EPS(block_size={b}, ncv={ncv}, largest_real), {restarts} "
+          f"restarts", flush=True)
+    stt.reset_launch_counts()
+    cycles = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    eps, wall = plain_solve(G, ncv, restarts, cycles, block_size=b)
+    peak = torch.cuda.max_memory_allocated(dev)
+    delta = stt.launch_counts()
+    fam = blocked_family(delta, "c128")
+    marks = [{k: 0 for k in delta}] + [c[3] for c in cycles]
+    cols = [b * (m1["dia_spmm_c128"] - m0["dia_spmm_c128"])
+            for m0, m1 in zip(marks, marks[1:])]
+    later = sum(cols[1:])
+    later_ms = (cycles[-1][2] - cycles[0][2]) * 1e3
+    ms_col = later_ms / max(later, 1)
+    theta = cycles[-1][1]
+    print(f"  nconv={eps.nconv} (not required) restarts={eps.its} wall="
+          f"{wall:.3f} s columns={sum(cols)} peak_mem={peak / 1e9:.2f} GB "
+          f"launches={fam} (K2c {delta['dia_spmv_c128']}); restarts "
+          f"2..{len(cycles)}: {later} columns in {later_ms:.1f} ms = "
+          f"{ms_col:.3f} ms per column", flush=True)
+    check(len(cycles) > 1, "phase 12d: no restarted cycle ran")
+    check(theta.min() >= 0.0 and theta.max() <= 12.0,
+          f"phase 12d: Ritz values outside [0, 12]: {theta.min()}, "
+          f"{theta.max()}")
+    check(all(v > 0 for v in fam.values()),
+          f"phase 12d: a kernel did not launch: {fam}")
+    check(delta["dia_spmv_c128"] == 0,
+          f"phase 12d: {delta['dia_spmv_c128']} single-row SpMVs: the block "
+          f"did not go to K5c")
+    del eps
+    torch.cuda.empty_cache()
+    # the basis gate, on a basis held here: rows [0, kl + b) after a restart
+    gen = torch.Generator(device=dev).manual_seed(9)
+    V = torch.zeros((ncv + b, G.shape[0]), dtype=torch.complex128, device=dev)
+    R = torch.randn((G.shape[0], b), generator=gen, dtype=torch.complex128,
+                    device=dev)
+    V[:b] = torch.linalg.qr(R).Q.T  # an orthonormal start block
+    del R
+    H, jb = np.zeros((ncv + b, ncv), complex), 0
+    for _ in range(restarts):
+        V, H, jb = ks_hep_cycle_blocked(G, V, H, jb, 1e-8, gen, ncv=ncv, b=b,
+                                        which="largest")[:3]
+    Bk = V[: jb * b + b]
+    orth = float((Bk.conj() @ Bk.T - torch.eye(
+        jb * b + b, dtype=Bk.dtype, device=dev)).abs().max())
+    print(f"  {restarts} restarts through ks_hep_cycle_blocked: kept basis "
+          f"rows {jb * b + b}, max|V V^H - I| = {orth:.3e}", flush=True)
+    check(orth <= 1e-12, f"phase 12d: basis not orthonormal: {orth:.3e}")
+    del V, Bk, G
+    torch.cuda.empty_cache()
+
+    print(f"phase 12d: the gauge-transformed laplacian_2d(95, 97), "
+          f"EPS(block_size={b}, ncv 28, nev 6, smallest), c128 at tol 1e-9 "
+          f"and c64 at tol 1e-5; cheb_block = 4 on it (the plain cycle); the "
+          f"complex STSinvertDevice refused", flush=True)
+    exact = stt.laplacian_2d_eigs(95, 97, k=6)
+
+    def solve(A, tol, **kw):
+        eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
+                      ncv=28, tol=tol, max_it=3000, options=stt.Options())
+        for k, v in kw.items():
+            setattr(eps, k, v)
+        before = stt.launch_counts()
+        t0 = time.perf_counter()
+        eps.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = stt.launch_counts()
+        return eps, wall, {k: after[k] - before[k] for k in after}
+
+    for dt, tol in ((torch.complex128, 1e-9), (torch.complex64, 1e-5)):
+        eps, wall, d = solve(small[dt], tol, block_size=b)
+        k = min(eps.nconv, 6)
+        lam = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))
+        err = np.abs(lam - exact[:k]) if k else np.array([np.inf])
+        where = f"phase 12d 95x97 blocked {TAG[dt]} (tol {tol:.0e})"
+        fam = blocked_family(d, TAG[dt])
+        print(f"  {where}: nconv={eps.nconv} its={eps.its} wall={wall:.3f} s "
+              f"max|lam-exact|={err.max():.3e} launches={fam}", flush=True)
+        check(eps.nconv >= 6, f"{where}: nconv {eps.nconv} < 6")
+        if dt == torch.complex128:
+            check(err.max() <= 1e-9, f"{where}: |lam - exact| {err.max():.3e}")
+        else:
+            check(np.max(err / exact) <= 1e-4,
+                  f"{where}: relative error {np.max(err / exact):.3e}")
+        check(all(v > 0 for v in fam.values()),
+              f"{where}: a kernel did not launch: {fam}")
+    A = small[torch.complex128]
+    ref, wall1, _ = solve(A, 1e-9, cheb_degree=20)
+    eps, wall4, d = solve(A, 1e-9, cheb_degree=20, cheb_block=4)
+    print(f"  cheb_block = 4, degree 20, c128: nconv={eps.nconv} its={eps.its} "
+          f"wall={wall4:.3f} s (cheb_block = 1: its={ref.its}, {wall1:.3f} s) "
+          f"cheb_stats={eps.cheb_stats} K5c {d['dia_spmm_c128']} K2c "
+          f"{d['dia_spmv_c128']}", flush=True)
+    check(eps.cheb_stats is None and ref.cheb_stats is None
+          and d["dia_spmm_c128"] == 0,
+          "phase 12d: the Chebyshev-amplified path ran on a complex operator")
+    check(eps.nconv >= 6 and np.array_equal(eps.eigenvalues, ref.eigenvalues)
+          and eps.its == ref.its,
+          "phase 12d: cheb_block = 4 differs from the plain cycle")
+    eps = stt.EPS(A, problem_type="hep", nev=6, options=stt.Options())
+    eps.set_target(0.0)
+    eps.set_st(stt.STSinvertDevice([A], sigma=0.0, iters=50))
+    before = stt.launch_counts()
+    try:
+        eps.solve()
+        refused = False
+    except NotImplementedError as exc:
+        refused = "no complex device shift-and-invert" in str(exc)
+        print(f"  STSinvertDevice on c128: refused ({exc})", flush=True)
+    check(refused and stt.launch_counts() == before,
+          "phase 12d: the complex STSinvertDevice did not refuse cleanly")
+    return stt.launch_counts(), ms_col
+
+
+# ---- item 12: SVD (phase 15) ---------------------------------------------
+
+SVD_GRID = (100, 102, 104)  # phase 7's grid: 1,060,800 unknowns
+SVD_NSV, SVD_NCV, SVD_TOL = 10, 32, 1e-8
+
+
+def gradient_3d(nx, ny, nz, phases=None):
+    """The discrete gradient G = [I (x) I (x) D_x; I (x) D_y (x) I; D_z (x)
+    I (x) I] of an nx x ny x nz grid, D_d the (n_d + 1) x n_d difference
+    matrix with Dirichlet boundary edges, unknowns x fastest (as
+    laplacian_3d orders them), so G^T G is the 7-point Laplacian; a host
+    scipy CSR matrix.  ``phases``: G U^H with U = diag(e^{i phi}), so G^H G
+    is the gauge-transformed Laplacian (same singular values)."""
+    def D(k):
+        return sp.diags([np.ones(k), -np.ones(k)], [0, -1], shape=(k + 1, k))
+
+    def eye(k):
+        return sp.identity(k, format="csr")
+
+    G = sp.vstack([sp.kron(eye(nz), sp.kron(eye(ny), D(nx))),
+                   sp.kron(eye(nz), sp.kron(D(ny), eye(nx))),
+                   sp.kron(D(nz), sp.kron(eye(ny), eye(nx)))]).tocsr()
+    if phases is not None:
+        G = (G @ sp.diags(np.exp(-1j * phases))).tocsr()
+    return G
+
+
+def csr_both_errors(op, gen):
+    """Relative errors of K6 / K6c for op x and op^H y against the plain
+    version on the same CSR arrays (op^H's CSR built by the first
+    mult_h)."""
+    x = torch.randn(op.shape[1], generator=gen, dtype=op.dtype, device=op.device)
+    y = torch.randn(op.shape[0], generator=gen, dtype=op.dtype, device=op.device)
+    out = []
+    for A, v, apply in ((op, x, op.mult), (None, y, op.mult_h)):
+        got = apply(v)
+        A = A or op._adjoint
+        ref = csr_spmv_ref(A.rowptr, A.cols, A.vals, v)
+        out.append(float((got - ref).abs().max() / ref.abs().max()))
+    return out
+
+
+def svd_gates(where, svd, exact, walls):
+    """nconv, the values against the closed form (1e-9 sigma_1), the
+    residuals (K6) and the bases' orthonormality."""
+    k = SVD_NSV
+    check(svd.nconv >= k, f"{where}: nconv {svd.nconv} < {k}")
+    err = np.abs(svd.sigma[:k] - exact[:k]).max() / exact[0]
+    t0 = time.perf_counter()
+    resid = max(svd.compute_error(i) for i in range(k))
+    Vk, Uk = svd.V[:, :k], svd.U[:, :k]
+    ov = np.abs(Vk.conj().T @ Vk - np.eye(k)).max()
+    ou = np.abs(Uk.conj().T @ Uk - np.eye(k)).max()
+    print(f"  {where}: nconv={svd.nconv} its={svd.its} GK steps="
+          f"{getattr(svd, 'gk_steps', '-')} wall={walls:.3f} s "
+          f"max|sigma - exact|/sigma_1={err:.3e} max compute_error="
+          f"{resid:.3e} ({time.perf_counter() - t0:.2f} s) |V^H V - I|="
+          f"{ov:.3e} |U^H U - I|={ou:.3e}", flush=True)
+    check(err <= 1e-9, f"{where}: sigma off the closed form by {err:.3e}")
+    check(resid <= 10 * SVD_TOL, f"{where}: compute_error {resid:.3e}")
+    check(ov <= 1e-10, f"{where}: V not orthonormal: {ov:.3e}")
+    check(ou <= 1e-8, f"{where}: U not orthonormal: {ou:.3e}")
+
+
+def svd_solve(op, solver, svd=None):
+    """Phase 15's SVD of op (``svd``, or a new one with its settings)
+    solved; returns the wall of the synchronized solve."""
+    if svd is None:
+        svd = stt.SVD(op, nsv=SVD_NSV, ncv=SVD_NCV, solver=solver,
+                      tol=SVD_TOL)
+    t0 = time.perf_counter()
+    svd.solve()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase15_full(dev, G_host, exact):
+    """SVD at full width: trlanczos and cross on the 3-D gradient (K6 for G
+    and G^H).  Returns (launch counts read from zero, walls)."""
+    op = stt.from_scipy(G_host, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    e = csr_both_errors(op, gen)
+    x = torch.randn(op.shape[1], generator=gen, dtype=op.dtype, device=dev)
+    u = torch.randn(op.shape[0], generator=gen, dtype=op.dtype, device=dev)
+    ms_g, ms_h = cuda_ms(lambda: op.mult(x)), cuda_ms(lambda: op.mult_h(u))
+    S = torch.sparse_csr_tensor(op.rowptr, op.cols.to(torch.int64), op.vals,
+                                size=op.shape)
+    lib_g = cuda_ms(lambda: S @ x)
+    nb = op.nnz * 12 + (op.shape[0] + 1) * 8 + 8 * sum(op.shape)
+    print(f"phase 15: K6 on G ({op.shape[0]} x {op.shape[1]}, nnz {op.nnz}) "
+          f"and on G^H: errors {e[0]:.3e} / {e[1]:.3e}; {ms_g:.4f} / "
+          f"{ms_h:.4f} ms (bound {nb / PEAK_BYTES * 1e3:.4f} ms each); "
+          f"cuSPARSE G x {lib_g:.4f} ms", flush=True)
+    for v in e:
+        check(v <= 1e-13, f"phase 15: K6 error {v:.3e} at G's shapes")
+    del S
+    k3m, k4m = basis_errors(dev, gen, u, SVD_NCV)
+    k3n, k4n = basis_errors(dev, gen, x, SVD_NCV)
+    print(f"  K3 / K4 at U's rows ({op.shape[0]}, ncv {SVD_NCV}): {k3m:.3e} / "
+          f"{k4m:.3e}; at V's ({op.shape[1]}): {k3n:.3e} / {k4n:.3e}",
+          flush=True)
+    check(max(k3m, k3n) <= PATH_TOL[torch.float64]["K3"]
+          and max(k4m, k4n) <= PATH_TOL[torch.float64]["K4"],
+          "phase 15: K3 / K4 error at the SVD's shapes")
+    del x, u
+    torch.cuda.empty_cache()
+    stt.reset_launch_counts()
+    walls = {}
+    for solver in ("trlanczos", "cross"):
+        print(f"phase 15: SVD(G, nsv={SVD_NSV}, ncv={SVD_NCV}, "
+              f"solver={solver!r}, tol={SVD_TOL:g}), largest", flush=True)
+        before = stt.launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        svd = stt.SVD(op, nsv=SVD_NSV, ncv=SVD_NCV, solver=solver,
+                      tol=SVD_TOL)
+        walls[solver] = svd_solve(op, solver, svd)
+        peak = torch.cuda.max_memory_allocated(dev)
+        after = stt.launch_counts()
+        fam = family_counts({k: after[k] - before[k] for k in after}, "f64",
+                            "csr_spmv")
+        print(f"  launches {fam} (K6 counts G and G^H), peak_mem "
+              f"{peak / 1e9:.2f} GB", flush=True)
+        check(all(v > 0 for v in fam.values()),
+              f"phase 15 {solver}: a kernel did not launch: {fam}")
+        svd_gates(f"phase 15 {solver}", svd, exact, walls[solver])
+        del svd
+        torch.cuda.empty_cache()
+    return stt.launch_counts(), walls
+
+
+def svd_small_cases():
+    """The small SVD paths' host matrices, by the recipes of
+    tests/test_modules.py:17-35 (120 x 80; with spectral decay for the
+    randomized sketch), tests/test_modules_advanced.py:80-112 (the GSVD
+    pair, the HSVD matrix and signature) and
+    tests/test_reference_golden.py:56-75 (Grcar, n = 30)."""
+    rng = np.random.default_rng(0)
+    Ad = rng.standard_normal((120, 80)) / np.sqrt(120)
+    U0, s0, V0h = np.linalg.svd(Ad, full_matrices=False)
+    Ar = (U0 * (s0 * np.exp(-0.15 * np.arange(len(s0))))) @ V0h
+    rng = np.random.default_rng(0)
+    Ag = rng.standard_normal((50, 30))
+    Bg = rng.standard_normal((40, 30))
+    rng = np.random.default_rng(0)
+    Ah = rng.standard_normal((40, 25))
+    om = np.sign(rng.standard_normal(40))
+    om[0] = 1
+    n = 30
+    grcar = sp.diags([-np.ones(n - 1), np.ones(n), np.ones(n - 1),
+                      np.ones(n - 2), np.ones(n - 3)], [-1, 0, 1, 2, 3],
+                     format="csr")
+    return Ad, Ar, (Ag, Bg), (Ah, om), grcar
+
+
+def phase15_small(dev):
+    """Small SVD paths on the card, each against numpy / scipy on the same
+    matrix: cyclic, randomized and lapack (120 x 80), HSVD and both GSVD
+    routes, the Grcar values, and a c128 trlanczos on the gauge-transformed
+    30 x 32 x 34 gradient.  Their kernels against their plain versions at
+    their shapes first.  Returns the launch counts (read from zero)."""
+    Ad, Ar, (Ag, Bg), (Ah, om), grcar = svd_small_cases()
+    dims = (30, 32, 34)
+    phi = gauge_phases(int(np.prod(dims)))
+    Gc = gradient_3d(*dims, phases=phi)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    ops = {"grcar": stt.from_scipy(grcar, device=dev),
+           "gradient c128": stt.from_scipy(Gc, device=dev)}
+    for where, op in ops.items():
+        e = csr_both_errors(op, gen)
+        print(f"phase 15 small: K6 on {where} and its adjoint: {e[0]:.3e} / "
+              f"{e[1]:.3e}", flush=True)
+        check(max(e) <= 1e-13, f"phase 15 {where}: K6 error {max(e):.3e}")
+    f64, c128 = torch.float64, torch.complex128
+    basis_kernels(dev, "phase 15 small: K3 / K3c, K4 / K4c vs plain PyTorch "
+                  "at the small SVD paths' shapes", (
+                      ("cyclic (200 rows)", 200, 20, f64, f64),
+                      ("cross / lapack (80)", 80, 20, f64, f64),
+                      ("GSVD JBD stacked (90)", 90, 18, f64, f64),
+                      ("GSVD JBD U1 / U2 / X (50)", 50, 18, f64, f64),
+                      ("HSVD / GSVD cross (25-30)", 30, 18, f64, f64),
+                      ("Grcar (30)", 30, 16, f64, f64),
+                      ("gradient U c128", Gc.shape[0], 24, c128, c128),
+                      ("gradient V c128", Gc.shape[1], 24, c128, c128)))
+    stt.reset_launch_counts()
+
+    def run(where, svd):
+        t0 = time.perf_counter()
+        svd.solve()
+        torch.cuda.synchronize()
+        print(f"  {where}: nconv={svd.nconv} its={svd.its} wall="
+              f"{time.perf_counter() - t0:.3f} s sigma[:3]={svd.sigma[:3]}",
+              flush=True)
+        return svd
+
+    def dense(M):
+        return stt.DenseOperator(M, device=dev)
+
+    for solver, M, rtol in (("cyclic", Ad, 1e-6), ("randomized", Ar, 2e-2),
+                            ("lapack", Ad, 1e-12)):
+        svd = run(f"{solver} 120 x 80", stt.SVD(dense(M), nsv=5,
+                                                 solver=solver))
+        s_ref = np.linalg.svd(M, compute_uv=False)[:5]
+        rel = np.abs(svd.sigma[:5] - s_ref).max() / s_ref[0]
+        resid = max(svd.compute_error(i) for i in range(5))
+        check(svd.nconv >= 5 and rel <= rtol and resid
+              < (5e-2 if solver == "randomized" else 1e-5),
+              f"phase 15 {solver}: sigma {rel:.3e}, residual {resid:.3e}")
+    sig_g = np.sqrt(np.sort(sla.eigh(Ag.T @ Ag, Bg.T @ Bg,
+                                     eigvals_only=True))[::-1])
+    for solver in ("trlanczos", "cross"):
+        svd = run(f"GSVD {'JBD' if solver == 'trlanczos' else 'cross pencil'}",
+                  stt.SVD(dense(Ag), B=dense(Bg), nsv=3, solver=solver))
+        r = max(np.linalg.norm(Ag.T @ (Ag @ svd.X[:, i]) - svd.sigma[i] ** 2
+                               * (Bg.T @ (Bg @ svd.X[:, i])))
+                / np.linalg.norm(svd.X[:, i]) for i in range(3))
+        check(svd.nconv >= 3 and np.allclose(svd.sigma[:3], sig_g[:3],
+                                              rtol=1e-6) and r < 1e-6,
+              f"phase 15 GSVD {solver}: {svd.sigma[:3]} vs {sig_g[:3]}, "
+              f"pencil residual {r:.3e}")
+    M = Ah.T @ (om[:, None] * Ah)
+    sig_h = np.sqrt(np.sort(np.abs(np.linalg.eigvalsh(0.5 * (M + M.T))))[::-1])
+    svd = run("HSVD 40 x 25", stt.SVD(dense(Ah), omega=om, nsv=3))
+    Gm = svd.U[:, :3].T @ (om[:, None] * svd.U[:, :3])
+    check(svd.nconv >= 3 and np.allclose(svd.sigma[:3], sig_h[:3], rtol=1e-6)
+          and np.allclose(np.diag(Gm), svd.sign[:3], atol=1e-6),
+          f"phase 15 HSVD: {svd.sigma[:3]} vs {sig_h[:3]}")
+    for which, digits in (("largest", "3.2215"), ("smallest", "0.9551")):
+        svd = run(f"Grcar {which}", stt.SVD(ops["grcar"], nsv=1, which=which))
+        check(svd.nconv >= 1 and f"{float(svd.sigma[0]):.4f}" == digits,
+              f"phase 15 Grcar {which}: {svd.sigma[:1]} (want {digits})")
+    exact = np.sqrt(stt.laplacian_3d_eigs(*dims))[::-1]
+    svd = run("trlanczos c128 gauge-transformed gradient 30x32x34",
+              stt.SVD(ops["gradient c128"], nsv=6, ncv=24, tol=1e-9))
+    err = np.abs(svd.sigma[:6] - exact[:6]).max() / exact[0]
+    resid = max(svd.compute_error(i) for i in range(6))
+    check(svd.nconv >= 6 and err <= 1e-9 and resid <= 1e-8,
+          f"phase 15 c128 trlanczos: {err:.3e}, residual {resid:.3e}")
+    counts = stt.launch_counts()
+    for k in ("csr_spmv_f64", "csr_spmv_c128", "panel_dots_f64",
+              "panel_dots_c128", "rotate_f64", "rotate_c128"):
+        check(counts[k] > 0, f"phase 15 small: {k} did not launch")
+    return counts
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -3390,6 +3916,8 @@ def kernel_resources(log):
              ("rotate_c64_kernelILb([01])E", "K4c rotate_c64<vec={}>"),
              ("dia_spmv_kernelIN5slepc7ComplexI([df])EE", "K1c/K2c dia_spmv"
               "<complex {}>"),
+             ("dia_spmm_kernelIN5slepc7ComplexI([df])EELi(\\d)E",
+              "K5c dia_spmm<complex {}, BT={}>"),
              ("csr_spmv_kernelIN5slepc7ComplexI([df])EE",
               "K6c csr_spmv<complex {}>"))
     entry, spill = None, ""
@@ -3417,8 +3945,9 @@ def main():
                              "K6 budget and K5 tile sweeps, the blocked f32 "
                              "study, K4c's ring-depth sweep and a "
                              "torch.profiler split of a phase-9, a phase-12b "
-                             "(c128), a phase-7, a phase-4 and a phase-5 "
-                             "solve; after "
+                             "(c128), a phase-7, a phase-4, a phase-5, a "
+                             "phase-12d (c128 blocked) and a phase-15 "
+                             "trlanczos solve; after "
                              "phase 13: torch.profiler and cProfile splits of "
                              "its two GD paths")
     args = parser.parse_args()
@@ -3454,6 +3983,7 @@ def main():
     if not args.profile:
         del L_csr, more_csr
     phase1_complex(dev, table, A_csr)
+    phase1_k5c(dev, table)
     # the comparisons above do not count: each path is read from zero
     stt.reset_launch_counts()
     phase2(dev)
@@ -3496,8 +4026,12 @@ def main():
     # returns what its solves launched
     counts_12a, lam_12a, run_12a = phase12a(dev, lam_f64, nhep_walls)
     counts_12b, wall_12b = phase12b(dev, wall_plain)
-    complex_paths = (counts_12a, counts_12b, phase12c(dev))
-    for part, counts_12 in zip("abc", complex_paths):
+    counts_12c = phase12c(dev)
+    t12d = time.perf_counter()
+    counts_12d, ms_col_12d = phase12d(dev)
+    wall_12d = time.perf_counter() - t12d
+    complex_paths = (counts_12a, counts_12b, counts_12c, counts_12d)
+    for part, counts_12 in zip("abcd", complex_paths):
         print(f"  phase 12{part} launches: "
               f"{ {k: v for k, v in counts_12.items() if v} }", flush=True)
     # phase 13: the kernels at its shapes, then each part read from zero
@@ -3531,6 +4065,26 @@ def main():
     wall_14 = time.perf_counter() - t14
     print(f"  phase 14 wall (kernel checks and solves): {wall_14:.3f} s",
           flush=True)
+    # phase 15: SVD at full width, then the small paths, each read from zero
+    t15 = time.perf_counter()
+    t0 = time.perf_counter()
+    G_host = gradient_3d(*SVD_GRID)
+    exact_svd = np.sqrt(np.sort(stt.laplacian_3d_eigs(*SVD_GRID))[::-1]
+                        [:SVD_NSV])
+    print(f"phase 15: the 3-D gradient of the {SVD_GRID} grid built on the "
+          f"host in {time.perf_counter() - t0:.3f} s: {G_host.shape[0]} x "
+          f"{G_host.shape[1]}, nnz {G_host.nnz}; sigma_1..3 = "
+          f"{exact_svd[:3]}", flush=True)
+    check(G_host.shape == (3_213_608, 1_060_800) and G_host.nnz == 6_364_800,
+          f"phase 15: gradient {G_host.shape}, nnz {G_host.nnz}")
+    svd_path, svd_walls = phase15_full(dev, G_host, exact_svd)
+    del G_host
+    svd_small_path = phase15_small(dev)
+    p15_paths = (svd_path, svd_small_path)
+    p15 = {k: sum(p[k] for p in p15_paths) for k in svd_path}
+    wall_15 = time.perf_counter() - t15
+    print(f"  phase 15 launches: { {k: v for k, v in p15.items() if v} }; "
+          f"wall (kernel checks and solves) {wall_15:.3f} s", flush=True)
     if args.profile:
         A = spiral_operator(NHEP_LOG2, torch.float64, dev)
         profile_solve("phase 10 f64", lambda: nhep_solve(A, 1e-8)[1],
@@ -3561,9 +4115,21 @@ def main():
         A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
         profile_solve("phase 5", lambda: flagship_solve(
             A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
+        G = gauge_dia(A, torch.complex128)
+        del A
+        profile_solve("phase 12d c128 blocked cycle", lambda: plain_solve(
+            G, 48, 3, block_size=4)[1], shares={
+                "K5c": ("dia_spmm",), "K3c": ("panel_kernel", "reduce_partials"),
+                "K4c": ("rotate_c128",)})
+        del G
+        profile_solve("phase 15 trlanczos", lambda: svd_solve(
+            stt.from_scipy(gradient_3d(*SVD_GRID), device=dev), "trlanczos"),
+            plain_wall=svd_walls["trlanczos"], shares={
+                "K6": ("csr_spmv",), "K3": ("panel_kernel", "reduce_partials"),
+                "K4": ("rotate_f64",)})
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              plain_path, nhep_path, small_nhep_path) + complex_paths \
-        + p13_paths + p14_paths
+        + p13_paths + p14_paths + p15_paths
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -3575,6 +4141,8 @@ def main():
                         "launches": counts[key],
                         "launches_p13": p13[key],
                         "launches_p14": p14[key],
+                        "launches_p12d": counts_12d[key],
+                        "launches_p15": p15[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -3592,7 +4160,8 @@ def main():
               f"{k['plain_ms']:.4f} / "
               f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
               f"{lib}  launches {k['launches']} (phase 13: "
-              f"{k['launches_p13']}, phase 14: {k['launches_p14']})",
+              f"{k['launches_p13']}, phase 14: {k['launches_p14']}, phase "
+              f"12d: {k['launches_p12d']}, phase 15: {k['launches_p15']})",
               flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
@@ -3611,7 +4180,10 @@ def main():
           + ", ".join(f"{w} {t:.3f} s" for w, t in gh_walls.items())
           + ", BSE n=8192 "
           + ", ".join(f"{w} {t:.3f} s" for w, t in bse_walls.items())
-          + f", phase 14 {wall_14:.3f} s on {smi_line}", flush=True)
+          + f", phase 14 {wall_14:.3f} s; phase 12d {wall_12d:.3f} s "
+          f"({ms_col_12d:.3f} ms a column of the blocked c128 cycle); SVD "
+          + ", ".join(f"{w} {t:.3f} s" for w, t in svd_walls.items())
+          + f", phase 15 {wall_15:.3f} s on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """slepc_tpu_torch — the PyTorch + CUDA port of slepc_tpu, for NVIDIA Hopper.
 
 It mirrors slepc_tpu's module tree and names (``sys mat bv ds st ksp rg eps
-ops``),
+svd ops``),
 so one script can drive either package, and it never imports JAX.  Plain
 tensor code is PyTorch; every Pallas kernel of the ported slice is a CUDA
 kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
@@ -31,9 +31,15 @@ Krylov-Schur (``set_two_sided``: left eigenvectors,
 ``get_left_eigenvector``), the indefinite pencil (``problem_type="ghiep"``,
 pseudo-Lanczos) and the Bethe-Salpeter solver (``create_bse``,
 ``problem_type="bse"``), with the block divide-and-conquer of ``ds/bdc.py``.
+Singular values: ``SVD(A, nsv=..., solver=...)`` with ``cross``,
+``cyclic``, ``trlanczos`` / ``lanczos`` (thick-restart Golub-Kahan on
+device bases), ``randomized`` and ``lapack``, the GSVD of a pair
+(``B=``: cross pencil, or joint bidiagonalization for ``trlanczos``) and
+the hyperbolic SVD (``omega=``), with ``DSSVD``, ``DSHSVD``, ``DSGSVD``.
 Kernels: the DIA SpMV (K1/K2) and
 block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
-rotation (K4) and the stream yardstick (K7).
+rotation (K4) and the stream yardstick (K7), with complex instantiations of
+all but K7.
 
 Devices: every constructor and generator takes ``device``; ``None`` means
 the CUDA card and raises without one, ``device="cpu"`` must be asked for
@@ -65,8 +71,10 @@ from .st import (ST, STShift, STSinvert, STCayley, STPrecond, STShell,
 from .rg import RG, RGEllipse, RGInterval, RGPolygon, RGRing
 from .ksp import KSP, DirectSolver, solve_linear
 from .bv import BV
-from .ds import DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP
+from .ds import (DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP,
+                 DSSVD, DSHSVD, DSGSVD)
 from .eps import EPS, EPSConvergedReason, EPSError, ProblemType
+from .svd import SVD, SVDWhich
 from .ops import launch_counts, reset_launch_counts
 
 __all__ = [
@@ -132,6 +140,9 @@ __all__ = [
     "DSGNHEP",
     "DSGHIEP",
     "DSNHEPTS",
+    "DSSVD",
+    "DSHSVD",
+    "DSGSVD",
     "create_tile",
     "create_bse",
     "MatBSE",
@@ -139,6 +150,8 @@ __all__ = [
     "EPSConvergedReason",
     "EPSError",
     "ProblemType",
+    "SVD",
+    "SVDWhich",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -1,6 +1,6 @@
 // K1 + K2: DIA (diagonal-offset) SpMV, y[i] = sum_k d_k[i] * x[i + off_k],
 // with x taken as zero outside [0, n).  K5 (below): the same operator on b
-// vectors at once.
+// vectors at once (K5c: its complex instantiations).
 //
 // Replaces the Pallas kernels of slepc_tpu/ops/dia_pallas.py:
 //   dia_spmv_prepared / _dia_kernel, dia_spmv_padded / _dia_kernel2,
@@ -111,6 +111,18 @@ cudaError_t launch(const void* diags, int64_t ld, const int64_t* offsets,
 // bounds it still: each step of the loop over the diagonals waits on that
 // diagonal's loads, and a block's window copy is not overlapped with its
 // own sums (only other blocks' work hides it).
+//
+// K5c: the same kernel instantiated for complex64 / complex128
+// (slepc::Complex, common.cuh), Y[m] = A X[m] in native complex
+// arithmetic: no conjugate is read.  The TPU ran a complex block as split
+// real planes through the real dia_spmv_padded_block; here one pass reads
+// each complex diagonal once for all b rows, so a complex block is one
+// launch instead of b K1c / K2c launches.  A thread takes 16 bytes of rows
+// (RPT = 2 for c64, 1 for c128), and a c128 window holds 16-byte elements:
+// the host plan (ops/dia.py plan_spmm) sizes the halo from the element
+// size.  Bound: bytes, (nd + 2b) * n * 8 (c64) or 16 (c128); a complex
+// multiply-add is 8 flops per 16 bytes of X (c128), far under the FP64
+// ridge.
 constexpr int kSpmmThreads = 256;
 
 struct SpmmOffsets {
@@ -183,7 +195,7 @@ dia_spmm_kernel(const T* __restrict__ diags, int64_t ld, SpmmOffsets offs,
       T d[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
-        d[r] = row[r] < n ? __ldcs(diags + k * ld + row[r]) : T(0);
+        d[r] = row[r] < n ? slepc::ldcs(diags + k * ld + row[r]) : T(0);
       if ((offs.near >> k) & 1u) {
         const T* w = win + (row[0] + off - ws);
 #pragma unroll
@@ -199,7 +211,7 @@ dia_spmm_kernel(const T* __restrict__ diags, int64_t ld, SpmmOffsets offs,
 #pragma unroll
             for (int r = 0; r < RPT; ++r) {
               const int64_t j = row[r] + off;
-              acc[m][r] += d[r] * ((j >= 0 && j < n) ? __ldg(X + m * ldx + j) : T(0));
+              acc[m][r] += d[r] * ((j >= 0 && j < n) ? slepc::ldg(X + m * ldx + j) : T(0));
             }
       }
     }
@@ -223,6 +235,8 @@ cudaError_t launch_block_bt(const void* diags, int64_t ld,
   if (err != cudaSuccess) return err;
   constexpr int vw = spmm_rpt<T>();
   const int vec = reinterpret_cast<uintptr_t>(X) % 16 == 0 && ldx % vw == 0;
+  // a c128 element is one 16-byte copy and load: X must be aligned to it
+  if (!vec && sizeof(T) == 16) return cudaErrorInvalidValue;
   const int64_t blocks = (n + tile - 1) / tile;
   dia_spmm_kernel<T, BT><<<static_cast<unsigned>(blocks), kSpmmThreads, smem,
                            stream>>>(
@@ -285,11 +299,18 @@ extern "C" int slepc_dia_spmv(int dtype, const void* diags, int64_t ld,
   return cudaErrorInvalidValue;
 }
 
-// Shared memory (bytes) a K5 block stages: b rows of the window.
+// Shared memory (bytes) a K5 / K5c block stages: b rows of the window.
+template <typename T>
+int64_t spmm_smem(int b, int tile, int halo) {
+  return static_cast<int64_t>(b) * spmm_width<T>(tile, halo) * sizeof(T);
+}
+
 extern "C" int64_t slepc_dia_spmm_smem(int dtype, int b, int tile, int halo) {
-  if (dtype == slepc::kF32)
-    return static_cast<int64_t>(b) * spmm_width<float>(tile, halo) * sizeof(float);
-  return static_cast<int64_t>(b) * spmm_width<double>(tile, halo) * sizeof(double);
+  if (dtype == slepc::kF32) return spmm_smem<float>(b, tile, halo);
+  if (dtype == slepc::kF64) return spmm_smem<double>(b, tile, halo);
+  if (dtype == slepc::kC64) return spmm_smem<slepc::c64>(b, tile, halo);
+  if (dtype == slepc::kC128) return spmm_smem<slepc::c128>(b, tile, halo);
+  return -1;
 }
 
 // X (b, ldx) and Y (b, ldy) device arrays, rows contiguous; 1 <= b <= kMaxB;
@@ -309,5 +330,11 @@ extern "C" int slepc_dia_spmm(int dtype, const void* diags, int64_t ld,
   if (dtype == slepc::kF64)
     return launch_block<double>(diags, ld, offsets, where, nd, X, ldx, Y, ldy,
                                 b, n, tile, halo, s);
+  if (dtype == slepc::kC64)
+    return launch_block<slepc::c64>(diags, ld, offsets, where, nd, X, ldx, Y,
+                                    ldy, b, n, tile, halo, s);
+  if (dtype == slepc::kC128)
+    return launch_block<slepc::c128>(diags, ld, offsets, where, nd, X, ldx, Y,
+                                     ldy, b, n, tile, halo, s);
   return cudaErrorInvalidValue;
 }

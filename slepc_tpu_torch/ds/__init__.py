@@ -1,5 +1,6 @@
-from .types import DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP
+from .types import (DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP,
+                    DSSVD, DSHSVD, DSGSVD)
 from . import bdc, compact, schur
 
 __all__ = ["DS", "DSHEP", "DSGHEP", "DSGHIEP", "DSNHEP", "DSNHEPTS",
-           "DSGNHEP", "bdc", "compact", "schur"]
+           "DSGNHEP", "DSSVD", "DSHSVD", "DSGSVD", "bdc", "compact", "schur"]

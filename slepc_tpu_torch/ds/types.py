@@ -8,9 +8,10 @@ divide-and-conquer of ``ds/bdc.py`` behind ``solve_block_tridiag``),
 complex Schur form, ``ds/schur.py``), :class:`DSNHEPTS` (right and left
 pairs, two-sided), :class:`DSGHIEP` (the symmetric / signature pencil of
 pseudo-Lanczos, by the hyperbolic-Jacobi stand-in for the HZ iteration,
-:func:`_hz_hyperbolic_jacobi`) and :class:`DSGNHEP` (ordered QZ).  The SVD
-and polynomial types wait for their solvers (ROADMAP.md, queue 1, items
-12-15).
+:func:`_hz_hyperbolic_jacobi`), :class:`DSGNHEP` (ordered QZ) and the SVD
+types of the SVD module, :class:`DSSVD`, :class:`DSHSVD` and
+:class:`DSGSVD`.  The polynomial and nonlinear types wait for their
+solvers (ROADMAP.md, queue 1, items 14-15).
 """
 
 from __future__ import annotations
@@ -235,3 +236,71 @@ class DSGNHEP(DS):
         nrm = np.linalg.norm(X, axis=0)
         nrm[nrm == 0] = 1
         return lam, X / nrm
+
+
+class DSSVD(DS):
+    """(Bi)diagonal/dense SVD of the projected matrix (gesdd analog)."""
+
+    def solve(self, Bmat: np.ndarray):
+        U, s, Vh = np.linalg.svd(np.asarray(Bmat), full_matrices=False)
+        return U, s, Vh
+
+    def solve_bidiag(self, alpha: np.ndarray, beta: np.ndarray):
+        """Upper-bidiagonal [alpha; superdiag beta] SVD."""
+        m = len(alpha)
+        B = np.diag(alpha).astype(float)
+        for i in range(m - 1):
+            B[i, i + 1] = beta[i]
+        return self.solve(B)
+
+
+class DSHSVD(DS):
+    """Hyperbolic SVD: A = U Sigma V^H with U^H Omega U = Omega-hat.
+
+    Reference: impls/hsvd/dshsvd.c.  Functional route: eigendecompose
+    A^H Omega A (Hermitian, possibly indefinite); sigma = sqrt|lambda|,
+    signature from sign(lambda).
+    """
+
+    def solve(self, A: np.ndarray, omega: np.ndarray):
+        A = np.asarray(A)
+        omega = np.asarray(omega).real
+        M = A.conj().T @ (omega[:, None] * A)
+        lam, V = np.linalg.eigh(0.5 * (M + M.conj().T))
+        # descending by |lambda|
+        order = np.argsort(-np.abs(lam), kind="stable")
+        lam, V = lam[order], V[:, order]
+        sigma = np.sqrt(np.abs(lam))
+        signs = np.where(lam >= 0, 1.0, -1.0)
+        U = np.zeros((A.shape[0], len(sigma)), dtype=A.dtype)
+        for j in range(len(sigma)):
+            if sigma[j] > 1e-300:
+                U[:, j] = A @ V[:, j] / (signs[j] * sigma[j])
+        return U, sigma, V.conj().T, signs
+
+
+class DSGSVD(DS):
+    """Generalized SVD of the pair (A, B): A = U C X^-1, B = V S X^-1.
+
+    Reference: impls/gsvd/dsgsvd.c (ggsvd-style).  Functional route via the
+    eigen-pencil (A^H A, B^H B) — adequate for the projected sizes used by
+    the TRLanczos GSVD solver.
+    """
+
+    def solve(self, A: np.ndarray, B: np.ndarray):
+        A, B = np.asarray(A), np.asarray(B)
+        GA = A.conj().T @ A
+        GB = B.conj().T @ B
+        # regularize B-gram for the pencil solve
+        lam, X = sla.eigh(0.5 * (GA + GA.conj().T),
+                          0.5 * (GB + GB.conj().T) + 1e-14 * np.eye(GB.shape[0]))
+        order = np.argsort(-lam, kind="stable")
+        lam, X = lam[order], X[:, order]
+        sigma = np.sqrt(np.maximum(lam, 0.0))  # sigma = c/s
+        U = A @ X
+        V = B @ X
+        for M in (U, V):
+            nrm = np.linalg.norm(M, axis=0)
+            nrm[nrm == 0] = 1
+            M /= nrm
+        return U, sigma, V, X

@@ -30,12 +30,12 @@ contour-integral ``ciss``.  A two-sided solve returns the left eigenvectors
 (``eps/ks_twosided.py``), else from a second run on the adjoint problem
 (:meth:`EPS._solve_left`; a copy of the right ones for a Hermitian problem
 with B = I).  The reference's ``lyapii`` (ROADMAP queue 1 item 13) raises
-NotImplementedError naming its item, and so do the paths a complex
-operator does not take yet (11a-iii: the blocked cycle, ``cheb_block`` > 1
-and the device shift-and-invert); a name the reference does not know
+NotImplementedError naming its item; a name the reference does not know
 raises :class:`EPSError` listing the registered ones.  Complex operators
 (and complex shifts of real ones) run in complex arithmetic
-(:func:`work_dtype`).
+(:func:`work_dtype`), the blocked cycle included; ``cheb_block`` is ignored
+for them, as the reference ignores it, and the device shift-and-invert
+raises NotImplementedError: the reference has no complex one.
 """
 
 from __future__ import annotations
@@ -82,10 +82,6 @@ _DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5,
                 torch.complex128: 1e-8, torch.complex64: 1e-5}
 _TODO_SOLVERS = ("EPS solver {!r} is still to be ported (ROADMAP.md, queue "
                  "1, item {})")
-_TODO_COMPLEX = ("EPS {}: {} on a complex operator is still to be ported "
-                 "(ROADMAP.md, queue 1, item 11a-iii: a complex block DIA "
-                 "SpMM K5, the blocked complex cycles, a complex device "
-                 "shift-and-invert)")
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
 # the reference's registered solvers that are not ported yet, and the
 # ROADMAP item each waits for
@@ -761,12 +757,6 @@ class EPSSolver:
 
     def solve(self, eps: EPS) -> None:
         raise NotImplementedError
-
-
-def todo_complex(solver: str, what: str) -> NotImplementedError:
-    """The error a path that a complex operator does not take yet raises,
-    naming its ROADMAP item (11a-iii)."""
-    return NotImplementedError(_TODO_COMPLEX.format(solver, what))
 
 
 def work_dtype(eps: EPS, op: LinearOperator) -> torch.dtype:

@@ -345,23 +345,26 @@ def get_ks_hep_cycle(op, gen, ncv: int, which: str = "smallest",
 # ---- the blocked cycle (reference ks_jit.py:811-1030) --------------------
 
 def _svqb(G, eps_mach: float):
-    """Clamped SVQB factors of the Gram matrix G = W W^T of b rows W, with
-    the diagonal scaling of SLEPc's SVQB (bvorthog.c): (inv, half) with
-    X = inv W orthonormal and W = half X exactly.  The scaling keeps the
-    factors accurate when the rows of W differ in norm by many orders (a
-    filtered block does: converged rows leave residuals near 1 beside
-    others near 1e6)."""
-    g = np.sqrt(np.maximum(np.diag(G), 0.0))
+    """Clamped SVQB factors of the Gram matrix G[r, i] = <W[r], W[i]> of b
+    rows W (Hermitian for a complex basis), with the diagonal scaling of
+    SLEPc's SVQB (bvorthog.c): (inv, half) with X = inv W orthonormal and
+    W = half X exactly.  With Gs = G / (g g^T) = U diag(lam) U^H, inv =
+    (U lam^-1/2 U^H)^T diag(1/g) and half its inverse, both written as
+    conj(U) f(lam) U^T, which is the real formula for a real U.  The
+    scaling keeps the factors accurate when the rows of W differ in norm by
+    many orders (a filtered block does: converged rows leave residuals near
+    1 beside others near 1e6)."""
+    g = np.sqrt(np.maximum(np.real(np.diag(G)), 0.0))
     g[g == 0] = 1.0
     lam, U = _gram_eigh(G / np.outer(g, g))
     lam_c = np.maximum(lam, eps_mach ** 2 * max(lam[-1], eps_mach))
-    inv = (U * lam_c ** -0.5) @ U.T / g[None, :]
-    half = g[:, None] * ((U * lam_c ** 0.5) @ U.T)
+    inv = (U.conj() * lam_c ** -0.5) @ U.T / g[None, :]
+    half = g[:, None] * ((U.conj() * lam_c ** 0.5) @ U.T)
     return inv, half
 
 
 def _gram_eigh(G):
-    return np.linalg.eigh(0.5 * (G + G.T))
+    return np.linalg.eigh(0.5 * (G + G.conj().T))
 
 
 def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
@@ -382,7 +385,12 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
       orthogonalized against Vact; its coupling is at rounding level.
     The H column block is [C + P half1^T; (half1 half2)^T], from
     Wb = (C + P half1^T)^T Vact + (half1 half2) X2 (the reference stores
-    half1 half2 untransposed).  Two host reads per step."""
+    half1 half2 untransposed).  Two host reads per step.
+
+    A complex basis (a complex Hermitian operator) runs the same step: K3c's
+    dots conjugate the basis (C[k, i] = <Vact[k], Wb[i]>), the Gram matrices
+    are Hermitian, K4c applies inv^T unconjugated (out[p] = sum_k Q[k, p]
+    V[k]), and H is Hermitian with the same plain transposes."""
     m = (p + 1) * b
     Vact = V[:m]
     Wb = op_blk(V[p * b: m])
@@ -400,10 +408,12 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
     lam1, U1 = _gram_eigh(G1)
     dead = lam1 < 1e-2  # live directions of X have norms near 1
     if dead.any():
+        # complex normals from the seeded generator for a complex basis;
+        # the refill X += R z^H along each dead direction z of G1
         R = torch.randn((int(dead.sum()), V.shape[1]), generator=gen,
                         dtype=V.dtype, device=V.device)
         R /= torch.linalg.vector_norm(R, dim=1, keepdim=True)
-        X += rotate(_mat(U1[:, dead].T, V), R)
+        X += rotate(_mat(U1[:, dead].conj().T, V), R)
         for _ in range(2):
             X = panel_update(Vact, panel_dots(Vact, X), X)
         G1 = _host(panel_dots(X, X)).reshape(b, b)
@@ -411,7 +421,9 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
     rotate(_mat(inv2.T, V), X, out=V[m: m + b])
     H[:, p * b: m] = 0
     H[:m, p * b: m] = C + P @ half1.T
-    # Wb = (half1 half2) X2 + ..., so H[m + r, p*b + i] = (half1 half2)[i, r]
+    # Wb = (half1 half2) X2 + ..., so H[m + r, p*b + i] = <X2[r], Wb[i]> =
+    # (half1 half2)[i, r]: a plain transpose for a complex basis too, since
+    # H[k, j] = <V[k], A V[j]> holds the coefficients of A V[j]
     H[m: m + b, p * b: m] = (half1 @ half2).T
 
 

@@ -19,6 +19,8 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
   becomes the port's, so both compute the same thing.
 * :func:`rg_from_slepc_tpu`: a slepc_tpu region (ellipse, interval,
   polygon, ring) with its complement flag and scale.
+* :func:`svd_from_slepc_tpu`: a slepc_tpu ``SVD`` (operator, B, omega, nsv,
+  ncv, which, tol, max_it, solver) as the port's, unsolved.
 * :func:`dia_to_padded_ds`: a port f64 operator as the (offsets, dph, dpl, n)
   arguments of ``DIAPaddedOperatorDS``.
 * :func:`basis_from_padded` / :func:`basis_to_padded`: a padded basis
@@ -40,6 +42,7 @@ from .rg.rg import RGEllipse, RGInterval, RGPolygon, RGRing
 from .st.filter import STFilter
 from .st.sinvert_jit import SinvertCGOperator, STSinvertDevice
 from .st.st import STCayley, STPrecond, STShift, STSinvert
+from .svd.svd import SVD
 from .sys.device import resolve_device
 
 LANES = 512  # lane width of slepc_tpu's padded 2-D layout
@@ -144,6 +147,18 @@ def rg_from_slepc_tpu(jrg):
     rg.set_complement(jrg.complement)
     rg.set_scale(jrg.sfactor)
     return rg
+
+
+def svd_from_slepc_tpu(jsvd, device=None) -> SVD:
+    """A slepc_tpu SVD's settings on the port's operators: the same
+    problem, dimensions, side, tolerances and solver."""
+    B = None if jsvd.B is None else operator_from_slepc_tpu(jsvd.B,
+                                                            device=device)
+    omega = None if jsvd.omega is None else np.array(jsvd.omega)
+    return SVD(operator_from_slepc_tpu(jsvd.A, device=device), B=B,
+               omega=omega, nsv=jsvd.nsv, ncv=jsvd.ncv,
+               which=jsvd.which.value, tol=jsvd.tol, max_it=jsvd.max_it,
+               solver=jsvd.solver)
 
 
 def ksp_from_slepc_tpu(jksp, device=None) -> KSP:

@@ -10,9 +10,7 @@ Formats:
     matrices; ``mult`` is the DIA kernel K1/K2 (K1c/K2c for complex64 /
     complex128 diagonals), ``mult_h`` the same kernel on the adjoint's
     diagonals (built once, on the device) and ``mult_block`` the block
-    kernel K5
-    (``ops/dia.py``; real only: a complex block is one K1c/K2c launch a
-    row).
+    kernel K5 (K5c for complex diagonals; ``ops/dia.py``).
   * :class:`AIJOperator` — general sparsity as plain CSR on the device;
     ``mult`` is the CSR kernel K6 (``ops/csr.py``).  The reference's padded
     ELL and hybrid diagonal/gather packs are TPU layouts and are not ported;
@@ -247,14 +245,10 @@ class DIAOperator(LinearOperator):
                               x, self.dtype)
 
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
-        """Kernel K5: the diagonals are read once for every chunk of at most
-        ``SPMM_MAX_B`` (8) rows of X; a block of any height, on every
-        device.  K5 is real only: a complex block runs one K1c / K2c
-        launch a row (``LinearOperator.mult_block``), counted as such, on
-        every device (a complex K5 is ROADMAP queue 1 item 11a-iii)."""
+        """Kernel K5 (K5c for complex diagonals): the diagonals are read
+        once for every chunk of at most ``SPMM_MAX_B`` (8) rows of X; a
+        block of any height, on every device."""
         self._check_len(X, "mult_block")
-        if self.dtype.is_complex:
-            return LinearOperator.mult_block(self, X)
         return apply_by_parts(lambda V: dia_spmm(self.offsets, self.diags, V),
                               X, self.dtype)
 
@@ -364,9 +358,12 @@ class AIJOperator(LinearOperator):
             rowptr = torch.zeros(self.shape[1] + 1, dtype=torch.int64,
                                  device=self.device)
             torch.cumsum(counts, 0, out=rowptr[1:])
+            # a physical conjugate: the kernel reads memory, not torch's
+            # lazy conjugate view
             self._adjoint = AIJOperator(
                 rowptr, row_of_entry(self.rowptr)[order],
-                self.vals[order].conj(), (self.shape[1], self.shape[0]))
+                torch.conj_physical(self.vals[order]),
+                (self.shape[1], self.shape[0]))
         return self._adjoint.mult(x)
 
     def norm_estimate(self) -> float:

@@ -1,5 +1,5 @@
-"""DIA SpMV and SpMM: kernels K1 (float32), K2 (float64) and K5 (block),
-``csrc/dia_spmv.cu``.
+"""DIA SpMV and SpMM: kernels K1 (float32), K2 (float64) and K5 (block;
+K5c for a complex block), ``csrc/dia_spmv.cu``.
 
 ``y[i] = sum_k diags[k, i] * x[i + offsets[k]]`` with ``x`` taken as zero
 outside ``[0, n)`` -- the function of the Pallas kernels in
@@ -7,13 +7,14 @@ outside ``[0, n)`` -- the function of the Pallas kernels in
 ``dia_spmv_padded_v3`` and the double-single ``dia_spmv_padded_ds``), on flat
 ``(n,)`` vectors; for complex64 / complex128 the same kernel's complex
 instantiations K1c / K2c (the TPU ran a complex operator as split real
-planes, ``slepc_tpu/ops/complex_split.py``).  K5 is real only: a complex
-block goes one K1c / K2c launch a row (``DIAOperator.mult_block``).  :func:`dia_spmm` applies the same operator to the b rows
-of a ``(b, n)`` block of any height, reading each diagonal once for all the
-rows of a launch (``dia_spmv_padded_block``), in launches of at most
-``SPMM_MAX_B`` rows.  :func:`plan_spmm` tells K5 where each
-diagonal's X values come from: the window of X each block stages in shared
-memory (near diagonals), or device memory (far ones).
+planes, ``slepc_tpu/ops/complex_split.py``).  :func:`dia_spmm` applies the
+same operator to the b rows of a ``(b, n)`` block of any height, reading
+each diagonal once for all the rows of a launch (``dia_spmv_padded_block``),
+in launches of at most ``SPMM_MAX_B`` rows; a complex block runs K5's
+complex instantiation K5c, in native complex arithmetic.
+:func:`plan_spmm` tells K5 where each diagonal's X values come from: the
+window of X each block stages in shared memory (near diagonals), or device
+memory (far ones).
 
 Each wrapper runs its plain version (``*_ref``) for a tensor on the CPU,
 launches the CUDA kernel for a tensor on a CUDA device, and raises for
@@ -31,12 +32,16 @@ import torch
 from . import _build
 
 launches = {"dia_spmv_f32": 0, "dia_spmv_f64": 0, "dia_spmv_c64": 0,
-            "dia_spmv_c128": 0, "dia_spmm_f32": 0, "dia_spmm_f64": 0}
+            "dia_spmv_c128": 0, "dia_spmm_f32": 0, "dia_spmm_f64": 0,
+            "dia_spmm_c64": 0, "dia_spmm_c128": 0}
 
-# K5: rows a block owns (the best of the tile sweep of ``chip_smoke.py
-# --profile``, PERF.md), threads a block, and the shared memory a block may
+# K5: rows a block owns (the real ones the best of the tile sweep of
+# ``chip_smoke.py --profile``, PERF.md; the complex ones not swept: c64 as
+# f64, whose elements are as wide, and c128 half of it, so that a block
+# stages as many bytes), threads a block, and the shared memory a block may
 # stage so that two blocks fit on an SM (227 KB each)
-SPMM_TILE = {torch.float64: 1024, torch.float32: 2048}
+SPMM_TILE = {torch.float64: 1024, torch.float32: 2048,
+             torch.complex64: 1024, torch.complex128: 512}
 SPMM_THREADS = 256
 SPMM_SMEM_CAP = 112 * 1024
 # K5: the most rows of X one launch takes (the kernel's kMaxB, which the
@@ -156,18 +161,15 @@ def dia_spmm(offsets: Sequence[int], diags: torch.Tensor,
              X: torch.Tensor, tile: int | None = None) -> torch.Tensor:
     """Y = (A X[m] for each row m): a new (b, n) tensor for X (b, n), b any
     height (on the card the rows go in chunks of at most ``SPMM_MAX_B``,
-    one K5 launch each).  The rows of X must each be contiguous; their
-    stride may be anything (a slice of a taller basis is taken as it is).
+    one K5 launch each; K5c for complex64 / complex128).  The rows of X
+    must each be contiguous; their stride may be anything (a slice of a
+    taller basis is taken as it is).
     ``tile``: rows a kernel block owns (default ``SPMM_TILE``; see
     :func:`plan_spmm`)."""
     _check("dia_spmm", offsets, diags, X, 2)
     if X.device.type == "cpu":
         return dia_spmm_ref(offsets, diags, X)
     b, n = X.shape
-    if X.dtype.is_complex:
-        raise TypeError("dia_spmm: K5 takes float32 or float64 (a complex "
-                        "block is one dia_spmv launch a row; ROADMAP.md, "
-                        "queue 1, item 11a-iii)")
     code, lib, offs = _kernel_args("dia_spmm", offsets, diags, X)
     if lib.slepc_dia_spmm_max_b() != SPMM_MAX_B:
         raise RuntimeError(f"dia_spmm: the kernel takes blocks of "

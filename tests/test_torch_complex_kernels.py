@@ -381,4 +381,5 @@ def test_complex_dtype_codes_and_launch_counters():
                 "panel_dots_c128", "panel_update_c64",
                 "panel_update_dots_c128"):
         assert counts[key] == 0  # the plain versions launch nothing
-    assert "dia_spmm_c128" not in counts  # K5 stays real (item 11a-iii)
+    for key in ("dia_spmm_c64", "dia_spmm_c128"):  # K5c
+        assert counts[key] == 0

@@ -334,7 +334,7 @@ def test_dia_block_kernel_near_and_far(cuda, dtype, tol, b, layout):
 
 
 def lib_smem(dtype, b, plan):
-    code = 1 if dtype == torch.float64 else 0
+    code = _build.DTYPE_CODE[str(dtype)]
     return 0 if dia.NEAR not in plan.where else \
         _build.load().slepc_dia_spmm_smem(code, b, plan.tile, plan.halo)
 
@@ -844,18 +844,18 @@ def test_complex_dia_kernel_matches_plain(cuda, dtype, tol, n, offsets):
     scale = dia.dia_spmv_ref(offsets, d.abs(), x.abs()).max()
     assert float((y - ref).abs().max() / scale) <= 4 * tol
     assert dia.launches[key] == before + 1
-    # a complex block: one launch a row, never K5 (item 11a-iii)
+    # a complex block: one K5c launch, each row K1c / K2c's product
     A = stt.DIAOperator(offsets, d)
     X = _crand((3, n), dtype, cuda, 2)
-    spmm = dict(dia.launches)
+    spmm_key = f"dia_spmm_{SUFFIX[dtype]}"
+    spmm = dia.launches[spmm_key]
     Y = A.mult_block(X)
-    assert dia.launches[key] == before + 4
-    assert {k: v for k, v in dia.launches.items() if "spmm" in k} == \
-        {k: v for k, v in spmm.items() if "spmm" in k}
+    assert dia.launches[key] == before + 1
+    assert dia.launches[spmm_key] == spmm + 1
+    bscale = dia.dia_spmm_ref(offsets, d.abs(), X.abs()).max()
     for m in range(3):
-        assert torch.equal(Y[m], dia.dia_spmv(offsets, d, X[m]))
-    with pytest.raises(TypeError, match="11a-iii"):
-        dia.dia_spmm(offsets, d, X)
+        Ym = dia.dia_spmv(offsets, d, X[m])
+        assert float((Y[m] - Ym).abs().max() / bscale) <= 4 * tol
 
 
 CPANEL_CASES = [(9, 3, 130), (33, 8, 4097), (49, 1, 100_003), (64, 2, 777),
@@ -1085,26 +1085,113 @@ def test_complex_solves_on_the_card(cuda, case):
             return eps
         cpu, card, d = _on_both(lambda dev: stt.DIAOperator(
             (-1, 0, 1), torch.from_numpy(_spiral(1 << 10)).to(dev)), solve)
-        assert d["dia_spmv_c128"] > 0 and d["rotate_c128"] > 0
+        # subspace applies the operator to its whole block: K5c
+        spmv = "dia_spmm_c128" if case == "subspace" else "dia_spmv_c128"
+        assert d[spmv] > 0 and d["rotate_c128"] > 0
     _held(cpu, card, 3 if case in ("ghep", "arnoldi", "subspace") else 4)
 
 
 @pytest.mark.parametrize("what", ["block_size", "cheb_block", "sinvert"])
 def test_complex_paths_of_11a_iii_raise_on_the_card(cuda, what):
-    G = _gauge_2d(12, 11, cuda)
-    eps = stt.EPS(G, problem_type="hep", which="smallest_real", nev=2,
-                  options=stt.Options())
-    if what == "block_size":
-        eps.block_size = 2
-    elif what == "cheb_block":
-        eps.cheb_degree, eps.cheb_block = 20, 2
-    else:
-        eps.set_target(0.0)
-        eps.set_st(stt.STSinvertDevice([G], sigma=0.0, iters=50))
-    before = stt.launch_counts()
-    with pytest.raises(NotImplementedError, match="item 11a-iii"):
+    """The three complex paths that raised before they were ported (the
+    name is kept for its ids): the blocked cycle on K5c, K3c and K4c
+    against the closed form and the CPU's trajectory; cheb_block runs the
+    plain cycle (no K5c launch); the device shift-and-invert still raises,
+    with no launch."""
+    def solve(dev):
+        G = _gauge_2d(12, 11, dev)
+        eps = stt.EPS(G, problem_type="hep", which="smallest_real", nev=2,
+                      options=stt.Options())
+        if what == "block_size":
+            eps.block_size = 2
+        elif what == "cheb_block":
+            eps.cheb_degree, eps.cheb_block = 20, 2
+        else:
+            eps.set_target(0.0)
+            eps.set_st(stt.STSinvertDevice([G], sigma=0.0, iters=50))
         eps.solve()
-    assert stt.launch_counts() == before
+        return eps
+
+    if what == "sinvert":
+        before = stt.launch_counts()
+        with pytest.raises(NotImplementedError,
+                           match="reference has no complex device"):
+            solve(cuda)
+        assert stt.launch_counts() == before
+        return
+    cpu, card, d = _on_both(lambda dev: dev, solve)
+    _held(cpu, card, 2)
+    exact = stt.laplacian_2d_eigs(12, 11, k=2)
+    np.testing.assert_allclose(np.sort(card.eigenvalues[:2]), exact,
+                               rtol=0, atol=1e-10)
+    assert d["panel_dots_c128"] > 0 and d["rotate_c128"] > 0
+    if what == "block_size":
+        assert d["dia_spmm_c128"] > 0 and d["dia_spmv_c128"] == 0
+    else:
+        assert d["dia_spmm_c128"] == 0 and d["dia_spmv_c128"] > 0
+
+
+@pytest.mark.parametrize("dtype,tol", CDTYPES)
+@pytest.mark.parametrize("b", [1, 3, 4, 8])
+@pytest.mark.parametrize("layout", ["aligned", "odd_stride", "odd_n"])
+def test_complex_block_kernel_matches_plain(cuda, dtype, tol, b, layout):
+    """K5c: near and far offsets, offsets past +-n, X a row slice of a
+    taller basis (an odd row stride: one-element copies in c64), a ragged
+    last tile; its plan's shared memory against the compiled kernel's;
+    bitwise repeatable."""
+    n = 20_001 if layout == "odd_n" else 20_000
+    offsets = (-30_000, -3000, -700, -5, -1, 0, 1, 5, 700, 3000, 30_000)
+    plan = dia.plan_spmm(offsets, n, b, dtype)
+    d = _crand((len(offsets), n), dtype, cuda, 2)
+    width = n + {"aligned": 8, "odd_stride": 3, "odd_n": 5}[layout]
+    X = _crand((b + 3, width), dtype, cuda, 3)[2:2 + b, :n]
+    assert lib_smem(dtype, b, plan) == plan.smem
+    key = f"dia_spmm_{SUFFIX[dtype]}"
+    before = dia.launches[key]
+    Y = dia.dia_spmm(offsets, d, X)
+    assert dia.launches[key] == before + 1
+    ref = dia.dia_spmm_ref(offsets, d, X)
+    torch.cuda.synchronize()
+    scale = dia.dia_spmm_ref(offsets, d.abs(), X.abs()).max()
+    assert float((Y - ref).abs().max() / scale) <= 4 * tol
+    for _ in range(2):
+        assert torch.equal(dia.dia_spmm(offsets, d, X), Y)
+
+
+@pytest.mark.parametrize("solver", ["trlanczos", "cross"])
+def test_svd_on_the_card(cuda, solver):
+    """The SVD of a 3-D gradient (30 x 32 x 34 unknowns, G^T G the 7-point
+    Laplacian) on K6 for G and G^H, K3 and K4, against the closed form and
+    the CPU's run."""
+    import scipy.sparse as sp
+
+    nx, ny, nz = 30, 32, 34
+
+    def D(k):
+        return sp.diags([np.ones(k), -np.ones(k)], [0, -1], shape=(k + 1, k))
+
+    def eye(k):
+        return sp.identity(k, format="csr")
+
+    G = sp.vstack([sp.kron(eye(nz), sp.kron(eye(ny), D(nx))),
+                   sp.kron(eye(nz), sp.kron(D(ny), eye(nx))),
+                   sp.kron(D(nz), sp.kron(eye(ny), eye(nx)))]).tocsr()
+
+    def solve(dev):
+        svd = stt.SVD(stt.from_scipy(G, device=dev), nsv=4, ncv=20,
+                      tol=1e-9, solver=solver)
+        svd.solve()
+        return svd
+
+    cpu, card, d = _on_both(lambda dev: dev, solve)
+    exact = np.sqrt(stt.laplacian_3d_eigs(nx, ny, nz))[::-1][:4]
+    assert card.nconv >= 4 and card.nconv == cpu.nconv
+    np.testing.assert_allclose(card.sigma[:4], exact, rtol=1e-9)
+    np.testing.assert_allclose(card.sigma[:4], cpu.sigma[:4], rtol=1e-10)
+    for i in range(4):
+        assert card.compute_error(i) < 1e-8
+    assert d["csr_spmv_f64"] > 0 and d["panel_dots_f64"] > 0
+    assert d["rotate_f64"] > 0
 
 
 # ---- the preconditioned and contour-integral solvers (items 11b, 11c) ----
