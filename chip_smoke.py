@@ -208,7 +208,49 @@ Phases (each failing check raises; the script then exits non-zero):
      values to four decimals, and a c128 trlanczos on the gradient of a
      30x32x34 grid with phases on its unknowns (G U^H: the same sigma, on
      K6c); their kernels against their plain versions at their shapes
-     first.
+     first;
+ 16. matrix functions and equations (item 13), after K2 / K1 / K2c, K3 /
+     K3c, K4 / K4c at MFN's shapes, K2, K3, K4, K5 at the Lyapunov
+     equation's and K2 on the Sylvester operators and their adjoints'
+     diagonals against their plain versions: (a) MFN y = exp(-t L) b,
+     t = 1, on phase 7's 100x102x104 Laplacian (1,060,800 rows), b =
+     kron(b_z, b_y, b_x) seeded, against the closed form kron(e^{-t T_z}
+     b_z, e^{-t T_y} b_y, e^{-t T_x} b_x) (scipy expm on each 1-D second
+     difference T_d): krylov and expokit at ncv 30, tol 1e-10, krylov at
+     ncv 10 (restarted: its >= 2), f32 krylov at tol 1e-5 (K1), and c128
+     exp(-t G) b for the separable gauge G = D L D^H against D e^{-t L}
+     D^H b (K2c); gates: relative error <= 1e-9 (f64, c128), 1e-4 (f32);
+     (b) LME: the Lyapunov equation A X + X A^T + C C^T = 0 with A =
+     -(laplacian_2d(1000, 1000) + 0.1 I) (10^6 rows), C of rank 2, ncv 30,
+     tol 1e-8, gate: the factored residual (one thin QR of [A Z, Z, C],
+     A Z on K5) <= 1e-8; the Krylov Sylvester equation on
+     tests/test_modules.py:227's tridiagonals at 2^20 and 2^20 - 4,096
+     rows (DIA: K2 and its adjoint), gate: the factored residual of
+     [A L, L, c1] [R, B^H R, c2]^H <= 1e-8; and the small paths at the
+     reference tests' sizes (Stein, generalized Lyapunov, dense
+     Sylvester, the complex Lyapunov at <= 1e-12); (c) lyapii on
+     tests/test_eps_advanced.py:91's matrix and on banded DIA matrices of
+     200 and 2^20 rows (K5), the rightmost value within 1e-6 of numpy's
+     (the big one's from its leading 200 x 200 block);
+ 17. polynomial eigenproblems (item 14), after K2, K3 (with Q-Arnoldi's
+     two-row panel), K4 at the damped quadratic's shapes, K3 / K4 at the
+     linear solve's 180,000-row bases and K2c, K3c, K4c at the acoustic
+     QEP's against their plain versions: (a) bench.py:1169-1185's damped
+     quadratic (K = laplacian_2d(300, 300), C = diag(0.1 + 0.05 sin(10^-2
+     i)), M = I; 90,000 rows, f64 DIA), nev 3, largest magnitude, tol
+     1e-6, by toar, qarnoldi and linear (linear with target 0, the shift
+     the other two take); gates: nconv >= 3, compute_error <= 1e-6 (K2),
+     values within 1e-6 relative of scipy eigs(sigma=0) on the
+     180,000-row companion pencil; (b) examples/ex_pep_acoustic.py's
+     boundary-damped acoustic QEP at n = 2^20 in c128, toar at 0.5i, nev
+     4, ncv 40, tol 1e-9; gates: nconv >= 4, compute_error <= 1e-9,
+     values within 1e-9 of the port's own solve on the CPU; (c) the small
+     paths at the reference tests' sizes: the four extraction kinds,
+     jd, stoar, qslice, the Chebyshev basis (ComplexWarning an error),
+     both refinements, diagonal scaling (CSR: K6), test1.c's digits, and
+     ciss raising with no launch.  Each run prints its wall, restarts,
+     TOAR steps, the P(sigma) solves' seconds (KSP_Solve_direct, with
+     their KSP_HostSolve_d2h / _h2d transfers) and peak memory.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -238,7 +280,9 @@ shares of its device time), of one more phase-12d c128 blocked cycle
 (K5c's, K3c's, K4c's shares) and of one more phase-15 trlanczos solve
 (K6's, K3's, K4's shares); after phase 13, a torch.profiler split and a
 cProfile split (host seconds by function) of one more solve of each of
-phase 13a's two GD paths.  Its launches are not counted.
+phase 13a's two GD paths; after phase 17, a torch.profiler split of one
+more phase-17a toar solve (K2's, K3's, K4's shares).  Its launches are not
+counted.
 
 Phase 1 holds the complex instantiations too: K5c (c128, c64) at b = 4
 on the gauge-transformed flagship beside the four K2c / K1c launches it
@@ -265,10 +309,13 @@ small paths: K2, K5, K6, K3, K4), and before and after each of phase
 phase 13a, 13b and 13c (K2, K3, K4, K5; K6; K5) and of phase 14a, 14b
 and 14c (K2c, K3c, K4c; K2, K6, K3, K4; K3, K4, K3c, K4c), of phase 12d
 (K5c, K3c, K4c; K2c) and of phase 15's full-width and small parts (K6, K3,
-K4; K6c, K3c, K4c); K7's launches are read around its yardstick
-measurement in phase 1.  Every kernel of each path must have launched.
-The JSON kernel table's ``launches_p13`` / ``launches_p14`` /
-``launches_p12d`` / ``launches_p15`` are those phases' shares of
+K4; K6c, K3c, K4c), of phase 16a, 16b and 16c (K2 / K1 / K2c, K3 /
+K3c, K4 / K4c; K2, K5, K3, K4; K5, K3, K4) and of phase 17a, 17b and 17c
+(K2, K3, K4; K2c, K3c, K4c; K6, K3, K4); K7's launches are read around
+its yardstick measurement in phase 1.  Every kernel of each path must
+have launched.  The JSON kernel table's ``launches_p13`` /
+``launches_p14`` / ``launches_p12d`` / ``launches_p15`` /
+``launches_p16`` / ``launches_p17`` are those phases' shares of
 ``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
@@ -297,6 +344,7 @@ from slepc_tpu_torch.ops.bv import (fused_update_dots, panel_dots,
                                     panel_dots_ref, panel_update,
                                     panel_update_dots, panel_update_dots_ref,
                                     panel_update_ref, plan_panel)
+from slepc_tpu_torch.eps.base import op_mult_block
 from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
 from slepc_tpu_torch.eps.ks_jit import ks_hep_cycle, ks_hep_cycle_blocked
 from slepc_tpu_torch.ops.dia import (SPMM_TILE, dia_spmm, dia_spmm_ref,
@@ -2086,12 +2134,14 @@ def gauge_phases(n):
     return 2 * np.pi * np.random.default_rng(GAUGE_SEED).random(n)
 
 
-def gauge_dia(A, dtype):
+def gauge_dia(A, dtype, phi=None):
     """U A U^H of a real DIA operator A: entry (i, i + o) times
     e^{i (phi_i - phi_{i+o})}.  It keeps A's offsets and spectrum, and is
-    complex Hermitian for a symmetric A.  Built on A's device."""
+    complex Hermitian for a symmetric A.  Built on A's device; ``phi``
+    (host, n) defaults to gauge_phases(n)."""
     n = A.shape[0]
-    phi = torch.from_numpy(gauge_phases(n)).to(A.device)
+    phi = torch.from_numpy(gauge_phases(n) if phi is None else phi).to(
+        A.device)
     d = A.diags.to(torch.complex128)
     for k, o in enumerate(A.offsets):
         lo, hi = max(0, -o), min(n, n - o)
@@ -3901,6 +3951,699 @@ def phase15_small(dev):
     return counts
 
 
+# ---- matrix functions and equations (item 13), polynomial problems (14) --
+
+MFN_GRID = SVD_GRID  # phase 7's grid: 1,060,800 unknowns
+MFN_T, MFN_NCV, MFN_TOL, MFN_SEED = 1.0, 30, 1e-10, 16
+LYAP_SIDE, LYAP_SHIFT, LYAP_NCV, LYAP_TOL = 1000, 0.1, 30, 1e-8
+SYLV_N, SYLV_NCV = 2 ** 20, 40
+QEP_SIDE, QEP_NEV, QEP_TOL = 300, 3, 1e-6
+ACOUSTIC_N, ACOUSTIC_NCV, ACOUSTIC_TOL = 2 ** 20, 40, 1e-9
+
+
+def second_difference(k):
+    return 2 * np.eye(k) - np.eye(k, k=1) - np.eye(k, k=-1)
+
+
+def kron3(vx, vy, vz):
+    """The vector of a separable grid function, x fastest (laplacian_3d's
+    order)."""
+    return np.kron(vz, np.kron(vy, vx))
+
+
+def heat_case():
+    """Seeded factors b_x, b_y, b_z of b = kron(b_z, b_y, b_x) and phases
+    phi_x, phi_y, phi_z of a separable gauge D = diag(e^{i phi}), phi(x,
+    y, z) = phi_x(x) + phi_y(y) + phi_z(z), so D^H b stays a Kronecker
+    product."""
+    rng = np.random.default_rng(MFN_SEED)
+    bs = [rng.standard_normal(k) for k in MFN_GRID]
+    phs = [2 * np.pi * rng.random(k) for k in MFN_GRID]
+    return bs, phs
+
+
+def heat_closed_form(bs, phs=None, t=MFN_T):
+    """exp(-t L) b = kron(e^{-t T_z} b_z, e^{-t T_y} b_y, e^{-t T_x} b_x)
+    (T_d the 1-D second differences, scipy expm on each factor); with
+    ``phs``, D exp(-t L) D^H b for the gauge G = D L D^H."""
+    outs = []
+    for i, b in enumerate(bs):
+        E = sla.expm(-t * second_difference(len(b)))
+        if phs is None:
+            outs.append(E @ b)
+        else:
+            u = np.exp(1j * phs[i])
+            outs.append(u * (E @ (u.conj() * b)))
+    return kron3(*outs)
+
+
+def heat_operators(dev):
+    """The 1,060,800-row Laplacian in f64 and f32, and its separable gauge
+    G = D L D^H in c128 (gauge_dia with the separable phases)."""
+    _, phs = heat_case()
+    L = stt.laplacian_3d(*MFN_GRID, dtype=torch.float64, device=dev)
+    px, py, pz = phs
+    phi = (pz[:, None, None] + py[None, :, None] + px[None, None, :]).ravel()
+    return {"f64": L, "f32": stt.laplacian_3d(*MFN_GRID, dtype=torch.float32,
+                                              device=dev),
+            "c128": gauge_dia(L, torch.complex128, phi=phi)}
+
+
+def shifted_dia(A, s, scale=1.0):
+    """scale * (A + s I) for a DIA operator with a main diagonal."""
+    d = A.diags.clone()
+    d[A.offsets.index(0)] += s
+    return stt.DIAOperator(A.offsets, scale * d)
+
+
+def lyap_operator(dev):
+    """A = -(laplacian_2d(1000, 1000) + 0.1 I): 10^6 rows, stable."""
+    return shifted_dia(stt.laplacian_2d(LYAP_SIDE, LYAP_SIDE, device=dev),
+                       LYAP_SHIFT, -1.0)
+
+
+def sylv_operators(dev):
+    """tests/test_modules.py:227's tridiagonals at 2^20 and 2^20 - 4,096
+    rows, as DIA operators: A = tridiag(-1, -3, -1), B = tridiag(1, 8, 1)."""
+    def tri(n, o, d):
+        lo, up = np.full(n, o), np.full(n, o)
+        lo[0] = up[-1] = 0.0
+        return stt.DIAOperator((-1, 0, 1), np.stack([lo, np.full(n, d), up]),
+                               device=dev)
+    return tri(SYLV_N, -1.0, -3.0), tri(SYLV_N - 4096, 1.0, 8.0)
+
+
+def lyapii_band(n, dev):
+    """A stable nonsymmetric tridiagonal DIA matrix with an isolated
+    rightmost eigenvalue near -0.4: lyapii on a DIA operator (K5)."""
+    main = -np.concatenate([[0.4], 2.0 + np.linspace(0.0, 3.0, n - 1)])
+    up, lo = np.full(n, 0.1), np.full(n, 0.05)
+    up[-1], lo[0] = 0.0, 0.0
+    return stt.DIAOperator((-1, 0, 1), np.stack([lo, main, up]), device=dev)
+
+
+def phase16_kernels(dev):
+    """K2 / K1 / K2c, K3 / K3c, K4 / K4c at the MFN runs' shapes (ncv 30
+    and 10 bases of 1,060,800 rows, the (m, 1) update), K2, K3, K4 at the
+    Lyapunov equation's (10^6 rows, ncv 60 after one doubling), K5 at the
+    residual's A Z (8-row launches), and K2 on the Sylvester operators and
+    their adjoints' diagonals; before phase 16's counts are reset."""
+    ops = heat_operators(dev)
+    for tag, dt in (("f64", torch.float64), ("f32", torch.float32),
+                    ("c128", torch.complex128)):
+        path_kernels(dev, f"phase 16: the SpMV, K3, K4 vs plain PyTorch at "
+                     f"MFN's shapes ({tag})", (
+                         (f"16a heat {tag}", lambda: ops[tag], MFN_NCV),
+                         (f"16a heat {tag} ncv 10", lambda: ops[tag], 10)),
+                     dtype=dt)
+    del ops
+    path_kernels(dev, "phase 16: K2, K3, K4 vs plain PyTorch at the "
+                 "Lyapunov equation's shapes", (
+                     ("16b Lyapunov 10^6 rows", lambda: lyap_operator(dev),
+                      2 * LYAP_NCV),))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    A = lyap_operator(dev)
+    Z = torch.randn((9, A.shape[0]), generator=gen, dtype=torch.float64,
+                    device=dev)
+    rel = spmm_errors(A, Z[1:9])
+    print(f"  K5 at the residual's A Z (b = 8, 10^6 rows): err {rel:.3e}",
+          flush=True)
+    check(rel <= P13_TOL["K5"], f"phase 16 K5: {rel:.3e}")
+    del A, Z
+    for op in sylv_operators(dev):
+        x = torch.randn(op.shape[0], generator=gen, dtype=torch.float64,
+                        device=dev)
+        adj = op.adjoint()
+        e = (spmv_errors(op.offsets, op.diags, x)[1],
+             spmv_errors(adj.offsets, adj.diags, x)[1])
+        print(f"  K2 on a Sylvester operator ({op.shape[0]} rows) and its "
+              f"adjoint: {e[0]:.3e} / {e[1]:.3e}", flush=True)
+        check(max(e) <= PATH_TOL[torch.float64]["K2"],
+              f"phase 16 Sylvester K2: {max(e):.3e}")
+    torch.cuda.empty_cache()
+
+
+def phase16a(dev):
+    """MFN at full width: exp(-L) b on the 1,060,800-row Laplacian against
+    the Kronecker closed form.  Returns the launch counts (read from
+    zero)."""
+    bs, phs = heat_case()
+    b = kron3(*bs)
+    t0 = time.perf_counter()
+    refs = {"real": heat_closed_form(bs), "gauge": heat_closed_form(bs, phs)}
+    print(f"phase 16a: MFN y = exp(-t L) b, t = {MFN_T}, on the "
+          f"{MFN_GRID} grid ({b.size} rows); closed forms on the host in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ops = heat_operators(dev)
+    runs = (("krylov f64", "f64", "krylov", MFN_NCV, MFN_TOL, "real", 1e-9),
+            ("expokit f64", "f64", "expokit", MFN_NCV, MFN_TOL, "real", 1e-9),
+            ("krylov f64 ncv 10", "f64", "krylov", 10, MFN_TOL, "real", 1e-9),
+            ("krylov f32", "f32", "krylov", MFN_NCV, 1e-5, "real", 1e-4),
+            ("krylov c128 gauge", "c128", "krylov", MFN_NCV, MFN_TOL, "gauge",
+             1e-9))
+    stt.reset_launch_counts()
+    for where, tag, solver, ncv, tol, ref, gate in runs:
+        f = stt.FNExp()
+        f.set_scale(-MFN_T)
+        mfn = stt.MFN(ops[tag], f, ncv=ncv, tol=tol, solver=solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = mfn.solve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = torch.from_numpy(refs[ref]).to(dev)
+        err = float(torch.linalg.vector_norm(y.to(want.dtype) - want)
+                    / torch.linalg.vector_norm(want))
+        print(f"  16a {where}: its={mfn.its} reason={mfn.reason} wall="
+              f"{wall:.3f} s rel err vs closed form={err:.3e} (gate "
+              f"{gate:g})", flush=True)
+        check(y.dtype == ops[tag].dtype and y.device == dev,
+              f"16a {where}: result {y.dtype} on {y.device}")
+        check(err <= gate, f"16a {where}: error {err:.3e} > {gate:g}")
+        if ncv == 10:
+            check(mfn.its >= 2, f"16a {where}: no restart ({mfn.its})")
+        del y, want
+    counts = stt.launch_counts()
+    for tag in ("f64", "f32", "c128"):
+        spmv = "dia_spmv_" + tag
+        launched("phase 16a", counts, (spmv, "panel_dots_" + tag,
+                                        "panel_update_" + tag,
+                                        "rotate_" + tag))
+    del ops
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sylvester_residual(A, B, L, R, c1, c2):
+    """||A X + X B + c1 c2^H||_F / (||c1|| ||c2||) with X = L R^H, in
+    factored form: [A L, L, c1] [R, B^H R, c2]^H, one thin QR of each
+    stack; A L and B^H R are block applies (K5)."""
+    AL = op_mult_block(A, L.T.contiguous())
+    BhR = op_mult_block(B.adjoint(), R.T.contiguous())
+    S1 = torch.cat([AL, L.T, c1[None]]).T
+    S2 = torch.cat([R.T, BhR, c2[None]]).T
+    R1 = torch.linalg.qr(S1, mode="r")[1]
+    R2 = torch.linalg.qr(S2, mode="r")[1]
+    num = torch.linalg.matrix_norm(R1 @ R2.mH)
+    return float(num) / float(torch.linalg.vector_norm(c1)
+                              * torch.linalg.vector_norm(c2))
+
+
+def phase16b(dev):
+    """LME at full width (Lyapunov at 10^6 rows, Krylov Sylvester at
+    2^20 rows) and the small paths.  Returns the launch counts."""
+    rng = np.random.default_rng(MFN_SEED)
+    stt.reset_launch_counts()
+    A = lyap_operator(dev)
+    C = rng.standard_normal((A.shape[0], 2))
+    lme = stt.LME(A, ncv=LYAP_NCV, tol=LYAP_TOL)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    Z = lme.solve(C)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = lme.compute_residual(Z, C)
+    t_res = time.perf_counter() - t0
+    print(f"phase 16b: Lyapunov A X + X A^T + C C^T = 0, A = -(laplacian_2d("
+          f"{LYAP_SIDE}, {LYAP_SIDE}) + {LYAP_SHIFT} I), C rank 2: Krylov "
+          f"builds {lme.its}, rank {Z.shape[1]}, errest {lme.errest:.3e}, "
+          f"wall {wall:.3f} s; factored residual {res:.3e} ({t_res:.3f} s); "
+          f"peak {peak_gb(dev):.2f} GB", flush=True)
+    check(Z.device == dev and Z.shape[0] == A.shape[0],
+          f"16b Lyapunov: Z {tuple(Z.shape)} on {Z.device}")
+    check(res <= 1e-8, f"16b Lyapunov: factored residual {res:.3e}")
+    del A, Z, lme
+    torch.cuda.empty_cache()
+    A, B = sylv_operators(dev)
+    c1 = rng.standard_normal(A.shape[0])
+    c2 = rng.standard_normal(B.shape[0])
+    lme = stt.LME(A, B=B, problem_type="sylvester", ncv=SYLV_NCV)
+    t0 = time.perf_counter()
+    L, R = lme.solve(c1, c2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = sylvester_residual(A, B, L, R, torch.from_numpy(c1).to(dev),
+                             torch.from_numpy(c2).to(dev))
+    print(f"  16b Sylvester (Krylov, {A.shape[0]} x {B.shape[0]}): builds "
+          f"{lme.its}, rank {L.shape[1]}, errest {lme.errest:.3e}, wall "
+          f"{wall:.3f} s, factored residual {res:.3e}", flush=True)
+    check(res <= 1e-8, f"16b Sylvester: factored residual {res:.3e}")
+    del A, B, L, R, lme
+    torch.cuda.empty_cache()
+    lme_small(dev)
+    counts = stt.launch_counts()
+    launched("phase 16b", counts, ("dia_spmv_f64", "dia_spmm_f64",
+                                   "panel_dots_f64", "panel_update_f64",
+                                   "rotate_f64"))
+    return counts
+
+
+def lme_small(dev):
+    """The small LME paths at the reference tests' sizes
+    (tests/test_round2.py:227, tests/test_modules.py:209, :198, :182 made
+    complex), each against its dense residual."""
+    rng = np.random.default_rng(1)
+    n = 2000
+    L = stt.laplacian_1d(n, device=dev)
+    A = stt.DIAOperator(L.offsets, 0.2 * L.diags)
+    c = rng.standard_normal(n)
+    lme = stt.LME(A, problem_type="stein", ncv=24, tol=1e-10)
+    Z = lme.solve(c).cpu().numpy()
+    Ad = A.to_scipy()
+    AZ = Ad @ Z
+    res = np.linalg.norm(AZ @ AZ.T - Z @ Z.T + np.outer(c, c)) \
+        / np.linalg.norm(np.outer(c, c))
+    print(f"  16b Stein ({n} rows): builds {lme.its}, residual {res:.3e}",
+          flush=True)
+    check(res < 1e-9, f"16b Stein: residual {res:.3e}")
+    rng = np.random.default_rng(0)
+    n = 50
+    Ad = -2 * np.eye(n) + 0.3 * rng.standard_normal((n, n)) / np.sqrt(n)
+    Ed = np.eye(n) + 0.1 * rng.standard_normal((n, n)) / np.sqrt(n)
+    C1 = rng.standard_normal((n, 2))
+    Z = stt.LME(stt.DenseOperator(Ad, device=dev),
+                B=stt.DenseOperator(Ed, device=dev),
+                problem_type="gen_lyapunov", ncv=40, tol=1e-10).solve(C1)
+    X = (Z @ Z.T).cpu().numpy()
+    res = np.linalg.norm(Ad @ X @ Ed.T + Ed @ X @ Ad.T + C1 @ C1.T) \
+        / np.linalg.norm(C1 @ C1.T)
+    print(f"  16b generalized Lyapunov ({n}): residual {res:.3e}", flush=True)
+    check(res < 1e-8, f"16b generalized Lyapunov: residual {res:.3e}")
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((20, 20)) - 3 * np.eye(20)
+    B = rng.standard_normal((15, 15)) + 3 * np.eye(15)
+    C = rng.standard_normal((20, 15))
+    X = stt.LME(stt.DenseOperator(A, device=dev),
+                B=stt.DenseOperator(B, device=dev),
+                problem_type="sylvester").solve(C).cpu().numpy()
+    res = np.abs(A @ X + X @ B + C).max()
+    print(f"  16b dense Sylvester (20 x 15): max residual {res:.3e}",
+          flush=True)
+    check(res < 1e-9, f"16b dense Sylvester: residual {res:.3e}")
+    rng = np.random.default_rng(10)
+    n = 60
+    Ac = -2 * np.eye(n) + 0.5 * np.eye(n, k=1) + 0.4 * np.eye(n, k=-1) \
+        + 0.3j * np.diag(np.linspace(-1, 1, n))
+    C1 = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    lme = stt.LME(stt.DenseOperator(Ac, device=dev), ncv=30, tol=1e-9)
+    res = lme.compute_residual(lme.solve(C1), C1)
+    print(f"  16b complex Lyapunov ({n}): factored residual {res:.3e}",
+          flush=True)
+    check(res <= 1e-12, f"16b complex Lyapunov: residual {res:.3e}")
+
+
+LYAPII_N = 1 << 20  # the full-width lyapii run's rows
+
+
+def phase16c(dev):
+    """lyapii on tests/test_eps_advanced.py:91's matrix (dense) and on
+    banded DIA matrices (K5) of 200 and 2^20 rows; the big one's rightmost
+    eigenvalue from its leading 200 x 200 block (the eigenvector decays
+    by about 3e-3 a row).  Returns the launch counts."""
+    stt.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    n = 50
+    d = -np.concatenate([[0.4], 2.0 + rng.random(n - 1) * 3])
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    Ad = Q @ np.diag(d) @ Q.T + 0.05 * rng.standard_normal((n, n)) / np.sqrt(n)
+    band = lyapii_band(200, dev)
+    big = lyapii_band(LYAPII_N, dev)
+    for where, A, Adense in (("test_eps_advanced.py:91 (dense 50)",
+                              stt.DenseOperator(Ad, device=dev), Ad),
+                             ("banded DIA 200", band,
+                              band.to_scipy().toarray()),
+                             (f"banded DIA {LYAPII_N}", big,
+                              big.to_scipy()[:200, :200].toarray())):
+        w = np.linalg.eigvals(Adense)
+        right = w[np.argmax(w.real)]
+        eps = stt.EPS(A, problem_type="nhep", solver="lyapii", nev=1,
+                      tol=1e-8, max_it=80, options=stt.Options())
+        t0 = time.perf_counter()
+        eps.solve()
+        torch.cuda.synchronize()
+        lam = complex(eps.eigenvalues[0]) if eps.nconv else complex("nan")
+        err = abs(lam.real - right.real) + abs(abs(lam.imag) - abs(right.imag))
+        print(f"phase 16c: lyapii on {where}: nconv {eps.nconv} its {eps.its} "
+              f"lambda {lam:.10f} vs {complex(right):.10f} (err {err:.3e}), "
+              f"wall {time.perf_counter() - t0:.3f} s", flush=True)
+        check(eps.nconv >= 1 and err <= 1e-6,
+              f"16c lyapii {where}: {lam} vs {right}")
+    counts = stt.launch_counts()
+    launched("phase 16c", counts, ("dia_spmm_f64", "panel_dots_f64",
+                                   "rotate_f64"))
+    return counts
+
+
+def damped_quadratic(dev):
+    """bench.py:1169-1185's damped quadratic: K = laplacian_2d(300, 300),
+    C = diag(0.1 + 0.05 sin(10^-2 i)), M = I; 90,000 rows, f64 DIA."""
+    n = QEP_SIDE * QEP_SIDE
+    tau = 0.1 + 0.05 * np.sin(np.arange(n) * 1e-2)
+    return (stt.laplacian_2d(QEP_SIDE, QEP_SIDE, dtype=torch.float64,
+                             device=dev),
+            stt.DIAOperator((0,), tau[None, :], device=dev),
+            stt.DIAOperator((0,), np.ones((1, n)), device=dev))
+
+
+def damped_reference(mats, k=6):
+    """scipy eigs(sigma=0) on the 180,000-row companion pencil
+    [[0, I], [-K, -C]] z = lambda [[I, 0], [0, M]] z."""
+    import scipy.sparse.linalg as spla
+
+    K, C, M = (m.to_scipy() for m in mats)
+    n = K.shape[0]
+    I = sp.identity(n, format="csr")
+    Acomp = sp.bmat([[None, I], [-K, -C]], format="csc")
+    Bcomp = sp.bmat([[I, None], [None, M]], format="csc")
+    return spla.eigs(Acomp, k=k, M=Bcomp, sigma=0, return_eigenvectors=False)
+
+
+def acoustic_mats(n, dev):
+    """examples/ex_pep_acoustic.py's boundary-damped acoustic QEP at n rows
+    (h = 1/n): complex128 DIA K (tridiagonal), C and M (diagonal)."""
+    h = 1.0 / n
+    main = np.full(n, 2.0 / h)
+    main[-1] = 1.0 / h
+    up, lo = np.zeros(n), np.zeros(n)
+    up[: n - 1] = -1.0 / h
+    lo[1:] = -1.0 / h
+    cvec = np.zeros(n, complex)
+    cvec[-1] = 2j * np.pi
+    mvec = np.full(n, 4.0 * np.pi ** 2 * h, complex)
+    mvec[-1] = 2.0 * np.pi ** 2 * h
+    return (stt.DIAOperator((-1, 0, 1), np.stack([lo, main, up]).astype(
+        complex), device=dev), stt.DIAOperator((0,), cvec[None], device=dev),
+        stt.DIAOperator((0,), mvec[None], device=dev))
+
+
+def phase17_kernels(dev):
+    """K2, K3, K4 at TOAR's shapes on the damped quadratic (U of ncv + d + 1
+    = 21 rows of 90,000, the (r, 2) combinations), K3 on Q-Arnoldi's
+    two-row panel, K3 / K4 at the linear solve's 180,000-row bases, K2 on
+    C and M, and K2c, K3c, K4c at the acoustic TOAR's (2^20 rows, ncv 40);
+    before phase 17's counts are reset."""
+    K, C, M = damped_quadratic(dev)
+    path_kernels(dev, "phase 17: K2, K3, K4 vs plain PyTorch at the damped "
+                 "quadratic's shapes", (("17a K (90,000 rows)", lambda: K,
+                                         20),))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(K.shape[0], generator=gen, dtype=torch.float64,
+                    device=dev)
+    errs = {"K2 C": spmv_errors(C.offsets, C.diags, x)[1],
+            "K2 M": spmv_errors(M.offsets, M.diags, x)[1]}
+    V = torch.randn((22, K.shape[0]), generator=gen, dtype=torch.float64,
+                    device=dev)
+    W = torch.randn((2, K.shape[0]), generator=gen, dtype=torch.float64,
+                    device=dev)
+    Cc = torch.randn((21, 2), generator=gen, dtype=torch.float64, device=dev)
+    errs["K3 two-row panel"] = max(
+        rel for _, rel in panel_errors(V[:21], W, Cc).values())
+    errs["K4 (21, 2)"] = rotate_errors(random_q(21, 2, dev, torch.float64),
+                                       V[:21])[1]
+    x2 = torch.randn(2 * K.shape[0], generator=gen, dtype=torch.float64,
+                     device=dev)
+    errs["K3 linear"], errs["K4 linear"] = basis_errors(dev, gen, x2, 24)
+    print("  " + "  ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+          flush=True)
+    tol = PATH_TOL[torch.float64]
+    for k, v in errs.items():
+        check(v <= tol[k.split()[0]], f"phase 17 {k}: error {v:.3e}")
+    del K, C, M, V, W, x, x2
+    path_kernels(dev, "phase 17: K2c, K3c, K4c vs plain PyTorch at the "
+                 "acoustic TOAR's shapes", (
+                     ("17b acoustic K (2^20 rows)",
+                      lambda: acoustic_mats(ACOUSTIC_N, dev)[0],
+                      ACOUSTIC_NCV),), dtype=torch.complex128)
+    torch.cuda.empty_cache()
+
+
+def pep_run(where, pep, dev):
+    """Solve pep on the card with the event log on: (wall, peak GB, host
+    seconds of the P(sigma) solves and of their transfers)."""
+    stt.log_begin()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pep.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from slepc_tpu_torch.sys.events import get_event
+
+    ev = {k: (get_event(k) or {"time": 0.0, "count": 0})
+          for k in ("KSP_Solve_direct", "KSP_HostSolve_d2h",
+                    "KSP_HostSolve_h2d")}
+    stt.log_reset()
+    solves = ev["KSP_Solve_direct"]
+    print(f"  {where}: nconv={pep.nconv} restarts={pep.its} TOAR steps="
+          f"{getattr(pep, 'toar_steps', '-')} wall={wall:.3f} s; P(sigma) "
+          f"solves {solves['count']} taking {solves['time']:.3f} s "
+          f"({100 * solves['time'] / wall:.1f}% of the wall; transfers "
+          f"d2h {ev['KSP_HostSolve_d2h']['time']:.3f} s, h2d "
+          f"{ev['KSP_HostSolve_h2d']['time']:.3f} s); peak "
+          f"{peak_gb(dev):.2f} GB", flush=True)
+    return wall
+
+
+def pep_values(where, pep, want, k, rel):
+    """The first k values each matched to its own nearest value of
+    ``want`` within ``rel`` relative; compute_error <= the solve's tol."""
+    check(pep.nconv >= k, f"{where}: nconv {pep.nconv} < {k}")
+    pool = list(np.asarray(want, complex))
+    worst = 0.0
+    for lam in np.asarray(pep.eigenvalues[:k], complex):
+        j = int(np.argmin([abs(lam - w) for w in pool]))
+        worst = max(worst, abs(lam - pool[j]) / abs(pool[j]))
+        pool.pop(j)
+    errs = [pep.compute_error(i) for i in range(k)]
+    print(f"    values {np.array2string(np.asarray(pep.eigenvalues[:k]), precision=10)}"
+          f" max rel off the reference {worst:.3e}; max compute_error "
+          f"{max(errs):.3e}", flush=True)
+    check(worst <= rel, f"{where}: values off by {worst:.3e}")
+    check(max(errs) <= pep.tol, f"{where}: compute_error {max(errs):.3e}")
+
+
+def phase17a(dev):
+    """The damped quadratic at full width by toar, qarnoldi and linear.
+    Returns (launch counts, walls)."""
+    mats = damped_quadratic(dev)
+    t0 = time.perf_counter()
+    want = damped_reference(mats)
+    print(f"phase 17a: damped quadratic (bench.py:1169), 90,000 rows, nev "
+          f"{QEP_NEV}, tol {QEP_TOL:g}; scipy eigs(sigma=0) on the "
+          f"180,000-row companion pencil in {time.perf_counter() - t0:.2f} s:"
+          f" {np.array2string(np.sort_complex(want), precision=8)}",
+          flush=True)
+    stt.reset_launch_counts()
+    walls = {}
+    for solver in ("toar", "qarnoldi", "linear"):
+        pep = stt.PEP(list(mats), nev=QEP_NEV, solver=solver,
+                      which="largest_magnitude", tol=QEP_TOL)
+        if solver == "linear":
+            # without a target the linear route takes the largest |lambda|
+            # of B^-1 A; sigma = 0 is what toar and qarnoldi shift to
+            pep.set_target(0.0)
+        walls[solver] = pep_run(f"17a {solver}", pep, dev)
+        pep_values(f"17a {solver}", pep, want, QEP_NEV, 1e-6)
+    counts = stt.launch_counts()
+    launched("phase 17a", counts, ("dia_spmv_f64", "panel_dots_f64",
+                                   "panel_update_f64", "rotate_f64"))
+    return counts, walls
+
+
+def phase17b(dev):
+    """The acoustic QEP at 2^20 rows in c128 by toar at 0.5i, against the
+    port's own solve on the CPU.  Returns (launch counts, wall)."""
+    print(f"phase 17b: acoustic QEP (examples/ex_pep_acoustic.py) at n = "
+          f"{ACOUSTIC_N}, c128, toar, target 0.5i, nev 4, ncv "
+          f"{ACOUSTIC_NCV}, tol {ACOUSTIC_TOL:g}", flush=True)
+
+    def make(d):
+        return stt.PEP(list(acoustic_mats(ACOUSTIC_N, d)), nev=4,
+                       ncv=ACOUSTIC_NCV, solver="toar",
+                       which="target_magnitude", target=0.5j,
+                       tol=ACOUSTIC_TOL)
+
+    stt.reset_launch_counts()
+    pep = make(dev)
+    wall = pep_run("17b toar (card)", pep, dev)
+    counts = stt.launch_counts()
+    t0 = time.perf_counter()
+    cpu = make("cpu")
+    cpu.solve()
+    print(f"  17b toar (CPU): nconv={cpu.nconv} restarts={cpu.its} wall="
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    check(cpu.nconv >= 4, f"17b CPU: nconv {cpu.nconv}")
+    pep_values("17b toar", pep, cpu.eigenvalues[: cpu.nconv], 4,
+               ACOUSTIC_TOL)
+    launched("phase 17b", counts, ("dia_spmv_c128", "panel_dots_c128",
+                                   "panel_update_c128", "rotate_c128"))
+    return counts, wall
+
+
+def tridiag_np(n, d, o):
+    return d * np.eye(n) + o * (np.eye(n, k=1) + np.eye(n, k=-1))
+
+
+def phase17c(dev):
+    """The small PEP paths on the card at the reference tests' sizes, each
+    against the dense companion spectrum or the published digits.  Returns
+    the launch counts."""
+    stt.reset_launch_counts()
+
+    def dense(*mats):
+        return [stt.DenseOperator(A, device=dev) for A in mats]
+
+    def companion(K, C, M):
+        n = K.shape[0]
+        return sla.eigvals(np.block([[np.zeros((n, n)), np.eye(n)], [-K, -C]]),
+                           np.block([[np.eye(n), np.zeros((n, n))],
+                                     [np.zeros((n, n)), M]]))
+
+    def near(where, pep, wref, k, tol):
+        check(pep.nconv >= k, f"17c {where}: nconv {pep.nconv}")
+        off = max(np.min(np.abs(wref - lam)) for lam in pep.eigenvalues[:k])
+        err = max(pep.compute_error(i) for i in range(k))
+        print(f"  17c {where}: nconv={pep.nconv} its={pep.its} max |lam - "
+              f"dense| {off:.3e} max compute_error {err:.3e}", flush=True)
+        check(off < tol and err < 1e-7, f"17c {where}: {off:.3e} / {err:.3e}")
+
+    K, C, M = tridiag_np(40, 2.0, -1.0), tridiag_np(40, 0.4, -0.1), np.eye(40)
+    w40 = companion(K, C, M)
+    for kind in ("none", "norm", "residual", "structured"):
+        pep = stt.PEP(dense(K, C, M), nev=4, solver="toar")
+        pep.set_target(-0.2)
+        pep.set_extraction(kind)
+        pep.solve()
+        near(f"toar extraction {kind}", pep, w40, 4, 1e-6)
+    pep = stt.PEP(dense(K, C, M), nev=2, solver="jd", max_it=300)
+    pep.set_target(-0.2)
+    pep.solve()
+    near("jd", pep, w40, 2, 1e-6)
+    n = 60
+    K2 = tridiag_np(n, 2.0, -1.0)
+    C2 = 10 * np.eye(n) + 0.5 * (np.eye(n, k=1) + np.eye(n, k=-1))
+    pep = stt.PEP(dense(K2, C2, np.eye(n)), nev=4, solver="stoar")
+    pep.set_target(-0.4)
+    pep.solve()
+    near("stoar", pep, companion(K2, C2, np.eye(n)), 4, 1e-8)
+    rng = np.random.default_rng(0)
+    C3 = np.diag(5.0 + rng.random(40))
+    wq = np.sort(companion(K, C3, np.eye(40)).real)
+    inside = wq[(wq > -0.9) & (wq < -0.3)]
+    pep = stt.PEP(dense(K, C3, np.eye(40)), solver="stoar", tol=1e-9)
+    pep.set_interval(-0.9, -0.3)
+    pep.solve()
+    off = np.abs(np.sort(pep.eigenvalues) - inside).max() \
+        if pep.nconv == len(inside) else np.inf
+    print(f"  17c qslice [-0.9, -0.3]: {pep.nconv} values of {len(inside)}, "
+          f"max off {off:.3e}", flush=True)
+    check(off <= 1e-7 * np.abs(inside).max(), f"17c qslice: {off:.3e}")
+    rng = np.random.default_rng(0)
+    B0 = rng.standard_normal((30, 30))
+    B0 = B0 + B0.T + 8 * np.eye(30)
+    pep = stt.PEP(dense(B0, 0.2 * np.eye(30), np.eye(30)), nev=4,
+                  solver="toar", basis="chebyshev")
+    pep.set_target(1.5)
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", np.exceptions.ComplexWarning)
+        pep.solve()
+    near("Chebyshev basis", pep, companion(B0 - np.eye(30), 0.2 * np.eye(30),
+                                           2 * np.eye(30)), 4, 1e-8)
+    K4 = tridiag_np(30, 2.0, -1.0)
+    pep = stt.PEP(dense(K4, 0.3 * np.eye(30), np.eye(30)), nev=4,
+                  solver="toar")
+    pep.set_target(-0.15 + 1.0j)
+    pep.solve()
+    lam0 = pep.eigenvalues[:4].copy()
+    pep.eigenvalues = pep.eigenvalues.astype(complex) * (1 + 1e-5)
+    pep.refine(steps=3, scheme="multiple")
+    pep.eigenvalues[:4] *= (1 + 1e-7)
+    pep.refine(steps=3)
+    drift = max(np.min(np.abs(pep.eigenvalues[:4] - lam)) / abs(lam)
+                for lam in lam0)
+    err = max(pep.compute_error(i) for i in range(4))
+    print(f"  17c refinement (multiple, then simple): drift {drift:.3e}, "
+          f"max compute_error {err:.3e}", flush=True)
+    check(drift < 1e-8 and err < 1e-12, f"17c refinement: {drift:.3e} / "
+          f"{err:.3e}")
+    rng = np.random.default_rng(0)
+    n = 120
+    T = sp.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                 [-1, 0, 1], format="csr")
+    D = sp.diags(10.0 ** rng.uniform(-4, 4, n))
+    scaled = [sp.csr_matrix(D @ (2.0 * T) @ D),
+              sp.csr_matrix(D @ (0.1 * T + 0.3 * sp.eye(n)) @ D),
+              sp.csr_matrix(D @ D)]
+    back = {}
+    for scale in ("none", "diagonal"):
+        pep = stt.PEP([stt.from_scipy(A, device=dev) for A in scaled],
+                      nev=4, solver="toar", tol=1e-9, scale=scale)
+        pep.set_target(-0.15 + 0j)
+        pep.solve()
+        out = []
+        for i in range(min(pep.nconv, 3)):
+            lam, x = pep.get_eigenpair(i)
+            x = x.cpu().numpy()
+            r = sum(lam ** j * (A @ x) for j, A in enumerate(scaled))
+            out.append(np.linalg.norm(r) / sum(
+                abs(lam) ** j * abs(A).sum(1).max()
+                for j, A in enumerate(scaled)))
+        back[scale] = max(out)
+    print(f"  17c diagonal scaling (CSR {n}): backward error {back['none']:.3e}"
+          f" -> {back['diagonal']:.3e}", flush=True)
+    check(back["diagonal"] < 0.1 * back["none"], f"17c scaling: {back}")
+    digits_case(dev)
+    before = stt.launch_counts()
+    pep = stt.PEP(dense(K, C, M), nev=2, solver="ciss")
+    try:
+        pep.solve()
+        check(False, "17c ciss: did not raise")
+    except NotImplementedError as e:
+        check("item 15" in str(e), f"17c ciss: {e}")
+    check(stt.launch_counts() == before, "17c ciss: a kernel launched")
+    print("  17c ciss raises naming ROADMAP item 15, no launch", flush=True)
+    counts = stt.launch_counts()
+    launched("phase 17c", counts, ("csr_spmv_f64", "panel_dots_f64",
+                                   "rotate_f64"))
+    return counts
+
+
+def digits_case(dev):
+    """tests/test_reference_golden.py:82: src/pep/tests/test1.c's values
+    to their 5 printed decimals (linear, largest magnitude, CSR K and C, a
+    diagonal M)."""
+    n, m = 10, 11
+    N = n * m
+    K = sp.lil_matrix((N, N))
+    C = sp.lil_matrix((N, N))
+    for II in range(N):
+        i, j = II // n, II % n
+        if i > 0:
+            K[II, II - n] = -1.0
+        if i < m - 1:
+            K[II, II + n] = -1.0
+        if j > 0:
+            K[II, II - 1] = C[II, II - 1] = -1.0
+        if j < n - 1:
+            K[II, II + 1] = C[II, II + 1] = -1.0
+        K[II, II] = 4.0
+        C[II, II] = 2.0
+    pep = stt.PEP([stt.from_scipy(K.tocsr(), device=dev),
+                   stt.from_scipy(C.tocsr(), device=dev),
+                   stt.DiagonalOperator(np.arange(1, N + 1.0), device=dev)],
+                  nev=4, ncv=40, which="largest_magnitude", tol=1e-9,
+                  solver="linear")
+    pep.solve()
+    got = sorted(f"{g.real:.5f}{abs(g.imag):+.5f}j"
+                 for g in pep.eigenvalues[:4])
+    want = sorted(["-1.16404+1.65363j"] * 2 + ["-0.51784+1.31039j"] * 2)
+    print(f"  17c test1.c digits: {got}", flush=True)
+    check(pep.nconv >= 4 and got == want, f"17c test1.c digits: {got}")
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -3949,7 +4692,9 @@ def main():
                              "phase-12d (c128 blocked) and a phase-15 "
                              "trlanczos solve; after "
                              "phase 13: torch.profiler and cProfile splits of "
-                             "its two GD paths")
+                             "its two GD paths; after phase 17: a "
+                             "torch.profiler split of a phase-17a toar "
+                             "solve")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4085,6 +4830,41 @@ def main():
     wall_15 = time.perf_counter() - t15
     print(f"  phase 15 launches: { {k: v for k, v in p15.items() if v} }; "
           f"wall (kernel checks and solves) {wall_15:.3f} s", flush=True)
+    # phase 16 (item 13): the kernels at its shapes, then each part read
+    # from zero
+    t16 = time.perf_counter()
+    phase16_kernels(dev)
+    p16_paths = (phase16a(dev), phase16b(dev), phase16c(dev))
+    for part, counts_16 in zip("abc", p16_paths):
+        print(f"  phase 16{part} launches: "
+              f"{ {k: v for k, v in counts_16.items() if v} }", flush=True)
+    p16 = {k: sum(p[k] for p in p16_paths) for k in p16_paths[0]}
+    wall_16 = time.perf_counter() - t16
+    print(f"  phase 16 wall (kernel checks and solves): {wall_16:.3f} s",
+          flush=True)
+    # phase 17 (item 14): the same
+    t17 = time.perf_counter()
+    phase17_kernels(dev)
+    counts_17a, walls_17a = phase17a(dev)
+    counts_17b, wall_17b = phase17b(dev)
+    counts_17c = phase17c(dev)
+    p17_paths = (counts_17a, counts_17b, counts_17c)
+    for part, counts_17 in zip("abc", p17_paths):
+        print(f"  phase 17{part} launches: "
+              f"{ {k: v for k, v in counts_17.items() if v} }", flush=True)
+    p17 = {k: sum(p[k] for p in p17_paths) for k in counts_17a}
+    wall_17 = time.perf_counter() - t17
+    print(f"  phase 17 wall (kernel checks and solves): {wall_17:.3f} s",
+          flush=True)
+    if args.profile:
+        profile_solve("phase 17a toar", lambda: pep_run(
+            "profiled 17a toar", stt.PEP(list(damped_quadratic(dev)),
+                                         nev=QEP_NEV, solver="toar",
+                                         which="largest_magnitude",
+                                         tol=QEP_TOL), dev),
+            plain_wall=walls_17a["toar"], shares={
+                "K2": ("dia_spmv",), "K3": ("panel_kernel", "reduce_partials"),
+                "K4": ("rotate_f64",)})
     if args.profile:
         A = spiral_operator(NHEP_LOG2, torch.float64, dev)
         profile_solve("phase 10 f64", lambda: nhep_solve(A, 1e-8)[1],
@@ -4129,7 +4909,7 @@ def main():
                 "K4": ("rotate_f64",)})
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              plain_path, nhep_path, small_nhep_path) + complex_paths \
-        + p13_paths + p14_paths + p15_paths
+        + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -4143,6 +4923,8 @@ def main():
                         "launches_p14": p14[key],
                         "launches_p12d": counts_12d[key],
                         "launches_p15": p15[key],
+                        "launches_p16": p16[key],
+                        "launches_p17": p17[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -4161,8 +4943,9 @@ def main():
               f"{k['bound_ms']:.4f} ({k['bound_by']}) / {k['stream_ms']:.4f} / "
               f"{lib}  launches {k['launches']} (phase 13: "
               f"{k['launches_p13']}, phase 14: {k['launches_p14']}, phase "
-              f"12d: {k['launches_p12d']}, phase 15: {k['launches_p15']})",
-              flush=True)
+              f"12d: {k['launches_p12d']}, phase 15: {k['launches_p15']}, "
+              f"phase 16: {k['launches_p16']}, phase 17: "
+              f"{k['launches_p17']})", flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
           f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard); plain "
@@ -4183,7 +4966,11 @@ def main():
           + f", phase 14 {wall_14:.3f} s; phase 12d {wall_12d:.3f} s "
           f"({ms_col_12d:.3f} ms a column of the blocked c128 cycle); SVD "
           + ", ".join(f"{w} {t:.3f} s" for w, t in svd_walls.items())
-          + f", phase 15 {wall_15:.3f} s on {smi_line}", flush=True)
+          + f", phase 15 {wall_15:.3f} s; phase 16 (MFN, LME, lyapii) "
+          f"{wall_16:.3f} s; PEP 90,000-row damped quadratic "
+          + ", ".join(f"{w} {t:.3f} s" for w, t in walls_17a.items())
+          + f", acoustic 2^20 c128 toar {wall_17b:.3f} s, phase 17 "
+          f"{wall_17:.3f} s on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

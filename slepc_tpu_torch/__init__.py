@@ -1,7 +1,7 @@
 """slepc_tpu_torch — the PyTorch + CUDA port of slepc_tpu, for NVIDIA Hopper.
 
 It mirrors slepc_tpu's module tree and names (``sys mat bv ds st ksp rg eps
-svd ops``),
+svd fn mfn lme pep ops``),
 so one script can drive either package, and it never imports JAX.  Plain
 tensor code is PyTorch; every Pallas kernel of the ported slice is a CUDA
 kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
@@ -36,6 +36,14 @@ Singular values: ``SVD(A, nsv=..., solver=...)`` with ``cross``,
 device bases), ``randomized`` and ``lapack``, the GSVD of a pair
 (``B=``: cross pencil, or joint bidiagonalization for ``trlanczos``) and
 the hyperbolic SVD (``omega=``), with ``DSSVD``, ``DSHSVD``, ``DSGSVD``.
+Matrix functions and equations: ``FN`` (``FNExp``, ``FNLog``, ``FNSqrt``,
+``FNInvSqrt``, ``FNPhi``, ``FNRational``, ``FNCombine``, ``fn_from_name``),
+``MFN(A, fn)`` (y = f(A) b by restarted Krylov, ``krylov`` / ``expokit``),
+``LME`` (Lyapunov, generalized Lyapunov, Sylvester and Stein equations
+with low-rank factors) and the EPS solver ``lyapii``.  Polynomial
+eigenproblems: ``PEP(mats, ...)`` with ``toar``, ``qarnoldi``, ``stoar``,
+``linear`` and ``jd``, non-monomial bases, scalar and diagonal scaling,
+extraction kinds, refinement and interval slicing, with ``DSPEP``.
 Kernels: the DIA SpMV (K1/K2) and
 block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
 rotation (K4) and the stream yardstick (K7), with complex instantiations of
@@ -72,9 +80,14 @@ from .rg import RG, RGEllipse, RGInterval, RGPolygon, RGRing
 from .ksp import KSP, DirectSolver, solve_linear
 from .bv import BV
 from .ds import (DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP,
-                 DSSVD, DSHSVD, DSGSVD)
+                 DSSVD, DSHSVD, DSGSVD, DSPEP)
+from .fn import (FN, FNExp, FNLog, FNSqrt, FNInvSqrt, FNPhi, FNRational,
+                 FNCombine, fn_from_name)
 from .eps import EPS, EPSConvergedReason, EPSError, ProblemType
 from .svd import SVD, SVDWhich
+from .pep import PEP
+from .mfn import MFN
+from .lme import LME
 from .ops import launch_counts, reset_launch_counts
 
 __all__ = [
@@ -143,6 +156,16 @@ __all__ = [
     "DSSVD",
     "DSHSVD",
     "DSGSVD",
+    "DSPEP",
+    "FN",
+    "FNExp",
+    "FNLog",
+    "FNSqrt",
+    "FNInvSqrt",
+    "FNPhi",
+    "FNRational",
+    "FNCombine",
+    "fn_from_name",
     "create_tile",
     "create_bse",
     "MatBSE",
@@ -152,6 +175,9 @@ __all__ = [
     "ProblemType",
     "SVD",
     "SVDWhich",
+    "PEP",
+    "MFN",
+    "LME",
     "launch_counts",
     "reset_launch_counts",
 ]

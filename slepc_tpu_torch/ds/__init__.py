@@ -1,6 +1,7 @@
 from .types import (DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP,
-                    DSSVD, DSHSVD, DSGSVD)
+                    DSSVD, DSHSVD, DSGSVD, DSPEP)
 from . import bdc, compact, schur
 
 __all__ = ["DS", "DSHEP", "DSGHEP", "DSGHIEP", "DSNHEP", "DSNHEPTS",
-           "DSGNHEP", "DSSVD", "DSHSVD", "DSGSVD", "bdc", "compact", "schur"]
+           "DSGNHEP", "DSSVD", "DSHSVD", "DSGSVD", "DSPEP", "bdc", "compact",
+           "schur"]

@@ -10,8 +10,9 @@ pairs, two-sided), :class:`DSGHIEP` (the symmetric / signature pencil of
 pseudo-Lanczos, by the hyperbolic-Jacobi stand-in for the HZ iteration,
 :func:`_hz_hyperbolic_jacobi`), :class:`DSGNHEP` (ordered QZ) and the SVD
 types of the SVD module, :class:`DSSVD`, :class:`DSHSVD` and
-:class:`DSGSVD`.  The polynomial and nonlinear types wait for their
-solvers (ROADMAP.md, queue 1, items 14-15).
+:class:`DSGSVD`, and :class:`DSPEP` (the projected polynomial problem of
+PEP's Jacobi-Davidson).  The nonlinear type ``DSNEP`` waits for its solver
+(ROADMAP.md, queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -304,3 +305,29 @@ class DSGSVD(DS):
             nrm[nrm == 0] = 1
             M /= nrm
         return U, sigma, V, X
+
+
+class DSPEP(DS):
+    """Polynomial eigenproblem P(lambda) = sum_i lambda^i E_i on the
+    projected matrices -- solved on the companion linearization
+    (reference: impls/pep/dspep.c, QZ on the d*ld linearization)."""
+
+    def solve(self, coeffs):
+        coeffs = [np.asarray(c) for c in coeffs]
+        d = len(coeffs) - 1
+        k = coeffs[0].shape[0]
+        dt = np.result_type(*[c.dtype for c in coeffs])
+        # companion pencil (A0 + lambda B0) of size d*k
+        A = np.zeros((d * k, d * k), dtype=dt)
+        B = np.eye(d * k, dtype=dt)
+        for i in range(d - 1):
+            A[i * k: (i + 1) * k, (i + 1) * k: (i + 2) * k] = np.eye(k)
+        for i in range(d):
+            A[(d - 1) * k:, i * k: (i + 1) * k] = -coeffs[i]
+        B[(d - 1) * k:, (d - 1) * k:] = coeffs[d]
+        lam, X = sla.eig(A, B)
+        # eigenvectors of P: leading k block, normalized
+        Xp = X[:k, :]
+        nrm = np.linalg.norm(Xp, axis=0)
+        nrm[nrm == 0] = 1
+        return lam, Xp / nrm

@@ -9,5 +9,6 @@ from . import lobpcg  # "lobpcg"
 from . import rqcg  # "rqcg"
 from . import ciss  # "ciss"
 from . import bse  # "bse" (also dispatched from krylovschur)
+from . import lyapii  # "lyapii"
 
 __all__ = ["EPS", "EPSConvergedReason", "EPSError", "EPSSolver", "ProblemType"]

@@ -24,14 +24,15 @@ Registered: ``krylovschur`` (hep, ghep, nhep, gnhep, pgnhep, ghiep, bse;
 the two-sided variant with ``set_two_sided``), ``bse`` (``eps/bse.py``),
 ``arnoldi``, ``lanczos``, ``power``, ``subspace``, ``lapack``, the
 preconditioned solvers ``gd``, ``jd`` (``eps/davidson.py``, with the fused
-GD cycle of ``eps/gd_jit.py``), ``lobpcg`` and ``rqcg``, and the
-contour-integral ``ciss``.  A two-sided solve returns the left eigenvectors
+GD cycle of ``eps/gd_jit.py``), ``lobpcg`` and ``rqcg``, the
+contour-integral ``ciss`` and the Lyapunov inverse iteration ``lyapii``
+(``eps/lyapii.py``, over the port's LME): every solver the reference
+registers.  A two-sided solve returns the left eigenvectors
 (``get_left_eigenvector``): from the coupled Krylov-Schur
 (``eps/ks_twosided.py``), else from a second run on the adjoint problem
 (:meth:`EPS._solve_left`; a copy of the right ones for a Hermitian problem
-with B = I).  The reference's ``lyapii`` (ROADMAP queue 1 item 13) raises
-NotImplementedError naming its item; a name the reference does not know
-raises :class:`EPSError` listing the registered ones.  Complex operators
+with B = I).  A name the reference does not know raises :class:`EPSError`
+listing the registered ones.  Complex operators
 (and complex shifts of real ones) run in complex arithmetic
 (:func:`work_dtype`), the blocked cycle included; ``cheb_block`` is ignored
 for them, as the reference ignores it, and the device shift-and-invert
@@ -80,12 +81,7 @@ class EPSError(RuntimeError):
 
 _DEFAULT_TOL = {torch.float64: 1e-8, torch.float32: 1e-5,
                 torch.complex128: 1e-8, torch.complex64: 1e-5}
-_TODO_SOLVERS = ("EPS solver {!r} is still to be ported (ROADMAP.md, queue "
-                 "1, item {})")
 _REORTH = ("full", "partial", "periodic", "selective", "delayed", "local")
-# the reference's registered solvers that are not ported yet, and the
-# ROADMAP item each waits for
-_REFERENCE_SOLVERS = {"lyapii": "13"}
 
 
 def _real_if_real(z: complex):
@@ -540,9 +536,6 @@ class EPS:
     def solve(self):
         """Run the configured solver (reference: EPSSolve, epssolve.c:119)."""
         cls = self._solvers.get(self.solver_name)
-        if cls is None and self.solver_name in _REFERENCE_SOLVERS:
-            raise NotImplementedError(_TODO_SOLVERS.format(
-                self.solver_name, _REFERENCE_SOLVERS[self.solver_name]))
         if cls is None:
             raise EPSError(f"unknown EPS solver {self.solver_name!r}; "
                            f"available: {sorted(self._solvers)}")

@@ -10,7 +10,7 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
 * :func:`aij_from_slepc_tpu`: a slepc_tpu ``AIJOperator`` (through its host
   CSR, ``to_scipy()``) becomes a port :class:`AIJOperator`.
 * :func:`operator_from_slepc_tpu`: DIA / AIJ / Dense / Diagonal / Identity
-  operators by class name.
+  operators by class name, and scaled or summed ones of those.
 * :func:`sinvert_operator_from_slepc_tpu`, :func:`st_from_slepc_tpu`,
   :func:`ksp_from_slepc_tpu`, :func:`bv_from_slepc_tpu`: a slepc_tpu
   ``SinvertCGOperator``, ``ST*`` / ``STSinvertDevice`` / ``STFilter``,
@@ -21,6 +21,12 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
   polygon, ring) with its complement flag and scale.
 * :func:`svd_from_slepc_tpu`: a slepc_tpu ``SVD`` (operator, B, omega, nsv,
   ncv, which, tol, max_it, solver) as the port's, unsolved.
+* :func:`fn_from_slepc_tpu`, :func:`mfn_from_slepc_tpu`,
+  :func:`lme_from_slepc_tpu`, :func:`pep_from_slepc_tpu`: a slepc_tpu
+  function (its type, scales, method and parts), MFN, LME or PEP (the
+  operators through :func:`operator_from_slepc_tpu`, the function,
+  dimensions, tolerances, solver, problem type, basis, scaling, target,
+  interval and extraction) as the port's, unsolved.
 * :func:`dia_to_padded_ds`: a port f64 operator as the (offsets, dph, dpl, n)
   arguments of ``DIAPaddedOperatorDS``.
 * :func:`basis_from_padded` / :func:`basis_to_padded`: a padded basis
@@ -35,9 +41,14 @@ import numpy as np
 import torch
 
 from .bv.bv import BV
+from .fn import fn as _fn
 from .ksp.ksp import KSP
+from .lme.lme import LME
 from .mat.linop import (AIJOperator, DenseOperator, DIAOperator,
-                        DiagonalOperator, IdentityOperator)
+                        DiagonalOperator, IdentityOperator, ScaledOperator,
+                        SumOperator)
+from .mfn.mfn import MFN
+from .pep.pep import PEP
 from .rg.rg import RGEllipse, RGInterval, RGPolygon, RGRing
 from .st.filter import STFilter
 from .st.sinvert_jit import SinvertCGOperator, STSinvertDevice
@@ -83,6 +94,12 @@ def operator_from_slepc_tpu(op, device=None):
         return DiagonalOperator(np.array(op.d), device=device)
     if kind == "IdentityOperator":
         return IdentityOperator(op.shape[0], np.dtype(op.dtype), device)
+    if kind == "ScaledOperator":
+        return ScaledOperator(operator_from_slepc_tpu(op.op, device=device),
+                              op.alpha)
+    if kind == "SumOperator":
+        return SumOperator(tuple(operator_from_slepc_tpu(o, device=device)
+                                 for o in op.ops), op.coeffs)
     raise TypeError(f"no port counterpart for a slepc_tpu {kind}")
 
 
@@ -159,6 +176,61 @@ def svd_from_slepc_tpu(jsvd, device=None) -> SVD:
                omega=omega, nsv=jsvd.nsv, ncv=jsvd.ncv,
                which=jsvd.which.value, tol=jsvd.tol, max_it=jsvd.max_it,
                solver=jsvd.solver)
+
+
+def fn_from_slepc_tpu(jfn) -> _fn.FN:
+    """A slepc_tpu FN as the port's function of the same type: its inner
+    and outer scales, its method, and its parts (phi's k, a rational's
+    coefficients, a combination's operation and functions)."""
+    kind = type(jfn).__name__
+    cls = getattr(_fn, kind, None)
+    if cls is None or not issubclass(cls, _fn.FN) or cls is _fn.FN:
+        raise TypeError(f"no port counterpart for a slepc_tpu {kind}")
+    if kind == "FNPhi":
+        f = cls(jfn.k)
+    elif kind == "FNRational":
+        f = cls(np.array(jfn.num), None if jfn.den is None
+                else np.array(jfn.den))
+    elif kind == "FNCombine":
+        f = cls(jfn.op, fn_from_slepc_tpu(jfn.f1), fn_from_slepc_tpu(jfn.f2))
+    else:
+        f = cls()
+    f.set_scale(jfn.alpha, jfn.beta)
+    f.set_method(jfn.method)
+    return f
+
+
+def mfn_from_slepc_tpu(jmfn, device=None) -> MFN:
+    """A slepc_tpu MFN's operator, function, dimension, tolerances and
+    solver as the port's, unsolved."""
+    return MFN(operator_from_slepc_tpu(jmfn.A, device=device),
+               fn_from_slepc_tpu(jmfn.fn), ncv=jmfn.ncv, tol=jmfn.tol,
+               max_it=jmfn.max_it, solver=jmfn.solver)
+
+
+def lme_from_slepc_tpu(jlme, device=None) -> LME:
+    """A slepc_tpu LME's coefficients, problem type, dimension and
+    tolerances as the port's, unsolved."""
+    B = None if jlme.B is None else operator_from_slepc_tpu(jlme.B,
+                                                            device=device)
+    return LME(operator_from_slepc_tpu(jlme.A, device=device), B=B,
+               problem_type=jlme.problem_type.value, ncv=jlme.ncv,
+               tol=jlme.tol, max_it=jlme.max_it)
+
+
+def pep_from_slepc_tpu(jpep, device=None) -> PEP:
+    """A slepc_tpu PEP's coefficients and settings (dimensions, which,
+    target, tolerances, solver, basis, scaling, interval, extraction) as
+    the port's, unsolved."""
+    pep = PEP([operator_from_slepc_tpu(m, device=device) for m in jpep.mats],
+              nev=jpep.nev, ncv=jpep.ncv, which=jpep.which.value,
+              target=jpep.target, tol=jpep.tol, max_it=jpep.max_it,
+              solver=jpep.solver, basis=jpep.basis, scale=jpep.scale)
+    if getattr(jpep, "interval", None) is not None:
+        pep.set_interval(*jpep.interval)
+    if getattr(jpep, "extract", None) is not None:
+        pep.set_extraction(jpep.extract)
+    return pep
 
 
 def ksp_from_slepc_tpu(jksp, device=None) -> KSP:

@@ -163,6 +163,12 @@ class LinearOperator:
         """Host scipy sparse view if available, else a dense ndarray."""
         return self.to_dense().cpu().numpy()
 
+    def explicit(self):
+        """The host matrix (scipy sparse, or numpy for a dense operator)
+        when the operator has an explicit form, else None: a shell, or an
+        algebra over one (the factorizations' routing question)."""
+        return None
+
 
 class DenseOperator(LinearOperator):
     """A dense matrix; ``mult`` is a matrix-vector product."""
@@ -185,6 +191,8 @@ class DenseOperator(LinearOperator):
     def to_scipy(self):
         return self.A.cpu().numpy()
 
+    explicit = to_scipy
+
 
 class IdentityOperator(LinearOperator):
     def __init__(self, n: int, dtype=torch.float64, device=None):
@@ -200,6 +208,12 @@ class IdentityOperator(LinearOperator):
         return x
 
     mult_h = mult
+
+    def explicit(self):
+        import scipy.sparse as sp
+
+        return sp.identity(self.n, format="csr",
+                           dtype=torch.empty(0, dtype=self.dtype).numpy().dtype)
 
 
 class DIAOperator(LinearOperator):
@@ -290,6 +304,8 @@ class DIAOperator(LinearOperator):
         return sp.dia_matrix((data, np.array(self.offsets)),
                              shape=self.shape).tocsr()
 
+    explicit = to_scipy
+
 
 class AIJOperator(LinearOperator):
     """General sparse matrix in CSR on one device.
@@ -375,6 +391,8 @@ class AIJOperator(LinearOperator):
         return sp.csr_matrix((self.vals.cpu().numpy(), self.cols.cpu().numpy(),
                               self.rowptr.cpu().numpy()), shape=self.shape)
 
+    explicit = to_scipy
+
     def fast_form(self) -> LinearOperator:
         """The form the solvers run, chosen once and cached: a
         :class:`DIAOperator` (kernels K1/K2) when the matrix is square and
@@ -448,6 +466,10 @@ class ScaledOperator(LinearOperator):
     def mult_h(self, x):
         return self.alpha.conjugate() * self.op.mult_h(x)
 
+    def explicit(self):
+        M = self.op.explicit()
+        return None if M is None else self.alpha * M
+
 
 def _common(ops):
     dtype = ops[0].dtype
@@ -492,6 +514,21 @@ class SumOperator(LinearOperator):
 
     def mult_h(self, x):
         return self._sum(x, adjoint=True)
+
+    def explicit(self):
+        """sum_i c_i M_i of the terms' host matrices, sparse while every
+        term is; None when a term has no explicit form."""
+        import scipy.sparse as sp
+
+        parts = [o.explicit() for o in self.ops]
+        if any(M is None for M in parts):
+            return None
+        dense = any(not sp.issparse(M) for M in parts)
+        out = None
+        for c, M in zip(self.coeffs, parts):
+            t = c * (M.toarray() if dense and sp.issparse(M) else M)
+            out = t if out is None else out + t
+        return out
 
 
 class ProductOperator(LinearOperator):
@@ -558,6 +595,11 @@ class DiagonalOperator(LinearOperator):
 
     def mult_h(self, x):
         return self.d.conj() * x
+
+    def explicit(self):
+        import scipy.sparse as sp
+
+        return sp.diags(self.d.cpu().numpy()).tocsr()
 
 
 def norm_estimate_randomized(A: LinearOperator, seed: int = 0) -> float:

@@ -1396,3 +1396,150 @@ def test_structured_variants_on_the_card(cuda, case):
         assert counts["panel_dots_c128"] > 0 and counts["rotate_f64"] > 0
     else:
         assert counts["panel_dots_c128"] > 0
+
+
+# ---- matrix functions, matrix equations, polynomial problems (items 13, 14)
+
+def _launched(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def shifted_dia(L, s, scale=1.0):
+    """scale * (L + s I) for a DIA operator L with a main diagonal."""
+    d = L.diags.clone()
+    d[L.offsets.index(0)] += s
+    return stt.DIAOperator(L.offsets, scale * d)
+
+
+def lyapii_band(n, dev):
+    """A stable nonsymmetric tridiagonal DIA matrix with an isolated
+    rightmost eigenvalue near -0.4 (lyapii's use case)."""
+    main = -np.concatenate([[0.4], 2.0 + np.linspace(0.0, 3.0, n - 1)])
+    up, lo = np.full(n, 0.1), np.full(n, 0.05)
+    up[-1], lo[0] = 0.0, 0.0
+    return stt.DIAOperator((-1, 0, 1), np.stack([lo, main, up]), device=dev)
+
+
+@pytest.mark.parametrize("case", ["mfn_krylov", "mfn_expokit", "mfn_c128",
+                                  "mfn_f32", "lme_lyapunov",
+                                  "lme_sylvester", "lyapii"])
+def test_matrix_functions_and_equations_on_the_card(cuda, case):
+    """MFN (SpMV + K3 Arnoldi, K4 update), LME (the same Arnoldi, K4 for
+    Z^T = L^T V, K5 for the residual's A Z) and lyapii (K5 for A V) on the
+    card, each against the same solve on the CPU."""
+    def run(dev):
+        if case.startswith("mfn"):
+            dt = {"mfn_c128": torch.complex128,
+                  "mfn_f32": torch.float32}.get(case, torch.float64)
+            L = stt.laplacian_2d(30, 31, dtype=dt, device=dev)
+            f = stt.FNExp()
+            f.set_scale(-0.5)
+            m = stt.MFN(L, f, ncv=10 if case == "mfn_krylov" else 30,
+                        solver="expokit" if case == "mfn_expokit"
+                        else "krylov", tol=1e-5 if dt == torch.float32
+                        else 1e-10)
+            b = np.cos(np.arange(L.shape[0]) * 0.1)
+            before = stt.launch_counts()
+            y = m.solve(b)
+            return y.cpu().numpy(), m.its, _launched(before,
+                                                     stt.launch_counts())
+        if case == "lyapii":
+            A = lyapii_band(50, dev)
+            eps = stt.EPS(A, problem_type="nhep", solver="lyapii", nev=1,
+                          tol=1e-8, max_it=80, options=stt.Options())
+            before = stt.launch_counts()
+            eps.solve()
+            return np.array(eps.eigenvalues[:1]), eps.its, _launched(
+                before, stt.launch_counts())
+        L = stt.laplacian_2d(20, 21, device=dev)
+        rng = np.random.default_rng(0)
+        C = rng.standard_normal((L.shape[0], 2))
+        before = stt.launch_counts()
+        if case == "lme_lyapunov":  # A = -(L + 0.1 I)
+            lme = stt.LME(shifted_dia(L, 0.1, -1.0), ncv=30, tol=1e-9)
+            Z = lme.solve(C)
+            res = lme.compute_residual(Z, C)
+            X = (Z @ Z.T).cpu().numpy()
+        else:
+            B = shifted_dia(stt.laplacian_1d(700, device=dev), 1.5)
+            lme = stt.LME(shifted_dia(stt.laplacian_1d(800, device=dev),
+                                      2.0), B=B, problem_type="sylvester",
+                          ncv=20, tol=1e-10)
+            L, R = lme.solve(rng.standard_normal(800),
+                             rng.standard_normal(700))
+            X, res = (L @ R.T).cpu().numpy(), lme.errest
+        return (X, res), lme.its, _launched(before, stt.launch_counts())
+
+    out, its, counts = run(cuda)
+    ref, its_c, _ = run("cpu")
+    assert its == its_c
+    if case.startswith("lme"):
+        (X, res), (Xc, _) = out, ref
+        assert res < 1e-8
+        assert np.linalg.norm(X - Xc) <= 1e-10 * np.linalg.norm(Xc)
+        assert counts["panel_dots_f64"] > 0 and counts["rotate_f64"] > 0
+        assert counts["dia_spmv_f64"] > 0
+        if case == "lme_lyapunov":
+            assert counts["dia_spmm_f64"] > 0
+        return
+    rel = {"mfn_f32": 1e-4}.get(case, 1e-10)
+    assert np.linalg.norm(out - ref) <= rel * np.linalg.norm(ref)
+    tag = {"mfn_c128": "c128", "mfn_f32": "f32"}.get(case, "f64")
+    if case == "lyapii":
+        assert counts["dia_spmm_f64"] > 0
+    else:
+        assert counts[f"dia_spmv_{tag}"] > 0
+        assert counts[f"panel_dots_{tag}"] > 0
+        assert counts[f"rotate_{tag}"] > 0
+
+
+@pytest.mark.parametrize("solver", ["toar", "qarnoldi", "linear", "stoar",
+                                    "toar_c128", "jd", "qslice"])
+def test_pep_on_the_card(cuda, solver):
+    """PEP on DIA coefficients on the card: TOAR (K2 SpMVs, K3 first-level
+    CGS2, K4 combinations / compression / extraction), Q-Arnoldi (K3 on a
+    two-row panel, K4 restart), linear and STOAR through EPS, a complex
+    target (K2c / K3c / K4c), JD and the interval, each against the same
+    solve on the CPU."""
+    def run(dev):
+        n = 60 if solver == "jd" else 400
+        K = stt.laplacian_1d(n, device=dev)
+        C = stt.DIAOperator((0,), np.full((1, n), 2.2 if solver in (
+            "stoar", "qslice") else 0.3), device=dev)
+        M = stt.DIAOperator((0,), np.ones((1, n)), device=dev)
+        name = "toar" if solver == "toar_c128" else \
+            "stoar" if solver == "qslice" else solver
+        pep = stt.PEP([K, C, M], nev=2 if solver == "jd" else 3,
+                      solver=name, tol=1e-10)
+        if solver == "qslice":
+            pep.set_interval(-0.02, -0.005)
+        elif solver == "toar_c128":
+            pep.set_target(-0.15 + 0.5j)
+        else:
+            pep.set_target(-0.15)
+        before = stt.launch_counts()
+        pep.solve()
+        return pep, _launched(before, stt.launch_counts())
+
+    pep, counts = run(cuda)
+    pc, _ = run("cpu")
+    assert pep.nconv == pc.nconv >= {"qslice": 1, "jd": 2}.get(solver, 3)
+    k = pep.nconv
+    if solver == "jd":  # conjugate pairs tie on the target distance, and
+        # which one the Davidson loop follows turns on rounding
+        for i in range(k):
+            assert pep.compute_error(i) < 1e-8
+        assert counts["dia_spmv_f64"] > 0
+        return
+    got = np.sort_complex(np.round(np.asarray(pep.eigenvalues[:k],
+                                              complex), 12))
+    want = np.sort_complex(np.round(np.asarray(pc.eigenvalues[:k],
+                                               complex), 12))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    for i in range(k):
+        assert pep.compute_error(i) < 1e-8
+    tag = "c128" if solver == "toar_c128" else "f64"
+    assert counts["dia_spmv_f64"] > 0
+    if solver in ("toar", "toar_c128", "qarnoldi", "qslice"):
+        assert counts[f"rotate_{tag}"] > 0
+        assert counts[f"panel_dots_{tag}"] > 0

@@ -232,7 +232,7 @@ def test_unknown_solver_raises_eps_error_listing_the_registered():
     with pytest.raises(tst.EPSError, match=r"unknown EPS solver 'bogus'; "
                        r"available: \['arnoldi', 'bse', 'ciss', 'gd', 'jd', "
                        r"'krylovschur', 'lanczos', 'lapack', 'lobpcg', "
-                       r"'power', 'rqcg', 'subspace'\]"):
+                       r"'lyapii', 'power', 'rqcg', 'subspace'\]"):
         tst.EPS(A, problem_type="hep").set_type("bogus").solve()
     from slepc_tpu.eps.base import EPSError as JEPSError
 
@@ -445,11 +445,11 @@ def test_the_non_hermitian_slice_is_exported_and_registered():
     from slepc_tpu_torch.st import STFilter, estimate_spectral_bounds  # noqa
     from slepc_tpu_torch.ds import DSGNHEP, DSNHEP, schur  # noqa
 
-    # the preconditioned and contour solvers (items 11b, 11c) and bse
-    # (11d) since they were ported
+    # the preconditioned and contour solvers (items 11b, 11c), bse (11d)
+    # and lyapii (13) since they were ported
     assert sorted(tst.EPS._solvers) == ["arnoldi", "bse", "ciss", "gd", "jd",
                                         "krylovschur", "lanczos", "lapack",
-                                        "lobpcg", "power", "rqcg",
+                                        "lobpcg", "lyapii", "power", "rqcg",
                                         "subspace"]
     assert tst.DS.create("nhep").__class__ is tst.DSNHEP
     assert tst.DS.create("gnhep").__class__ is tst.DSGNHEP
@@ -485,12 +485,25 @@ def test_complex_operators_raise_naming_11a_ii(solver):
 
 
 def test_unported_solvers_name_their_items():
-    """lyapii waits for item 13; bse (item 11d) is registered since it was
-    ported, and refuses an operator that is not a MatBSE, as the
-    reference's does."""
+    """Named for the refusals it held until the solvers were ported:
+    lyapii (item 13) now solves in both packages alike (the rightmost
+    eigenvalue of -laplacian_1d(20), the same iterations, value and
+    vector); bse (item 11d) is registered and refuses an operator that is
+    not a MatBSE, as the reference's does."""
     A = tst.laplacian_1d(20, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13\\)"):
-        tst.EPS(A, problem_type="hep", solver="lyapii").solve()
+    out = []
+    for pkg, op in ((jst, -1.0 * jst.laplacian_1d(20)), (tst, -1.0 * A)):
+        eps = pkg.EPS(op, problem_type="nhep", solver="lyapii", nev=1,
+                      tol=1e-8, max_it=60)
+        eps.solve()
+        out.append(eps)
+    je, te = out
+    assert te.nconv == je.nconv >= 1 and te.its == je.its
+    assert abs(te.eigenvalues[0] - je.eigenvalues[0]) < 1e-9
+    assert abs(te.eigenvalues[0] + tst.laplacian_1d_eigs(20).min()) < 1e-7
+    x = te.get_eigenpair(0)[1]
+    xj = np.asarray(je.get_eigenvectors())[:, 0]
+    assert 1 - abs(np.vdot(xj, x.numpy())) < 1e-8
     assert "bse" in tst.EPS._solvers
     with pytest.raises(ValueError, match="MatBSE"):
         tst.EPS(A, problem_type="hep", solver="bse").solve()
@@ -510,7 +523,15 @@ def test_the_preconditioned_and_contour_slice_is_in_the_import_checks():
            "slepc_tpu_torch.eps.rqcg", "slepc_tpu_torch.eps.ciss",
            # and those of item 11d
            "slepc_tpu_torch.eps.bse", "slepc_tpu_torch.eps.ks_twosided",
-           "slepc_tpu_torch.mat.structured", "slepc_tpu_torch.ds.bdc"}
+           "slepc_tpu_torch.mat.structured", "slepc_tpu_torch.ds.bdc",
+           # and those of items 13 and 14
+           "slepc_tpu_torch.fn", "slepc_tpu_torch.fn.fn",
+           "slepc_tpu_torch.mfn", "slepc_tpu_torch.mfn.mfn",
+           "slepc_tpu_torch.lme", "slepc_tpu_torch.lme.lme",
+           "slepc_tpu_torch.eps.lyapii", "slepc_tpu_torch.pep",
+           "slepc_tpu_torch.pep.pep", "slepc_tpu_torch.pep.toar",
+           "slepc_tpu_torch.pep.qarnoldi", "slepc_tpu_torch.pep.stoar",
+           "slepc_tpu_torch.pep.qslice"}
     assert new <= walked, new - walked
     sources = {p.relative_to(ROOT).as_posix()
                for p in (ROOT / "slepc_tpu_torch").rglob("*.py")}
