@@ -248,9 +248,36 @@ Phases (each failing check raises; the script then exits non-zero):
      paths at the reference tests' sizes: the four extraction kinds,
      jd, stoar, qslice, the Chebyshev basis (ComplexWarning an error),
      both refinements, diagonal scaling (CSR: K6), test1.c's digits, and
-     ciss raising with no launch.  Each run prints its wall, restarts,
-     TOAR steps, the P(sigma) solves' seconds (KSP_Solve_direct, with
-     their KSP_HostSolve_d2h / _h2d transfers) and peak memory.
+     ciss (NEP's contour solver on T(z) = P(z)) in RGEllipse(-0.2, 0.4).
+     Each run prints its wall, restarts, TOAR steps, the P(sigma) solves'
+     seconds (KSP_Solve_direct, with their KSP_HostSolve_d2h / _h2d
+     transfers) and peak memory;
+ 18. nonlinear eigenproblems (item 15), after K2 and K6 by parts on the
+     deployment's three terms, K3c at the compact basis' heights, K4c at
+     (19, 3) and in place at (10, 19), and K3c / K4c at the full-basis
+     EPS's d * n rows against their plain versions: (a) bench.py:1130-
+     1165's NEP deployment, nothing cut: T(lam) = -lam I + A0 + e^{-lam}
+     A1 at 10,000 rows (f64 DIA), nev 2, the compact NLEIGS, target -1,
+     tol 1e-8, RGEllipse(-1, 1.5, 0.5), solved twice on the card (the
+     first solve of the process pays its first calls); gates: nconv >= 2, every value
+     inside the region, every residual ||T(lam) x|| / ||x|| (K2 on the
+     card) <= 1e-6 (nep.py's acceptance; each printed), the values within
+     1e-7 relative of the port's own CPU solve of the same deployment,
+     and the same nconv; K2, K3c's three sweeps and K4c launched; (b) the
+     same deployment by rii (nconv >= 1), ciss (48 host sparse LU
+     factorizations of T(z), the Newton polish with the dense T(lambda)
+     assembled and LU-factorized on the card; nconv >= 5), slp (EPS GNHEP
+     at target 0 a step; nconv >= 1), the full-basis NLEIGS (EPS NHEP on
+     the d * n shell) and the compact NLEIGS on the CSR forms (K6 by
+     parts), each with 18a's residual and value gates (the values near
+     18a's CPU values); (c) the small paths at the reference tests'
+     sizes, each against the same solve on the CPU (nconv, values within
+     1e-9): slp with Effenberger deflation, narnoldi, interpol, ciss with
+     set_two_sided and apply_resolvent, refine, the callback form with
+     and without a Jacobian, test10.c's digits and PEP ciss.  Each
+     deployment run prints its wall, its, NLEIGS's interpolation degree
+     and AAA poles (or that scipy has no AAA), the direct solves' seconds
+     (KSP_Solve_direct with the host transfers) and peak memory.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -311,12 +338,13 @@ and 14c (K2c, K3c, K4c; K2, K6, K3, K4; K3, K4, K3c, K4c), of phase 12d
 (K5c, K3c, K4c; K2c) and of phase 15's full-width and small parts (K6, K3,
 K4; K6c, K3c, K4c), of phase 16a, 16b and 16c (K2 / K1 / K2c, K3 /
 K3c, K4 / K4c; K2, K5, K3, K4; K5, K3, K4) and of phase 17a, 17b and 17c
-(K2, K3, K4; K2c, K3c, K4c; K6, K3, K4); K7's launches are read around
-its yardstick measurement in phase 1.  Every kernel of each path must
-have launched.  The JSON kernel table's ``launches_p13`` /
+(K2, K3, K4; K2c, K3c, K4c; K6, K3, K4) and of phase 18a, 18b and 18c
+(K2, K3c, K4c; K2, K6, K3c, K4c; K2, K3c, K4c); K7's launches are read
+around its yardstick measurement in phase 1.  Every kernel of each path
+must have launched.  The JSON kernel table's ``launches_p13`` /
 ``launches_p14`` / ``launches_p12d`` / ``launches_p15`` /
-``launches_p16`` / ``launches_p17`` are those phases' shares of
-``launches``.  The last three lines
+``launches_p16`` / ``launches_p17`` / ``launches_p18`` are those phases'
+shares of ``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -4596,15 +4624,11 @@ def phase17c(dev):
           f" -> {back['diagonal']:.3e}", flush=True)
     check(back["diagonal"] < 0.1 * back["none"], f"17c scaling: {back}")
     digits_case(dev)
-    before = stt.launch_counts()
     pep = stt.PEP(dense(K, C, M), nev=2, solver="ciss")
-    try:
-        pep.solve()
-        check(False, "17c ciss: did not raise")
-    except NotImplementedError as e:
-        check("item 15" in str(e), f"17c ciss: {e}")
-    check(stt.launch_counts() == before, "17c ciss: a kernel launched")
-    print("  17c ciss raises naming ROADMAP item 15, no launch", flush=True)
+    pep.set_target(-0.2)
+    pep.set_rg(stt.RGEllipse(center=-0.2, radius=0.4))
+    pep.solve()
+    near("ciss (NEP's contour solver)", pep, w40, 2, 1e-6)
     counts = stt.launch_counts()
     launched("phase 17c", counts, ("csr_spmv_f64", "panel_dots_f64",
                                    "rotate_f64"))
@@ -4643,6 +4667,402 @@ def digits_case(dev):
     print(f"  17c test1.c digits: {got}", flush=True)
     check(pep.nconv >= 4 and got == want, f"17c test1.c digits: {got}")
 
+
+
+# ---- item 15: nonlinear eigenproblems (phase 18) --------------------------
+
+NEP_N, NEP_NEV, NEP_TOL = 10_000, 2, 1e-8
+NEP_RG = {"center": -1.0, "radius": 1.5, "vscale": 0.5}
+# nep.py's acceptance of a polished pair, max(100 tol, 1e-8)
+NEP_RESID = 1e-6
+# the JAX package's values on this deployment (its CISS, run on a CPU;
+# PERF.md): printed beside the port's as a cross-check, not a gate
+NEP_REFERENCE = (-0.92990833, -1.51115429, -0.19166356, -1.97271676,
+                 -2.35110383)
+# the full-basis NLEIGS runs EPS on d * n rows; d = 9 on this deployment
+# (the CPU twin of 18a prints it)
+NEP_DEGREE = 9
+
+
+def delay_operators(n, dev, csr=False):
+    """bench.py:1130-1165's NEP deployment, T(lam) = -lam I + A0 +
+    e^{-lam} A1: A0 = tridiag(1, -2, 1) / h^2, A1 = diag(4.1 - x (1 -
+    e^{x - pi})), x_i = i h, h = pi / (n + 1); -I, A0, A1 as f64 DIA (csr:
+    the same matrices as CSR through from_scipy)."""
+    h = np.pi / (n + 1)
+    up, lo = np.zeros(n), np.zeros(n)
+    up[: n - 1] = 1.0 / (h * h)
+    lo[1:] = 1.0 / (h * h)
+    xi = np.arange(1, n + 1) * h
+    mats = [stt.DIAOperator((0,), -np.ones((1, n)), device=dev),
+            stt.DIAOperator((-1, 0, 1),
+                            np.stack([lo, np.full(n, -2.0 / (h * h)), up]),
+                            device=dev),
+            stt.DIAOperator((0,), (4.1 - xi * (1 - np.exp(xi - np.pi)))[None],
+                            device=dev)]
+    if csr:
+        mats = [stt.from_scipy(m.to_scipy(), device=dev) for m in mats]
+    fns = [stt.FNRational([1.0, 0.0]), stt.FNRational([1.0]), stt.FNExp()]
+    fns[2].set_scale(-1.0)
+    return mats, fns
+
+
+def delay_nep(dev, solver="nleigs", full=False, csr=False):
+    """The deployment's NEP: nev 2, target -1, tol 1e-8, RGEllipse(-1, 1.5,
+    0.5)."""
+    mats, fns = delay_operators(NEP_N, dev, csr)
+    nep = stt.NEP(nev=NEP_NEV, solver=solver, target=-1.0, tol=NEP_TOL)
+    nep.set_split_operators(mats, fns)
+    nep.set_rg(stt.RGEllipse(**NEP_RG))
+    nep.nleigs_full_basis = full
+    return nep
+
+
+def phase18_kernels(dev):
+    """K2 on the deployment's three DIA terms by parts (the real and the
+    imaginary part of a complex vector), K6 on their CSR forms, K3c's three
+    sweeps against 1, 19 and 20 rows of the compact basis (ncv + 3 = 20
+    rows at nev 2), K4c at (19, 3) (the combinations, the extraction) and
+    in place at (rho, r) = (10, 19) (the compression), and K3c / K4c at
+    the full-basis EPS's d * n rows, each against its plain version;
+    before phase 18's counts are reset."""
+    c128 = torch.complex128
+    print("phase 18: K2 / K6 by parts, K3c, K4c vs plain PyTorch at the NEP "
+          f"deployment's shapes (n = {NEP_N})", flush=True)
+    mats, _ = delay_operators(NEP_N, dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    z = torch.randn(NEP_N, generator=gen, dtype=c128, device=dev)
+    parts = (z.real.contiguous(), z.imag.contiguous())
+    errs = {}
+    for name, A in zip(("-I", "A0", "A1"), mats):
+        errs[f"K2 {name}"] = max(spmv_errors(A.offsets, A.diags, x)[1]
+                                 for x in parts)
+        C = stt.from_scipy(A.to_scipy(), device=dev)
+        rel = 0.0
+        for x in parts:
+            y_ref = csr_spmv_ref(C.rowptr, C.cols, C.vals, x)
+            y = csr_spmv(C.rowptr, C.cols, C.vals, x, C.shape[1],
+                         plan=C.row_plan())
+            rel = max(rel, float((y - y_ref).abs().max()
+                                 / y_ref.abs().max()))
+        errs[f"K6 {name}"] = rel
+    rmax = max(2 * NEP_NEV, NEP_NEV + 15) + 3
+    V = torch.randn((rmax, NEP_N), generator=gen, dtype=c128, device=dev)
+    Cc = torch.randn((rmax, 1), generator=gen, dtype=c128, device=dev)
+    errs["K3c"] = max(rel for K in (1, rmax - 1, rmax)
+                      for _, rel in panel_errors(V[:K], z[None],
+                                                 Cc[:K]).values())
+    errs["K4c (19, 3)"] = rotate_errors(random_q(rmax - 1, 3, dev, c128),
+                                        V[: rmax - 1])[1]
+    W = random_q(rmax - 1, 10, dev, c128)
+    U = V.clone()
+    want = rotate_ref(W, V[: rmax - 1])
+    rotate(W, U[: rmax - 1], out=U[:10])
+    errs["K4c in place (10, 19)"] = float(
+        ((U[:10] - want).abs() / (W.abs().T @ V[: rmax - 1].abs())).max())
+    x = torch.randn(NEP_DEGREE * NEP_N, generator=gen, dtype=c128,
+                    device=dev)
+    errs["K3c full basis"], errs["K4c full basis"] = basis_errors(
+        dev, gen, x, 2 * NEP_NEV + 15)
+    print("  " + "  ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+          flush=True)
+    tol = {"K2": PATH_TOL[torch.float64]["K2"], "K6": P13_TOL["K6"],
+           **PATH_TOL[c128]}
+    for k, v in errs.items():
+        check(v <= tol[k.split()[0]], f"phase 18 {k}: error {v:.3e}")
+    del mats, z, parts, V, U, x
+    torch.cuda.empty_cache()
+
+
+def nep_run(where, nep, dev):
+    """Solve nep on the card with the event log on; prints nconv, its, the
+    interpolation degree and AAA poles of NLEIGS, the direct solves'
+    seconds (KSP_Solve_direct, with their KSP_HostSolve_d2h / _h2d
+    transfers; CISS's contour solves and its dense LU polish) and peak
+    memory.  Returns the wall."""
+    from slepc_tpu_torch.sys.events import get_event
+
+    stt.log_begin()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nep.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev = {k: (get_event(k) or {"time": 0.0, "count": 0})
+          for k in ("KSP_Solve_direct", "KSP_HostSolve_d2h",
+                    "KSP_HostSolve_h2d", "NEP_ContourSolves",
+                    "NEP_DenseSolve")}
+    stt.log_reset()
+    solves = ev["KSP_Solve_direct"]
+    extra = ""
+    for k, what in (("NEP_ContourSolves", "contour host LU solves"),
+                    ("NEP_DenseSolve", "dense T(lambda) LU solves on the "
+                                       "card")):
+        if ev[k]["count"]:
+            extra += (f" {what} {ev[k]['count']} taking {ev[k]['time']:.3f}"
+                      f" s;")
+    if getattr(nep, "nleigs_degree", None) is not None:
+        poles = nep.nleigs_poles
+        extra += (f" d={nep.nleigs_degree} AAA poles "
+                 + ("given" if poles is None else
+                    "none: scipy has no AAA (the ImportError branch ran)"
+                    if poles == "no AAA" else str(poles)) + ";")
+    print(f"  {where}: nconv={nep.nconv} its={nep.its} wall={wall:.3f} s;"
+          f"{extra} direct solves {solves['count']} taking "
+          f"{solves['time']:.3f} s ({100 * solves['time'] / wall:.1f}% of "
+          f"the wall; transfers d2h {ev['KSP_HostSolve_d2h']['time']:.3f} s,"
+          f" h2d {ev['KSP_HostSolve_h2d']['time']:.3f} s); peak "
+          f"{peak_gb(dev):.2f} GB", flush=True)
+    return wall
+
+
+def nep_gates(where, nep, want, k, rel=1e-7):
+    """nconv >= k; every returned value inside the region; each residual
+    ||T(lam) x|| / ||x||, recomputed on the pair's device (K2 / K6 by
+    parts), at most NEP_RESID; every value within ``rel`` relative of the
+    nearest of ``want`` that lies within 1e-3 of it (at least
+    min(k, len(want)) of them must), and the distance to the JAX
+    package's values printed."""
+    check(nep.nconv >= k, f"{where}: nconv {nep.nconv} < {k}")
+    rg = stt.RGEllipse(**NEP_RG)
+    lams = np.asarray(nep.eigenvalues[: nep.nconv], complex)
+    outside = [lam for lam in lams if rg.check_inside(lam) < 0]
+    check(not outside, f"{where}: values outside the region: {outside}")
+    res = [nep.compute_error(i) for i in range(nep.nconv)]
+    want = np.asarray(want, complex)
+    offs = []
+    for lam in lams:
+        j = int(np.argmin(np.abs(want - lam)))
+        if abs(want[j] - lam) < 1e-3:
+            offs.append(abs(want[j] - lam) / abs(want[j]))
+    jax_off = max(np.min(np.abs(np.asarray(NEP_REFERENCE) - lam))
+                  for lam in lams)
+    print(f"    values {np.array2string(lams, precision=10)}; residuals "
+          f"{np.array2string(np.asarray(res), precision=3)}; max rel off the "
+          f"CPU solve {max(offs) if offs else float('nan'):.3e} "
+          f"({len(offs)} matched); max |lam - JAX package's| {jax_off:.3e}",
+          flush=True)
+    check(max(res) <= NEP_RESID, f"{where}: residual {max(res):.3e}")
+    check(len(offs) >= min(k, len(want)), f"{where}: {len(offs)} values "
+          f"near the CPU solve's")
+    check(max(offs) <= rel, f"{where}: values off by {max(offs):.3e}")
+
+
+def phase18a(dev):
+    """bench.py:1130's deployment by the compact NLEIGS on the card, nothing
+    cut, solved twice (the first solve of a process pays its first calls),
+    against the port's own CPU solve.  Returns (launch counts, the two
+    walls, the CPU values)."""
+    print(f"phase 18a: NEP delay problem (bench.py:1130), {NEP_N} rows, "
+          f"f64 DIA, nev {NEP_NEV}, nleigs (compact), target -1, tol "
+          f"{NEP_TOL:g}, RGEllipse(-1, 1.5, 0.5)", flush=True)
+    t0 = time.perf_counter()
+    import scipy.interpolate  # noqa: F401  (AAA's module; ~2 s, once)
+    import slepc_tpu_torch.nep.nleigs_toar  # noqa: F401
+
+    print(f"  scipy.interpolate and nep/nleigs_toar.py imported in "
+          f"{time.perf_counter() - t0:.3f} s (once a process, outside the "
+          f"walls)", flush=True)
+    stt.reset_launch_counts()
+    walls = []
+    for run in ("first", "second"):  # the first pays the process's warm-up
+        nep = delay_nep(dev)
+        walls.append(nep_run(f"18a nleigs (card, {run} solve)", nep, dev))
+    counts = stt.launch_counts()
+    t0 = time.perf_counter()
+    cpu = delay_nep("cpu")
+    cpu.solve()
+    print(f"  18a nleigs (CPU): nconv={cpu.nconv} its={cpu.its} d="
+          f"{cpu.nleigs_degree} wall={time.perf_counter() - t0:.3f} s",
+          flush=True)
+    check(cpu.nconv >= NEP_NEV, f"18a CPU: nconv {cpu.nconv}")
+    want = np.asarray(cpu.eigenvalues[: cpu.nconv], complex)
+    nep_gates("18a nleigs", nep, want, NEP_NEV)
+    check(nep.nconv == cpu.nconv, f"18a: nconv {nep.nconv} on the card, "
+          f"{cpu.nconv} on the CPU")
+    check(nep.get_eigenvectors().device.type == dev.type,
+          f"18a: eigenvectors not on {dev}")
+    launched("phase 18a", counts, ("dia_spmv_f64", "panel_dots_c128",
+                                   "panel_update_c128",
+                                   "panel_update_dots_c128", "rotate_c128"))
+    return counts, walls, want
+
+
+def phase18b(dev, want):
+    """The same deployment by rii, ciss (dense LU polish on the card),
+    slp (EPS GNHEP a step), the full-basis NLEIGS and the compact NLEIGS
+    on the CSR forms.  Returns (launch counts, walls)."""
+    print("phase 18b: the same deployment by rii, ciss, slp, full-basis "
+          "nleigs and CSR nleigs", flush=True)
+    stt.reset_launch_counts()
+    walls = {}
+    for where, kw, k in (("rii", {"solver": "rii"}, 1),
+                         ("ciss", {"solver": "ciss"}, 5),
+                         ("slp", {"solver": "slp"}, 1),
+                         ("full-basis nleigs", {"full": True}, NEP_NEV),
+                         ("CSR nleigs", {"csr": True}, NEP_NEV)):
+        nep = delay_nep(dev, **kw)
+        walls[where] = nep_run(f"18b {where}", nep, dev)
+        nep_gates(f"18b {where}", nep, want, k)
+        del nep
+        torch.cuda.empty_cache()
+    counts = stt.launch_counts()
+    launched("phase 18b", counts, ("dia_spmv_f64", "csr_spmv_f64",
+                                   "panel_dots_c128", "panel_update_c128",
+                                   "panel_update_dots_c128", "rotate_c128"))
+    return counts, walls
+
+
+def small_delay(dev, n=40):
+    """tests/test_modules.py:137's delay problem as dense operators."""
+    h = np.pi / (n + 1)
+    A0 = (-2.0 * np.eye(n) + np.eye(n, k=1) + np.eye(n, k=-1)) / (h * h)
+    xi = np.arange(1, n + 1) * h
+    mats = [-np.eye(n), A0, np.diag(4.1 - xi * (1 - np.exp(xi - np.pi)))]
+    fns = [stt.FNRational([1.0, 0.0]), stt.FNRational([1.0]), stt.FNExp()]
+    fns[2].set_scale(-1.0)
+    return mats, fns
+
+
+def nep_small_cases():
+    """The small NEP paths at the reference tests' sizes: name -> a maker
+    of the solved problem on a device."""
+    def split(dev, solver, target, nev=1, tol=None, rg=False, **kw):
+        mats, fns = small_delay(dev)
+        nep = stt.NEP(nev=nev, solver=solver, target=target, tol=tol)
+        nep.set_split_operators([stt.DenseOperator(M, device=dev)
+                                 for M in mats], fns)
+        if rg:
+            nep.set_rg(stt.RGEllipse(**NEP_RG))
+        for k, v in kw.items():
+            setattr(nep, k, v)
+        return nep.solve()
+
+    def effenberger(dev):
+        n = 20
+        rng = np.random.default_rng(0)
+        D = np.diag(np.concatenate([[2.0, 2.0], 4.0 + np.arange(n - 2.0)]))
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        nep = stt.NEP(nev=2, solver="slp", target=1.8, tol=1e-10, max_it=60)
+        nep.set_split_operators([stt.DenseOperator(Q @ D @ Q.T, device=dev),
+                                 stt.DenseOperator(np.eye(n), device=dev)],
+                                [stt.FNRational([1.0]),
+                                 stt.FNRational([-1.0, 0.0])])
+        return nep.solve()
+
+    def refine(dev):
+        nep = split(dev, "slp", 0.1)
+        nep.eigenvalues = nep.eigenvalues.astype(complex) * (1 + 1e-6)
+        return nep.refine(steps=3)
+
+    def callback(dev, jac):
+        mats, fns = small_delay(dev)
+        nep = stt.NEP(nev=1, solver="slp", target=0.1)
+        nep.set_function(
+            lambda lam: stt.DenseOperator(sum(complex(f.eval(lam)) * M for M, f
+                                              in zip(mats, fns)), device=dev),
+            (lambda lam: stt.DenseOperator(sum(
+                complex(f.eval_deriv(lam)) * M for M, f in zip(mats, fns)),
+                device=dev)) if jac else None)
+        return nep.solve()
+
+    def test10(dev):
+        n, tau, a = 128, 0.001, 20.0
+        h = np.pi / (n + 1)
+        up, lo = np.zeros(n), np.zeros(n)
+        up[: n - 1] = 1.0 / (h * h)
+        lo[1:] = 1.0 / (h * h)
+        xi = (np.arange(n) + 1) * h
+        f3 = stt.FNExp()
+        f3.set_scale(-tau, 1.0)
+        nep = stt.NEP(nev=1, solver="slp", target=0.55, tol=1e-9)
+        nep.set_split_operators(
+            [stt.DIAOperator((0,), np.ones((1, n)), device=dev),
+             stt.DIAOperator((-1, 0, 1), np.stack(
+                 [lo, np.full(n, -2.0 / (h * h) + a), up]), device=dev),
+             stt.DIAOperator((0,), (-4.1 + xi * (1.0 - np.exp(xi - np.pi)))
+                             [None], device=dev)],
+            [stt.FNRational([-1.0, 0.0]), stt.FNRational([1.0]), f3])
+        return nep.solve()
+
+    def pep_ciss(dev):
+        n = 30
+        K = tridiag_np(n, 2.0, -1.0)
+        pep = stt.PEP([stt.DenseOperator(A, device=dev)
+                       for A in (K, 0.4 * np.eye(n), np.eye(n))], nev=2,
+                      solver="ciss")
+        pep.set_target(-0.2)
+        pep.set_rg(stt.RGEllipse(center=-0.2, radius=0.4))
+        return pep.solve()
+
+    return {
+        "slp Effenberger (double eigenvalue)": effenberger,
+        "narnoldi": lambda d: split(d, "narnoldi", 0.1),
+        "interpol": lambda d: split(d, "interpol", 0.1, nev=2),
+        "ciss two-sided": lambda d: split(d, "ciss", -1.0, nev=2, tol=1e-10,
+                                          rg=True, two_sided=True),
+        "refine": refine,
+        "callback with jac": lambda d: callback(d, True),
+        "callback, difference Jacobian": lambda d: callback(d, False),
+        "test10.c digits": test10,
+        "PEP ciss": pep_ciss,
+    }
+
+
+def phase18c(dev):
+    """The small NEP paths on the card, each against the same solve on the
+    CPU (nconv, values within 1e-9) and its own gate.  Returns the launch
+    counts."""
+    print("phase 18c: the small NEP paths at the reference tests' sizes",
+          flush=True)
+    stt.reset_launch_counts()
+    for where, make in nep_small_cases().items():
+        before = stt.launch_counts()
+        got, cpu = make(dev), make("cpu")
+        k = cpu.nconv
+        check(got.nconv == k >= 1, f"18c {where}: nconv {got.nconv} on the "
+              f"card, {k} on the CPU")
+        off = float(np.max(np.abs(np.sort_complex(np.round(
+            np.asarray(got.eigenvalues[:k], complex), 11))
+            - np.sort_complex(np.round(np.asarray(cpu.eigenvalues[:k],
+                                                  complex), 11)))))
+        err = max(got.compute_error(i) for i in range(k))
+        gate = ""
+        if where == "slp Effenberger (double eigenvalue)":
+            X = got.get_eigenvectors()[:, :2].cpu().numpy()
+            gate = f"; second singular value of X {np.linalg.svd(X, compute_uv=False)[1]:.3f}"
+            check(np.linalg.svd(X, compute_uv=False)[1] > 1e-3,
+                  f"18c {where}: one eigenvector twice")
+        elif where == "ciss two-sided":
+            lam0, x0 = got.get_eigenpair(0)
+            y0 = got.get_left_eigenvector(0)
+            left = float(torch.linalg.vector_norm(got.T(complex(lam0)).mult_h(
+                y0)) / torch.linalg.vector_norm(y0))
+            v = np.random.default_rng(0).standard_normal(40)
+            Rv = got.apply_resolvent(complex(lam0) + 1e-4, v)
+            align = float(abs(torch.vdot(x0, Rv)) / (
+                torch.linalg.vector_norm(Rv) * torch.linalg.vector_norm(x0)))
+            gate = f"; left residual {left:.3e}, resolvent alignment {align:.6f}"
+            check(left < 1e-8 and align > 0.99, f"18c {where}{gate}")
+        elif where == "refine":
+            gate = f"; refined error {got.errests[0]:.3e}"
+            check(got.errests[0] < 1e-10, f"18c {where}{gate}")
+        elif where == "test10.c digits":
+            gate = f"; {got.eigenvalues[0].real:.5f}"
+            check(f"{got.eigenvalues[0].real:.5f}" == "0.80889",
+                  f"18c {where}{gate}")
+        print(f"  18c {where}: nconv={got.nconv} its={got.its} max |lam - "
+              f"CPU| {off:.3e} max error {err:.3e}{gate}; launches "
+              f"{ {k_: v for k_, v in stt.launch_counts().items() if v != before[k_]} }",
+              flush=True)
+        check(off <= 1e-9, f"18c {where}: values off the CPU's by {off:.3e}")
+        check(err <= (1e-7 if where == "PEP ciss" else 1e-8),
+              f"18c {where}: error {err:.3e}")
+    counts = stt.launch_counts()
+    launched("phase 18c", counts, ("dia_spmv_f64", "panel_dots_c128",
+                                   "panel_update_c128", "rotate_c128"))
+    return counts
 
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
@@ -4856,6 +5276,20 @@ def main():
     wall_17 = time.perf_counter() - t17
     print(f"  phase 17 wall (kernel checks and solves): {wall_17:.3f} s",
           flush=True)
+    # phase 18 (item 15): the same
+    t18 = time.perf_counter()
+    phase18_kernels(dev)
+    counts_18a, wall_18a, want_18 = phase18a(dev)
+    counts_18b, walls_18b = phase18b(dev, want_18)
+    counts_18c = phase18c(dev)
+    p18_paths = (counts_18a, counts_18b, counts_18c)
+    for part, counts_18 in zip("abc", p18_paths):
+        print(f"  phase 18{part} launches: "
+              f"{ {k: v for k, v in counts_18.items() if v} }", flush=True)
+    p18 = {k: sum(p[k] for p in p18_paths) for k in counts_18a}
+    wall_18 = time.perf_counter() - t18
+    print(f"  phase 18 wall (kernel checks and solves): {wall_18:.3f} s",
+          flush=True)
     if args.profile:
         profile_solve("phase 17a toar", lambda: pep_run(
             "profiled 17a toar", stt.PEP(list(damped_quadratic(dev)),
@@ -4909,7 +5343,8 @@ def main():
                 "K4": ("rotate_f64",)})
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              plain_path, nhep_path, small_nhep_path) + complex_paths \
-        + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths
+        + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths \
+        + p18_paths
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -4925,6 +5360,7 @@ def main():
                         "launches_p15": p15[key],
                         "launches_p16": p16[key],
                         "launches_p17": p17[key],
+                        "launches_p18": p18[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -4945,7 +5381,8 @@ def main():
               f"{k['launches_p13']}, phase 14: {k['launches_p14']}, phase "
               f"12d: {k['launches_p12d']}, phase 15: {k['launches_p15']}, "
               f"phase 16: {k['launches_p16']}, phase 17: "
-              f"{k['launches_p17']})", flush=True)
+              f"{k['launches_p17']}, phase 18: {k['launches_p18']})",
+              flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
           f"{wall_sinv:.3f} s (GHEP), {wall_sinv_std:.3f} s (standard); plain "
@@ -4970,7 +5407,10 @@ def main():
           f"{wall_16:.3f} s; PEP 90,000-row damped quadratic "
           + ", ".join(f"{w} {t:.3f} s" for w, t in walls_17a.items())
           + f", acoustic 2^20 c128 toar {wall_17b:.3f} s, phase 17 "
-          f"{wall_17:.3f} s on {smi_line}", flush=True)
+          f"{wall_17:.3f} s; NEP {NEP_N} rows: compact nleigs "
+          f"{wall_18a[0]:.3f} s (first solve) / {wall_18a[1]:.3f} s, "
+          + ", ".join(f"{w} {t:.3f} s" for w, t in walls_18b.items())
+          + f", phase 18 {wall_18:.3f} s on {smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """slepc_tpu_torch — the PyTorch + CUDA port of slepc_tpu, for NVIDIA Hopper.
 
 It mirrors slepc_tpu's module tree and names (``sys mat bv ds st ksp rg eps
-svd fn mfn lme pep ops``),
+svd fn mfn lme pep nep ops``),
 so one script can drive either package, and it never imports JAX.  Plain
 tensor code is PyTorch; every Pallas kernel of the ported slice is a CUDA
 kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
@@ -43,7 +43,12 @@ Matrix functions and equations: ``FN`` (``FNExp``, ``FNLog``, ``FNSqrt``,
 with low-rank factors) and the EPS solver ``lyapii``.  Polynomial
 eigenproblems: ``PEP(mats, ...)`` with ``toar``, ``qarnoldi``, ``stoar``,
 ``linear`` and ``jd``, non-monomial bases, scalar and diagonal scaling,
-extraction kinds, refinement and interval slicing, with ``DSPEP``.
+extraction kinds, refinement, interval slicing and the contour ``ciss``,
+with ``DSPEP``.  Nonlinear eigenproblems: ``NEP`` in split form
+(``set_split_operators``) or callback form (``set_function``) with
+``slp``, ``rii``, ``narnoldi``, ``interpol``, ``ciss`` and ``nleigs``
+(compact or full basis), two-sided solves, the resolvent and refinement,
+with ``DSNEP``.
 Kernels: the DIA SpMV (K1/K2) and
 block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
 rotation (K4) and the stream yardstick (K7), with complex instantiations of
@@ -80,12 +85,13 @@ from .rg import RG, RGEllipse, RGInterval, RGPolygon, RGRing
 from .ksp import KSP, DirectSolver, solve_linear
 from .bv import BV
 from .ds import (DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP,
-                 DSSVD, DSHSVD, DSGSVD, DSPEP)
+                 DSSVD, DSHSVD, DSGSVD, DSPEP, DSNEP)
 from .fn import (FN, FNExp, FNLog, FNSqrt, FNInvSqrt, FNPhi, FNRational,
                  FNCombine, fn_from_name)
 from .eps import EPS, EPSConvergedReason, EPSError, ProblemType
 from .svd import SVD, SVDWhich
 from .pep import PEP
+from .nep import NEP
 from .mfn import MFN
 from .lme import LME
 from .ops import launch_counts, reset_launch_counts
@@ -157,6 +163,7 @@ __all__ = [
     "DSHSVD",
     "DSGSVD",
     "DSPEP",
+    "DSNEP",
     "FN",
     "FNExp",
     "FNLog",
@@ -176,6 +183,7 @@ __all__ = [
     "SVD",
     "SVDWhich",
     "PEP",
+    "NEP",
     "MFN",
     "LME",
     "launch_counts",

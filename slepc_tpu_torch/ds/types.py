@@ -10,9 +10,10 @@ pairs, two-sided), :class:`DSGHIEP` (the symmetric / signature pencil of
 pseudo-Lanczos, by the hyperbolic-Jacobi stand-in for the HZ iteration,
 :func:`_hz_hyperbolic_jacobi`), :class:`DSGNHEP` (ordered QZ) and the SVD
 types of the SVD module, :class:`DSSVD`, :class:`DSHSVD` and
-:class:`DSGSVD`, and :class:`DSPEP` (the projected polynomial problem of
-PEP's Jacobi-Davidson).  The nonlinear type ``DSNEP`` waits for its solver
-(ROADMAP.md, queue 1, item 15).
+:class:`DSGSVD`, :class:`DSPEP` (the projected polynomial problem of
+PEP's Jacobi-Davidson) and :class:`DSNEP` (the projected nonlinear problem
+of NEP's nonlinear Arnoldi, by successive linear problems or a Beyn
+contour integral).
 """
 
 from __future__ import annotations
@@ -331,3 +332,65 @@ class DSPEP(DS):
         nrm = np.linalg.norm(Xp, axis=0)
         nrm[nrm == 0] = 1
         return lam, Xp / nrm
+
+
+class DSNEP(DS):
+    """Projected nonlinear eigenproblem T(lambda) y = 0.
+
+    Reference: impls/nep/dsnep.c (contour-integral / successive linear
+    inner solves on the projected split form).  ``solve_contour`` takes a
+    callable evaluating the projected T(lambda) (k x k) and a circle, and
+    runs a Beyn contour integral on the dense projected problem;
+    ``solve_slp`` runs successive linear problems from a start value.
+    """
+
+    def solve_contour(self, Tfun: Callable[[complex], np.ndarray],
+                      center: complex, radius: float, npoints: int = 32,
+                      rank_tol: float = 1e-12):
+        """Beyn contour integral on the projected problem.
+
+        Quadrature parallelism: the reference's dsnep.c distributes the
+        contour points over MPI ranks; here the same data-parallel shape is
+        one batched (npoints, k, k) LAPACK solve instead of a per-point
+        loop."""
+        k = Tfun(center).shape[0]
+        rng = np.random.default_rng(0)
+        Vrand = rng.standard_normal((k, k)) + 1j * rng.standard_normal((k, k))
+        theta = 2 * np.pi * np.arange(npoints) / npoints
+        zs = center + radius * np.exp(1j * theta)
+        ws = radius * np.exp(1j * theta) / npoints  # dz/(2*pi*i) weight
+        Ts = np.stack([Tfun(z) for z in zs])  # user callback stays serial
+        Tz = np.linalg.solve(Ts, np.broadcast_to(Vrand, Ts.shape))
+        A0 = np.einsum("p,pij->ij", ws, Tz)
+        A1 = np.einsum("p,pij->ij", ws * zs, Tz)
+        U, s, Vh = np.linalg.svd(A0)
+        r = int(np.sum(s > rank_tol * max(s[0], 1e-300)))
+        if r == 0:
+            return np.array([]), np.zeros((k, 0), dtype=complex)
+        U1, s1, V1h = U[:, :r], s[:r], Vh[:r, :]
+        Bm = U1.conj().T @ A1 @ V1h.conj().T @ np.diag(1.0 / s1)
+        lam, Y = np.linalg.eig(Bm)
+        X = U1 @ Y
+        nrm = np.linalg.norm(X, axis=0)
+        nrm[nrm == 0] = 1
+        return lam, X / nrm
+
+    def solve_slp(self, Tfun: Callable, Jfun: Callable, lam0: complex,
+                  maxit: int = 50, tol: float = 1e-12):
+        """Successive linear problems on the projected dense problem: the
+        smallest |mu| of T(lam) y = mu T'(lam) y corrects lam.  The Newton
+        step has no guard, as in the reference: from a poor start lam can
+        run off until T(lam) overflows (ROADMAP.md, queue 3)."""
+        lam = lam0
+        k = Tfun(lam0).shape[0]
+        x = np.ones(k) / np.sqrt(k)
+        for _ in range(maxit):
+            T = Tfun(lam)
+            J = Jfun(lam)
+            mu, X = sla.eig(T, J)
+            j = int(np.argmin(np.abs(mu)))
+            lam = lam - mu[j]
+            x = X[:, j] / np.linalg.norm(X[:, j])
+            if abs(mu[j]) < tol * max(abs(lam), 1.0):
+                break
+        return lam, x

@@ -26,7 +26,10 @@ imports neither JAX nor slepc_tpu; JAX arrays convert with ``np.asarray``.
   function (its type, scales, method and parts), MFN, LME or PEP (the
   operators through :func:`operator_from_slepc_tpu`, the function,
   dimensions, tolerances, solver, problem type, basis, scaling, target,
-  interval and extraction) as the port's, unsolved.
+  interval, extraction and region) as the port's, unsolved.
+* :func:`nep_from_slepc_tpu`: a slepc_tpu split-form NEP (its operators,
+  functions and region, dimensions, tolerances, solver, target, two-sided
+  flag, NLEIGS basis, singularities and deflation) as the port's, unsolved.
 * :func:`dia_to_padded_ds`: a port f64 operator as the (offsets, dph, dpl, n)
   arguments of ``DIAPaddedOperatorDS``.
 * :func:`basis_from_padded` / :func:`basis_to_padded`: a padded basis
@@ -48,6 +51,7 @@ from .mat.linop import (AIJOperator, DenseOperator, DIAOperator,
                         DiagonalOperator, IdentityOperator, ScaledOperator,
                         SumOperator)
 from .mfn.mfn import MFN
+from .nep.nep import NEP
 from .pep.pep import PEP
 from .rg.rg import RGEllipse, RGInterval, RGPolygon, RGRing
 from .st.filter import STFilter
@@ -220,8 +224,8 @@ def lme_from_slepc_tpu(jlme, device=None) -> LME:
 
 def pep_from_slepc_tpu(jpep, device=None) -> PEP:
     """A slepc_tpu PEP's coefficients and settings (dimensions, which,
-    target, tolerances, solver, basis, scaling, interval, extraction) as
-    the port's, unsolved."""
+    target, tolerances, solver, basis, scaling, interval, extraction,
+    region) as the port's, unsolved."""
     pep = PEP([operator_from_slepc_tpu(m, device=device) for m in jpep.mats],
               nev=jpep.nev, ncv=jpep.ncv, which=jpep.which.value,
               target=jpep.target, tol=jpep.tol, max_it=jpep.max_it,
@@ -230,7 +234,37 @@ def pep_from_slepc_tpu(jpep, device=None) -> PEP:
         pep.set_interval(*jpep.interval)
     if getattr(jpep, "extract", None) is not None:
         pep.set_extraction(jpep.extract)
+    if getattr(jpep, "rg", None) is not None:
+        pep.set_rg(rg_from_slepc_tpu(jpep.rg))
     return pep
+
+
+def nep_from_slepc_tpu(jnep, device=None) -> NEP:
+    """A slepc_tpu split-form NEP's operators (through
+    :func:`operator_from_slepc_tpu`), functions, region and settings (nev,
+    tol, max_it, solver, target, two-sided, the NLEIGS basis, the
+    singularity set and the deflation) as the port's, unsolved.  A
+    callback-form NEP cannot be carried: its callbacks return slepc_tpu
+    operators."""
+    if jnep.fun is not None:
+        raise ValueError("nep_from_slepc_tpu: a callback-form NEP "
+                         "(set_function) cannot be carried: its callbacks "
+                         "return slepc_tpu operators; build the port's with "
+                         "NEP.set_function on port operators")
+    nep = NEP(nev=jnep.nev, tol=jnep.tol, max_it=jnep.max_it,
+              solver=jnep.solver, target=jnep.target)
+    nep.set_split_operators(
+        [operator_from_slepc_tpu(m, device=device) for m in jnep.split_A],
+        [fn_from_slepc_tpu(f) for f in jnep.split_f])
+    if jnep.rg is not None:
+        nep.set_rg(rg_from_slepc_tpu(jnep.rg))
+    nep.set_two_sided(jnep.two_sided)
+    nep.nleigs_full_basis = jnep.nleigs_full_basis
+    if getattr(jnep, "_singularities", None) is not None:
+        nep.set_singularities(np.array(jnep._singularities))
+    if hasattr(jnep, "deflation"):
+        nep.deflation = jnep.deflation
+    return nep
 
 
 def ksp_from_slepc_tpu(jksp, device=None) -> KSP:

@@ -30,8 +30,9 @@ P(sigma) is factorized when every coefficient has an explicit matrix
 scaled or summed ones): a failed factorization raises.  A shell coefficient
 takes BiCGStab on the summed operator.  (The reference tries the
 factorization and falls back to BiCGStab on any exception.)  The
-contour-integral 'ciss' builds a NEP and raises NotImplementedError until
-NEP is ported (ROADMAP.md, queue 1, item 15).
+contour-integral 'ciss' runs the nonlinear contour solver of
+``nep/nep.py`` on T(z) = P(z), the coefficients as the split matrices of
+monomial ``FNRational`` functions, as the reference does.
 """
 
 from __future__ import annotations
@@ -48,9 +49,6 @@ from ..mat.linop import (AIJOperator, DenseOperator, LinearOperator,
 from ..st.st import ST
 from ..sys.options import apply_module_options
 from ..sys.sort import SortCriterion, Which
-
-_CISS_TODO = ("PEP solver 'ciss' builds a NEP, which is still to be ported "
-              "(ROADMAP.md, queue 1, item 15)")
 
 
 def operator_of(M, device) -> LinearOperator:
@@ -473,10 +471,23 @@ class PEP:
 
     def _solve_ciss(self):
         """Polynomial contour-integral solver (reference:
-        src/pep/impls/ciss/pciss.c): it delegates to the nonlinear
-        contour machinery with T(z) = P(z), a NEP, which the port does not
-        have yet."""
-        raise NotImplementedError(_CISS_TODO)
+        src/pep/impls/ciss/pciss.c) -- delegates to the shared nonlinear
+        contour machinery with T(z) = P(z)."""
+        from ..fn.fn import FNRational
+        from ..nep.nep import NEP
+
+        nep = NEP(nev=self.nev, tol=self.tol or 1e-9, solver="ciss",
+                  target=self.target if self.target is not None else 0.0)
+        fns = [FNRational([1.0] + [0.0] * i)  # x^i
+               for i in range(self.degree + 1)]
+        nep.set_split_operators(self.mats, fns)
+        if getattr(self, "rg", None) is not None:
+            nep.set_rg(self.rg)
+        nep.solve()
+        self.its = nep.its
+        self.nconv = nep.nconv
+        self._set_results(nep.eigenvalues.copy(), nep.errests.copy(),
+                          nep._eigenvectors)
 
     # ---- linear: companion pencil -> EPS (reference impls/linear/linear.c)
     def _companion(self):

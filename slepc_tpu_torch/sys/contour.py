@@ -8,7 +8,9 @@ rank-revealing basis of them (SlepcCISS_BH_SVD :209) and the block-Hankel
 pencil.  Plain numpy on the host, a copy of the reference's (which imports
 no JAX either), kept here so the port imports nothing of slepc_tpu.  The
 EPS CISS solver (``eps/ciss.py``) runs its own device accumulation; the
-nonlinear solver (ROADMAP.md, queue 1, item 15) will use this module.
+nonlinear CISS (``nep/nep.py`` ``NEP._solve_ciss``, and through it PEP's
+``ciss``) calls :func:`contour_moments` with one host factorization a
+quadrature point.
 """
 
 from __future__ import annotations

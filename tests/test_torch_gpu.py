@@ -1543,3 +1543,71 @@ def test_pep_on_the_card(cuda, solver):
     if solver in ("toar", "toar_c128", "qarnoldi", "qslice"):
         assert counts[f"rotate_{tag}"] > 0
         assert counts[f"panel_dots_{tag}"] > 0
+
+
+def _delay_split(n, dev):
+    """examples/ex_nep_delay.py's delay problem as DIA operators on dev."""
+    h = np.pi / (n + 1)
+    up = np.zeros(n)
+    up[: n - 1] = 1.0 / (h * h)
+    lo = np.zeros(n)
+    lo[1:] = 1.0 / (h * h)
+    xi = np.arange(1, n + 1) * h
+    mats = [stt.DIAOperator((0,), -np.ones((1, n)), device=dev),
+            stt.DIAOperator((-1, 0, 1),
+                            np.stack([lo, np.full(n, -2.0 / (h * h)), up]),
+                            device=dev),
+            stt.DIAOperator((0,), (4.1 - xi * (1 - np.exp(xi - np.pi)))[None],
+                            device=dev)]
+    fns = [stt.FNRational([1.0, 0.0]), stt.FNRational([1.0]), stt.FNExp()]
+    fns[2].set_scale(-1.0)
+    return mats, fns
+
+
+@pytest.mark.parametrize("solver", ["nleigs", "nleigs_full", "ciss", "rii",
+                                    "pep_ciss"])
+def test_nep_on_the_card(cuda, solver):
+    """NEP on DIA split operators on the card against the same solve on the
+    CPU (values within 1e-10): the compact NLEIGS (K2 by parts on the real
+    diagonals, K3c CGS2 on the first-level basis, K4c combinations,
+    compression and extraction), the full-basis NLEIGS (EPS on the d*n
+    shell), CISS (host quadrature, polish on the card) and RII; then PEP's
+    ciss, which runs NEP's."""
+    def run(dev):
+        if solver == "pep_ciss":
+            K = stt.laplacian_1d(200, device=dev)
+            C = stt.DIAOperator((0,), np.full((1, 200), 0.4), device=dev)
+            M = stt.DIAOperator((0,), np.ones((1, 200)), device=dev)
+            nep = stt.PEP([K, C, M], nev=2, solver="ciss", tol=1e-10)
+            nep.set_target(-0.2)
+            nep.set_rg(stt.RGEllipse(center=-0.2, radius=0.1))
+        else:
+            mats, fns = _delay_split(128, dev)
+            name = "nleigs" if solver == "nleigs_full" else solver
+            nep = stt.NEP(nev=3 if name != "rii" else 1, solver=name,
+                          target=-1.0 if name != "rii" else 0.1, tol=1e-9)
+            nep.set_split_operators(mats, fns)
+            nep.set_rg(stt.RGEllipse(center=-1.0, radius=1.5, vscale=0.5))
+            nep.nleigs_full_basis = solver == "nleigs_full"
+        before = stt.launch_counts()
+        nep.solve()
+        return nep, _launched(before, stt.launch_counts())
+
+    nep, counts = run(cuda)
+    ncpu, _ = run("cpu")
+    assert nep.nconv == ncpu.nconv >= (1 if solver == "rii" else 2)
+    k = nep.nconv
+    assert nep.get_eigenvectors().device.type == "cuda"
+    got = np.sort_complex(np.round(np.asarray(nep.eigenvalues[:k],
+                                              complex), 12))
+    want = np.sort_complex(np.round(np.asarray(ncpu.eigenvalues[:k],
+                                               complex), 12))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+    for i in range(k):
+        assert nep.compute_error(i) < 1e-7
+    assert counts.get("dia_spmv_f64", 0) > 0
+    if solver in ("nleigs", "nleigs_full"):
+        for key in ("panel_dots_c128", "panel_update_c128", "rotate_c128"):
+            assert counts.get(key, 0) > 0, (key, counts)
+    if solver == "nleigs":
+        assert counts.get("panel_update_dots_c128", 0) > 0, counts

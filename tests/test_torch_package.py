@@ -531,7 +531,10 @@ def test_the_preconditioned_and_contour_slice_is_in_the_import_checks():
            "slepc_tpu_torch.eps.lyapii", "slepc_tpu_torch.pep",
            "slepc_tpu_torch.pep.pep", "slepc_tpu_torch.pep.toar",
            "slepc_tpu_torch.pep.qarnoldi", "slepc_tpu_torch.pep.stoar",
-           "slepc_tpu_torch.pep.qslice"}
+           "slepc_tpu_torch.pep.qslice",
+           # and those of item 15
+           "slepc_tpu_torch.nep", "slepc_tpu_torch.nep.nep",
+           "slepc_tpu_torch.nep.nleigs_toar"}
     assert new <= walked, new - walked
     sources = {p.relative_to(ROOT).as_posix()
                for p in (ROOT / "slepc_tpu_torch").rglob("*.py")}

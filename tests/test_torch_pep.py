@@ -19,7 +19,8 @@ reference casts a complex combination into a real eigenvector block),
 qslice), tests/test_round2.py:131 (Q-Arnoldi on CSR), :163 (diagonal
 scaling), tests/test_reference_golden.py:82 (the published digits of
 src/pep/tests/test1.c) and the acoustic QEP of examples/ex_pep_acoustic.py
-(complex DIA, target 0.5i).  ``ciss`` raises, naming ROADMAP item 15.
+(complex DIA, target 0.5i).  ``ciss`` (tests/test_modules_advanced.py:67)
+runs through the port's NEP, beside the reference's.
 """
 
 import warnings
@@ -397,12 +398,31 @@ def test_bad_settings_raise_value_error():
         tst.FNCombine("subtract", tst.FNExp(), tst.FNExp())
 
 
-def test_pep_ciss_raises_naming_item_15():
-    K, C, M = _qep_problem(10)
-    pep = tst.PEP(_dense(K, C, M), nev=2, solver="ciss")
-    pep.set_target(-0.2)
-    with pytest.raises(NotImplementedError, match=r"item 15\)"):
-        pep.solve()
+def test_pep_ciss():
+    """tests/test_modules_advanced.py:67: PEP's contour solver runs the
+    port's NEP ciss on T(z) = P(z) (monomial FNRational functions), beside
+    the reference's: the same nconv, values within 1e-9, and each pair a
+    root of the dense companion pencil."""
+    n = 30
+    K = _tridiag(n, 2.0, -1.0)
+    C, M = np.eye(n) * 0.4, np.eye(n)
+    jpep = jst.PEP([jst.DenseOperator(A) for A in (K, C, M)], nev=2,
+                   solver="ciss")
+    jpep.set_target(-0.2)
+    jpep.set_rg(jst.RGEllipse(center=-0.2, radius=0.4))
+    tpep = interop.pep_from_slepc_tpu(jpep, device="cpu")
+    jpep.solve()
+    tpep.solve()
+    assert tpep.nconv == jpep.nconv >= 2
+    k = tpep.nconv
+    np.testing.assert_allclose(np.asarray(tpep.eigenvalues[:k], complex),
+                               np.asarray(jpep.eigenvalues[:k], complex),
+                               rtol=0, atol=1e-9)
+    wref = _companion_eigs(K, C, M)
+    for i in range(2):
+        assert tpep.compute_error(i) < 1e-7
+        assert np.min(np.abs(wref - tpep.eigenvalues[i])) < 1e-6
+    assert tpep.get_eigenvectors().shape == (n, k)
 
 
 @pytest.mark.parametrize("form", ["dia", "dense", "csr"])
