@@ -278,6 +278,28 @@ Phases (each failing check raises; the script then exits non-zero):
      deployment run prints its wall, its, NLEIGS's interpolation degree
      and AAA poles (or that scipy has no AAA), the direct solves' seconds
      (KSP_Solve_direct with the host transfers) and peak memory.
+ 19. the row partition over torch.distributed, after K2, K3, K4 at the
+     flagship's slab shapes (n + 2h rows at one rank, n/2 + 2h at each of
+     two) and K5 at the blocked path's slabs against their plain versions:
+     (a) in this process, one NCCL rank: the flagship of phase 3 through
+     HaloDIAOperator (K2 on the slab, every reduction an all-reduce),
+     phase 3's gates, its wall beside phase 3's and its all-reduces a
+     column; (b) two gloo ranks spawned on this card (this script with
+     --phase19-rank; the halo rows staged through pinned host memory):
+     the same flagship at full width, phase 3's gates with the true
+     residual summed over the ranks, the halo bytes, the staging seconds
+     and the wall; (c) in the same ranks, each against the single-card
+     port on the same card: EPS(block_size 4) on laplacian_2d(95, 97) and
+     the same grid's RCM CSR (the partitioned CSR form, K6), TSQR of a
+     1,060,800 x 32 block against one QR (one all-gather), CISS with a
+     task mesh at phase 13c's 2^18 rows, and markov(100) NHEP and
+     tests/test_modules.py's 120 x 80 SVD through shard_operator.  NCCL at
+     more than one rank needs more than one card and does not run here;
+ 20. every examples_torch/ script on the card, its printed numbers (values
+     to 1e-8, counts, errors under the script's bound) held against the
+     same copy run with SLEPC_TPU_TORCH_DEVICE=cpu on this machine
+     (tests/_example_pairs.py's comparison), the launches each made read
+     from the script's own process.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -339,12 +361,15 @@ and 14c (K2c, K3c, K4c; K2, K6, K3, K4; K3, K4, K3c, K4c), of phase 12d
 K4; K6c, K3c, K4c), of phase 16a, 16b and 16c (K2 / K1 / K2c, K3 /
 K3c, K4 / K4c; K2, K5, K3, K4; K5, K3, K4) and of phase 17a, 17b and 17c
 (K2, K3, K4; K2c, K3c, K4c; K6, K3, K4) and of phase 18a, 18b and 18c
-(K2, K3c, K4c; K2, K6, K3c, K4c; K2, K3c, K4c); K7's launches are read
+(K2, K3c, K4c; K2, K6, K3c, K4c; K2, K3c, K4c), of phase 19a, 19b and
+19c (K2, K3, K4; the same in rank 0; K5, K6, K3, K4 in rank 0) and of
+each phase-20 script (in its process); K7's launches are read
 around its yardstick measurement in phase 1.  Every kernel of each path
 must have launched.  The JSON kernel table's ``launches_p13`` /
 ``launches_p14`` / ``launches_p12d`` / ``launches_p15`` /
-``launches_p16`` / ``launches_p17`` / ``launches_p18`` are those phases'
-shares of ``launches``.  The last three lines
+``launches_p16`` / ``launches_p17`` / ``launches_p18`` /
+``launches_p19`` / ``launches_p20`` are those phases' shares of
+``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -353,6 +378,7 @@ import argparse
 import ctypes
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -1470,26 +1496,30 @@ def phase8(dev):
         a = 0.5 * (exact[lo - 1] + exact[lo])
         b = 0.5 * (exact[lo + 29] + exact[lo + 30])
         want = exact[lo: lo + 30]
-        stt.log_begin()
-        t0 = time.perf_counter()
-        eps = stt.EPS(A, problem_type="hep", tol=1e-8, options=stt.Options())
-        eps.set_interval(a, b)
-        eps.solve()
-        check(eps.nconv == 30, f"slicing {label}: found {eps.nconv} of 30 "
-              f"eigenvalues in [{a}, {b}]")
-        report(f"slicing {label}, 30 eigenvalues in [{a:.6f}, {b:.6f}]", eps,
-               want, t0, 1e-9)
-        from slepc_tpu_torch.sys.events import get_event
+        # one partition, then two (inertia-balanced, run one after another)
+        for npart in (1, 2):
+            stt.log_begin()
+            t0 = time.perf_counter()
+            eps = stt.EPS(A, problem_type="hep", tol=1e-8,
+                          options=stt.Options())
+            eps.set_interval(a, b)
+            eps.set_partitions(npart)
+            eps.solve()
+            check(eps.nconv == 30, f"slicing {label}, {npart} partition(s): "
+                  f"found {eps.nconv} of 30 eigenvalues in [{a}, {b}]")
+            report(f"slicing {label}, {npart} partition(s), 30 eigenvalues "
+                   f"in [{a:.6f}, {b:.6f}]", eps, want, t0, 1e-9)
+            from slepc_tpu_torch.sys.events import get_event
 
-        fac = get_event("Slice_Factorization")
-        print(f"  factorizations={eps.slice_factorizations} "
-              f"({fac['time']:.3f} s) backends={eps.slice_backends}",
-              flush=True)
-        # inertia and solves on the card: a host backend would pass the
-        # closed-form gates unseen
-        check(eps.slice_backends == (backend,), f"slicing {label}: factorized "
-              f"with {eps.slice_backends}, not {backend}")
-        stt.log_reset()
+            fac = get_event("Slice_Factorization")
+            print(f"  factorizations={eps.slice_factorizations} "
+                  f"({fac['time']:.3f} s) backends={eps.slice_backends}",
+                  flush=True)
+            # inertia and solves on the card: a host backend would pass the
+            # closed-form gates unseen
+            check(eps.slice_backends == (backend,), f"slicing {label}: "
+                  f"factorized with {eps.slice_backends}, not {backend}")
+            stt.log_reset()
         del A
 
 
@@ -5064,6 +5094,441 @@ def phase18c(dev):
                                    "panel_update_c128", "rotate_c128"))
     return counts
 
+# ---- phase 19: the row partition on the card ------------------------------
+
+P19_WORLD = 2          # gloo ranks sharing cuda:0 (NCCL takes one a card)
+P19_GRID = FLAGSHIP    # 19b's grid
+P19_TIMEOUT = 600      # s, the spawned ranks' limit
+
+
+def slab_operator(A, world, rank):
+    """The DIA operator a rank of ``world`` runs K2 / K5 on: its rows of A's
+    diagonals on a slab of h + nloc + h rows, zero on the halo rows
+    (``parallel/halo.py``), built here without a mesh."""
+    n, h = A.shape[0], max(abs(o) for o in A.offsets)
+    base, rem = divmod(n, world)
+    lo = rank * base + min(rank, rem)
+    hi = lo + base + (1 if rank < rem else 0)
+    d = torch.zeros((len(A.offsets), hi - lo + 2 * h), dtype=A.dtype,
+                    device=A.device)
+    d[:, h: h + hi - lo] = A.diags[:, lo:hi]
+    return stt.DIAOperator(A.offsets, d)
+
+
+def phase19_kernels(dev):
+    """K2, K3, K4 and K5 against their plain versions at the slab shapes of
+    phase 19: the flagship at one rank (n + 2h rows) and at each of two
+    (n/2 + 2h), K5 at b = 4 on the blocked path's slabs (19c)."""
+    A = stt.laplacian_3d(*P19_GRID, dtype=torch.float64, device=dev)
+    path_kernels(dev, "phase 19: K2, K3, K4 vs plain PyTorch at the row "
+                 "partition's slab shapes", (
+                     ("19a slab, world 1", lambda: slab_operator(A, 1, 0), 48),
+                     ("19b slab, rank 0 of 2",
+                      lambda: slab_operator(A, P19_WORLD, 0), 48),
+                     ("19b slab, rank 1 of 2",
+                      lambda: slab_operator(A, P19_WORLD, 1), 48)))
+    del A
+    gen = torch.Generator(device=dev).manual_seed(19)
+    L = stt.laplacian_2d(95, 97, dtype=torch.float64, device=dev)
+    for r in range(P19_WORLD):
+        S = slab_operator(L, P19_WORLD, r)
+        X = torch.randn((4, S.shape[0]), generator=gen, dtype=torch.float64,
+                        device=dev)
+        err = spmm_errors(S, X)
+        print(f"  19c blocked slab, rank {r} of {P19_WORLD}: n={S.shape[0]} "
+              f"b=4 K5 {err:.3e}", flush=True)
+        check(err <= 1e-14, f"phase 19 K5 slab: error {err:.3e}")
+    torch.cuda.empty_cache()
+
+
+def _dist_store():
+    import tempfile
+
+    return tempfile.mkdtemp(prefix="slepc_p19_")
+
+
+def phase19a(dev, wall_p3):
+    """The flagship through the mesh path in this process: one NCCL rank.
+    Phase 3's gates; its all-reduces a column printed."""
+    import torch.distributed as dist
+
+    print("phase 19a: the flagship through the row partition, one NCCL rank "
+          "on this card (HaloDIAOperator: K2 on the slab, every reduction "
+          "an all-reduce)", flush=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{_dist_store()}/s",
+                            world_size=1, rank=0)
+    try:
+        mesh = stt.make_row_mesh()
+        stt.set_mesh(mesh)
+        A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
+        stt.reset_launch_counts()
+        wall, _, st = flagship_solve(A, "phase 19a", "dia_spmv")
+        counts = stt.launch_counts()
+        c = dict(mesh.counters)
+    finally:
+        stt.set_mesh(None)
+        dist.destroy_process_group()
+    print(f"  19a wall {wall:.3f} s beside phase 3's {wall_p3:.3f} s (this "
+          f"run); all-reduces {c['allreduce']} ({c['allreduce'] / st['cols']:.2f}"
+          f" a filtered column, {st['cols']} columns; certification and "
+          f"polish included), all-gathers {c['allgather']}, halo exchanges "
+          f"{c['halo']}", flush=True)
+    check(c["allgather"] == 0, f"phase 19a: {c['allgather']} all-gathers")
+    check(c["halo"] > 0, "phase 19a: the halo path did not run")
+    return wall, counts, c
+
+
+def phase19bc(dev):
+    """Phase 19b and 19c in P19_WORLD gloo ranks spawned on this card (this
+    script with --phase19-rank); each rank checks its own gates.  Returns
+    rank 0's report."""
+    import subprocess as sp_
+
+    print(f"phase 19b/c: {P19_WORLD} gloo ranks on cuda:0 (halo rows staged "
+          f"through pinned host memory), grid {P19_GRID}", flush=True)
+    store, out = _dist_store(), _dist_store()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get(
+        "GLOO_SOCKET_IFNAME", "lo"))
+    t0 = time.perf_counter()
+    procs = [sp_.Popen([sys.executable, __file__, "--phase19-rank", str(r),
+                        "--store", store, "--out", out], env=env,
+                       stdout=sp_.PIPE, stderr=sp_.STDOUT, text=True)
+             for r in range(P19_WORLD)]
+    try:
+        outs = [p.communicate(timeout=P19_TIMEOUT)[0] for p in procs]
+    except sp_.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(outs is not None, f"phase 19b/c: ranks outlived {P19_TIMEOUT} s")
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if r == 0 or p.returncode != 0:
+            for line in text.splitlines():
+                print(f"  [rank {r}] {line}", flush=True)
+        check(p.returncode == 0, f"phase 19b/c: rank {r} failed "
+              f"(rc {p.returncode})")
+    with open(os.path.join(out, "rank0.json")) as f:
+        rep = json.load(f)
+    print(f"  phase 19b/c wall (spawn to exit) {time.perf_counter() - t0:.3f} "
+          f"s", flush=True)
+    return rep
+
+
+def _rank_resid(A, mesh, lam, X):
+    """True residuals ||A x - lam x|| / (|lam| ||x||) of this rank's rows X
+    of the eigenvectors, summed over the ranks."""
+    from slepc_tpu_torch.parallel.halo import HaloDIAOperator
+    from slepc_tpu_torch.sys.mesh import reducing, vector_norm
+
+    H = HaloDIAOperator.from_dia(A, mesh)
+    out = []
+    with reducing(H):
+        for i in range(len(lam)):
+            x = torch.zeros(H.shape[0], dtype=X.dtype, device=X.device)
+            H.interior(x).copy_(X[i])
+            r = H.mult(x) - float(lam[i]) * x
+            out.append(float(vector_norm(r) / (abs(lam[i]) * vector_norm(x))))
+    return np.asarray(out)
+
+
+def _rank_flagship(mesh, dev):
+    """19b: the flagship at full width through the partition."""
+    A = stt.laplacian_3d(*P19_GRID, dtype=torch.float64, device=dev)
+    exact = stt.laplacian_3d_eigs(*P19_GRID, k=20)
+    eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=20,
+                  tol=1e-8, options=stt.Options.from_cli(
+                      "-eps_ncv 48 -eps_cheb_degree 450"))
+    eps.cheb_keep_den = 3
+    stt.set_mesh(mesh)
+    mesh.reset_counters()
+    stt.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        eps.solve()
+        torch.cuda.synchronize()
+    finally:
+        stt.set_mesh(None)
+    wall = time.perf_counter() - t0
+    counts, c = stt.launch_counts(), dict(mesh.counters)
+    k = min(eps.nconv, 20)
+    lam = np.sort(np.asarray(eps.eigenvalues[:k], np.float64))
+    err = np.abs(lam - exact[:k]).max() if k else np.inf
+    resid = _rank_resid(A, mesh, eps.eigenvalues[:k],
+                        eps._eigenvectors[:k]).max() if k else np.inf
+    st = eps.cheb_stats
+    print(f"19b: nconv={eps.nconv} wall={wall:.3f} s cycles={st['cycles']} "
+          f"cols={st['cols']} max true rel resid={resid:.3e} "
+          f"max|lam-exact|={err:.3e}; all-reduces {c['allreduce']} "
+          f"({c['allreduce_bytes']} B), all-gathers {c['allgather']}, halo "
+          f"exchanges {c['halo']} ({c['halo_bytes'] / 1e9:.3f} GB sent, "
+          f"staging {c['halo_stage_s']:.3f} s)", flush=True)
+    check(eps.nconv == 20, f"phase 19b: nconv {eps.nconv} != 20")
+    check(resid <= 1e-8, f"phase 19b: true residual {resid:.3e}")
+    check(err <= 1e-9, f"phase 19b: |lam - exact| {err:.3e}")
+    check(c["allgather"] == 0 and c["halo"] > 0,
+          f"phase 19b: all-gathers {c['allgather']}, halos {c['halo']}")
+    fam = family_counts(counts, "f64")
+    check(all(v > 0 for v in fam.values()),
+          f"phase 19b: a kernel did not launch: {fam}")
+    return {"wall": wall, "nconv": eps.nconv, "resid": float(resid),
+            "err": float(err), "cols": st["cols"], "counters": c,
+            "launches": counts}
+
+
+def _one_card(fn):
+    """``fn()`` with no mesh and no partitioned reductions: the single-card
+    port's result on this rank's card."""
+    stt.set_mesh(None)
+    return fn()
+
+
+def _rank_small(mesh, dev):
+    """19c: the small paths at the reference tests' sizes, each against the
+    single-card port's result on the same card."""
+    from slepc_tpu_torch.bv.orthog import tsqr
+    from slepc_tpu_torch.parallel.tasks import make_task_mesh
+
+    out = {}
+    launches = dict.fromkeys(stt.launch_counts(), 0)
+
+    def counted(fn):
+        """fn() with the launch counts read from zero around it: only the
+        partitioned runs add to 19c's launches, never the one-card ones."""
+        stt.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = stt.launch_counts()
+        for k, v in got.items():
+            launches[k] += v
+        return res, got
+
+    def eps_vals(make_A, setup, mesh_):
+        A = make_A()
+        eps = stt.EPS(A, problem_type="hep", which="smallest_real", nev=6,
+                      ncv=28, tol=1e-9, max_it=3000, options=stt.Options())
+        setup(eps)
+        stt.set_mesh(mesh_)
+        try:
+            eps.solve()
+        finally:
+            stt.set_mesh(None)
+        return eps.nconv, np.sort(np.asarray(eps.eigenvalues[:6], float))
+
+    exact = stt.laplacian_2d_eigs(95, 97, k=6)
+    csr = rcm_order(stt.laplacian_2d(95, 97, device="cpu").to_scipy())
+    # the kernel each partitioned form must launch on the rank's slab
+    for where, make_A, setup, kernel in (
+            ("blocked b=4 DIA", lambda: stt.laplacian_2d(
+                95, 97, dtype=torch.float64, device=dev),
+             lambda e: setattr(e, "block_size", 4), "dia_spmm_f64"),
+            ("RCM CSR", lambda: stt.from_scipy(csr, device=dev),
+             lambda e: None, "csr_spmv_f64")):
+        mesh.reset_counters()
+        (n1, lam1), got = counted(lambda: eps_vals(make_A, setup, mesh))
+        c = dict(mesh.counters)
+        n0, lam0 = _one_card(lambda: eps_vals(make_A, setup, None))
+        e_exact = float(np.abs(lam1 - exact).max())
+        e_one = float(np.abs(lam1 - lam0).max())
+        print(f"19c {where}: nconv {n1} (one card {n0}) max|lam-exact|="
+              f"{e_exact:.3e} max|lam-one card|={e_one:.3e} halos "
+              f"{c['halo']} all-gathers {c['allgather']} {kernel} launches "
+              f"{got[kernel]}", flush=True)
+        check(n1 >= 6 and n0 >= 6 and e_exact <= 1e-9 and e_one <= 1e-10,
+              f"phase 19c {where}: nconv {n1}/{n0}, {e_exact:.3e}, {e_one:.3e}")
+        check(c["halo"] > 0 and c["allgather"] == 0 and got[kernel] > 0,
+              f"phase 19c {where}: not the partitioned form on {kernel} "
+              f"({c}, {got[kernel]} launches)")
+        out[where] = e_one
+    # TSQR on a 1,060,800 x 32 block against one QR of the whole block
+    n, m = 1_060_800, 32
+    gen = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randn((m, n), generator=gen, dtype=torch.float64, device=dev)
+    lo, hi = mesh.row_range(n)
+    mesh.reset_counters()
+    (Q, R), got = counted(lambda: tsqr(X[:, lo:hi].contiguous(), mesh))
+    c = dict(mesh.counters)
+    _, R1 = torch.linalg.qr(X.T)
+    R1 = R1.cpu().numpy()
+    G = mesh.allreduce(Q @ Q.T)
+    orth = float((G - torch.eye(m, dtype=G.dtype, device=dev)).abs().max())
+    rec = mesh.allreduce((Q.T @ torch.from_numpy(R).to(dev) - X[:, lo:hi].T)
+                         .abs().max().reshape(1), "max")
+    rec = float(rec[0]) / float(X.abs().max())
+    e_r = float(np.abs(np.abs(R) - np.abs(R1)).max() / np.abs(R1).max())
+    print(f"19c TSQR {n} x {m}: |Q^T Q - I| {orth:.3e}, |QR - X| {rec:.3e}, "
+          f"|R| vs one card {e_r:.3e}, all-gathers {c['allgather']}, "
+          f"rotate_f64 launches {got['rotate_f64']}", flush=True)
+    check(orth <= 1e-12 and rec <= 1e-12 and e_r <= 1e-12
+          and c["allgather"] == 1 and got["rotate_f64"] > 0,
+          f"phase 19c TSQR: {orth:.3e} {rec:.3e} {e_r:.3e} {c} "
+          f"{got['rotate_f64']}")
+    del X, Q, G
+    # CISS with a task mesh over the points (13c's operator at 2^18 rows)
+    ref = gd_reference(CISS_LOG2)
+
+    def ciss(task_mesh):
+        A = gd_operator(CISS_LOG2, dev)
+        eps = stt.EPS(A, problem_type="hep", solver="ciss", tol=CISS_TOL,
+                      options=stt.Options())
+        eps.set_rg(stt.RGEllipse(center=2.0, radius=3.0, vscale=0.3))
+        eps.ciss_solver = "batched"
+        eps.ciss_task_mesh = task_mesh
+        t0 = time.perf_counter()
+        eps.solve()
+        torch.cuda.synchronize()
+        return (eps.nconv, np.sort(np.asarray(eps.eigenvalues).real),
+                time.perf_counter() - t0)
+
+    tm = make_task_mesh(device=dev)
+    (n1, lam1, w1), _ = counted(lambda: ciss(tm))
+    n0, lam0, w0 = _one_card(lambda: ciss(None))
+    e_one = float(np.abs(lam1 - lam0).max() / np.abs(lam0).max()) \
+        if n1 == n0 else np.inf
+    e_ref = float(np.abs(lam1[:GD_NEV] - ref).max() / np.abs(ref).max())
+    print(f"19c CISS task mesh 2^{CISS_LOG2}: nconv {n1} (one card {n0}), "
+          f"wall {w1:.3f} s (one card {w0:.3f} s), rel |lam - one card| "
+          f"{e_one:.3e}, vs the leading block {e_ref:.3e}, all-gathers "
+          f"{tm.counters['allgather']}", flush=True)
+    check(n1 == n0 == GD_NEV and e_one <= GD_REL and e_ref <= GD_REL,
+          f"phase 19c CISS: nconv {n1}/{n0}, {e_one:.3e}, {e_ref:.3e}")
+    # markov(100) NHEP and the 120 x 80 SVD through shard_operator
+
+    def nhep(shard):
+        A = stt.markov(100, device=dev)
+        if shard:
+            A = stt.shard_operator(A, mesh)
+        eps = stt.EPS(A, problem_type="nhep", nev=4, options=stt.Options())
+        eps.solve()
+        lam = np.asarray(eps.eigenvalues[:eps.nconv])
+        return eps.nconv, lam[np.lexsort((lam.imag, lam.real))], A.shard_form
+
+    def svd(shard):
+        A = stt.DenseOperator(svd_small_cases()[0], device=dev)
+        if shard:
+            A = stt.shard_operator(A, mesh)
+        s = stt.SVD(A, nsv=5, solver="trlanczos")
+        s.solve()
+        return s.nconv, np.asarray(s.sigma[:5]), A.shard_form
+
+    for where, fn in (("markov(100) NHEP", nhep), ("120 x 80 SVD", svd)):
+        mesh.reset_counters()
+        (n1, v1, form), _ = counted(lambda: fn(True))
+        c = dict(mesh.counters)
+        n0, v0, _ = _one_card(lambda: fn(False))
+        e = float(np.abs(v1 - v0).max()) if n1 == n0 else np.inf
+        print(f"19c {where} through shard_operator ({form}): nconv {n1} (one "
+              f"card {n0}), max|value - one card|={e:.3e}, all-gathers "
+              f"{c['allgather']}", flush=True)
+        check(n1 == n0 and n1 >= 4 and e <= 1e-10 and form == "rows"
+              and c["allgather"] > 0, f"phase 19c {where}: {n1}/{n0} {e:.3e}")
+    return {"launches": launches}
+
+
+def phase19_rank(args):
+    """One of phase 19b/c's gloo ranks (this script with --phase19-rank)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    logging.basicConfig(level=logging.WARNING)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{args.store}/s",
+                            world_size=P19_WORLD, rank=args.phase19_rank,
+                            timeout=datetime.timedelta(seconds=P19_TIMEOUT))
+    mesh = stt.make_row_mesh()
+    dev = mesh.device
+    _build.load()
+    rep = {"b": _rank_flagship(mesh, dev), "c": _rank_small(mesh, dev)}
+    if mesh.rank == 0:
+        with open(os.path.join(args.out, "rank0.json"), "w") as f:
+            json.dump(rep, f)
+    dist.destroy_process_group()
+    return 0
+
+
+# ---- phase 20: the examples on the card ------------------------------------
+
+# runs a script and prints the launch counts it made as its last line
+_LAUNCHES = """import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+import slepc_tpu_torch
+print("LAUNCHES " + json.dumps(slepc_tpu_torch.launch_counts()))
+"""
+
+
+def phase20(dev):
+    """Every examples_torch/ script on the card, its printed numbers held
+    against the same copy run with SLEPC_TPU_TORCH_DEVICE=cpu (the tests'
+    comparison, tests/_example_pairs.py).  Returns the card runs' summed
+    launch counts."""
+    import subprocess as sp_
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import _example_pairs as pairs
+
+    names = sorted(f for f in os.listdir(os.path.join(root, "examples_torch"))
+                   if f.endswith(".py"))
+    print(f"phase 20: the {len(names)} examples_torch/ scripts on the card "
+          f"against their CPU runs", flush=True)
+
+    def run(name, cpu):
+        env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+        env.pop("SLEPC_TPU_TORCH_DEVICE", None)
+        if cpu:
+            env["SLEPC_TPU_TORCH_DEVICE"] = "cpu"
+        t0 = time.perf_counter()
+        p = sp_.run([sys.executable, "-c", _LAUNCHES,
+                     os.path.join(root, "examples_torch", name)], cwd=root,
+                    env=env, capture_output=True, text=True, timeout=300)
+        return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as card, ThreadPoolExecutor(4) as host:
+        on_card = {n: card.submit(run, n, False) for n in names}
+        on_cpu = {n: host.submit(run, n, True) for n in names}
+        on_card = {n: f.result() for n, f in on_card.items()}
+        on_cpu = {n: f.result() for n, f in on_cpu.items()}
+    total = None
+    for n in names:
+        (rc_c, out_c, err_c, w_c), (rc_h, out_h, err_h, w_h) = \
+            on_card[n], on_cpu[n]
+        check(rc_c == 0, f"phase 20 {n} on the card failed:\n"
+              f"{(out_c + err_c)[-2000:]}")
+        check(rc_h == 0, f"phase 20 {n} on the CPU failed:\n"
+              f"{(out_h + err_h)[-2000:]}")
+        tail = [ln for ln in out_c.splitlines() if ln.startswith("LAUNCHES ")]
+        launches = json.loads(tail[-1].split(" ", 1)[1])
+        total = launches if total is None else \
+            {k: total[k] + launches[k] for k in total}
+        vc, cc, ec = pairs._numbers(out_c)
+        vh, ch, eh = pairs._numbers(out_h)
+        bound = pairs.BOUND.get(n, 1e-8)
+        err = float(np.max(np.abs(vc - vh) / np.maximum(np.abs(vh), 1.0))) \
+            if vc.shape == vh.shape and vc.size else np.inf
+        used = {k: v for k, v in launches.items() if v}
+        print(f"  {n}: card {w_c:.2f} s, CPU {w_h:.2f} s, {vc.size} values "
+              f"max rel diff {err:.2e}, counts {cc} / {ch}, max error "
+              f"{max(ec.max(initial=0), eh.max(initial=0)):.2e} (bound "
+              f"{bound:g}); launches {used}", flush=True)
+        check(vc.shape == vh.shape and vc.size > 0
+              and np.allclose(vc, vh, rtol=1e-8, atol=1e-8),
+              f"phase 20 {n}: values differ (max rel {err:.2e})")
+        check(cc == ch, f"phase 20 {n}: counts {cc} != {ch}")
+        check(ec.size == eh.size and (ec <= bound).all()
+              and (eh <= bound).all(), f"phase 20 {n}: errors {ec} / {eh}")
+        check(sum(launches.values()) > 0, f"phase 20 {n}: no kernel launched")
+    print(f"  phase 20 wall {time.perf_counter() - t0:.3f} s", flush=True)
+    return total
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -5115,11 +5580,18 @@ def main():
                              "its two GD paths; after phase 17: a "
                              "torch.profiler split of a phase-17a toar "
                              "solve")
+    # phase 19b/c's ranks: this script again, one process a rank
+    parser.add_argument("--phase19-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--store", help=argparse.SUPPRESS)
+    parser.add_argument("--out", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if args.phase19_rank is not None:
+        return phase19_rank(args)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="    %(message)s")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5290,6 +5762,23 @@ def main():
     wall_18 = time.perf_counter() - t18
     print(f"  phase 18 wall (kernel checks and solves): {wall_18:.3f} s",
           flush=True)
+    # phase 19 (the row partition): the kernels at the slab shapes, the flagship
+    # through the partition in this process (19a) and in two spawned ranks
+    # (19b), and the small paths there (19c); each read from zero
+    t19 = time.perf_counter()
+    phase19_kernels(dev)
+    wall_19a, counts_19a, _ = phase19a(dev, wall)
+    rep19 = phase19bc(dev)
+    p19_paths = (counts_19a, rep19["b"]["launches"], rep19["c"]["launches"])
+    for part, counts_19 in zip(("a", "b (rank 0)", "c (rank 0)"), p19_paths):
+        print(f"  phase 19{part} launches: "
+              f"{ {k: v for k, v in counts_19.items() if v} }", flush=True)
+    p19 = {k: sum(p[k] for p in p19_paths) for k in counts_19a}
+    wall_19 = time.perf_counter() - t19
+    print(f"  phase 19 wall (kernel checks and solves): {wall_19:.3f} s",
+          flush=True)
+    # phase 20: the examples' port copies, card against CPU
+    p20 = phase20(dev)
     if args.profile:
         profile_solve("phase 17a toar", lambda: pep_run(
             "profiled 17a toar", stt.PEP(list(damped_quadratic(dev)),
@@ -5344,7 +5833,7 @@ def main():
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              plain_path, nhep_path, small_nhep_path) + complex_paths \
         + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths \
-        + p18_paths
+        + p18_paths + p19_paths + (p20,)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -5361,6 +5850,8 @@ def main():
                         "launches_p16": p16[key],
                         "launches_p17": p17[key],
                         "launches_p18": p18[key],
+                        "launches_p19": p19[key],
+                        "launches_p20": p20[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -5381,7 +5872,8 @@ def main():
               f"{k['launches_p13']}, phase 14: {k['launches_p14']}, phase "
               f"12d: {k['launches_p12d']}, phase 15: {k['launches_p15']}, "
               f"phase 16: {k['launches_p16']}, phase 17: "
-              f"{k['launches_p17']}, phase 18: {k['launches_p18']})",
+              f"{k['launches_p17']}, phase 18: {k['launches_p18']}, phase "
+              f"19: {k['launches_p19']}, phase 20: {k['launches_p20']})",
               flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
@@ -5410,7 +5902,10 @@ def main():
           f"{wall_17:.3f} s; NEP {NEP_N} rows: compact nleigs "
           f"{wall_18a[0]:.3f} s (first solve) / {wall_18a[1]:.3f} s, "
           + ", ".join(f"{w} {t:.3f} s" for w, t in walls_18b.items())
-          + f", phase 18 {wall_18:.3f} s on {smi_line}", flush=True)
+          + f", phase 18 {wall_18:.3f} s; row partition: flagship one NCCL "
+          f"rank {wall_19a:.3f} s, {P19_WORLD} gloo ranks on one card "
+          f"{rep19['b']['wall']:.3f} s, phase 19 {wall_19:.3f} s on "
+          f"{smi_line}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

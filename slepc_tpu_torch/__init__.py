@@ -54,9 +54,16 @@ block SpMM (K5), the CSR SpMV (K6), the CGS2 panel sweeps (K3), the restart
 rotation (K4) and the stream yardstick (K7), with complex instantiations of
 all but K7.
 
+Row partition: under ``torch.distributed`` (NCCL on cards, gloo on the
+CPU), ``set_mesh(make_row_mesh())`` sends the Hermitian fast path to each
+rank's rows (``parallel/``: halo exchange around the same kernels, one
+all-reduce per reduction), ``shard_operator`` splits any DIA / CSR
+product's rows, TSQR (``BV`` block type ``tsqr``) and CISS's task mesh
+(``eps.ciss_task_mesh``) run over the ranks.
+
 Devices: every constructor and generator takes ``device``; ``None`` means
-the CUDA card and raises without one, ``device="cpu"`` must be asked for
-(``sys/device.py``).  A tensor handed in keeps its device, and all work
+the CUDA card (or the device given to ``set_default_device``) and raises
+without one, ``device="cpu"`` must be asked for (``sys/device.py``).  A tensor handed in keeps its device, and all work
 happens where the operator lives.  A CUDA tensor goes to the kernel or
 raises; only a tensor on the CPU takes the kernel's plain PyTorch version.
 """
@@ -66,6 +73,10 @@ __version__ = "0.1.0"
 from .sys.options import Options, set_global_options, get_global_options
 from .sys.events import log_begin, log_view, log_reset, log_event
 from .sys.sort import Which, SortCriterion
+from .sys.device import set_default_device
+from .sys.mesh import (RowMesh, get_mesh, set_mesh, make_row_mesh,
+                       init_distributed, shard_operator)
+from .parallel import HaloDIAOperator, dia_spmv_halo
 from .mat.linop import (LinearOperator, DenseOperator, ShellOperator,
                         AIJOperator, DIAOperator, IdentityOperator,
                         ScaledOperator, SumOperator, ProductOperator,
@@ -106,6 +117,15 @@ __all__ = [
     "log_event",
     "Which",
     "SortCriterion",
+    "set_default_device",
+    "RowMesh",
+    "get_mesh",
+    "set_mesh",
+    "make_row_mesh",
+    "init_distributed",
+    "shard_operator",
+    "HaloDIAOperator",
+    "dia_spmv_halo",
     "LinearOperator",
     "DenseOperator",
     "ShellOperator",

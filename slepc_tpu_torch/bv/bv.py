@@ -10,9 +10,8 @@ B-metric) and ``mult_in_place`` on kernel K4.  Methods update ``array`` in
 place.  An indefinite metric (``set_matrix(B, indef=True)``, GHIEP) keeps
 the signature ``omega`` (+-1 a row, host numpy): the sweeps scale their
 coefficients by it and the norms are signed.  ``biorthogonalize_column``
-is the two-sided primitive, on K3.
-
-Not ported: the TSQR block type (ROADMAP queue 1 item 16).
+is the two-sided primitive, on K3.  The TSQR block type runs
+``orthog.tsqr`` (CholeskyQR2 under a B-metric, as the reference does).
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ class OrthogBlockType(enum.Enum):
     GS = "gs"  # row loop
     CHOL = "chol"  # CholeskyQR2
     SVQB = "svqb"
+    TSQR = "tsqr"
 
 
 class BV:
@@ -208,6 +208,9 @@ class BV:
         Bmult = self._ip_mult()
         if bt == OrthogBlockType.CHOL:
             Q, R = _orth.cholqr2(X, Bmult)
+        elif bt == OrthogBlockType.TSQR:
+            Q, R = _orth.cholqr2(X, Bmult) if Bmult is not None \
+                else _orth.tsqr(X)
         elif bt == OrthogBlockType.SVQB:
             Q, R = _orth.svqb(X, Bmult, self.omega[sl] if self.indef else None)
         elif bt == OrthogBlockType.GS:

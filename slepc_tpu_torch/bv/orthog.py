@@ -21,11 +21,10 @@ counterpart: the caller slices.  A block X is (k, n), its rows the vectors.
     unchanged; the norms are signed, sign(w^H B w) sqrt|w^H B w|.
   * Block orthonormalization: CholeskyQR / CholeskyQR2 (Gram on K3,
     Cholesky of the small Gram matrix on the host in LAPACK, triangular
-    solve as a rotation on kernel K4), SVQB (with a signature too) and
-    modified Gram-Schmidt.
-
-Not ported: ``tsqr`` / ``tsqr_shard_map`` (the multi-device TSQR, ROADMAP
-queue 1 item 16).
+    solve as a rotation on kernel K4), SVQB (with a signature too),
+    modified Gram-Schmidt and TSQR (:func:`tsqr`: one QR on one rank; on a
+    row mesh the two-stage TSQR with one all-gather of the small R
+    factors).
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ import torch
 
 from ..ops.bv import panel_dots, panel_update, panel_update_dots
 from ..ops.rotate import rotate
+from ..sys.mesh import reducing_mesh
 
 ETA = 0.7071067811865476  # refinement criterion of the reference's BV
 _PANEL = 8  # widest panel kernel K3 takes
@@ -179,3 +179,32 @@ def mgs_block(X: torch.Tensor, Bmult: Optional[Callable] = None):
         R[:j, j] = c.cpu().numpy()
         R[j, j] = nrm
     return Q, R
+
+
+def tsqr(X: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, np.ndarray]:
+    """Tall-skinny QR of the k rows of X (reference ``tsqr`` /
+    ``tsqr_shard_map``, orthog.py:188-232; SLEPc's TSQR reduction,
+    bvlapack.c:347-560).  Returns (Q, R): Q's rows orthonormal, R (a host
+    array) upper triangular, X_cols = Q_cols R.
+
+    Without a mesh (``mesh`` None and no partitioned solve running) it is
+    one ``torch.linalg.qr``.  On a row mesh X is this rank's (k, nloc) rows
+    and the QR takes four steps: a local QR of X^T; one all-gather of the
+    P small R factors (the only communication, P k^2 entries); a
+    replicated QR of their (P k, k) stack, Q2 R; and this rank's rows of
+    Q, Q2_i^T Q_loc^T, on K4 (the port's basis is row-major).  A rank with
+    fewer rows than k pads its factors with zeros, which the stack's QR
+    carries through (their rows of Q2 are zero)."""
+    mesh = mesh if mesh is not None else reducing_mesh()
+    k = X.shape[0]
+    Ql, Rl = torch.linalg.qr(X.mT)  # (nloc, r), (r, k), r = min(nloc, k)
+    if mesh is None:
+        return Ql.mT.contiguous(), Rl.cpu().numpy()
+    r = Rl.shape[0]
+    if r < k:
+        Ql = torch.cat([Ql, Ql.new_zeros((Ql.shape[0], k - r))], dim=1)
+        Rl = torch.cat([Rl, Rl.new_zeros((k - r, k))], dim=0)
+    Rall = mesh.allgather(Rl.contiguous())
+    Q2, R = torch.linalg.qr(Rall.reshape(mesh.world * k, k))
+    Q2i = Q2[mesh.rank * k: (mesh.rank + 1) * k].contiguous()
+    return rotate(Q2i, Ql.mT.contiguous()), R.cpu().numpy()

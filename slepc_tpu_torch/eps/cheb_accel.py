@@ -30,6 +30,12 @@ and every cycle its Ritz values: a non-finite value, or a growth past
 ``_MAX_GROWTH``, raises :class:`EPSError` naming the degree and the window
 (for b = 1 and b > 1 alike; the reference returns the short count, or
 nconv 0 for b > 1: a deliberate divergence).
+
+On a row mesh (a partitioned operator, ``parallel/halo.py``) the driver
+runs unchanged on each rank's slab rows: its dots, norms and Gram
+matrices go through ``mesh.allreduce``, its start vectors are the global
+draws cut to the rank's rows, and the decisions taken on rank-local data
+(the wall budget, the device's free memory) are made common first.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import torch
 from ..ops.bv import panel_dots
 from ..ops.rotate import rotate
 from ..st.cheb import ChebAmplifyOperator, cheb_value, gershgorin_upper
+from ..sys.mesh import (allreduce, any_rank, combine_norms, reduces_over_op,
+                        vector_norm)
 from .base import EPSError
 from .ks_jit import (_check_rot_mode, _hep_cycle_blocked_body,
                      _hep_cycle_body, _np_dtype, ks_hep_cycle)
@@ -74,8 +82,9 @@ class _CheckedAmplifier(ChebAmplifyOperator):
     read of two norms, beside the cycle's own read per column)."""
 
     def _checked(self, Y, X):
-        ny, nx = torch.stack([torch.linalg.vector_norm(Y),
-                              torch.linalg.vector_norm(X)]).double().cpu()
+        ny, nx = combine_norms(torch.stack(
+            [torch.linalg.vector_norm(Y),
+             torch.linalg.vector_norm(X)])).double().cpu()
         growth = float(ny) / max(float(nx), 1e-300)
         if not np.isfinite(growth) or growth > _MAX_GROWTH:
             raise _window_fault(self, growth, "a filtered block grew by")
@@ -92,7 +101,8 @@ def _rayleigh_diag(op, V, k: int) -> np.ndarray:
     """Rayleigh quotients <v_i, A v_i> of the first k rows (inf past k)."""
     lam = np.full(V.shape[0], np.inf)
     if k > 0:
-        vals = torch.stack([torch.dot(V[i], op.mult(V[i])) for i in range(k)])
+        vals = allreduce(torch.stack([torch.dot(V[i], op.mult(V[i]))
+                                      for i in range(k)]))
         lam[:k] = vals.double().cpu().numpy()
     return lam
 
@@ -109,11 +119,12 @@ def _rr_refine(op, V, k: int):
     S = torch.empty((k, k), dtype=V.dtype, device=V.device)
     for i in range(k):
         S[i] = panel_dots(Vk, op.mult(Vk[i])[None])[:, 0]
-    S = S.double().cpu().numpy()
+    S = allreduce(S).double().cpu().numpy()
     tau, Y = np.linalg.eigh(0.5 * (S + S.T))  # ascending
     X = rotate(torch.from_numpy(Y).to(V.device, V.dtype), Vk)
-    res = torch.stack([torch.linalg.vector_norm(op.mult(X[p]) - float(tau[p]) * X[p])
-                       for p in range(k)])
+    res = combine_norms(torch.stack(
+        [torch.linalg.vector_norm(op.mult(X[p]) - float(tau[p]) * X[p])
+         for p in range(k)]))
     return tau, res.double().cpu().numpy(), X
 
 
@@ -124,7 +135,7 @@ def _polish_row(op, b, sigma: float, iters: int):
 
     x = minres_fixed(lambda v: op.mult(v).sub_(v, alpha=sigma), b, iters,
                      rtol=1e-13)
-    return x / torch.linalg.vector_norm(x)
+    return x / vector_norm(x)
 
 
 def _cg_polish(op, X, tau, *, k: int, iters: int, shift_rel: float = 1e-3):
@@ -152,7 +163,7 @@ def _orthonormalize_rows(X, k: int):
     Gram is well-conditioned).  Returns a new (k, n) tensor."""
     Xk = X[:k]
     for _ in range(2):
-        G = (Xk @ Xk.T).double().cpu().numpy()
+        G = allreduce(Xk @ Xk.T).double().cpu().numpy()
         G = 0.5 * (G + G.T)
         # ridge: a rank-deficient block (degraded basis) must yield a
         # usable factor instead of NaN-poisoning the certification
@@ -175,7 +186,7 @@ def _must_drop_basis(V, kc: int) -> bool:
     row_b = V.element_size() * V.shape[1]
     need = 2.2 * kc * row_b + 1.5e9
     free, _ = torch.cuda.mem_get_info(V.device)
-    return need > free
+    return any_rank(need > free)
 
 
 def _clamp_window_exp(lo_new: float, lam1: float, hi: float, degree: int,
@@ -219,6 +230,7 @@ def _next_lo(lamA, k2: int, m_t: int, lo: float, hi: float,
     return max(lo_new, lo * 1.0000001) if lo_new > lo else lo * 1.2
 
 
+@reduces_over_op
 def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
                      degree: int = 300, seed: int = 202,
                      budget_s: float = None, log=None, m_extra: int = None,
@@ -229,9 +241,10 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
                      nrot: int = 0):
     """k smallest eigenpairs of Hermitian ``op`` via Chebyshev-amplified
     Krylov-Schur.  Returns a result dict (lam, resid, X, stats); X holds
-    the eigenvector rows on the operator's device.  ``block`` > 1 runs the
-    blocked filtered cycle (ncv must be a multiple of it); ``reorth``
-    'full' or 'partial' the single-column one (module docstring)."""
+    the eigenvector rows on the operator's device (a partitioned
+    operator's slab rows).  ``block`` > 1 runs the blocked filtered cycle
+    (ncv must be a multiple of it); ``reorth`` 'full' or 'partial' the
+    single-column one (module docstring)."""
     block = max(int(block), 1)
     if block > 1 and ncv % block != 0:
         raise ValueError(f"ncv={ncv} must be a multiple of block={block}")
@@ -246,10 +259,13 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
     stats = {"cols": 0, "cycles": 0, "adaptations": 0, "certs": 0,
              "probe_s": 0.0}
     n = op.shape[0]
+    n_g = op.n_global  # a partitioned operator's rows over every rank
 
     # ---- start vector ---------------------------------------------------
-    v0 = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
-    v0 = (v0 / torch.linalg.vector_norm(v0)).to(dtype)
+    v0 = torch.randn(n_g, generator=gen, dtype=torch.float64, device=dev)
+    # the global draw cut to this rank's rows (all of them on one process),
+    # so a partitioned solve starts where the one-card one does
+    v0 = op.local_rows(v0 / torch.linalg.vector_norm(v0)).to(dtype)
 
     # ---- bounds: hi from Gershgorin, lo from a plain one-cycle probe ----
     # the probe runs on its own small basis (<= 33 rows)
@@ -270,7 +286,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         log(f"cheb: probe ritz_min={th[0]:.4e} -> lo0={lo0:.4e}, "
             f"hi={hi:.4e} ({stats['probe_s']:.1f}s)")
         # keep the probe's best Ritz row as the start vector
-        v0 = Vp[0] / torch.linalg.vector_norm(Vp[0])
+        v0 = Vp[0] / vector_norm(Vp[0])
         del o, Vp, Hp
     elif lo0 is None:
         lo0 = hi * 1e-4
@@ -284,8 +300,8 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         # leading block: row 0 = the probe's best Ritz row, then b-1 seeded
         # random rows; CholQR2 is lower-triangular, so row 0 keeps its
         # direction
-        V[1:block] = torch.randn((block - 1, n), generator=gen,
-                                 dtype=torch.float64, device=dev).to(dtype)
+        V[1:block] = op.local_rows(torch.randn(
+            (block - 1, n_g), generator=gen, dtype=torch.float64, device=dev))
         V[:block] = _orthonormalize_rows(V, k=block)
     hdtype = _np_dtype(dtype)
     H = np.zeros((ncv + nxr, ncv), dtype=hdtype)
@@ -324,7 +340,8 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         return Hh
 
     while stats["cycles"] < max_cycles:
-        if budget_s is not None and time.perf_counter() - t_start > budget_s:
+        if budget_s is not None and any_rank(
+                time.perf_counter() - t_start > budget_s):
             log("cheb: wall budget hit")
             break
         o = cyc(bop, V, H, j0, cur_tol_b)
@@ -352,7 +369,7 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         # triggers: (a) the full m_t block is locked; (b) early-cert — the
         # wanted block plus a margin is locked and half the budget is spent
         early = (k2 >= nev + 6 and budget_s is not None
-                 and time.perf_counter() - t_start > 0.5 * budget_s)
+                 and any_rank(time.perf_counter() - t_start > 0.5 * budget_s))
         spaced = stats["cycles"] - last_cert_cycle >= 3
         if (k2 >= m_t or early) and spaced:
             last_cert_cycle = stats["cycles"]

@@ -32,9 +32,11 @@ Point solves (``eps.ciss_solver``):
 The extraction runs on the operator's device: the moments' basis by a QR
 and the SVD of its small triangle, the products with A and B through
 ``mult_block``; the small projected eigenproblems are LAPACK on the host.
-A task mesh over the points (``eps.ciss_task_mesh``) is ROADMAP.md queue 1
-item 16 and raises.  The probing block is drawn with numpy's
-``default_rng(0)``, as the reference draws it.
+A task mesh over the points (``eps.ciss_task_mesh``, ``parallel/tasks.py``
+``make_task_mesh``) splits the batched solves' points over its ranks at one
+fixed tolerance, as the reference's does (ciss.py:91-117); every rank then
+holds every solution and extracts the same pairs.  The probing block is
+drawn with numpy's ``default_rng(0)``, as the reference draws it.
 
 Outputs beside the eigenpairs: ``ciss_inner_iters`` (the batched solves'
 points x iterations, summed over buckets), ``ciss_inner_buckets``,
@@ -48,14 +50,12 @@ import scipy.linalg as sla
 import torch
 
 from ..mat.linop import AIJOperator, DenseOperator, DIAOperator
-from ..parallel.tasks import (_block_mult, batched_shifted_solves_adaptive,
-                              solve_dtype, thread_map)
+from ..parallel.tasks import (_block_mult, batched_shifted_solves,
+                              batched_shifted_solves_adaptive, solve_dtype,
+                              thread_map)
 from ..rg.rg import RGEllipse
 from .base import EPS, EPSSolver, op_mult_block
 
-_TODO_MESH = ("EPS ciss: a task mesh over the contour points "
-              "(ciss_task_mesh) is still to be ported (ROADMAP.md, queue 1, "
-              "item 16)")
 _KINDS = (AIJOperator, DenseOperator, DIAOperator)
 
 
@@ -119,8 +119,6 @@ class CISS(EPSSolver):
     extraction = "rr"  # 'rr' (Rayleigh-Ritz) | 'hankel' (Beyn block-Hankel)
 
     def solve(self, eps: EPS) -> None:
-        if getattr(eps, "ciss_task_mesh", None) is not None:
-            raise NotImplementedError(_TODO_MESH)
         rg = eps.rg
         if rg is None:
             if eps.interval is not None:
@@ -269,10 +267,15 @@ class CISS(EPSSolver):
                 Yb.device, Yb.dtype)
             S.view(M, L * n).add_(coef @ Yb.reshape(len(idx), L * n))
 
-        _, info = batched_shifted_solves_adaptive(
-            A, B, z, BV, tols=tols, nbuckets=nbk, consume=consume)
-        eps.ciss_inner_iters = info["inner_iters"]
-        eps.ciss_inner_buckets = info["buckets"]
+        task_mesh = eps.ciss_task_mesh
+        if task_mesh is not None:
+            consume(np.arange(npt), batched_shifted_solves(
+                A, B, z, BV, tol=tol_in, mesh=task_mesh))
+        else:
+            _, info = batched_shifted_solves_adaptive(
+                A, B, z, BV, tols=tols, nbuckets=nbk, consume=consume)
+            eps.ciss_inner_iters = info["inner_iters"]
+            eps.ciss_inner_buckets = info["buckets"]
         eps.ciss_point_residuals = point_res
         if bad_all:
             eps.ciss_refactored_points = sorted(bad_all)

@@ -40,6 +40,14 @@ the b x b Gram matrix on the host; the combine runs on K4.
 
 The reference's ``rot_mode`` "exact" and "ds" are the same native-precision
 K4 path here; "mixed"/"hybrid" (f32-plane rotations) are not ported.
+
+On a row mesh (``sys/mesh.py``) the basis rows are each rank's slab rows
+(``parallel/halo.py``) and every reduction over them -- each CGS2 sweep's
+coefficients, each norm, the blocked step's Gram matrices -- goes through
+``mesh.allreduce``: three all-reduces per column of the plain cycle (the
+two sweeps' coefficients and the norm), five per block step.  The host
+then reads the same reduced numbers on every rank, so every rank takes the
+same decisions.  Without a mesh the helper is the identity.
 """
 
 from __future__ import annotations
@@ -47,10 +55,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mat.linop import AIJOperator, LinearOperator
+from ..mat.linop import AIJOperator, DIAOperator, LinearOperator
 from ..ops.bv import panel_dots, panel_update, panel_update_dots
 from ..ops.rotate import rotate
 from ..sys.events import log_event
+from ..sys.mesh import (allreduce, clear_halos, combine_norms, get_mesh,
+                        reduces_over_op, shard_operator,
+                        vector_norm)
 
 _TODO_ROT = ("rot_mode={!r} is not ported (f32-plane rotations); every "
              "rotation of the port is the native-precision kernel K4, "
@@ -86,10 +97,11 @@ def _orth_sweeps(Vact, w, passes: int):
     reads per CGS2 column (bvorthog.c:91-132 single-reduction semantics).
     Returns (w orthogonalized, summed coefficients)."""
     wp = w[None]
-    c = panel_dots(Vact, wp)
+    c = allreduce(panel_dots(Vact, wp))
     c_tot = c.clone()
     for _ in range(passes - 1):
         wp, c = panel_update_dots(Vact, c, wp)
+        c = allreduce(c)
         c_tot += c
     wp = panel_update(Vact, c, wp)
     return wp[0], c_tot[:, 0]
@@ -159,13 +171,13 @@ def _finish_column(V, H, j: int, w, c_np: np.ndarray, beta: float, gen,
         # breakdown -> deterministic random restart direction
         # (krylovschur.c:298-307 role), orthogonalized twice
         Vact = V[: j + 1]
-        rnd = torch.randn(V.shape[1], generator=gen, dtype=V.dtype,
-                          device=V.device)
+        rnd = clear_halos(torch.randn(V.shape[1], generator=gen,
+                                      dtype=V.dtype, device=V.device))
         for _ in range(2):
-            rnd = panel_update(Vact, panel_dots(Vact, rnd[None]),
+            rnd = panel_update(Vact, allreduce(panel_dots(Vact, rnd[None])),
                                rnd[None])[0]
         w = rnd
-        beta_eff = float(torch.linalg.vector_norm(w))
+        beta_eff = float(vector_norm(w))
     torch.div(w, beta_eff if beta_eff > 0 else 1.0, out=V[j + 1])
     H[:, j] = 0
     H[: j + 1, j] = c_np
@@ -188,11 +200,11 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
         c_np = np.zeros(j + 1, H.dtype)
         if monitor is not None:
             w, cl = _orth_sweeps(Vloc, w, 2)
-            host = _host(cl, torch.linalg.vector_norm(w))
+            host = _host(cl, vector_norm(w))
             c_np[lo:], beta = host[:-1], float(host[-1].real)
             if monitor.need_full(H, j, j0, c_np[j], beta):
                 w, cf = _orth_sweeps(V[: j + 1], w, passes)
-                host = _host(cf, torch.linalg.vector_norm(w))
+                host = _host(cf, vector_norm(w))
                 c_np += host[:-1]
                 beta = float(host[-1].real)
         elif selective:
@@ -202,14 +214,14 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
             cl_tot = torch.zeros(j + 1 - lo, dtype=V.dtype, device=V.device)
             cs_tot = torch.zeros(nsl, dtype=V.dtype, device=V.device)
             for _ in range(2):
-                cl = panel_dots(Vloc, w[None])
+                cl = allreduce(panel_dots(Vloc, w[None]))
                 w = panel_update(Vloc, cl, w[None])[0]
                 cl_tot += cl[:, 0]
                 if nsl:
-                    cs = panel_dots(V[:nsl], w[None])
+                    cs = allreduce(panel_dots(V[:nsl], w[None]))
                     w = panel_update(V[:nsl], cs, w[None])[0]
                     cs_tot += cs[:, 0]
-            host = _host(cl_tot, cs_tot, torch.linalg.vector_norm(w))
+            host = _host(cl_tot, cs_tot, vector_norm(w))
             c_np[lo:] = host[: j + 1 - lo]
             c_np[:nsl] += host[j + 1 - lo: -1]
             beta = float(host[-1].real)
@@ -217,7 +229,7 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
             local = reorth_period > 1 and j % reorth_period != 0 and j != j0
             w, ct = _orth_sweeps(Vloc if local else V[: j + 1], w,
                                  2 if local else passes)
-            host = _host(ct, torch.linalg.vector_norm(w))
+            host = _host(ct, vector_norm(w))
             c_np[lo if local else 0:], beta = host[:-1], float(host[-1].real)
         _finish_column(V, H, j, w, c_np, beta, gen, eps_mach)
     return V, H
@@ -289,6 +301,7 @@ def _hep_cycle_body(op, V, H, j0: int, tol: float, gen, *, ncv: int,
                             keep_den=keep_den, nrot=nrot, confirm=confirm)
 
 
+@reduces_over_op
 def ks_hep_cycle(op, V, H, j0, tol, gen, ncv: int, which: str = "smallest",
                  passes: int = 2, reorth: str = "full",
                  keep_den: int = 2, rot_mode: str = "exact", nrot: int = 0,
@@ -394,29 +407,30 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
     m = (p + 1) * b
     Vact = V[:m]
     Wb = op_blk(V[p * b: m])
-    C1 = panel_dots(Vact, Wb)
+    C1 = allreduce(panel_dots(Vact, Wb))
     Wb, C2 = panel_update_dots(Vact, C1, Wb)
-    Wb = panel_update(Vact, C2, Wb)
-    host = _host(C1 + C2, panel_dots(Wb, Wb))
+    Wb = panel_update(Vact, allreduce(C2), Wb)
+    host = _host(C1 + C2, allreduce(panel_dots(Wb, Wb)))
     C, G = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
     inv1, half1 = _svqb(G, eps_mach)
     X = rotate(_mat(inv1.T, V), Wb)
-    P = panel_dots(Vact, X)
+    P = allreduce(panel_dots(Vact, X))
     X = panel_update(Vact, P, X)
-    host = _host(P, panel_dots(X, X))
+    host = _host(P, allreduce(panel_dots(X, X)))
     P, G1 = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
     lam1, U1 = _gram_eigh(G1)
     dead = lam1 < 1e-2  # live directions of X have norms near 1
     if dead.any():
         # complex normals from the seeded generator for a complex basis;
         # the refill X += R z^H along each dead direction z of G1
-        R = torch.randn((int(dead.sum()), V.shape[1]), generator=gen,
-                        dtype=V.dtype, device=V.device)
-        R /= torch.linalg.vector_norm(R, dim=1, keepdim=True)
+        R = clear_halos(torch.randn((int(dead.sum()), V.shape[1]),
+                                    generator=gen, dtype=V.dtype,
+                                    device=V.device))
+        R /= vector_norm(R, dim=1)[:, None]
         X += rotate(_mat(U1[:, dead].conj().T, V), R)
         for _ in range(2):
-            X = panel_update(Vact, panel_dots(Vact, X), X)
-        G1 = _host(panel_dots(X, X)).reshape(b, b)
+            X = panel_update(Vact, allreduce(panel_dots(Vact, X)), X)
+        G1 = _host(allreduce(panel_dots(X, X))).reshape(b, b)
     inv2, half2 = _svqb(G1, eps_mach)
     rotate(_mat(inv2.T, V), X, out=V[m: m + b])
     H[:, p * b: m] = 0
@@ -455,6 +469,7 @@ def _hep_cycle_blocked_body(op, V, H, jb0: int, tol: float, gen, *,
     return V, Hnew, kl // b, k2, theta, errest, float(np.linalg.norm(Blast))
 
 
+@reduces_over_op
 def ks_hep_cycle_blocked(op, V, H, jb0, tol, gen, ncv: int, b: int,
                          which: str = "smallest", confirm=None):
     """One BLOCK Krylov-Schur(HEP) restart cycle (thick-restart block
@@ -488,9 +503,36 @@ def _prepare_fast_operator(op):
     operator on K1/K2/K5 when it is a few dense diagonals, else CSR on K6);
     a DIA operator, the device shift-and-invert operator
     (``SinvertCGOperator``), or any other operator with a ``mult`` on its
-    device, runs as it is.  Vectors stay flat (n,): there is no padded layout."""
+    device, runs as it is.  Vectors stay flat (n,): there is no padded layout.
+
+    With a row mesh set (``sys/mesh.py`` ``set_mesh``) a square DIA
+    operator goes to its partitioned form (``parallel/halo.py``
+    ``HaloDIAOperator``: K1/K2/K5 on each rank's slab) and a CSR operator
+    of at least 4,096 rows to ``parallel/halo_pallas.py``
+    ``ShardedGELLPaddedOperator`` (K6 on the slab); a reach past the
+    nearest neighbour takes ``shard_operator``'s form (whole vectors, one
+    all-gather a product), as the reference's ``try`` leaves it to GSPMD
+    (``:1098-1104``).  Unlike the reference (world > 1), a mesh of one rank
+    routes too, so the partitioned path runs on one card."""
+    mesh = get_mesh()
     if isinstance(op, AIJOperator):
-        return op.fast_form()
+        if (mesh is not None and op.shape[0] >= 4096
+                and op.fast_form() is op):
+            from ..parallel.halo_pallas import ShardedGELLPaddedOperator
+
+            try:
+                return ShardedGELLPaddedOperator(op, mesh)
+            except ValueError:
+                return shard_operator(op, mesh)
+        op = op.fast_form()
+    if (mesh is not None and isinstance(op, DIAOperator)
+            and op.shape[0] == op.shape[1]):
+        from ..parallel.halo import HaloDIAOperator
+
+        try:
+            return HaloDIAOperator.from_dia(op, mesh)
+        except ValueError:
+            return shard_operator(op, mesh)
     return op
 
 
@@ -525,6 +567,8 @@ def _true_residual_confirm(eps, op):
     ||A|| / |lambda| times above tol: a deliberate divergence."""
     post = getattr(op, "postprocess_vec", None)
     A, B, st = eps.A, eps.B, eps.st
+    if op.mesh is not None:  # a partitioned A: its slab rows
+        A, B = op, None
 
     def confirm(V, Q, theta, errest, tol):
         errest = errest.copy()
@@ -536,14 +580,16 @@ def _true_residual_confirm(eps, op):
             bx = B.mult(x) if B is not None else x
             ax = A.mult(x)
             if st.requires_rayleigh:  # a filter: p(A)'s theta is not lambda
-                num, den = _host(torch.vdot(x, ax), torch.vdot(x, bx))
+                num, den = _host(allreduce(torch.stack(
+                    [torch.vdot(x, ax), torch.vdot(x, bx)])))
                 lam = float((num / den).real)
             else:
                 lam = float(np.asarray(st.back_transform(
                     np.array([theta[i]], np.float64)))[0])
             r = ax - lam * bx
-            rn, xn = _host(torch.linalg.vector_norm(r),
-                           torch.linalg.vector_norm(x)).real
+            rn, xn = _host(combine_norms(torch.stack(
+                [torch.linalg.vector_norm(r),
+                 torch.linalg.vector_norm(x)]))).real
             errest[i] = eps.conv_measure(lam, rn / max(xn, 1e-300))
             i += 1
         return errest
@@ -552,9 +598,16 @@ def _true_residual_confirm(eps, op):
 
 
 def ks_hep_solve(eps, op, which: str) -> None:
-    """Host loop over restart cycles; fills the EPS result fields."""
+    """Host loop over restart cycles; fills the EPS result fields.  On a
+    row mesh the eigenvalues are the same on every rank and the
+    eigenvectors are each rank's own rows (``RowMesh.gather_rows``
+    assembles them)."""
+    _ks_hep_solve(_prepare_fast_operator(op), eps, which)
+
+
+@reduces_over_op
+def _ks_hep_solve(op, eps, which: str) -> None:
     ncv = eps.ncv
-    op = _prepare_fast_operator(op)
     dtype = op.dtype
 
     # Chebyshev-amplified smallest-end path (eps.cheb_degree > 0): the
@@ -580,17 +633,21 @@ def ks_hep_solve(eps, op, which: str) -> None:
         eps.cheb_stats = res["stats"]
         eps.eigenvalues = np.array(res["lam"][:k], copy=True)
         eps.errests = np.array(res["resid"][:k], copy=True)
-        eps._eigenvectors = res["X"][:k]
+        eps._eigenvectors = op.interior(res["X"][:k])
         return
 
     bsize = int(eps.block_size or 1)
     if bsize > 1:
         ncv = -(-ncv // bsize) * bsize  # block-aligned basis
     nrow0 = max(bsize, 1)
-    V = torch.zeros((ncv + nrow0, eps.n), dtype=dtype, device=op.device)
-    V[:nrow0] = torch.from_numpy(
-        _init_rows(eps.n, nrow0, _np_dtype(dtype),
-                   eps.initial_space)).to(op.device)
+    # a partitioned operator's rows are its slab's: the global start block
+    # cut to this rank's rows, so the solve starts where the one-card one does
+    rows0 = torch.from_numpy(_init_rows(eps.n, nrow0, _np_dtype(dtype),
+                                        eps.initial_space))
+    rows0 = op.local_rows(rows0)
+    V = torch.zeros((ncv + nrow0, rows0.shape[1]), dtype=dtype,
+                    device=op.device)
+    V[:nrow0] = rows0.to(op.device)
     H = np.zeros((ncv + nrow0, ncv), dtype=_np_dtype(dtype))
     gen = torch.Generator(device=op.device).manual_seed(12345)
     confirm = _true_residual_confirm(eps, op) if (
@@ -633,7 +690,7 @@ def ks_hep_solve(eps, op, which: str) -> None:
     eps.eigenvalues = np.asarray(
         eps.st.back_transform(theta[:k2].astype(np.float64)))
     eps.errests = errest[:k2].copy()
-    X = V[:k2].clone()
+    X = op.interior(V[:k2]).clone()  # this rank's own rows
     if filtered and k2 > 0:
         _filtered_finish(eps, X)
         return

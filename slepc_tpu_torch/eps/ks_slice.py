@@ -16,8 +16,11 @@ so its factorization, inertia and solves stay on the operator's device
 (``ksp/tridiag_device.py``).
 
 With ``eps.slice_npart = p > 1`` the interval splits into p
-inertia-balanced partitions, which run one after another (pinning each to
-its own devices is ROADMAP queue 1 item 16).
+inertia-balanced partitions, which run one after another on the
+operator's device.  The reference runs them on disjoint device groups
+(``slice_submeshes``); here that needs A, B and the factor cache placed
+on each group's card, which waits for a test on several cards (ROADMAP
+item 8).
 """
 
 from __future__ import annotations

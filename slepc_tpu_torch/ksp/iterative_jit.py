@@ -7,6 +7,9 @@ updates are masked to zero (``torch.where``), so the host never waits on the
 device inside the loop -- a host read per step would cost ``iters``
 synchronizations per Krylov column -- and extra iterations are harmless
 (the count is an upper bound, not an exact schedule).
+
+MINRES's dots and norms go through ``sys/mesh.py``'s reductions, so the
+Chebyshev driver's polish runs on a row mesh's slab rows too.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from ..sys.mesh import allreduce, vector_norm
 
 
 def cg_fixed(mult: Callable, b: torch.Tensor, iters: int,
@@ -61,7 +66,7 @@ def minres_fixed(mult: Callable, b: torch.Tensor, iters: int,
     x = torch.zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    beta0 = torch.linalg.vector_norm(b)
+    beta0 = vector_norm(b)
     v = b / torch.where(beta0 > 0, beta0, one)
     v_old = torch.zeros_like(b)
     w = torch.zeros_like(b)
@@ -75,9 +80,9 @@ def minres_fixed(mult: Callable, b: torch.Tensor, iters: int,
     for _ in range(iters):
         live = eta.abs() > stop
         r_new = mult(v)
-        alpha = torch.dot(v, r_new)
+        alpha = allreduce(torch.dot(v, r_new))
         r_new.sub_(alpha * v).sub_(beta * v_old)
-        beta_new = torch.linalg.vector_norm(r_new)
+        beta_new = vector_norm(r_new)
         # two previous rotations
         delta = c * alpha - c_old * s * beta
         gamma2 = s * alpha + c_old * c * beta

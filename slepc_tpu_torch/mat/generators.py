@@ -32,6 +32,7 @@ def laplacian_1d(n: int, dtype=torch.float64, device=None) -> DIAOperator:
     """
     device = resolve_device(device)
     i = torch.arange(n, device=device)
+    dtype = as_torch_dtype(dtype)  # a numpy dtype too, as the reference takes
     main = torch.full((n,), 2.0, dtype=dtype, device=device)
     lo = _neighbor(i > 0, dtype)  # entry A[i, i-1] stored at row i
     hi = _neighbor(i < n - 1, dtype)  # entry A[i, i+1] stored at row i
@@ -50,6 +51,7 @@ def laplacian_2d(nx: int, ny: int | None = None, dtype=torch.float64,
     device = resolve_device(device)
     i = torch.arange(n, device=device)
     ix = i % nx
+    dtype = as_torch_dtype(dtype)  # a numpy dtype too, as the reference takes
     main = torch.full((n,), 4.0, dtype=dtype, device=device)
     east = _neighbor(ix < nx - 1, dtype)
     west = _neighbor(ix > 0, dtype)
@@ -72,6 +74,7 @@ def laplacian_3d(nx: int, ny: int | None = None, nz: int | None = None,
     ix = i % nx
     iy = (i // nx) % ny
     iz = i // (nx * ny)
+    dtype = as_torch_dtype(dtype)  # a numpy dtype too, as the reference takes
     main = torch.full((n,), 6.0, dtype=dtype, device=device)
     diags = torch.stack([
         _neighbor(iz > 0, dtype), _neighbor(iy > 0, dtype),

@@ -76,6 +76,28 @@ class LinearOperator:
     shape: Tuple[int, int]
     dtype: torch.dtype
     device: torch.device
+    # the row mesh of a partitioned operator (``parallel/halo.py``); an
+    # operator of one process holds every row, so the row maps below are
+    # the identity
+    mesh = None
+    # the rows [lo, hi) this rank owns of an operator whose products keep
+    # vectors whole (``sys/mesh.py`` ``shard_operator``); None: every row
+    own_rows = None
+
+    @property
+    def n_global(self) -> int:
+        """Rows of the whole operator, over every rank."""
+        return self.shape[0]
+
+    def local_rows(self, X: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a global (..., n_global) block."""
+        return X
+
+    def interior(self, X: torch.Tensor) -> torch.Tensor:
+        """This process's own rows of its local rows X."""
+        if self.own_rows is None:
+            return X
+        return X[..., self.own_rows[0]: self.own_rows[1]]
 
     @property
     def n(self) -> int:
@@ -173,6 +195,10 @@ class LinearOperator:
 class DenseOperator(LinearOperator):
     """A dense matrix; ``mult`` is a matrix-vector product."""
 
+    # set by sys/mesh.py shard_operator: this rank's rows and an all-gather
+    row_shard = row_shard_h = None
+    shard_form = shard_form_h = None
+
     def __init__(self, A, device=None):
         self.A = _place(A, device)
         self.shape = tuple(self.A.shape)
@@ -180,9 +206,13 @@ class DenseOperator(LinearOperator):
         self.device = self.A.device
 
     def mult(self, x):
+        if self.row_shard is not None:
+            return self.row_shard(x)
         return apply_by_parts(lambda v: self.A @ v, x, self.dtype)
 
     def mult_h(self, x):
+        if self.row_shard_h is not None:
+            return self.row_shard_h(x)
         return apply_by_parts(lambda v: self.A.mH @ v, x, self.dtype)
 
     def to_dense(self):
@@ -226,6 +256,10 @@ class DIAOperator(LinearOperator):
     array goes onto ``device`` (default: the card).
     """
 
+    # set by sys/mesh.py shard_operator: this rank's rows and an all-gather
+    row_shard = row_shard_block = None
+    shard_form = None
+
     def __init__(self, offsets: Sequence[int], diags, shape=None,
                  device=None):
         self.offsets = tuple(int(o) for o in offsets)
@@ -255,6 +289,8 @@ class DIAOperator(LinearOperator):
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
         self._check_len(x, "mult")
+        if self.row_shard is not None:
+            return self.row_shard(x)
         return apply_by_parts(lambda v: dia_spmv(self.offsets, self.diags, v),
                               x, self.dtype)
 
@@ -263,6 +299,8 @@ class DIAOperator(LinearOperator):
         once for every chunk of at most ``SPMM_MAX_B`` (8) rows of X; a
         block of any height, on every device."""
         self._check_len(X, "mult_block")
+        if self.row_shard_block is not None:
+            return self.row_shard_block(X)
         return apply_by_parts(lambda V: dia_spmm(self.offsets, self.diags, V),
                               X, self.dtype)
 
@@ -318,6 +356,10 @@ class AIJOperator(LinearOperator):
     MPIAIJ MatMult role.
     """
 
+    # set by sys/mesh.py shard_operator: this rank's rows and an all-gather
+    row_shard = None
+    shard_form = shard_form_h = None
+
     def __init__(self, rowptr, cols, vals, shape):
         self.rowptr = rowptr.to(torch.int64).contiguous()
         self.cols = cols.to(torch.int32).contiguous()
@@ -360,12 +402,18 @@ class AIJOperator(LinearOperator):
         return self._plan
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        if self.row_shard is not None:
+            return self.row_shard(x)
         return apply_by_parts(
             lambda v: csr_spmv(self.rowptr, self.cols, self.vals, v,
                                self.shape[1], plan=self.row_plan()),
             x, self.dtype)
 
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
+        return self.adjoint().mult(x)
+
+    def adjoint(self) -> "AIJOperator":
+        """The CSR of A^H, built on the device at the first call and kept."""
         if self._adjoint is None:
             # a stable sort by column keeps each column's rows ascending
             order = torch.argsort(self.cols, stable=True)
@@ -380,7 +428,7 @@ class AIJOperator(LinearOperator):
                 rowptr, row_of_entry(self.rowptr)[order],
                 torch.conj_physical(self.vals[order]),
                 (self.shape[1], self.shape[0]))
-        return self._adjoint.mult(x)
+        return self._adjoint
 
     def norm_estimate(self) -> float:
         return float(torch.linalg.vector_norm(self.vals))

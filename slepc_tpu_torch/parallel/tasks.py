@@ -1,5 +1,6 @@
-"""Batched shifted solves over contour points, and a host thread pool
-(``slepc_tpu/parallel/tasks.py``, in part).
+"""Task parallelism: batched shifted solves over contour points, task
+meshes, slicing sub-meshes and a host thread pool
+(``slepc_tpu/parallel/tasks.py``).
 
 Reference: SLEPc's subcommunicator machinery for CISS integration points
 (slepccontour.c:85-168).  The reference batches the points' shifted solves
@@ -15,8 +16,14 @@ factorizations run on a thread pool (:func:`thread_map`).
 Layout: a right-hand side block is the row-major (L, n) tensor of the
 reference's (n, L) columns, and the solutions come back as (points, L, n).
 
-Not ported: the device meshes ``make_task_mesh``, ``slice_submeshes`` and
-``thread_map_submesh`` (ROADMAP.md, queue 1, item 16).
+The reference's subcommunicators (SLEPc's PetscSubcomm) map to process
+groups here: :func:`make_task_mesh` is a ``torch.distributed`` group over
+the ranks, and ``batched_shifted_solves(mesh=)`` gives each rank a
+contiguous block of the points and one all-gather joins the solutions.
+:func:`slice_submeshes` groups the visible cards, and
+:func:`thread_map_submesh` runs each item with its group's lead card as
+the current card.  That moves no tensor: an item whose tensors already
+sit on a card runs there.
 """
 
 from __future__ import annotations
@@ -29,9 +36,7 @@ import torch
 from ..mat.linop import (AIJOperator, DenseOperator, DIAOperator,
                          LinearOperator, apply_by_parts)
 from ..ops.csr import row_of_entry
-
-_TODO_MESH = ("a task mesh for the contour points is still to be ported "
-              "(ROADMAP.md, queue 1, item 16)")
+from ..sys.mesh import RowMesh
 
 
 def _op_diag(op, n: int) -> torch.Tensor:
@@ -154,15 +159,20 @@ def batched_shifted_solves(A, B, z: np.ndarray, RHS, *, tol: float = 1e-10,
     (Jacobi-preconditioned BiCGStab, B=None meaning the identity).  RHS is
     (L, n); returns Y as a (npt, L, n) complex tensor on A's device.  The
     reference runs jax.scipy's BiCGStab here, which also stops a point on a
-    breakdown; ``mesh`` (a task mesh sharding the points over device
-    groups) is ROADMAP item 16 and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_TODO_MESH)
+    breakdown.  With a task mesh (:func:`make_task_mesh`) each rank solves
+    a contiguous block of the points (every rank holds A and B whole) and
+    one all-gather gives every rank all of Y."""
     R = _rhs(A, B, RHS)
     diagA, diagB = _diags(A, B, R.shape[1])
-    zt = torch.from_numpy(np.asarray(z, dtype=complex)).to(A.device, R.dtype)
-    return _bicgstab_block_counted(A, B, zt, R, diagA.to(R.dtype),
-                                   diagB.to(R.dtype), tol, maxiter)[0]
+    zc = np.asarray(z, dtype=complex)
+    npt = len(zc)
+    lo, hi = (0, npt) if mesh is None else mesh.row_range(npt)
+    zt = torch.from_numpy(zc[lo:hi]).to(A.device, R.dtype)
+    Y = _bicgstab_block_counted(A, B, zt, R, diagA.to(R.dtype),
+                                diagB.to(R.dtype), tol, maxiter)[0]
+    if mesh is None:
+        return Y
+    return mesh.gather_rows(Y.permute(1, 2, 0), npt).permute(2, 0, 1)
 
 
 def batched_shifted_solves_adaptive(
@@ -213,6 +223,62 @@ def batched_shifted_solves_adaptive(
                                 "iters": it_max})
         info["inner_iters"] += it_max * int(idx.size)
     return Y, info
+
+
+def make_task_mesh(ntasks: Optional[int] = None,
+                   device=None) -> Optional[RowMesh]:
+    """A process group over the contour points (reference
+    ``make_task_mesh``, tasks.py:30): the first ``ntasks`` ranks (default:
+    all).  Every rank must call it (a group is made collectively); a rank
+    outside the group gets None and solves every point itself.
+    ``device``: as :class:`~slepc_tpu_torch.sys.mesh.RowMesh`'s."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    ntasks = world if ntasks is None else min(int(ntasks), world)
+    if ntasks == world:
+        return RowMesh(None, device)
+    group = dist.new_group(list(range(ntasks)))
+    return RowMesh(group, device) if dist.get_rank() < ntasks else None
+
+
+def slice_submeshes(npart: int, devices: Optional[Sequence] = None):
+    """Disjoint contiguous groups of cards for spectrum slicing's
+    partitions (reference ``slice_submeshes``, tasks.py:211; SLEPc's npart
+    subcommunicators, ks-slice.c:341-416): ``devices`` (default: every
+    visible CUDA card) split into at most ``npart`` groups of equal size,
+    in order.  None when fewer than two devices are given or one partition
+    is asked for (nothing to split)."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if npart <= 1 or len(devices) < 2:
+        return None
+    per = max(1, len(devices) // npart)
+    ngroups = min(npart, len(devices) // per)
+    return [tuple(devices[i * per:(i + 1) * per]) for i in range(ngroups)]
+
+
+def thread_map_submesh(fn, items: Sequence, meshes=None,
+                       max_workers: Optional[int] = None):
+    """:func:`thread_map` with item i run under ``torch.cuda.device`` of
+    the lead card of group i mod len(meshes): what ``fn`` allocates on the
+    current card lands there, while tensors it is handed stay on their own
+    devices.  ``meshes`` None is plain :func:`thread_map`, the reference's
+    rule (tasks.py:239-240)."""
+    if not meshes:
+        return thread_map(fn, items, max_workers)
+
+    def run(ix_item):
+        ix, item = ix_item
+        lead = meshes[ix % len(meshes)][0]
+        if lead.type != "cuda":
+            return fn(item)
+        with torch.cuda.device(lead):
+            return fn(item)
+
+    return thread_map(run, list(enumerate(items)), max_workers)
 
 
 def thread_map(fn, items: Sequence, max_workers: Optional[int] = None):

@@ -108,8 +108,16 @@ def gershgorin_upper(op) -> float:
     back to its power iteration for AIJ only because its hybrid pack hides
     the row sums (ROADMAP.md queue 3).  Any other operator: 30 steps of
     power iteration from a seeded ``torch.Generator``, times 1.1 -- an
-    estimate, NOT a guaranteed bound.
+    estimate, NOT a guaranteed bound.  A partitioned operator
+    (``parallel/halo.py``): its slab's bound, the maximum over the ranks
+    (one all-reduce MAX).
     """
+    from ..parallel.halo import SlabOperator
+
+    if isinstance(op, SlabOperator):
+        t = torch.tensor([gershgorin_upper(op.slab)], dtype=torch.float64,
+                         device=op.device)
+        return float(op.mesh.allreduce(t, "max")[0])
     if isinstance(op, DIAOperator):
         return float(op.diags.abs().sum(dim=0).max())
     if isinstance(op, AIJOperator):

@@ -30,11 +30,11 @@ import numpy as np
 import torch
 
 from ..ksp.iterative_jit import cg_fixed, minres_fixed
-from ..mat.linop import DIAOperator
+from ..mat.linop import DIAOperator, LinearOperator
 from .st import ST
 
 
-class SinvertCGOperator:
+class SinvertCGOperator(LinearOperator):
     """Self-adjoint shift-invert operator on flat vectors.
 
     ``Sop``: a :class:`DIAOperator` for A - sigma B; ``dhalf``: the D^{1/2}

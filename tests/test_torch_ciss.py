@@ -182,16 +182,38 @@ def test_ciss_stalled_points_are_solved_again_by_lu(monkeypatch):
                                rtol=1e-8)
 
 
-def test_ciss_task_mesh_names_item_16():
-    eps = tst.EPS(tst.laplacian_1d(50, device="cpu"), problem_type="hep",
-                  solver="ciss", options=tst.Options())
-    eps.set_rg(tst.RGEllipse(center=0.65, radius=0.16))
-    eps.ciss_task_mesh = object()
-    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
-        eps.solve()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttasks.batched_shifted_solves(eps.A, None, np.ones(2), np.ones((2, 50)),
-                                      mesh=object())
+def test_ciss_task_mesh_names_item_16(tmp_path):
+    """The task mesh over the contour points (the roadmap item this path
+    once raised naming): on a one-rank gloo group here it gives the solve
+    and the batched solves without a mesh; the 2- and 4-rank runs are in
+    tests/test_torch_parallel.py."""
+    import torch.distributed as dist
+
+    A = tst.laplacian_1d(50, device="cpu")
+    rg = tst.RGEllipse(center=0.65, radius=0.16)
+    z, _ = rg.contour(8)
+    R = np.random.default_rng(0).standard_normal((2, 50))
+    runs = []
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        tm = ttasks.make_task_mesh(device="cpu")
+        for mesh in (None, tm):
+            eps = tst.EPS(A, problem_type="hep", solver="ciss",
+                          options=tst.Options())
+            eps.ciss_solver = "batched"
+            eps.set_rg(rg)
+            eps.ciss_task_mesh = mesh
+            eps.solve()
+            Y = ttasks.batched_shifted_solves(A, None, z, R, mesh=mesh)
+            runs.append((eps.nconv, np.sort(eps.eigenvalues.real), Y))
+        assert tm.counters["allgather"] == 2
+    finally:
+        dist.destroy_process_group()
+    (n0, lam0, Y0), (n1, lam1, Y1) = runs
+    assert n0 == n1 > 0
+    np.testing.assert_allclose(lam1, lam0, rtol=1e-12)
+    torch.testing.assert_close(Y1, Y0, rtol=0, atol=0)
 
 
 def test_op_diag_matches_the_reference():

@@ -1611,3 +1611,46 @@ def test_nep_on_the_card(cuda, solver):
             assert counts.get(key, 0) > 0, (key, counts)
     if solver == "nleigs":
         assert counts.get("panel_update_dots_c128", 0) > 0, counts
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_row_partition_on_the_card(cuda, tmp_path, backend, world):
+    """The row partition on the card (tests/_torch_ranks.py's cases): two
+    gloo ranks sharing the card (their halo rows staged through host
+    memory) and one NCCL rank, against the one-rank port on the CPU; the
+    kernels launched in the ranks (K2, K2c, K5, K3, K4, K6)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_ranks as ranks
+
+    cases = ("halo_spmv", "halo_spmm", "tsqr", "ks_cycle", "eps_f64",
+             "eps_c128", "cheb", "blocked", "csr_rcm")
+    got = ranks.spawn(tmp_path, world, cases, timeout=300, backend=backend,
+                      device="cuda")
+    one = {c: ranks.run_case(c, None) for c in cases}
+    np.testing.assert_allclose(got["halo_spmv"]["y"], one["halo_spmv"]["y"],
+                               atol=1e-12)
+    np.testing.assert_allclose(got["halo_spmm"]["Y"], one["halo_spmm"]["Y"],
+                               atol=1e-12)
+    Q, R = got["tsqr"]["Q"], got["tsqr"]["R"]
+    np.testing.assert_allclose(Q @ Q.T, np.eye(12), atol=1e-12)
+    np.testing.assert_allclose(np.abs(R), np.abs(one["tsqr"]["R"]),
+                               atol=1e-12)
+    np.testing.assert_allclose(got["ks_cycle"]["theta"],
+                               one["ks_cycle"]["theta"], rtol=1e-9)
+    for c in ("eps_f64", "eps_c128", "cheb", "blocked", "csr_rcm"):
+        assert int(got[c]["nconv"]) == int(one[c]["nconv"]), c
+        np.testing.assert_allclose(got[c]["lam"], one[c]["lam"], rtol=1e-9)
+        assert got[c]["resid"].max() <= 1e-8, c
+        assert got[c]["n_allgather"] == 0 and got[c]["n_halo"] > 0, c
+    assert got["ks_cycle"]["first_allreduce"] <= 3 * 24
+    for c, key in (("halo_spmv", "dia_spmv_f64"), ("halo_spmm", "dia_spmm_f64"),
+                   ("ks_cycle", "panel_update_dots_f64"),
+                   ("ks_cycle", "rotate_f64"), ("tsqr", "rotate_f64"),
+                   ("blocked", "dia_spmm_f64"), ("csr_rcm", "csr_spmv_f64"),
+                   ("eps_c128", "dia_spmv_c128")):
+        assert got[c]["k_" + key] > 0, (c, key)
+    if backend == "gloo":
+        assert got["eps_f64"]["n_halo_stage_s"] > 0

@@ -59,6 +59,27 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "imported False"
 
 
+_RUN_WITH_JAX_BLOCKED = _IMPORT_ALL_WITHOUT_JAX.split("import slepc_tpu_torch")[0] \
+    + """import runpy
+runpy.run_path(sys.argv[1], run_name="__main__")
+print('ran', 'jax' in sys.modules)
+"""
+
+
+def test_example_copies_run_with_jax_blocked():
+    """The blocked-import check on examples_torch/: a copy runs with every
+    import of jax and slepc_tpu refused (the other nine run the same way in
+    tests/test_torch_examples*.py)."""
+    env = dict(__import__("os").environ, SLEPC_TPU_TORCH_DEVICE="cpu",
+               PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_WITH_JAX_BLOCKED,
+         str(ROOT / "examples_torch" / "ex5_markov.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ran False")
+
+
 def test_sources_do_not_import_jax():
     import re
 
@@ -66,7 +87,9 @@ def test_sources_do_not_import_jax():
                      re.M)
     paths = list((ROOT / "slepc_tpu_torch").rglob("*.py"))
     assert len(paths) > 30
-    for path in paths + [ROOT / "chip_smoke.py"]:
+    examples = list((ROOT / "examples_torch").glob("*.py"))
+    assert len(examples) == 10
+    for path in paths + examples + [ROOT / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert not bad.search(text), path
