@@ -58,8 +58,14 @@ Phases (each failing check raises; the script then exits non-zero):
      (block-tridiagonal LDL^T on the card) and on laplacian_1d(1,000,000)
      over a mid-spectrum interval (scanned LDL^T inertia on the card),
      count and values against the closed forms, and every factorization
-     of a slicing solve on that card backend.  The native LDL^T library
-     must build (g++): a missing one fails the run.
+     of a slicing solve on that card backend; each slice with one
+     partition, then two, one after another: the values within 1e-10 of
+     one partition's, K3 and K4 launched in that solve, its wall printed
+     beside one partition's; then, after phases 7-8's launches are read,
+     the A/B of ``slice_threads_ab``: the two partitions one after another
+     against concurrently (a thread and a CUDA stream each, the
+     reference's form), each turn's wall and values checked.  The native LDL^T library must build (g++): a missing one
+     fails the run.
 
   9. the path K3 sets the pace of, at full width: the plain (unfiltered)
      EPS(krylovschur, hep) on the 200x225x230 Laplacian, f64, ncv 48,
@@ -153,7 +159,8 @@ Phases (each failing check raises; the script then exits non-zero):
      conj(lam) y|| / (|lam| ||y||) (the adjoint route) <= 1e-8, the values
      within 1e-10 of phase 12a's, max |y_i^H x_j| / (|y_i| |x_j|) over i !=
      j <= 2 tol max|lam| / min gap, K2c launches >= 2 x the columns of a
-     side, K3c and K4c launched; the build at 2^10 rows against
+     side, K3c and K4c launched, the SpMVs and refusals of the residual
+     check before each lock printed; the build at 2^10 rows against
      scipy.linalg.eig(left=True) (values 1e-9, each left vector within sin
      1e-8); wall, restarts, columns, ms a column, the coupling's share,
      peak memory and phase 12a's wall printed.  (b) GHIEP: the reference's
@@ -1426,6 +1433,7 @@ def report(where, eps, want, t0, tol, resid_tol=1e-8):
           f"max|lam-ref|={err:.3e} max true rel resid={resid:.3e}", flush=True)
     check(err <= tol, f"{where}: |lam - ref| {err:.3e} > {tol:.0e}")
     check(resid <= resid_tol, f"{where}: true residual {resid:.3e}")
+    return wall
 
 
 def phase8(dev):
@@ -1487,7 +1495,9 @@ def phase8(dev):
     eps.solve()
     report("STCayley HEP", eps, near(exact, target, 6), t0, 1e-9)
 
-    # spectrum slicing: block-tridiagonal LDL^T, then the scanned one
+    # spectrum slicing: block-tridiagonal LDL^T, then the scanned one; each
+    # two-partition solve is kept for slice_threads_ab
+    ab = []
     for label, A, exact, lo, backend in (
             ("laplacian_2d(95, 97)", A, exact, 2000, "btridiag_device"),
             ("laplacian_1d(1,000,000)",
@@ -1496,31 +1506,118 @@ def phase8(dev):
         a = 0.5 * (exact[lo - 1] + exact[lo])
         b = 0.5 * (exact[lo + 29] + exact[lo + 30])
         want = exact[lo: lo + 30]
-        # one partition, then two (inertia-balanced, run one after another)
+        # one partition, then two (inertia-balanced, one after another)
+        walls, values = {}, {}
         for npart in (1, 2):
             stt.log_begin()
+            before = stt.launch_counts()
             t0 = time.perf_counter()
             eps = stt.EPS(A, problem_type="hep", tol=1e-8,
                           options=stt.Options())
             eps.set_interval(a, b)
             eps.set_partitions(npart)
             eps.solve()
+            after = stt.launch_counts()
             check(eps.nconv == 30, f"slicing {label}, {npart} partition(s): "
                   f"found {eps.nconv} of 30 eigenvalues in [{a}, {b}]")
-            report(f"slicing {label}, {npart} partition(s), 30 eigenvalues "
-                   f"in [{a:.6f}, {b:.6f}]", eps, want, t0, 1e-9)
+            walls[npart] = report(
+                f"slicing {label}, {npart} partition(s), 30 eigenvalues "
+                f"in [{a:.6f}, {b:.6f}]", eps, want, t0, 1e-9)
+            values[npart] = np.sort(np.asarray(eps.eigenvalues, np.float64))
             from slepc_tpu_torch.sys.events import get_event
 
             fac = get_event("Slice_Factorization")
             print(f"  factorizations={eps.slice_factorizations} "
                   f"({fac['time']:.3f} s) backends={eps.slice_backends}",
                   flush=True)
+            if npart == 2:
+                apart = float(np.abs(values[2] - values[1]).max())
+                check(apart <= 1e-10, f"slicing {label}: two partitions' "
+                      f"values {apart:.3e} from one partition's")
+                # K3 and K4 launched in the two partitions' solve (counts
+                # read around this solve alone)
+                delta = {k: after[k] - before[k] for k in after}
+                fam = {"K3": sum(delta[f"panel_{v}_f64"] for v in (
+                           "dots", "update", "update_dots")),
+                       "K4": delta["rotate_f64"]}
+                print(f"  two partitions' launches: {fam}", flush=True)
+                check(fam["K3"] > 0 and fam["K4"] > 0, f"slicing {label}, "
+                      f"two partitions: a kernel did not launch: {fam}")
+                print(f"  two partitions one after another: the solve "
+                      f"{walls[2]:.3f} s against one partition's "
+                      f"{walls[1]:.3f} s ({walls[2] / walls[1]:.2f}x); "
+                      f"values {apart:.3e} from one partition's", flush=True)
+                # timed after phases 7-8's launches are read
+                ab.append((eps, a, b, label, values[1], walls[1]))
             # inertia and solves on the card: a host backend would pass the
             # closed-form gates unseen
             check(eps.slice_backends == (backend,), f"slicing {label}: "
                   f"factorized with {eps.slice_backends}, not {backend}")
             stt.log_reset()
         del A
+    return ab
+
+
+def slice_threads_ab(dev, eps, a, b, label, one_values, one_wall):
+    """Two slicing partitions one after another (the port's form) against
+    concurrently, a thread and a CUDA stream each (the reference's form,
+    which the port does not run: ROADMAP W7), in turns one after another,
+    concurrent, concurrent, one after another.  Every turn runs each
+    partition's worklist (``ks_slice._process_interval``) on a stream of
+    its own that first waits on the caller's, from a copy a partition of
+    the boundary search's factors (made on the caller's stream), so no
+    factor crosses streams.  Prints each turn's wall, its ratio to one
+    partition's solve and each partition's wall; fails unless every turn
+    finds the 30 values, within 1e-10 of one partition's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slepc_tpu_torch.eps import ks_slice
+
+    base = ks_slice._ShiftFactorCache(eps)
+    parts = ks_slice._partitions(base, a, b, base.inertia(a),
+                                 base.inertia(b), 2)
+    caller = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev) for _ in parts]
+    seconds = [0.0] * len(parts)
+
+    def run(ix, cache):
+        t0 = time.perf_counter()
+        streams[ix].wait_stream(caller)
+        with torch.cuda.stream(streams[ix]):
+            out = ks_slice._process_interval(eps, cache, *parts[ix])
+        streams[ix].synchronize()
+        seconds[ix] = time.perf_counter() - t0
+        return out[0]
+
+    for concurrent in (False, True, True, False):
+        caches = []
+        for _ in parts:
+            cache = ks_slice._ShiftFactorCache(eps)
+            cache._ksp, cache._inertia = dict(base._ksp), dict(base._inertia)
+            caches.append(cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if concurrent:
+            with ThreadPoolExecutor(len(parts)) as pool:
+                found = list(pool.map(run, range(len(parts)), caches))
+        else:
+            found = [run(ix, cache) for ix, cache in enumerate(caches)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lam = []
+        for x in sorted(x for f in found for x in f):
+            if ks_slice._is_new(x, lam, eps.tol):
+                lam.append(x)
+        form = "concurrently" if concurrent else "one after another"
+        check(len(lam) == 30, f"slicing {label}, two partitions {form}: "
+              f"found {len(lam)} of 30")
+        apart = float(np.abs(np.asarray(lam) - one_values).max())
+        check(apart <= 1e-10, f"slicing {label}, two partitions {form}: "
+              f"values {apart:.3e} from one partition's")
+        print(f"  A/B two partitions {form}: {wall:.3f} s "
+              f"({wall / one_wall:.2f}x one partition's solve), partitions "
+              + ", ".join(f"{t:.3f}" for t in seconds)
+              + f" s; values {apart:.3e} from one partition's", flush=True)
 
 
 def plain_solve(A, ncv, restarts, cycles=None, block_size=1):
@@ -3280,6 +3377,13 @@ def phase14a(dev, lam_12a, run_12a):
           f"({share * 100:.1f}% of the wall) peak_mem={peak:.2f} GB "
           f"launches={fam}; phase 12a's one-sided c128: {run_12a[0]:.3f} s, "
           f"{run_12a[1]} restarts, {run_12a[2]} columns", flush=True)
+    # the residual check before a pair locks: a right SpMV a candidate and
+    # a left one for every pair it would lock with (K2c, counted in the
+    # launches above)
+    print(f"  two-sided c128: the lock's residual check took "
+          f"{eps.true_residual_checks} SpMVs and refused "
+          f"{eps.true_residual_refusals} times, beside {2 * cols} SpMVs for "
+          f"the columns", flush=True)
     far = max(float(np.min(np.abs(lam_12a - v))) / abs(v) for v in lam[:TS_NEV])
     print(f"  two-sided c128: max right rel resid={right.max():.3e} max left "
           f"rel resid={left.max():.3e} max rel distance to phase 12a's "
@@ -5638,12 +5742,15 @@ def main():
     sinvert_kernels(dev)
     stt.reset_launch_counts()
     wall_sinv, wall_sinv_std = phase7(dev)
-    phase8(dev)
+    ab = phase8(dev)
     sinv_path = stt.launch_counts()
     fam = family_counts(sinv_path, "f64")
     print(f"  phases 7-8 launches: {fam}", flush=True)
     check(all(v > 0 for v in fam.values()),
           f"phases 7-8: a kernel did not launch: {fam}")
+    for case in ab:
+        slice_threads_ab(dev, *case)
+    del ab
     stt.reset_launch_counts()
     wall_plain, plain_path = phase9(dev, table)
     nhep_kernels(dev)

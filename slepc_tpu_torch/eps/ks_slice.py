@@ -17,8 +17,13 @@ so its factorization, inertia and solves stay on the operator's device
 
 With ``eps.slice_npart = p > 1`` the interval splits into p
 inertia-balanced partitions, which run one after another on the
-operator's device.  The reference runs them on disjoint device groups
-(``slice_submeshes``); here that needs A, B and the factor cache placed
+operator's device.  The reference runs them concurrently, on a thread
+pool on one device and on disjoint device groups on several
+(``thread_map_submesh`` over ``slice_submeshes``).  On one card a
+thread and a CUDA stream a partition ran slower than one after another:
+each partition is a loop of small launches whose threads hand the
+interpreter lock over at every torch call (ROADMAP W7; ``chip_smoke.py``
+phase 8 times both).  Device groups need A, B and the factor cache placed
 on each group's card, which waits for a test on several cards (ROADMAP
 item 8).
 """

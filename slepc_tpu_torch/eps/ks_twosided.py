@@ -11,7 +11,8 @@ are coupled through the oblique interaction matrix M = W^H V:
     and the left one matched to it by the nearest conj(theta) (the DSNHEPTS
     role);
   * a pair converges when both its right and its left estimate are below
-    tol;
+    tol and its true residuals, taken on the operator, confirm it
+    (``_confirmed``); a pair that fails them does not lock;
   * the thick restart rotates both bases (Q for V, Z for W) and
     re-orthonormalizes both residual vectors, their coefficients folded
     into the arrow rows;
@@ -74,6 +75,72 @@ def _project_out(B: torch.Tensor, r: torch.Tensor):
     return panel_update(B, c, r[None])[0], c[:, 0]
 
 
+def _confirmed(eps, opc, opH, V, W, M, Slock, S, TS, Q, Z, k, nv,
+               d) -> int:
+    """How many of the d leading candidates may lock: the largest i for
+    which the true right residuals ||Op x - theta x|| / ||x|| of candidates
+    0..i-1 and the true left residuals ||Op^H y - conj(theta) y|| / ||y||
+    of all k + i pairs, each under ``eps.conv_measure``, are below tol.
+
+    x and y are the vectors the finalize step would return if these pairs
+    were the last to lock: x from the eigenvector of the whole locked
+    triangle (the locked block, its coupling S[:k, k:nv] Q and TS), y from
+    W through (W^H V)^{-H} and that triangle's left eigenvectors.  A right
+    vector does not change when later pairs lock, a left one does, so every
+    locked pair's left vector is checked again.  The estimates bound the
+    residuals only while M = W^H V is well conditioned; a near-singular M
+    lets false pairs through, so the check runs always.  Each operator
+    apply counts in ``eps.true_residual_checks``; when all pass, d right
+    ones and k + d left ones."""
+    kd = k + d
+    L = np.zeros((kd, kd), complex)
+    L[:k, :k] = Slock[:k, :k]
+    L[:k, k:] = S[:k, k:nv] @ Q[:, :d]
+    L[k:, k:] = TS[:d, :d]
+    # the locked rows and the candidates' as coefficients on V[:nv], W[:nv]
+    Cv = np.zeros((nv, kd), complex)
+    Cw = np.zeros((nv, kd), complex)
+    Cv[:k, :k] = Cw[:k, :k] = np.eye(k)
+    Cv[k:, k:] = Q[:, :d]
+    Cw[k:, k:] = Z[:, :d]
+    Mk = Cw.conj().T @ M @ Cv
+    # the eigenvectors of the upper triangle L: unit diagonal, back
+    # substitution above it
+    Y = np.eye(kd, dtype=complex)
+    try:
+        for j in range(1, kd):
+            Y[:j, j] = np.linalg.solve(L[:j, :j] - L[j, j] * np.eye(j),
+                                       -L[:j, j])
+    except np.linalg.LinAlgError:
+        return 0
+
+    def holds(apply, theta, v) -> bool:
+        eps.true_residual_checks += 1
+        nrm = torch.stack([torch.linalg.vector_norm(apply(v) - theta * v),
+                           torch.linalg.vector_norm(v)]).tolist()
+        return eps.conv_measure(theta, nrm[0] / max(nrm[1], 1e-300)) \
+            < eps.tol
+
+    i = 0
+    while i < d and holds(opc.mult, L[k + i, k + i],
+                          basis_combine(V[:nv], Cv @ Y[:, k + i:k + i + 1])[0]):
+        i += 1
+    while i > 0:
+        m = k + i
+        try:
+            CL = np.linalg.solve(Mk[:m, :m].conj().T,
+                                 np.linalg.inv(Y[:m, :m]).conj().T)
+        except np.linalg.LinAlgError:
+            return 0
+        Yl = basis_combine(W[:nv], Cw[:, :m] @ CL)
+        # the candidates first, the likeliest to fail
+        if all(holds(opH.mult, np.conj(L[j, j]), Yl[j])
+               for j in [*range(k, m), *range(k)]):
+            return i
+        i -= 1
+    return 0
+
+
 def twosided_solve(eps) -> None:
     st = eps.st
     op = st.op()
@@ -105,6 +172,8 @@ def twosided_solve(eps) -> None:
     Slock = np.zeros((ncv, ncv), complex)
     eps.its = 0
     eps.coupling_seconds = 0.0
+    eps.true_residual_checks = 0
+    eps.true_residual_refusals = 0  # iterations whose check refused a pair
 
     while eps.its < eps.max_it:
         eps.its += 1
@@ -160,6 +229,11 @@ def twosided_solve(eps) -> None:
         k2 = k
         while k2 < nv and errest[k2 - k] < eps.tol:
             k2 += 1
+        if k2 > k:
+            held = _confirmed(eps, opc, opH, V, W, M, Slock, S, TS, Q, Z, k,
+                              nv, k2 - k)
+            eps.true_residual_refusals += held < k2 - k
+            k2 = k + held
         eps.nconv = k2
         eps.monitor(eps, eps.its, k2,
                     np.concatenate([eigs_locked[:k], lam_approx]),

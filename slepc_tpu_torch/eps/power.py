@@ -13,7 +13,8 @@ inverse iteration.  Shift variants (``eps.power_shift_type``):
   * 'rayleigh': Rayleigh quotient iteration, the shift moved to the current
     Rayleigh quotient every step (one host read a step);
   * 'wilkinson': run as 'constant', as the reference runs it (SLEPc's
-    Wilkinson shift is ROADMAP queue 3's open item).
+    Wilkinson shift is a reference-side divergence in ROADMAP queue 3; no
+    work is queued for it).
 
 Converged pairs are deflated: each new vector is kept orthogonal to the
 locked ones.  ``EPS.set_power_nonlinear`` runs the nonlinear inverse

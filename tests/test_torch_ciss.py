@@ -182,11 +182,10 @@ def test_ciss_stalled_points_are_solved_again_by_lu(monkeypatch):
                                rtol=1e-8)
 
 
-def test_ciss_task_mesh_names_item_16(tmp_path):
-    """The task mesh over the contour points (the roadmap item this path
-    once raised naming): on a one-rank gloo group here it gives the solve
-    and the batched solves without a mesh; the 2- and 4-rank runs are in
-    tests/test_torch_parallel.py."""
+def test_ciss_task_mesh_solves_as_without_a_mesh(tmp_path):
+    """The task mesh over the contour points: on a one-rank gloo group
+    here it gives the solve and the batched solves without a mesh; the 2-
+    and 4-rank runs are in tests/test_torch_parallel.py."""
     import torch.distributed as dist
 
     A = tst.laplacian_1d(50, device="cpu")

@@ -391,12 +391,12 @@ def test_complex_save_and_load_state_across_packages(tmp_path, pkgs):
 
 
 @pytest.mark.parametrize("what", ["block_size", "cheb_block", "sinvert"])
-def test_complex_paths_of_11a_iii_raise_naming_it(what):
-    """The three complex paths that raised before they were ported (the
-    name is kept for its ids): the blocked cycle now certifies the closed
-    form, ``cheb_block`` runs the plain cycle as the reference does
-    (against the reference's values), and the device shift-and-invert still
-    raises: the reference has none for a complex operator."""
+def test_complex_blocked_paths_solve_and_the_device_sinvert_refuses(what):
+    """The three complex paths that raised before they were ported: the
+    blocked cycle now certifies the closed form, ``cheb_block`` runs the
+    plain cycle as the reference does (against the reference's values),
+    and the device shift-and-invert still raises: the reference has none
+    for a complex operator."""
     offsets, d = gauge_laplacian_2d(12, 11)
     A = tst.DIAOperator(offsets, d, device="cpu")
     eps = tst.EPS(A, problem_type="hep", which="smallest_real", nev=2,

@@ -605,6 +605,56 @@ def test_block_tridiagonal_ldlt_on_the_card(cuda):
     assert float((A.mult(x) - 1.5 * x - rhs).norm() / rhs.norm()) <= 1e-10
 
 
+def _slicing_case(case, device):
+    """(operators, interval, problem type) of a slicing case: the
+    scanned tridiagonal, the block-tridiagonal and the host LDL^T pencil
+    (a permuted grid Laplacian as CSR, a diagonal B)."""
+    if case == "tridiag_device":
+        return [stt.laplacian_1d(400, device=device)], (0.5, 0.9), "hep"
+    if case == "btridiag_device":
+        return [stt.laplacian_2d(12, 9, device=device)], (1.0, 2.0), "hep"
+    import scipy.sparse as sp
+
+    n = 70
+    perm = np.random.default_rng(0).permutation(n)
+    L = stt.laplacian_2d(10, 7, device="cpu").to_dense().numpy()
+    A = stt.from_scipy(sp.csr_matrix(L[perm][:, perm]), device=device)
+    bd = 1.0 + 0.3 * np.cos(np.arange(n) * 0.2)
+    return [A, stt.DIAOperator((0,), bd[None, :], device=device)], \
+        (0.8, 1.7), "ghep"
+
+
+def _slice(ops, interval, problem_type, npart):
+    eps = stt.EPS(*ops, problem_type=problem_type, options=stt.Options())
+    eps.set_interval(*interval)
+    eps.set_partitions(npart)
+    eps.solve()
+    return eps
+
+
+@pytest.mark.parametrize("case", ["tridiag_device", "btridiag_device",
+                                  "ldl"])
+def test_slicing_partitions_on_the_card_match_one_partition_and_the_cpu(
+        cuda, case):
+    """Two slicing partitions on the card give one partition's values to
+    1e-10 and the CPU run's nconv, values (1e-9) and factorization count,
+    on the card's factorization backend, with kernels launched."""
+    ops, interval, pt = _slicing_case(case, cuda)
+    one = _slice(ops, interval, pt, 1)
+    stt.reset_launch_counts()
+    two = _slice(ops, interval, pt, 2)
+    assert sum(stt.launch_counts().values()) > 0
+    assert two.nconv == one.nconv > 0
+    np.testing.assert_allclose(two.eigenvalues, one.eigenvalues, rtol=0,
+                               atol=1e-10)
+    cpu = _slice(_slicing_case(case, "cpu")[0], interval, pt, 2)
+    assert cpu.nconv == two.nconv
+    assert cpu.slice_factorizations == two.slice_factorizations
+    np.testing.assert_allclose(two.eigenvalues, cpu.eigenvalues, rtol=1e-9)
+    if case != "ldl":
+        assert two.slice_backends == (case,)
+
+
 # ---- the non-Hermitian slice on the card ----------------------------------
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

@@ -305,8 +305,8 @@ def test_set_two_sided_solves_as_the_reference(pt):
         assert np.linalg.norm(Ld.T @ y - lam * y) < 1e-7
 
 
-# The complex paths that raised until they were ported (the name is kept
-# for its ids): block_size and cheb_block, each reached through another way
+# The complex paths that raised until they were ported: block_size and
+# cheb_block, each reached through another way
 # a problem turns complex (a complex A, a complex Hermitian B, a complex
 # shift of a real A), go to the general loop, which reads neither, as the
 # reference's: each solves exactly as it does without the setting.  The
@@ -323,7 +323,7 @@ def test_set_two_sided_solves_as_the_reference(pt):
     ids=["block_size-complex_A", "block_size-complex_shift",
          "cheb_block-complex_B", "STSinvertDevice-complex_shift",
          "set_power_nonlinear"])
-def test_setters_of_unported_variants_raise_naming_the_roadmap(setter, args):
+def test_complex_variants_solve_and_the_device_sinvert_refuses(setter, args):
     L = tst.laplacian_1d(20, device="cpu")
     if setter == "set_power_nonlinear":
         A = tst.DenseOperator(np.diag(np.arange(1.0, 21.0)) * (1 + 1j),
@@ -507,9 +507,8 @@ def test_complex_operators_raise_naming_11a_ii(solver):
                                [19 + 19j, 20 + 20j], atol=1e-8)
 
 
-def test_unported_solvers_name_their_items():
-    """Named for the refusals it held until the solvers were ported:
-    lyapii (item 13) now solves in both packages alike (the rightmost
+def test_lyapii_solves_and_bse_refuses_a_plain_operator():
+    """lyapii (item 13) solves in both packages alike (the rightmost
     eigenvalue of -laplacian_1d(20), the same iterations, value and
     vector); bse (item 11d) is registered and refuses an operator that is
     not a MatBSE, as the reference's does."""

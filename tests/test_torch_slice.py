@@ -90,14 +90,20 @@ def test_slice_block_tridiagonal():
     assert cache.ksp(1.5) is cache.ksp(1.5) and cache.factorizations == 1
 
 
-def test_slice_host_ldl_generalized():
-    nx, ny, interval = 10, 7, (0.8, 1.7)
+def _host_ldl_pencil(nx=10, ny=7):
+    """A permuted 2-D Laplacian (CSR: the host native LDL^T) and a
+    diagonal B."""
     n = nx * ny
     bd = 1.0 + 0.3 * np.cos(np.arange(n) * 0.2)
     rng = np.random.default_rng(0)
     perm = rng.permutation(n)
     As = sp.csr_matrix(np.asarray(jst.laplacian_2d(nx, ny).to_dense()))
-    As = As[perm][:, perm].tocsr()
+    return As[perm][:, perm].tocsr(), bd
+
+
+def test_slice_host_ldl_generalized():
+    interval = (0.8, 1.7)
+    As, bd = _host_ldl_pencil()
     je, te = _slice_both(
         lambda: [jst.from_scipy(As), jst.DIAOperator((0,), bd[None, :])],
         interval, problem_type="ghep")
@@ -118,3 +124,48 @@ def test_empty_interval():
     assert te.reason == EPSConvergedReason.CONVERGED_TOL
     assert te.slice_factorizations == 2
     assert te.slice_backends == ("tridiag_device",)
+
+
+@pytest.mark.parametrize("npart", [2, 3])
+@pytest.mark.parametrize("case", ["tridiagonal", "host_ldl_generalized"])
+def test_slice_partitions_match_the_reference(case, npart):
+    """Several partitions, one after another in the port and on the
+    reference's thread pool: the same nconv, the values within 1e-9 and
+    the reference's factorization count (every factorization one
+    ``Slice_Factorization`` event).  The true residuals are the
+    reference's: slicing certifies on the shift-and-invert estimate, and
+    at two partitions the generalized case holds a pair at 1.75e-8 in both
+    packages (tol 1e-8)."""
+    if case == "tridiagonal":
+        interval, problem_type = (0.5, 0.9), "hep"
+
+        def make():
+            return [jst.laplacian_1d(400)]
+    else:
+        interval, problem_type = (0.8, 1.7), "ghep"
+        As, bd = _host_ldl_pencil()
+
+        def make():
+            return [jst.from_scipy(As), jst.DIAOperator((0,), bd[None, :])]
+    je = jst.EPS(*make(), problem_type=problem_type, options=jst.Options())
+    je.set_interval(*interval)
+    je.set_partitions(npart)
+    je.solve()
+    ref_resid = max(je.compute_error(i) for i in range(je.nconv))
+    ops = [interop.operator_from_slepc_tpu(M, device="cpu") for M in make()]
+    tst.log_begin()
+    try:
+        te = tst.EPS(*ops, problem_type=problem_type, options=tst.Options())
+        te.set_interval(*interval)
+        te.set_partitions(npart)
+        te.solve()
+        events = get_event("Slice_Factorization")
+    finally:
+        tst.log_reset()
+    assert te.nconv == je.nconv > 5
+    assert te.reason == EPSConvergedReason.CONVERGED_TOL
+    np.testing.assert_allclose(te.eigenvalues, je.eigenvalues, rtol=1e-9)
+    assert te.slice_factorizations == je.slice_factorizations \
+        == events["count"]
+    resid = max(te.compute_error(i) for i in range(te.nconv))
+    assert resid <= max(1e-8, ref_resid * (1 + 1e-6))

@@ -9,6 +9,17 @@ nconv and its, the values within 1e-10, the left vectors within an angle of
 tie in the best-first order, and rounding decides which comes first).  The
 left residuals ||A^H y - conj(lambda) y|| are held at the reference test's
 1e-6 (tests/test_eps_advanced.py:74-90) and well below it.
+
+Before a candidate locks, the port confirms its right residual and the
+left residuals of every pair it would lock with on the operator
+(``eps.true_residual_checks`` counts the applies,
+``eps.true_residual_refusals`` the iterations it refused a candidate);
+every candidate of these cases passes the first time.  On a strongly
+non-normal tridiagonal the coupling's M = W^H V nears singularity and the
+estimates stop bounding the residuals: there the check keeps the false
+pairs out, and the reference locks them (F2).  On a mildly non-normal one
+the check refuses some candidates and the solve certifies on later
+restarts.
 """
 
 import jax
@@ -24,6 +35,7 @@ import slepc_tpu_torch as tst
 from slepc_tpu.bv.bv import biorthogonalize_column as jbiorth
 from slepc_tpu.ds import types as jtypes
 from slepc_tpu_torch import interop
+from slepc_tpu_torch.eps.base import EPSConvergedReason
 from slepc_tpu_torch.bv.bv import biorthogonalize_column as tbiorth
 from slepc_tpu_torch.ds import types as ttypes
 
@@ -77,12 +89,17 @@ def _left(eps, i):
     return y.cpu().numpy() if torch.is_tensor(y) else np.asarray(y)
 
 
-def _held(je, te, k, Ad, angle=1e-8, left_tol=1e-8):
+def _held(je, te, k, Ad, angle=1e-8, left_tol=1e-8, coupled=True):
     """nconv / its equal; the first k values within 1e-10, each port left
     vector within ``angle`` of the reference's for the same value, and its
-    left residual below ``left_tol`` relative to |lambda|."""
+    left residual below ``left_tol`` relative to |lambda|.  ``coupled``:
+    the coupled variant ran, and its true-residual check refused no
+    candidate (at least one right and one left apply a locked pair)."""
     assert te.nconv == je.nconv and te.nconv >= k
     assert te.its == je.its
+    if coupled:
+        assert te.true_residual_refusals == 0
+        assert te.true_residual_checks >= 2 * te.nconv
     jl = np.asarray(je.eigenvalues[: je.nconv])
     for i in range(k):
         lam = complex(te.eigenvalues[i])
@@ -214,7 +231,86 @@ def test_two_sided_dual_run_for_an_operator_without_adjoint():
     je, te = _both(lambda pkg: pkg.DenseOperator(Ad) if pkg is jst else
                    pkg.DenseOperator(Ad, device="cpu"), configure,
                    problem_type="nhep", nev=3, which="largest_real")
-    _held(je, te, 3, Ad)
+    _held(je, te, 3, Ad, coupled=False)
+
+
+def _non_normal_tridiagonal(n, lo, hi):
+    return sp.diags([np.full(n - 1, lo), np.full(n, 2.0), np.full(n - 1, hi)],
+                    [-1, 0, 1], format="csr")
+
+
+@pytest.mark.parametrize("n, lo, hi", [(300, -1.3, -0.7), (200, -1.3, -0.7),
+                                       (300, -1.2, -0.8)],
+                         ids=["300_1.3_0.7", "200_1.3_0.7", "300_1.2_0.8"])
+def test_two_sided_non_normal_tridiagonal_locks_no_false_pair(n, lo, hi):
+    """F2: tridiag(lo, 2, hi) is real-spectral in (0.09, 3.91) but so far
+    from normal that no pair is reachable at tol in double precision.
+    Every pair the port returns meets tol on its true right and left
+    residuals; with fewer than nev the reason is DIVERGED_ITS, never
+    CONVERGED_TOL.  The reference locks false pairs on the 300-row
+    (-1.3, -0.7) operator and reports CONVERGED_TOL with a residual above 1
+    (|lambda| up to 9e4): held as a divergence."""
+    A = _non_normal_tridiagonal(n, lo, hi)
+    te = tst.EPS(tst.from_scipy(A, device="cpu"), problem_type="nhep",
+                 nev=5, which="largest_real", options=tst.Options())
+    te.set_two_sided()
+    te.solve()
+    Ad = A.toarray()
+    for i in range(te.nconv):
+        lam = complex(te.eigenvalues[i])
+        assert te.compute_error(i) <= te.tol
+        y = _left(te, i)
+        r = Ad.conj().T @ y - np.conj(lam) * y
+        assert np.linalg.norm(r) / np.linalg.norm(y) <= te.tol * abs(lam)
+    want = EPSConvergedReason.CONVERGED_TOL if te.nconv >= 5 \
+        else EPSConvergedReason.DIVERGED_ITS
+    assert te.reason == want
+    # candidates whose estimates passed were refused on their residuals
+    assert te.true_residual_refusals > 0
+    assert te.true_residual_checks > 2 * te.nconv
+    if (n, lo, hi) == (300, -1.3, -0.7):
+        je = jst.EPS(jst.from_scipy(A), problem_type="nhep", nev=5,
+                     which="largest_real", options=jst.Options())
+        je.set_two_sided()
+        je.solve()
+        assert je.reason.name == "CONVERGED_TOL" and je.nconv >= 5
+        worst = 0.0
+        for i in range(je.nconv):
+            lam, x = je.get_eigenpair(i)
+            x = np.asarray(x)
+            worst = max(worst, np.linalg.norm(A @ x - lam * x)
+                        / np.linalg.norm(x))
+        assert worst > 1.0
+
+
+def test_two_sided_mildly_non_normal_refuses_then_certifies():
+    """tridiag(-1.1, 2, -0.9) at 200 rows, the five smallest at tol 1e-7:
+    the estimates pass candidates whose true left residuals do not (the
+    parent locked five pairs with left residuals up to 1.26e-7), the check
+    refuses them, and later restarts certify: CONVERGED_TOL with at least
+    nev pairs, each with true right and left residuals below tol."""
+    n, tol = 200, 1e-7
+    A = _non_normal_tridiagonal(n, -1.1, -0.9)
+    te = tst.EPS(tst.from_scipy(A, device="cpu"), problem_type="nhep",
+                 nev=5, which="smallest_real", options=tst.Options())
+    te.set_tolerances(tol=tol)
+    te.set_two_sided()
+    te.solve()
+    assert te.reason == EPSConvergedReason.CONVERGED_TOL and te.nconv >= 5
+    assert te.true_residual_refusals > 0
+    assert te.true_residual_checks > 2 * te.nconv
+    Ad = A.toarray()
+    for i in range(te.nconv):
+        lam = complex(te.eigenvalues[i])
+        assert te.compute_error(i) <= tol
+        y = _left(te, i)
+        r = Ad.conj().T @ y - np.conj(lam) * y
+        assert np.linalg.norm(r) / np.linalg.norm(y) <= tol * abs(lam)
+    # the closed form: 2 - 2 sqrt(0.99) cos(j pi / (n + 1)), j = 1, 2, ...
+    exact = 2 - 2 * np.sqrt(0.99) * np.cos(np.arange(1, te.nconv + 1)
+                                           * np.pi / (n + 1))
+    np.testing.assert_allclose(np.sort(te.eigenvalues.real), exact,
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128],
