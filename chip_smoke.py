@@ -64,8 +64,16 @@ Phases (each failing check raises; the script then exits non-zero):
      beside one partition's; then, after phases 7-8's launches are read,
      the A/B of ``slice_threads_ab``: the two partitions one after another
      against concurrently (a thread and a CUDA stream each, the
-     reference's form), each turn's wall and values checked.  The native LDL^T library must build (g++): a missing one
-     fails the run.
+     reference's form), each turn's wall and values checked; then the
+     port's concurrent form, two gloo ranks sharing this card (this script
+     with --phase8-rank), each solving both slicing problems with
+     set_partitions(2, mesh=make_task_mesh()): on each rank the values
+     within 1e-10 of one partition's, the backend, K3 and K4 launched,
+     the solve's wall from a barrier before to one after, each
+     partition's wall and the gather's seconds and bytes, printed beside
+     the A/B's turns.  Every slicing
+     solve's worst true residual is printed and held to 1e-8 (F3).  The
+     native LDL^T library must build (g++): a missing one fails the run.
 
   9. the path K3 sets the pace of, at full width: the plain (unfiltered)
      EPS(krylovschur, hep) on the 200x225x230 Laplacian, f64, ncv 48,
@@ -319,7 +327,10 @@ JSON line, which holds only what this run measured).
 
     python3 chip_smoke.py --profile
 
-adds, after phase 11, a torch.profiler split by kernel of one more phase-10
+adds, in phase 8, one more solve of each slicing problem in each rank
+and in this process (two partitions one after another) under
+torch.profiler: the card's busy share of the ranks and of one process;
+after phase 11, a torch.profiler split by kernel of one more phase-10
 f64 solve (K2 / K3 / K4), of one more phase-9
 solve (K3's measured share of the device time), of one more phase-7 GHEP solve
 (the device-busy share of the launch-bound inner solve), the residual of
@@ -1496,16 +1507,10 @@ def phase8(dev):
     report("STCayley HEP", eps, near(exact, target, 6), t0, 1e-9)
 
     # spectrum slicing: block-tridiagonal LDL^T, then the scanned one; each
-    # two-partition solve is kept for slice_threads_ab
-    ab = []
-    for label, A, exact, lo, backend in (
-            ("laplacian_2d(95, 97)", A, exact, 2000, "btridiag_device"),
-            ("laplacian_1d(1,000,000)",
-             stt.laplacian_1d(1_000_000, dtype=f64, device=dev),
-             stt.laplacian_1d_eigs(1_000_000), 500_000, "tridiag_device")):
-        a = 0.5 * (exact[lo - 1] + exact[lo])
-        b = 0.5 * (exact[lo + 29] + exact[lo + 30])
-        want = exact[lo: lo + 30]
+    # two-partition solve is kept for slice_threads_ab and phase8_ranks
+    ab, seq_walls = [], {}
+    for label, A, exact, lo, backend in slice_cases(dev, A):
+        a, b, want = slice_interval(exact, lo)
         # one partition, then two (inertia-balanced, one after another)
         walls, values = {}, {}
         for npart in (1, 2):
@@ -1524,11 +1529,21 @@ def phase8(dev):
                 f"slicing {label}, {npart} partition(s), 30 eigenvalues "
                 f"in [{a:.6f}, {b:.6f}]", eps, want, t0, 1e-9)
             values[npart] = np.sort(np.asarray(eps.eigenvalues, np.float64))
+            worst = max(eps.compute_error(i) for i in range(eps.nconv))
+            print(f"  worst true residual of the {eps.nconv} pairs (F3: "
+                  f"each confirmed on the operator): {worst:.3e}; largest "
+                  f"errest {max(eps.errests):.3e}", flush=True)
+            check(worst <= 1e-8, f"slicing {label}, {npart} partition(s): "
+                  f"true residual {worst:.3e} > 1e-8")
             from slepc_tpu_torch.sys.events import get_event
 
             fac = get_event("Slice_Factorization")
+            part = get_event("Slice_Partition")
             print(f"  factorizations={eps.slice_factorizations} "
-                  f"({fac['time']:.3f} s) backends={eps.slice_backends}",
+                  f"({fac['time']:.3f} s) backends={eps.slice_backends}; "
+                  f"census and boundary search "
+                  f"{get_event('Slice_Search')['time']:.3f} s, "
+                  f"{part['count']} partition(s) {part['time']:.3f} s",
                   flush=True)
             if npart == 2:
                 apart = float(np.abs(values[2] - values[1]).max())
@@ -1549,13 +1564,37 @@ def phase8(dev):
                       f"values {apart:.3e} from one partition's", flush=True)
                 # timed after phases 7-8's launches are read
                 ab.append((eps, a, b, label, values[1], walls[1]))
+                seq_walls[label] = walls[2]
             # inertia and solves on the card: a host backend would pass the
             # closed-form gates unseen
             check(eps.slice_backends == (backend,), f"slicing {label}: "
                   f"factorized with {eps.slice_backends}, not {backend}")
             stt.log_reset()
         del A
-    return ab
+    return ab, seq_walls
+
+
+P8_WORLD = 2     # gloo ranks sharing cuda:0, one slicing partition each
+P8_TIMEOUT = 300  # s, the spawned ranks' limit
+
+
+def slice_cases(dev, A2d=None):
+    """Phase 8's slicing problems, built one at a time: (label, operator,
+    closed-form spectrum, index of the first of the 30 eigenvalues
+    sliced, the card's factorization backend)."""
+    f64 = torch.float64
+    yield ("laplacian_2d(95, 97)", A2d if A2d is not None else
+           stt.laplacian_2d(95, 97, dtype=f64, device=dev),
+           stt.laplacian_2d_eigs(95, 97), 2000, "btridiag_device")
+    yield ("laplacian_1d(1,000,000)",
+           stt.laplacian_1d(1_000_000, dtype=f64, device=dev),
+           stt.laplacian_1d_eigs(1_000_000), 500_000, "tridiag_device")
+
+
+def slice_interval(exact, lo):
+    """The interval around exact[lo: lo + 30], and those 30 values."""
+    return (0.5 * (exact[lo - 1] + exact[lo]),
+            0.5 * (exact[lo + 29] + exact[lo + 30]), exact[lo: lo + 30])
 
 
 def slice_threads_ab(dev, eps, a, b, label, one_values, one_wall):
@@ -1568,7 +1607,8 @@ def slice_threads_ab(dev, eps, a, b, label, one_values, one_wall):
     the boundary search's factors (made on the caller's stream), so no
     factor crosses streams.  Prints each turn's wall, its ratio to one
     partition's solve and each partition's wall; fails unless every turn
-    finds the 30 values, within 1e-10 of one partition's."""
+    finds the 30 values, within 1e-10 of one partition's, each confirmed
+    on the operator at <= 1e-8 (F3).  Returns each form's turn walls."""
     from concurrent.futures import ThreadPoolExecutor
 
     from slepc_tpu_torch.eps import ks_slice
@@ -1587,8 +1627,9 @@ def slice_threads_ab(dev, eps, a, b, label, one_values, one_wall):
             out = ks_slice._process_interval(eps, cache, *parts[ix])
         streams[ix].synchronize()
         seconds[ix] = time.perf_counter() - t0
-        return out[0]
+        return out[0], out[1]
 
+    turns = {"one after another": [], "concurrently": []}
     for concurrent in (False, True, True, False):
         caches = []
         for _ in parts:
@@ -1605,10 +1646,14 @@ def slice_threads_ab(dev, eps, a, b, label, one_values, one_wall):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         lam = []
-        for x in sorted(x for f in found for x in f):
+        for x in sorted(x for f, _ in found for x in f):
             if ks_slice._is_new(x, lam, eps.tol):
                 lam.append(x)
+        worst = max(e for _, errs in found for e in errs)
         form = "concurrently" if concurrent else "one after another"
+        turns[form].append(wall)
+        check(worst <= 1e-8, f"slicing {label}, two partitions {form}: a "
+              f"pair's true residual {worst:.3e} > 1e-8")
         check(len(lam) == 30, f"slicing {label}, two partitions {form}: "
               f"found {len(lam)} of 30")
         apart = float(np.abs(np.asarray(lam) - one_values).max())
@@ -1617,7 +1662,235 @@ def slice_threads_ab(dev, eps, a, b, label, one_values, one_wall):
         print(f"  A/B two partitions {form}: {wall:.3f} s "
               f"({wall / one_wall:.2f}x one partition's solve), partitions "
               + ", ".join(f"{t:.3f}" for t in seconds)
-              + f" s; values {apart:.3e} from one partition's", flush=True)
+              + f" s; values {apart:.3e} from one partition's; worst true "
+              f"residual {worst:.3e}", flush=True)
+    return turns
+
+
+def spawn_ranks(where, flag, world, timeout, inputs=None, extra=()):
+    """``world`` gloo ranks on this card: this script with ``flag R --store
+    STORE --out OUT`` and ``extra``, each checking its own gates
+    (``inputs``, when given, waits for them as OUT/inputs.json).  Rank 0's
+    output is printed (every rank's when one fails or is late); a rank
+    that fails or outlives ``timeout`` fails the run.  Returns the reports
+    the ranks wrote as OUT/rank<R>.json, rank 0's first."""
+    import subprocess as sp_
+
+    store, out = _dist_store(), _dist_store()
+    if inputs is not None:
+        with open(os.path.join(out, "inputs.json"), "w") as f:
+            json.dump(inputs, f)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get(
+        "GLOO_SOCKET_IFNAME", "lo"))
+    logs = [open(os.path.join(out, f"log{r}.txt"), "w+")
+            for r in range(world)]
+    procs = [sp_.Popen([sys.executable, __file__, flag, str(r),
+                        "--store", store, "--out", out, *extra], env=env,
+                       stdout=log, stderr=sp_.STDOUT, text=True)
+             for r, log in enumerate(logs)]
+    deadline, late = time.perf_counter() + timeout, False
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.perf_counter()))
+        except sp_.TimeoutExpired:
+            late = True
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    failed = late or any(p.returncode != 0 for p in procs)
+    for r, text in enumerate(outs):
+        if r == 0 or failed:
+            for line in text.splitlines():
+                print(f"  [rank {r}] {line}", flush=True)
+    check(not late, f"{where}: ranks outlived {timeout} s")
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{where}: rank {r} failed "
+              f"(rc {p.returncode})")
+    reps = []
+    for r in range(world):
+        path = os.path.join(out, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                reps.append(json.load(f))
+    return reps
+
+
+def phase8_ranks(dev, ab, seq_walls, ab_walls, profile=False):
+    """Slicing's two partitions as P8_WORLD gloo ranks sharing this card
+    (this script with --phase8-rank), the port's form of the reference's
+    concurrent partitions: both of phase 8's slicing problems with
+    set_partitions(2) over a task mesh of every rank.  Each rank holds its
+    result against phase 8's one-partition values (1e-10) and the closed
+    form, its backend, its worst true residual and its K3 / K4 launches;
+    here each solve's wall (barrier to barrier, the slower rank's) is
+    printed beside one partition's, two one after another and
+    slice_threads_ab's turns.
+    ``profile``: each rank also runs each solve once under torch.profiler,
+    and so does this process with two partitions one after another; the
+    card's busy share is the ranks' kernel time over the slower rank's
+    wall (two CUDA contexts time-slice the card, so their kernels do not
+    overlap).  Returns rank 0's launches in its timed solves."""
+    print(f"phase 8 ranks: slicing's partitions as {P8_WORLD} gloo ranks on "
+          f"cuda:0, one partition a rank (the gather staged through the "
+          f"host)", flush=True)
+    reps = spawn_ranks("phase 8 ranks", "--phase8-rank", P8_WORLD,
+                       P8_TIMEOUT, inputs={label: [float(v) for v in one]
+                                           for _, _, _, label, one, _ in ab},
+                       extra=("--profile",) if profile else ())
+    check(len(reps) == P8_WORLD, f"phase 8 ranks: {len(reps)} reports")
+    for _, _, _, label, _, wall1 in ab:
+        got = [rep[label] for rep in reps]
+        wall = max(g["wall"] for g in got)
+        turns = ab_walls[label]
+        print(f"  ranks {label}: the solve {wall:.3f} s (ranks: "
+              + ", ".join(f"{g['wall']:.3f}" for g in got)
+              + f"), {wall / wall1:.2f}x one partition's solve "
+              f"({wall1:.3f} s), {wall / seq_walls[label]:.2f}x two "
+              f"partitions one after another ({seq_walls[label]:.3f} s); "
+              f"slice_threads_ab's turns one after another "
+              + ", ".join(f"{t:.3f}" for t in turns["one after another"])
+              + " s, concurrently "
+              + ", ".join(f"{t:.3f}" for t in turns["concurrently"])
+              + f" s; search {got[0]['search_s']:.3f} s, partitions "
+              f"{[round(g['partition_s'], 4) for g in got]} s on ranks "
+              f"{got[0]['partition_ranks']}; gather {got[0]['gather_s']:.4f}"
+              f" s, {got[0]['gather_bytes']:,} bytes a rank", flush=True)
+        if profile:
+            eps = next(case[0] for case in ab if case[3] == label)
+            wall_one, busy_one = profiled_busy(eps.solve)
+            wall_r = max(g["profiled_wall"] for g in got)
+            busy_r = sum(g["busy_ms"] for g in got)
+            print(f"  profiled {label}: ranks {wall_r:.3f} s, kernels "
+                  f"{busy_r:.1f} ms (ranks: "
+                  + ", ".join(f"{g['busy_ms']:.1f}" for g in got)
+                  + f"), card busy {100 * busy_r / (wall_r * 1e3):.1f}%; "
+                  f"one process, two partitions one after another "
+                  f"{wall_one:.3f} s, kernels {busy_one:.1f} ms, busy "
+                  f"{100 * busy_one / (wall_one * 1e3):.1f}%", flush=True)
+    return reps[0]["launches"]
+
+
+def profiled_busy(solve, barrier=None):
+    """(wall s, device kernel ms) of ``solve()`` under torch.profiler,
+    the wall from a synchronized start (and ``barrier()``) to the end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    if barrier is not None:
+        barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        wall = time.perf_counter() - t0
+    return wall, sum(e.self_device_time_total
+                     for e in profile_rows(prof)[1]) / 1e3
+
+
+def phase8_rank(args):
+    """One of phase 8's slicing ranks (this script with --phase8-rank)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from slepc_tpu_torch.parallel import make_task_mesh
+    from slepc_tpu_torch.sys.events import get_event
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared between the ranks, as torchrun shares them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // P8_WORLD))
+    dist.init_process_group("gloo", init_method=f"file://{args.store}/s",
+                            world_size=P8_WORLD, rank=args.phase8_rank,
+                            timeout=datetime.timedelta(seconds=120))
+    rank = dist.get_rank()
+    dev = torch.device("cuda", 0)
+    _build.load()
+    with open(os.path.join(args.out, "inputs.json")) as f:
+        ones = json.load(f)
+    # untimed: the process's first CUDA calls and kernel launches, and one
+    # small solve through the ranks
+    warm = stt.EPS(stt.laplacian_1d(400, dtype=torch.float64, device=dev),
+                   problem_type="hep", options=stt.Options())
+    warm.set_interval(0.5, 0.9)
+    warm.set_partitions(P8_WORLD, mesh=make_task_mesh(device=dev))
+    warm.solve()
+    check(warm.slice_partition_ranks == [0, 1] and warm.nconv == 34,
+          f"phase 8 ranks: the warm-up solve ({warm.nconv} values, "
+          f"partitions on ranks {warm.slice_partition_ranks})")
+    rep = {"launches": dict.fromkeys(stt.launch_counts(), 0)}
+    for label, A, exact, lo, backend in slice_cases(dev):
+        where = f"phase 8 ranks, rank {rank}, {label}"
+        a, b, want = slice_interval(exact, lo)
+        eps = stt.EPS(A, problem_type="hep", tol=1e-8, options=stt.Options())
+        eps.set_interval(a, b)
+        mesh = make_task_mesh(device=dev)
+        eps.set_partitions(P8_WORLD, mesh=mesh)
+        stt.log_begin()  # the Slice_* events, each ending synchronized
+        stt.reset_launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        eps.solve()
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall = time.perf_counter() - t0
+        counts = stt.launch_counts()
+        for k, v in counts.items():
+            rep["launches"][k] += v
+        fam = {"K3": sum(counts[f"panel_{v}_f64"] for v in (
+                   "dots", "update", "update_dots")),
+               "K4": counts["rotate_f64"]}
+        check(eps.slice_partition_ranks == [0, 1],
+              f"{where}: partitions on ranks {eps.slice_partition_ranks}")
+        check(eps.nconv == 30, f"{where}: found {eps.nconv} of 30")
+        lam = np.sort(np.asarray(eps.eigenvalues, np.float64))
+        apart = float(np.abs(lam - np.asarray(ones[label])).max())
+        exact_err = float(np.abs(lam - want).max())
+        worst = max(eps.compute_error(i) for i in range(eps.nconv))
+        mine = rank in eps.slice_partition_ranks
+        c = mesh.counters
+        ev = {k: get_event("Slice_" + k) or {"count": 0, "time": 0.0}
+              for k in ("Search", "Partition", "Gather")}
+        print(f"{where}: wall {wall:.3f} s, its {eps.its}, factorizations "
+              f"{eps.slice_factorizations}, census and boundary search "
+              f"{ev['Search']['time']:.3f} s, {ev['Partition']['count']} "
+              f"partition(s) here {ev['Partition']['time']:.3f} s (ranks "
+              f"{eps.slice_partition_ranks}), gather "
+              f"{ev['Gather']['time']:.4f}"
+              f" s ({c['allgather']} all-gather, {c['allgather_bytes']:,} "
+              f"bytes; {c['allreduce']} all-reduces); values {apart:.3e} "
+              f"from one partition's, {exact_err:.3e} from the closed form; "
+              f"worst true residual {worst:.3e}; launches {fam}", flush=True)
+        check(apart <= 1e-10, f"{where}: values {apart:.3e} from one "
+              f"partition's")
+        check(exact_err <= 1e-9, f"{where}: |lam - exact| {exact_err:.3e}")
+        check(eps.slice_backends == (backend,),
+              f"{where}: factorized with {eps.slice_backends}")
+        check(worst <= 1e-8, f"{where}: true residual {worst:.3e}")
+        check(not mine or (fam["K3"] > 0 and fam["K4"] > 0),
+              f"{where}: a kernel did not launch on a lead rank: {fam}")
+        rep[label] = {"wall": wall, "search_s": ev["Search"]["time"],
+                      "partition_s": ev["Partition"]["time"],
+                      "partition_ranks": eps.slice_partition_ranks,
+                      "gather_s": ev["Gather"]["time"],
+                      "gather_bytes": c["allgather_bytes"]}
+        if args.profile:
+            rep[label]["profiled_wall"], rep[label]["busy_ms"] = \
+                profiled_busy(eps.solve, dist.barrier)
+        del A, eps
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+    return 0
 
 
 def plain_solve(A, ncv, restarts, cycles=None, block_size=1):
@@ -2236,29 +2509,35 @@ def blocked_f32_study(dev, max_it=1000):
               f", last {np.array2string(E[-1], precision=2)}", flush=True)
 
 
+def profile_rows(prof):
+    """A torch.profiler run's rows with device time, largest first, and
+    the device-side kernel rows among them (an aten op's row repeats its
+    kernels' time; a log_event annotation has a host row and a device-side
+    row spanning its kernels, a kernel a device-side row only)."""
+    from torch.autograd import DeviceType
+
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
+    rows = sorted((e for e in averages if e.self_device_time_total > 0
+                   and not (e.device_type == DeviceType.CUDA
+                            and e.key in host_keys)),
+                  key=lambda e: -e.self_device_time_total)
+    return rows, [e for e in rows if e.device_type == DeviceType.CUDA]
+
+
 def profile_solve(where, solve, plain_wall=None, shares=None):
     """torch.profiler over ``solve()``, which returns the wall time.
     ``plain_wall``: the same solve's wall without the profiler (its host
     overhead stretches a launch-bound solve; kernel times stay).
     ``shares``: {label: name fragments}, each label's share of the device
     time (the kernels whose names hold one of its fragments)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     print(f"profile: torch.profiler over one {where} solve", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = solve()
-    averages = prof.key_averages()
-    # a log_event annotation has a host row and a device-side row spanning
-    # its kernels; a kernel has a device-side row only
-    host_keys = {e.key for e in averages if e.device_type == DeviceType.CPU}
-    rows = sorted((e for e in averages if e.self_device_time_total > 0
-                   and not (e.device_type == DeviceType.CUDA
-                            and e.key in host_keys)),
-                  key=lambda e: -e.self_device_time_total)
-    # device-side rows only: an aten op's row repeats its kernels' time
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    rows, kernels = profile_rows(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"  profiled wall {wall:.3f} s; device rows sum to {busy:.1f} ms "
           f"({100 * busy / (wall * 1e3):.1f}% of the wall)", flush=True)
@@ -5287,36 +5566,11 @@ def phase19bc(dev):
     """Phase 19b and 19c in P19_WORLD gloo ranks spawned on this card (this
     script with --phase19-rank); each rank checks its own gates.  Returns
     rank 0's report."""
-    import subprocess as sp_
-
     print(f"phase 19b/c: {P19_WORLD} gloo ranks on cuda:0 (halo rows staged "
           f"through pinned host memory), grid {P19_GRID}", flush=True)
-    store, out = _dist_store(), _dist_store()
-    env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get(
-        "GLOO_SOCKET_IFNAME", "lo"))
     t0 = time.perf_counter()
-    procs = [sp_.Popen([sys.executable, __file__, "--phase19-rank", str(r),
-                        "--store", store, "--out", out], env=env,
-                       stdout=sp_.PIPE, stderr=sp_.STDOUT, text=True)
-             for r in range(P19_WORLD)]
-    try:
-        outs = [p.communicate(timeout=P19_TIMEOUT)[0] for p in procs]
-    except sp_.TimeoutExpired:
-        outs = None
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    check(outs is not None, f"phase 19b/c: ranks outlived {P19_TIMEOUT} s")
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        if r == 0 or p.returncode != 0:
-            for line in text.splitlines():
-                print(f"  [rank {r}] {line}", flush=True)
-        check(p.returncode == 0, f"phase 19b/c: rank {r} failed "
-              f"(rc {p.returncode})")
-    with open(os.path.join(out, "rank0.json")) as f:
-        rep = json.load(f)
+    rep = spawn_ranks("phase 19b/c", "--phase19-rank", P19_WORLD,
+                      P19_TIMEOUT)[0]
     print(f"  phase 19b/c wall (spawn to exit) {time.perf_counter() - t0:.3f} "
           f"s", flush=True)
     return rep
@@ -5672,7 +5926,10 @@ def kernel_resources(log):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 11: a torch.profiler split of a "
+                        help="in phase 8: each slicing rank's solves and "
+                             "one process's two partitions under "
+                             "torch.profiler (the card's busy share); "
+                             "after phase 11: a torch.profiler split of a "
                              "phase-10 solve, phase 7's tolerance study, the "
                              "K6 budget and K5 tile sweeps, the blocked f32 "
                              "study, K4c's ring-depth sweep and a "
@@ -5684,7 +5941,10 @@ def main():
                              "its two GD paths; after phase 17: a "
                              "torch.profiler split of a phase-17a toar "
                              "solve")
-    # phase 19b/c's ranks: this script again, one process a rank
+    # phase 8's and phase 19b/c's ranks: this script again, one process a
+    # rank
+    parser.add_argument("--phase8-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
     parser.add_argument("--phase19-rank", type=int, default=None,
                         help=argparse.SUPPRESS)
     parser.add_argument("--store", help=argparse.SUPPRESS)
@@ -5694,8 +5954,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if args.phase8_rank is not None:
+        return phase8_rank(args)
     if args.phase19_rank is not None:
         return phase19_rank(args)
+    t_start = time.perf_counter()
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="    %(message)s")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5742,15 +6005,18 @@ def main():
     sinvert_kernels(dev)
     stt.reset_launch_counts()
     wall_sinv, wall_sinv_std = phase7(dev)
-    ab = phase8(dev)
+    ab, seq_walls = phase8(dev)
     sinv_path = stt.launch_counts()
     fam = family_counts(sinv_path, "f64")
     print(f"  phases 7-8 launches: {fam}", flush=True)
     check(all(v > 0 for v in fam.values()),
           f"phases 7-8: a kernel did not launch: {fam}")
-    for case in ab:
-        slice_threads_ab(dev, *case)
+    ab_walls = {case[3]: slice_threads_ab(dev, *case) for case in ab}
+    # slicing's partitions as ranks: rank 0's launches in its timed solves
+    p8r = phase8_ranks(dev, ab, seq_walls, ab_walls, args.profile)
     del ab
+    print(f"  phase 8 ranks launches (rank 0): "
+          f"{ {k: v for k, v in p8r.items() if v} }", flush=True)
     stt.reset_launch_counts()
     wall_plain, plain_path = phase9(dev, table)
     nhep_kernels(dev)
@@ -5938,7 +6204,7 @@ def main():
                 "K6": ("csr_spmv",), "K3": ("panel_kernel", "reduce_partials"),
                 "K4": ("rotate_f64",)})
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
-             plain_path, nhep_path, small_nhep_path) + complex_paths \
+             p8r, plain_path, nhep_path, small_nhep_path) + complex_paths \
         + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths \
         + p18_paths + p19_paths + (p20,)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
@@ -6013,6 +6279,8 @@ def main():
           f"rank {wall_19a:.3f} s, {P19_WORLD} gloo ranks on one card "
           f"{rep19['b']['wall']:.3f} s, phase 19 {wall_19:.3f} s on "
           f"{smi_line}", flush=True)
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (limit "
+          f"1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

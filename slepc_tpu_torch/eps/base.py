@@ -130,6 +130,10 @@ class EPS:
         self.slice_npart = 1
         self.slice_factorizations = 0
         self.slice_backends = ()  # DirectSolver backends the slicing used
+        # the task mesh the partitions run over as ranks (None: in this
+        # process) and the rank that ran each partition (eps/ks_slice.py)
+        self.slice_mesh = None
+        self.slice_partition_ranks: list = []
         # variants of the general loop; two_sided also asks for the left
         # eigenvectors; bse_variant picks the BSE solver's method (auto |
         # projected)
@@ -375,9 +379,15 @@ class EPS:
         self.deflation_space = self._columns(X)
         return self
 
-    def set_partitions(self, npart: int):
-        """Partitions of the interval for spectrum slicing; they run one
-        after another."""
+    def set_partitions(self, npart: int, mesh=None):
+        """Partitions of the interval for spectrum slicing, run one after
+        another in this process.  ``mesh``: a task mesh over several
+        ``torch.distributed`` ranks (``parallel/tasks.py``
+        ``make_task_mesh``) on which they run concurrently, one a rank
+        group's lead; the solve is then collective over it, every rank
+        solving the same operators, interval and npart
+        (``eps/ks_slice.py``)."""
+        self.slice_mesh = mesh
         self.slice_npart = int(npart)
         return self
 

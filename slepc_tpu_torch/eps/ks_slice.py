@@ -16,30 +16,48 @@ so its factorization, inertia and solves stay on the operator's device
 (``ksp/tridiag_device.py``).
 
 With ``eps.slice_npart = p > 1`` the interval splits into p
-inertia-balanced partitions, which run one after another on the
-operator's device.  The reference runs them concurrently, on a thread
-pool on one device and on disjoint device groups on several
-(``thread_map_submesh`` over ``slice_submeshes``).  On one card a
-thread and a CUDA stream a partition ran slower than one after another:
-each partition is a loop of small launches whose threads hand the
-interpreter lock over at every torch call (ROADMAP W7; ``chip_smoke.py``
-phase 8 times both).  Device groups need A, B and the factor cache placed
-on each group's card, which waits for a test on several cards (ROADMAP
-item 8).
+inertia-balanced partitions.  In one process they run one after another
+on the operator's device.  Given a task mesh over several
+``torch.distributed`` ranks (``set_partitions(p, mesh=make_task_mesh())``,
+``parallel/tasks.py``), the solve is collective over that mesh, as a SLEPc
+solve is over its communicator: every rank of it solves the same whole
+(not row-partitioned) A and B on the same interval with the same p, the
+partitions run concurrently, partition i on the lead rank of group i mod
+the number of groups (``slice_partition_leads``, the reference's
+``slice_submeshes`` rule), and every rank ends with the whole result
+(:func:`_slice_ranks`).  These ranks are SLEPc's npart subcommunicators
+(ks-slice.c:341-416); the reference runs a thread a partition on a
+device group of its own (``thread_map_submesh``).  On one card a thread
+and a CUDA stream a partition lost to one after another, its threads
+handing the interpreter lock over at every torch call (ROADMAP W7;
+``chip_smoke.py`` phase 8 times both forms and the ranks).  Without a
+mesh a solve is the rank's own, whatever the process group.  The search,
+each partition and the gather are the events ``Slice_Search``,
+``Slice_Partition`` and ``Slice_Gather``.
+
+Every sub-solve confirms a candidate with ||A x - lambda B x|| on the
+original pencil, under the caller's convergence test, before it counts
+(``set_true_residual``), so ``tol`` bounds every returned pair's true
+residual and the errests are that residual.  The reference certifies on
+the shift-and-invert estimate alone, which let a pair through at 1.75e-8
+with tol 1e-8 (ROADMAP queue 3, F3).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ksp.ksp import KSP
+from ..parallel.tasks import slice_partition_leads
 from ..st.st import ST, STSinvert
 from ..sys.events import log_event
+from ..sys.mesh import RowMesh
 from ..sys.sort import Which
-from .base import EPS, EPSConvergedReason
+from .base import EPS, EPSConvergedReason, EPSError
 
 
 class _ShiftFactorCache:
@@ -112,6 +130,11 @@ def _process_interval(eps: EPS, cache: _ShiftFactorCache,
                   ncv=min(eps.n, max(2 * cnt + 4, 16)))
         sub.set_target(sigma)
         sub.which = Which.TARGET_MAGNITUDE
+        # a candidate counts once ||A x - lam B x|| on the pencil passes
+        # the caller's test (the shift-and-invert estimate alone let a
+        # pair through at 1.75e-8 with tol 1e-8); errests are that residual
+        sub.conv_test = eps.conv_test
+        sub.set_true_residual()
         # the shift's cached factorization doubles as the sinvert KSP
         sub.set_st(STSinvert(mats, sigma=sigma, hermitian=eps.B is None,
                              ksp=cache.ksp(sigma)))
@@ -169,12 +192,165 @@ def _partitions(cache: _ShiftFactorCache, a: float, b: float, ia: int,
             for i in range(npart) if counts[i] > 0]
 
 
+def _rank_mesh(eps: EPS) -> Optional[RowMesh]:
+    """Slicing's mesh when its partitions run as ranks: the task mesh
+    handed to ``set_partitions(p, mesh=...)``, over more than one rank.
+    Without one a solve is the rank's own (SLEPc's PETSC_COMM_SELF), and
+    its partitions run one after another."""
+    mesh = eps.slice_mesh
+    if mesh is None or mesh.world < 2:
+        return None
+    for M in (eps.A, eps.B):
+        if getattr(M, "mesh", None) is not None \
+                or getattr(M, "row_shard", None) is not None:
+            raise EPSError("spectrum slicing over a task mesh needs the "
+                           "whole operator on every rank, not a "
+                           "row-partitioned one")
+    return mesh
+
+
+def _agree(mesh: RowMesh, failed: Optional[BaseException], npart: int,
+           parts, census: Tuple[int, int], searched: int) -> None:
+    """The first collective of a sliced solve over ranks, before any rank
+    takes a branch of its own: one all-reduce (max of v and -v) of a
+    fixed-size header (each rank's failure flag, p, the partition count,
+    the census, the search's factorizations and a hash of the
+    boundaries).  Raises :class:`EPSError` on every rank when the census
+    or the boundary search failed on one, or when the ranks differ."""
+    digest = hashlib.blake2b(np.asarray(parts, np.float64).tobytes(),
+                             digest_size=6).digest()
+    flags = torch.zeros(mesh.world, dtype=torch.float64)
+    flags[mesh.rank] = failed is not None
+    v = torch.cat([flags, torch.tensor(
+        [npart, len(parts), *census, searched,
+         int.from_bytes(digest, "little")], dtype=torch.float64)])
+    both = mesh.allreduce(torch.cat([v, -v]).to(mesh.device), "max").cpu()
+    bad = [r for r in range(mesh.world) if both[r] > 0]
+    if bad:
+        raise EPSError(f"spectrum slicing: the census or the boundary "
+                       f"search failed on rank(s) {bad}") from failed
+    k = v.numel()
+    if not (torch.equal(both[mesh.world:k], v[mesh.world:])
+            and torch.equal(-both[k + mesh.world:], v[mesh.world:])):
+        raise EPSError("spectrum slicing: the ranks' partitions, census or "
+                       "partition boundaries differ; every rank of the "
+                       "mesh must solve the same operators on the same "
+                       "interval with the same partitions")
+
+
+def _slice_ranks(eps: EPS, cache: _ShiftFactorCache, parts,
+                 mesh: RowMesh):
+    """The partitions on the lead ranks of the rank groups, at the same
+    time.  Returns, on every rank, every partition's (lams, errs, Xs, 0)
+    in partition order, the iterations of all partitions and the
+    factorizations of all ranks (the boundary search's once).
+
+    Two collectives after :func:`_agree`: one all-reduce (sum) of each
+    rank's failure flag, pair count, iterations and own factorizations,
+    so that a failed partition raises :class:`EPSError` on every rank
+    before anyone waits at the gather; then one all-gather of the pairs
+    (values, errests and eigenvectors as bytes, padded to the largest
+    count)."""
+    dev, world, rank = mesh.device, mesh.world, mesh.rank
+    searched = cache.factorizations
+    leads = slice_partition_leads(len(parts), world)
+    mine: List[Tuple[int, tuple]] = []
+    failed = None
+    for i, part in enumerate(parts):
+        if leads[i] != rank:
+            continue
+        try:
+            with log_event("Slice_Partition", sync=True):
+                mine.append((i, _process_interval(eps, cache, *part)))
+        except Exception as err:  # raised on every rank below
+            failed = err
+            break
+
+    # per rank: failed, pairs, its, own factorizations
+    stats = torch.zeros((world, 4), dtype=torch.float64)
+    stats[rank] = torch.tensor(
+        [failed is not None, sum(len(r[0]) for _, r in mine),
+         sum(r[3] for _, r in mine), cache.factorizations - searched],
+        dtype=torch.float64)
+    per_rank = mesh.allreduce(stats.to(dev)).cpu().to(torch.int64)
+    bad = [r for r in range(world) if per_rank[r, 0]]
+    if bad:
+        raise EPSError(f"spectrum slicing: a partition failed on rank(s) "
+                       f"{bad}") from failed
+    eps.slice_partition_ranks = leads
+
+    counts = per_rank[:, 1].tolist()
+    results = [([], [], [], 0) for _ in parts]
+    m = max(counts)
+    if m > 0:
+        with log_event("Slice_Gather", sync=True):
+            _gather(eps, mesh, mine, m, counts, results)
+    return (results, int(per_rank[:, 2].sum()),
+            searched + int(per_rank[:, 3].sum()))
+
+
+def _gather(eps: EPS, mesh: RowMesh, mine, m: int, counts, results):
+    """One all-gather of every rank's pairs into ``results`` (by
+    partition): each rank sends (3, m) float64 of values, errests and
+    partition indices, then its (m, n) eigenvectors, both padded to the
+    largest count m."""
+    dev = mesh.device
+    xdt = eps.A.dtype if eps.B is None else \
+        torch.promote_types(eps.A.dtype, eps.B.dtype)
+    meta = torch.zeros((3, m), dtype=torch.float64)
+    X = torch.zeros((m, eps.n), dtype=xdt, device=dev)
+    j = 0
+    for i, (lams, errs, Xs, _) in mine:
+        k = len(lams)
+        meta[:, j: j + k] = torch.tensor([lams, errs, [i] * k],
+                                         dtype=torch.float64)
+        if k:
+            X[j: j + k] = torch.stack(Xs).to(xdt)
+        j += k
+    # the eigenvectors and every rank's bytes start 16-aligned (a
+    # complex128 view needs it): meta's 24 m bytes rounded up
+    nmeta = -(-meta.numel() * meta.element_size() // 16) * 16
+    nx = X.numel() * X.element_size()
+    packed = torch.zeros(nmeta + nx + (-(nmeta + nx)) % 16,
+                         dtype=torch.uint8, device=dev)
+    packed[:meta.numel() * meta.element_size()] = \
+        meta.reshape(-1).view(torch.uint8).to(dev)
+    packed[nmeta: nmeta + nx] = X.reshape(-1).view(torch.uint8)
+    got = mesh.allgather(packed)
+    for r in range(mesh.world):
+        meta_r = got[r, :3 * m * 8].view(torch.float64).reshape(3, m).cpu()
+        X_r = got[r, nmeta: nmeta + nx].view(xdt).reshape(m, eps.n)
+        for j in range(counts[r]):
+            lams, errs, Xs, _ = results[int(meta_r[2, j])]
+            lams.append(float(meta_r[0, j]))
+            errs.append(float(meta_r[1, j]))
+            Xs.append(X_r[j])
+
+
 def slice_solve(eps: EPS) -> None:
     """Compute ALL eigenvalues in eps.interval by inertia-certified
     bisection with shift-and-invert Krylov-Schur runs."""
     a, b = eps.interval
+    mesh = _rank_mesh(eps)
     cache = _ShiftFactorCache(eps)
-    ia, ib = cache.inertia(a), cache.inertia(b)
+    npart = max(1, int(eps.slice_npart or 1))
+    ia = ib = 0
+    parts: list = []
+    failed = None
+    eps.slice_partition_ranks = []
+    try:
+        with log_event("Slice_Search", sync=True):
+            ia, ib = cache.inertia(a), cache.inertia(b)
+            if ib > ia:
+                parts = [(a, b, ib - ia)] if min(npart, ib - ia) == 1 \
+                    else _partitions(cache, a, b, ia, ib,
+                                     min(npart, ib - ia))
+    except Exception as err:
+        if mesh is None:
+            raise
+        failed = err
+    if mesh is not None:
+        _agree(mesh, failed, npart, parts, (ia, ib), cache.factorizations)
     total = ib - ia
     if total <= 0:
         eps.nconv = 0
@@ -187,17 +363,22 @@ def slice_solve(eps: EPS) -> None:
         eps.reason = EPSConvergedReason.CONVERGED_TOL
         return
 
-    npart = max(1, min(int(eps.slice_npart or 1), total))
-    parts = [(a, b, total)] if npart == 1 \
-        else _partitions(cache, a, b, ia, ib, npart)
+    if mesh is None:
+        results = []
+        for part in parts:
+            with log_event("Slice_Partition", sync=True):
+                results.append(_process_interval(eps, cache, *part))
+        eps.slice_partition_ranks = [0] * len(parts)
+        its_total = sum(r[3] for r in results)
+        factorizations = cache.factorizations
+    else:
+        results, its_total, factorizations = _slice_ranks(
+            eps, cache, parts, mesh)
 
     found_lam: List[float] = []
     found_err: List[float] = []
     found_X: List[torch.Tensor] = []
-    its_total = 0
-    for part in parts:
-        lams, errs, Xs, its = _process_interval(eps, cache, *part)
-        its_total += its
+    for lams, errs, Xs, _ in results:
         for lam_i, err_i, x_i in zip(lams, errs, Xs):
             if _is_new(lam_i, found_lam, eps.tol):
                 found_lam.append(lam_i)
@@ -207,7 +388,7 @@ def slice_solve(eps: EPS) -> None:
     order = np.argsort(found_lam)
     eps.its = its_total
     eps.nconv = len(found_lam)
-    eps.slice_factorizations = cache.factorizations
+    eps.slice_factorizations = factorizations
     eps.slice_backends = cache.backends()
     eps.eigenvalues = np.asarray(found_lam)[order]
     eps.errests = np.asarray(found_err)[order]

@@ -23,7 +23,9 @@ contiguous block of the points and one all-gather joins the solutions.
 :func:`slice_submeshes` groups the visible cards, and
 :func:`thread_map_submesh` runs each item with its group's lead card as
 the current card.  That moves no tensor: an item whose tensors already
-sit on a card runs there.
+sit on a card runs there.  :func:`slice_partition_leads` is the same
+rule over the ranks of a task mesh: spectrum slicing runs partition i on
+the lead rank of group i mod the number of groups (``eps/ks_slice.py``).
 """
 
 from __future__ import annotations
@@ -255,9 +257,27 @@ def slice_submeshes(npart: int, devices: Optional[Sequence] = None):
     devices = [torch.device(d) for d in devices]
     if npart <= 1 or len(devices) < 2:
         return None
-    per = max(1, len(devices) // npart)
-    ngroups = min(npart, len(devices) // per)
-    return [tuple(devices[i * per:(i + 1) * per]) for i in range(ngroups)]
+    return _split(npart, devices)
+
+
+def _split(npart: int, members: Sequence):
+    """``members`` in at most ``npart`` contiguous groups of max(1,
+    len // npart), in order (the reference's rule, tasks.py:227-229)."""
+    per = max(1, len(members) // npart)
+    ngroups = min(npart, len(members) // per)
+    return [tuple(members[i * per:(i + 1) * per]) for i in range(ngroups)]
+
+
+def slice_partition_leads(nparts: int, world: int):
+    """The rank that runs each of ``nparts`` slicing partitions over the
+    ranks 0 .. world-1 of a task mesh: the ranks split as
+    :func:`slice_submeshes` splits cards (each group one of SLEPc's npart
+    subcommunicators), and partition i goes to the lead of group i mod
+    the number of groups (:func:`thread_map_submesh`'s rule); rank 0 for
+    all of them when there is nothing to split."""
+    groups = _split(nparts, list(range(world))) \
+        if nparts > 1 and world > 1 else [(0,)]
+    return [groups[i % len(groups)][0] for i in range(nparts)]
 
 
 def thread_map_submesh(fn, items: Sequence, meshes=None,
@@ -266,7 +286,11 @@ def thread_map_submesh(fn, items: Sequence, meshes=None,
     the lead card of group i mod len(meshes): what ``fn`` allocates on the
     current card lands there, while tensors it is handed stay on their own
     devices.  ``meshes`` None is plain :func:`thread_map`, the reference's
-    rule (tasks.py:239-240)."""
+    rule (tasks.py:239-240).  Spectrum slicing does not call it: on one
+    card a thread a partition lost to one after another (the threads hand
+    the interpreter lock over at every torch call, ROADMAP W7), so its
+    partitions run as ranks, by the same rule
+    (:func:`slice_partition_leads`)."""
     if not meshes:
         return thread_map(fn, items, max_workers)
 

@@ -448,6 +448,175 @@ def case_csr_rcm(mesh):
             **counts}
 
 
+# ---- spectrum slicing's partitions as ranks -----------------------------------
+
+def host_ldl_pencil(nx=10, ny=7):
+    """tests/test_torch_slice.py's generalized pencil: a permuted 2-D
+    Laplacian (CSR: the host native LDL^T) and a diagonal B."""
+    n = nx * ny
+    bd = 1.0 + 0.3 * np.cos(np.arange(n) * 0.2)
+    perm = np.random.default_rng(0).permutation(n)
+    As = stt.laplacian_2d(nx, ny, device="cpu").to_scipy().tocsr()
+    return As[perm][:, perm].tocsr(), bd
+
+
+def gauge(offsets, diags, seed=11):
+    """U A U^H for U = diag(exp(2 pi i u)), u from default_rng(seed)
+    (tests/test_torch_inertia.py's): the same offsets and spectrum,
+    complex Hermitian when A is symmetric."""
+    d = np.asarray(diags).astype(np.complex128)
+    n = d.shape[1]
+    phi = 2 * np.pi * np.random.default_rng(seed).random(n)
+    for k, o in enumerate(offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        d[k, lo:hi] *= np.exp(1j * (phi[lo:hi] - phi[lo + o:hi + o]))
+    return d
+
+
+def _gauged(L):
+    return stt.DIAOperator(L.offsets, gauge(tuple(L.offsets),
+                                            L.diags.cpu().numpy()),
+                           device=DEV)
+
+
+def slice_problem(name):
+    """(operators on DEV, interval, problem type) of a slicing case."""
+    if name == "tri":
+        return [stt.laplacian_1d(400, device=DEV)], (0.5, 0.9), "hep"
+    if name == "empty":
+        return [stt.laplacian_1d(50, device=DEV)], (4.5, 5.0), "hep"
+    if name == "grid":  # block-tridiagonal LDL^T
+        return [stt.laplacian_2d(12, 9, device=DEV)], (1.0, 2.0), "hep"
+    # tests/test_torch_inertia.py's complex Hermitian cases: a banded
+    # LDL^H and the complex tridiagonal count
+    if name == "cgrid":
+        return [_gauged(stt.laplacian_2d(12, 9, device="cpu"))], \
+            (1.0, 2.0), "hep"
+    if name == "c1d":
+        return [_gauged(stt.laplacian_1d(300, device="cpu"))], \
+            (0.5, 0.9), "hep"
+    As, bd = host_ldl_pencil()
+    return ([stt.from_scipy(As, device=DEV),
+             stt.DIAOperator((0,), bd[None, :], device=DEV)], (0.8, 1.7),
+            "ghep")
+
+
+def _ranks_differ(mesh, t):
+    """The largest difference of ``t`` on any rank from rank 0's."""
+    if mesh is None:
+        return 0.0
+    got = mesh.allgather(t.to(mesh.device))
+    return float((got - got[0]).abs().max()) if got.numel() else 0.0
+
+
+def run_slice(mesh, problem, npart, interval=None, own=False):
+    """Slice ``problem`` with ``npart`` partitions: as ranks over a task
+    mesh of every rank when ``mesh`` is given, else (or with ``own``, each
+    rank's solve its own) one after another.  ``interval`` replaces the
+    problem's."""
+    from slepc_tpu_torch.parallel import make_task_mesh
+    from slepc_tpu_torch.sys.events import get_event
+
+    ops, default, pt = slice_problem(problem)
+    eps = stt.EPS(*ops, problem_type=pt, options=stt.Options())
+    eps.set_interval(*(interval or default))
+    smesh = None if mesh is None or own else make_task_mesh(device=DEV)
+    eps.set_partitions(npart, mesh=smesh)
+    stt.log_begin()
+    eps.solve()
+    ev = {k: get_event("Slice_" + k) or {"count": 0, "time": 0.0}
+          for k in ("Search", "Partition", "Gather")}
+    X = eps._eigenvectors[:eps.nconv]
+    lam = np.asarray(eps.eigenvalues, dtype=float)
+    # read before _ranks_differ adds its own all-gathers
+    counters = {} if smesh is None else \
+        {f"s_{k}": v for k, v in smesh.counters.items()}
+    return {"nconv": eps.nconv, "n": eps.n, "lam": lam, "its": eps.its,
+            "facts": eps.slice_factorizations, "reason": eps.reason.name,
+            "backends": ",".join(eps.slice_backends),
+            "resid": np.asarray([eps.compute_error(i)
+                                 for i in range(eps.nconv)]),
+            "errests": np.asarray(eps.errests, dtype=float),
+            "leads": np.asarray(eps.slice_partition_ranks),
+            "ranks": eps.slice_mesh is not None,
+            **{f"ev_{k}_{f}": e[f] for k, e in ev.items()
+               for f in ("count", "time")},
+            "dlam": _ranks_differ(smesh, torch.from_numpy(lam)),
+            "dX": _ranks_differ(smesh, X),
+            **counters}
+
+
+def _slice_case(problem, npart):
+    return lambda mesh: run_slice(mesh, problem, npart)
+
+
+for _pb in ("tri", "ldl"):
+    for _p in (2, 3):
+        globals()[f"case_slice_{_pb}_p{_p}"] = _slice_case(_pb, _p)
+case_slice_grid_p2 = _slice_case("grid", 2)
+case_slice_cgrid_p2 = _slice_case("cgrid", 2)
+case_slice_c1d_p3 = _slice_case("c1d", 3)
+case_slice_empty = _slice_case("empty", 2)
+
+
+def case_slice_own(mesh):
+    """No task mesh under a process group of two: each rank slices an
+    interval of its own (SLEPc's PETSC_COMM_SELF), one partition after
+    another, with no collective.  Rank 0 returns its result and every
+    rank's count."""
+    lo, hi = ((0.5, 0.7), (0.7, 0.9))[mesh.rank]
+    r = run_slice(mesh, "tri", 2, interval=(lo, hi), own=True)
+    counts = mesh.allgather(torch.tensor([r["nconv"]],
+                                         device=mesh.device))
+    r["counts"] = _np(counts).ravel()
+    return r
+
+
+def _raises_on_every_rank(mesh, patch, run, want):
+    """``run()`` with ``eps/ks_slice.py``'s function ``patch`` raising on
+    rank 1: every rank must raise EPSError with ``want`` in its message
+    (no rank left waiting at a collective)."""
+    from slepc_tpu_torch.eps import ks_slice
+
+    def boom(*args):
+        raise RuntimeError(f"{patch} failed")
+
+    keep = getattr(ks_slice, patch) if patch else None
+    if patch and mesh.rank == 1:
+        setattr(ks_slice, patch, boom)
+    try:
+        run()
+    except stt.EPSError as err:
+        assert want in str(err), str(err)
+        return {"raised": True, "msg": str(err)}
+    finally:
+        if patch:
+            setattr(ks_slice, patch, keep)
+    raise AssertionError(f"no EPSError on rank {mesh.rank}")
+
+
+def case_slice_fail(mesh):
+    """Rank 1's partition raises."""
+    return _raises_on_every_rank(
+        mesh, "_process_interval", lambda: run_slice(mesh, "tri", 2),
+        "a partition failed on rank(s) [1]")
+
+
+def case_slice_search_fail(mesh):
+    """Rank 1's boundary search raises, before any partition."""
+    return _raises_on_every_rank(
+        mesh, "_partitions", lambda: run_slice(mesh, "tri", 2),
+        "boundary search failed on rank(s) [1]")
+
+
+def case_slice_differ(mesh):
+    """Rank 1 slices another interval over the same task mesh."""
+    interval = ((0.5, 0.9), (0.5, 0.85))[mesh.rank]
+    return _raises_on_every_rank(
+        mesh, None, lambda: run_slice(mesh, "tri", 2, interval=interval),
+        "differ")
+
+
 def spawn(tmp, world: int, cases, timeout: float = 120.0,
           backend: str = "gloo", device: str = "cpu"):
     """Run ``cases`` on ``world`` gloo ranks (this file as a script, in

@@ -655,6 +655,39 @@ def test_slicing_partitions_on_the_card_match_one_partition_and_the_cpu(
         assert two.slice_backends == (case,)
 
 
+def test_slicing_partitions_as_ranks_on_the_card(cuda, tmp_path):
+    """Slicing's partitions as two gloo ranks sharing the card
+    (tests/_torch_ranks.py's slice cases): each rank's result equals rank
+    0's, and the one-process port's on the CPU (nconv, values 1e-9,
+    factorizations), every pair's true residual <= 1e-8, the card's
+    backend, K3 and K4 launched on rank 0 (the lead of partition 0)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_ranks as ranks
+
+    cases = ("slice_tri_p2", "slice_grid_p2", "slice_ldl_p2")
+    got = ranks.spawn(tmp_path, 2, cases, timeout=300, device="cuda")
+    for c, backend in zip(cases, ("tridiag_device", "btridiag_device",
+                                  None)):
+        r, one = got[c], ranks.run_case(c, None)
+        assert bool(r["ranks"]) and not bool(one["ranks"]), c
+        assert list(r["leads"]) == [0, 1], c
+        assert int(r["nconv"]) == int(one["nconv"]) > 5, c
+        np.testing.assert_allclose(r["lam"], one["lam"], rtol=1e-9)
+        assert int(r["facts"]) == int(one["facts"]), c
+        assert str(r["reason"]) == "CONVERGED_TOL", c
+        assert float(r["dlam"]) == 0.0 and float(r["dX"]) == 0.0, c
+        assert r["resid"].max() <= 1e-8, c
+        if backend is not None:
+            assert str(r["backends"]) == backend, c
+        k3 = sum(int(r[f"k_panel_{v}_f64"]) for v in ("dots", "update",
+                                                      "update_dots"))
+        assert k3 > 0 and int(r["k_rotate_f64"]) > 0, c
+        assert int(r["s_allgather"]) == 1 and int(r["s_allreduce"]) == 2, c
+
+
 # ---- the non-Hermitian slice on the card ----------------------------------
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

@@ -132,10 +132,11 @@ def test_slice_partitions_match_the_reference(case, npart):
     """Several partitions, one after another in the port and on the
     reference's thread pool: the same nconv, the values within 1e-9 and
     the reference's factorization count (every factorization one
-    ``Slice_Factorization`` event).  The true residuals are the
-    reference's: slicing certifies on the shift-and-invert estimate, and
-    at two partitions the generalized case holds a pair at 1.75e-8 in both
-    packages (tol 1e-8)."""
+    ``Slice_Factorization`` event).  The port confirms every pair on the
+    pencil, so each true residual is below tol (1e-8).  The reference
+    certifies on the shift-and-invert estimate alone: at two partitions
+    the generalized case returns a pair at 1.747e-8, held here as a
+    divergence (ROADMAP queue 3, F3)."""
     if case == "tridiagonal":
         interval, problem_type = (0.5, 0.9), "hep"
 
@@ -168,4 +169,6 @@ def test_slice_partitions_match_the_reference(case, npart):
     assert te.slice_factorizations == je.slice_factorizations \
         == events["count"]
     resid = max(te.compute_error(i) for i in range(te.nconv))
-    assert resid <= max(1e-8, ref_resid * (1 + 1e-6))
+    assert resid <= 1e-8
+    if case == "host_ldl_generalized" and npart == 2:
+        assert ref_resid > 1e-8
