@@ -314,7 +314,18 @@ Phases (each failing check raises; the script then exits non-zero):
      to 1e-8, counts, errors under the script's bound) held against the
      same copy run with SLEPC_TPU_TORCH_DEVICE=cpu on this machine
      (tests/_example_pairs.py's comparison), the launches each made read
-     from the script's own process.
+     from the script's own process;
+ 21. the surface: every BV block operation of the port (copy, insert_vec,
+     insert_vecs, resize, scale, norms, mult, mat_mult, dot,
+     mat_project) on a BV of 40 vectors of phase 7's 100x102x104 grid
+     (1,060,800 rows, window [4, 36)) and a second of 8, in f64 (the DIA
+     operator: mat_mult on K5, one vector on K2; its CSR form: K6, on the
+     window [4, 12)) and
+     in c128 (the grid gauge-transformed as in phase 12: K5c / K2c, K6c),
+     each held against the same call on the CPU to 1e-12 relative, the
+     kernel each must launch (K4 for mult, K3 for dot and mat_project)
+     read around the call; then each method's wall, the median of 20
+     CUDA-event timings, beside the card's name and power limit.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -380,13 +391,16 @@ K4; K6c, K3c, K4c), of phase 16a, 16b and 16c (K2 / K1 / K2c, K3 /
 K3c, K4 / K4c; K2, K5, K3, K4; K5, K3, K4) and of phase 17a, 17b and 17c
 (K2, K3, K4; K2c, K3c, K4c; K6, K3, K4) and of phase 18a, 18b and 18c
 (K2, K3c, K4c; K2, K6, K3c, K4c; K2, K3c, K4c), of phase 19a, 19b and
-19c (K2, K3, K4; the same in rank 0; K5, K6, K3, K4 in rank 0) and of
-each phase-20 script (in its process); K7's launches are read
+19c (K2, K3, K4; the same in rank 0; K5, K6, K3, K4 in rank 0), of
+each phase-20 script (in its process) and of phase 21's checked calls in
+f64 and in c128 (K2, K5, K6, K3, K4 and their complex instantiations);
+K7's launches are read
 around its yardstick measurement in phase 1.  Every kernel of each path
 must have launched.  The JSON kernel table's ``launches_p13`` /
 ``launches_p14`` / ``launches_p12d`` / ``launches_p15`` /
 ``launches_p16`` / ``launches_p17`` / ``launches_p18`` /
-``launches_p19`` / ``launches_p20`` are those phases' shares of
+``launches_p19`` / ``launches_p20`` / ``launches_p21`` are those
+phases' shares of
 ``launches``.  The last three lines
 are the kernel table as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
@@ -5887,6 +5901,199 @@ def phase20(dev):
     return total
 
 
+# ---- phase 21: the surface (BV's block operations) on the card -----------
+
+P21_M, P21_W = 40, 8   # the BV's vectors; the second BV's (W, Y)
+P21_WINDOW = (4, 36)   # the active window: 32 vectors
+P21_CSR_WINDOW = (4, 12)  # mat_mult / mat_project's window on the CSR form
+P21_TOL = 1e-12
+
+
+def p21_cpu(bv):
+    """The same BV on the CPU (its vectors copied, its window kept)."""
+    c = stt.BV(bv.n, bv.m, bv.dtype, bv.nc, array=bv.array.cpu())
+    c.set_active_columns(bv.l, bv.k)
+    return c
+
+
+def p21_rel(got, want):
+    """max |got - want| / max |want|, on got's device."""
+    got = got.array if isinstance(got, stt.BV) else got
+    want = want.array if isinstance(want, stt.BV) else want
+    check(tuple(got.shape) == tuple(want.shape),
+          f"phase 21: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    want = want.to(got.device)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase21_case(dev, tag, ops, smi_line):
+    """Every new BV method on a BV of 40 vectors of phase 7's grid (``ops``:
+    (name, card operator, CPU operator, its SpMV's launch key, the window
+    mat_mult and mat_project run on)), each against the same call on the
+    CPU; the launches each made are read around it.  Returns the counts
+    of the checked calls and the walls."""
+    dtype = {"f64": torch.float64, "c128": torch.complex128}[tag]
+    n = ops[0][1].shape[0]
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(21)
+    V = stt.BV(n, P21_M, dtype=dtype, device=dev)
+    V.insert_vecs(0, torch.randn((n, P21_M), generator=gen, dtype=dtype,
+                                 device=dev))
+    W = stt.BV(n, P21_W, dtype=dtype, device=dev)
+    W.insert_vecs(0, torch.randn((n, P21_W), generator=gen, dtype=dtype,
+                                 device=dev))
+    V.set_active_columns(*P21_WINDOW)
+    Vc, Wc = p21_cpu(V), p21_cpu(W)
+    print(f"  phase 21 {tag}: BV of {P21_M} x {n} and {P21_W} x {n} on the "
+          f"card ({time.perf_counter() - t0:.2f} s to draw and place, and "
+          f"copy to the CPU)", flush=True)
+    rng = np.random.default_rng(23)
+    cplx = tag == "c128"
+
+    def draw(*shape):
+        x = rng.standard_normal(shape)
+        return x + 1j * rng.standard_normal(shape) if cplx else x
+
+    Q, v, Wcols = draw(P21_M, P21_M), draw(n), draw(n, 3)
+    v_d, W_d, Q_d = (torch.from_numpy(x).to(dev) for x in (v, Wcols, Q))
+    alpha, beta = (0.5 - 0.25j, 1.5j) if cplx else (0.5, -1.5)
+    errs, keys, walls = {}, {}, {}
+    spent = {"card": 0.0, "cpu": 0.0}
+
+    def run(name, card, cpu, want_key=None):
+        """card() and cpu() give what to compare; want_key: the kernel the
+        card call must launch (its count read around the call alone)."""
+        before = stt.launch_counts()
+        t1 = time.perf_counter()
+        got = card()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = cpu()
+        spent["card"] += t2 - t1
+        spent["cpu"] += time.perf_counter() - t2
+        after = stt.launch_counts()
+        used = {kk: after[kk] - before[kk] for kk in after
+                if after[kk] != before[kk]}
+        err = p21_rel(got, want)
+        errs[name], keys[name] = err, used
+        check(err <= P21_TOL, f"phase 21 {tag} {name}: relative error "
+              f"{err:.3e} > {P21_TOL:.0e}")
+        if want_key is not None:
+            check(used.get(want_key, 0) > 0, f"phase 21 {tag} {name}: "
+                  f"{want_key} did not launch ({used})")
+
+    # copy: its own vectors, nothing launched
+    C, Cc = V.copy(), Vc.copy()
+    check(C.array.data_ptr() != V.array.data_ptr()
+          and torch.equal(C.array, V.array) and (C.l, C.k) == (V.l, V.k),
+          f"phase 21 {tag}: copy")
+    run("copy", lambda: V.copy(), lambda: Vc.copy())
+
+    def step(name, write, want_key=None):
+        """The same write on the card's copy C and the CPU's Cc."""
+        run(name, lambda: (write(C, V), C)[1], lambda: (write(Cc, Vc), Cc)[1],
+            want_key)
+
+    step("insert_vec", lambda B, X: B.insert_vec(2, v))
+    step("insert_vecs", lambda B, X: B.insert_vecs(5, Wcols))
+    step("scale", lambda B, X: B.scale(alpha))
+    step("mult", lambda B, X: B.mult(alpha, beta, X, Q), f"rotate_{tag}")
+    check(p21_rel(V, Vc) == 0, f"phase 21 {tag}: V changed")
+    run("norms", lambda: V.norms(), lambda: Vc.norms())
+    for nm, A, Ac, key, win in ops:
+        for B in (V, Vc):
+            B.set_active_columns(*win)
+        run(f"mat_mult {nm}", lambda: V.mat_mult(A),
+            lambda: Vc.mat_mult(Ac),
+            key.replace("spmv", "spmm") if nm == "DIA" else key)
+        run(f"mat_project {nm}", lambda: V.mat_project(A, W),
+            lambda: Vc.mat_project(Ac, Wc), f"panel_dots_{tag}")
+        for B in (V, Vc):
+            B.set_active_columns(7, 8)
+        run(f"mat_mult {nm} one vector", lambda: V.mat_mult(A),
+            lambda: Vc.mat_mult(Ac), key)
+    for B in (V, Vc):
+        B.set_active_columns(*P21_WINDOW)
+    run("dot", lambda: V.dot(W), lambda: Vc.dot(Wc), f"panel_dots_{tag}")
+    run("dot self", lambda: V.dot(V), lambda: Vc.dot(Vc), f"panel_dots_{tag}")
+    R = V.copy()
+    R.resize(P21_M + 4)
+    Rc = Vc.copy()
+    Rc.resize(P21_M + 4)
+    check(p21_rel(R, Rc) == 0 and (R.m, R.l, R.k) == (Rc.m, Rc.l, Rc.k),
+          f"phase 21 {tag}: resize")
+    counts = stt.launch_counts()
+    t_timed = time.perf_counter()
+    # the walls: the median of 20 CUDA-event timings of each method (on a
+    # copy where it writes the BV); these launches are not counted
+    S = V.copy()
+    walls = {
+        "copy": cuda_ms(lambda: V.copy()),
+        "insert_vec": cuda_ms(lambda: S.insert_vec(2, v_d)),
+        "insert_vecs": cuda_ms(lambda: S.insert_vecs(5, W_d)),
+        "resize +4 -4": cuda_ms(lambda: (S.resize(P21_M + 4),
+                                         S.resize(P21_M))),
+        "scale": cuda_ms(lambda: S.scale(1.0)),
+        "norms": cuda_ms(lambda: V.norms()),
+        "mult": cuda_ms(lambda: S.mult(alpha, 0.0, V, Q_d)),
+        "dot": cuda_ms(lambda: V.dot(W)),
+        "dot self": cuda_ms(lambda: V.dot(V)),
+    }
+    for nm, A, _, _, win in ops:
+        V.set_active_columns(*win)
+        walls[f"mat_mult {nm}"] = cuda_ms(lambda: V.mat_mult(A))
+        walls[f"mat_project {nm}"] = cuda_ms(lambda: V.mat_project(A, W))
+    V.set_active_columns(*P21_WINDOW)
+    del S, C, Cc, R
+    for name in walls:
+        err = errs.get(name, 0.0)
+        print(f"    {tag} {name:<24} {walls[name]:9.4f} ms (median of 20)  "
+              f"err {err:.2e}  launches {keys.get(name, {})}", flush=True)
+    print(f"    ({smi_line}); checked calls: card {spent['card']:.2f} s, "
+          f"their CPU twins {spent['cpu']:.2f} s; timings "
+          f"{time.perf_counter() - t_timed:.2f} s", flush=True)
+    return counts, walls
+
+
+def phase21(dev, smi_line):
+    """The surface on the card: each new BV method in f64 on phase 7's
+    100x102x104 grid (DIA: K2 / K5; its CSR form: K6) and in c128 on the
+    grid gauge-transformed as in phase 12 (K2c / K5c, K6c), against the
+    same calls on the CPU; K3 (dot, mat_project) and K4 (mult) beside
+    them.  Returns the checked calls' launches and the walls."""
+    t0 = time.perf_counter()
+    print(f"phase 21: BV's block operations on the {SINVERT_GRID} grid, "
+          f"against the same calls on the CPU (tol {P21_TOL:.0e})",
+          flush=True)
+    A = stt.laplacian_3d(*SINVERT_GRID, dtype=torch.float64, device=dev)
+    Ac = stt.DIAOperator(A.offsets, A.diags.cpu())
+    S = Ac.to_scipy()
+    Sg = gauge_csr(S)
+    # CSR: K6 takes a row a launch, so a window of 8 vectors runs what 32
+    # would, at a quarter of the CPU twins' time
+    cases = {
+        "f64": [("DIA", A, Ac, "dia_spmv_f64", P21_WINDOW),
+                ("CSR", stt.from_scipy(S, device=dev),
+                 stt.from_scipy(S, device="cpu"), "csr_spmv_f64",
+                 P21_CSR_WINDOW)],
+        "c128": [("DIA", gauge_dia(A, torch.complex128),
+                  gauge_dia(Ac, torch.complex128), "dia_spmv_c128",
+                  P21_WINDOW),
+                 ("CSR", stt.from_scipy(Sg, device=dev),
+                  stt.from_scipy(Sg, device="cpu"), "csr_spmv_c128",
+                  P21_CSR_WINDOW)]}
+    del S, Sg
+    print(f"  operators built in {time.perf_counter() - t0:.2f} s", flush=True)
+    total, walls = None, {}
+    for tag, ops in cases.items():
+        stt.reset_launch_counts()
+        counts, walls[tag] = phase21_case(dev, tag, ops, smi_line)
+        total = counts if total is None else \
+            {kk: total[kk] + counts[kk] for kk in total}
+    print(f"  phase 21 wall {time.perf_counter() - t0:.3f} s", flush=True)
+    return total, walls
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -6152,6 +6359,8 @@ def main():
           flush=True)
     # phase 20: the examples' port copies, card against CPU
     p20 = phase20(dev)
+    # phase 21: the surface (BV's block operations), read from zero
+    p21, walls_21 = phase21(dev, smi_line)
     if args.profile:
         profile_solve("phase 17a toar", lambda: pep_run(
             "profiled 17a toar", stt.PEP(list(damped_quadratic(dev)),
@@ -6206,7 +6415,7 @@ def main():
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              p8r, plain_path, nhep_path, small_nhep_path) + complex_paths \
         + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths \
-        + p18_paths + p19_paths + (p20,)
+        + p18_paths + p19_paths + (p20, p21)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -6225,6 +6434,7 @@ def main():
                         "launches_p18": p18[key],
                         "launches_p19": p19[key],
                         "launches_p20": p20[key],
+                        "launches_p21": p21[key],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -6246,7 +6456,8 @@ def main():
               f"12d: {k['launches_p12d']}, phase 15: {k['launches_p15']}, "
               f"phase 16: {k['launches_p16']}, phase 17: "
               f"{k['launches_p17']}, phase 18: {k['launches_p18']}, phase "
-              f"19: {k['launches_p19']}, phase 20: {k['launches_p20']})",
+              f"19: {k['launches_p19']}, phase 20: {k['launches_p20']}, "
+              f"phase 21: {k['launches_p21']})",
               flush=True)
     print(f"flagship wall {wall:.3f} s (DIA), {wall_aij:.3f} s (AIJ, K6), "
           f"{wall_blk:.3f} s (blocked, K5); sinvert 1.06M rows "
@@ -6277,8 +6488,12 @@ def main():
           + ", ".join(f"{w} {t:.3f} s" for w, t in walls_18b.items())
           + f", phase 18 {wall_18:.3f} s; row partition: flagship one NCCL "
           f"rank {wall_19a:.3f} s, {P19_WORLD} gloo ranks on one card "
-          f"{rep19['b']['wall']:.3f} s, phase 19 {wall_19:.3f} s on "
-          f"{smi_line}", flush=True)
+          f"{rep19['b']['wall']:.3f} s, phase 19 {wall_19:.3f} s; BV "
+          f"methods (ms) "
+          + "; ".join(f"{t} " + ", ".join(f"{m} {w:.4f}" for m, w in
+                                          ws.items())
+                      for t, ws in walls_21.items())
+          + f" on {smi_line}", flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (limit "
           f"1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

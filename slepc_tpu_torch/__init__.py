@@ -94,7 +94,7 @@ from .st import (ST, STShift, STSinvert, STCayley, STPrecond, STShell,
                  STFilter)
 from .rg import RG, RGEllipse, RGInterval, RGPolygon, RGRing
 from .ksp import KSP, DirectSolver, solve_linear
-from .bv import BV
+from .bv import BV, OrthogBlockType, OrthogRefine, OrthogType
 from .ds import (DS, DSHEP, DSGHEP, DSGHIEP, DSNHEP, DSNHEPTS, DSGNHEP,
                  DSSVD, DSHSVD, DSGSVD, DSPEP, DSNEP)
 from .fn import (FN, FNExp, FNLog, FNSqrt, FNInvSqrt, FNPhi, FNRational,
@@ -172,6 +172,9 @@ __all__ = [
     "DirectSolver",
     "solve_linear",
     "BV",
+    "OrthogType",
+    "OrthogRefine",
+    "OrthogBlockType",
     "DS",
     "DSHEP",
     "DSGHEP",

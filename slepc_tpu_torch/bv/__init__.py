@@ -1,4 +1,5 @@
-from .bv import BV, OrthogRefine, OrthogBlockType
+from .bv import BV, OrthogType, OrthogRefine, OrthogBlockType
 from . import orthog, krylov
 
-__all__ = ["BV", "OrthogRefine", "OrthogBlockType", "orthog", "krylov"]
+__all__ = ["BV", "OrthogType", "OrthogRefine", "OrthogBlockType", "orthog",
+           "krylov"]

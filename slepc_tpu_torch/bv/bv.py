@@ -12,6 +12,15 @@ the signature ``omega`` (+-1 a row, host numpy): the sweeps scale their
 coefficients by it and the norms are signed.  ``biorthogonalize_column``
 is the two-sided primitive, on K3.  The TSQR block type runs
 ``orthog.tsqr`` (CholeskyQR2 under a B-metric, as the reference does).
+
+The public boundary speaks the reference's shapes: a block of vectors
+handed in or returned is (n, k), its columns the vectors (``insert_vecs``,
+``insert_constraints``, ``to_numpy``), and a coefficient matrix Q is the
+reference's (rows of the source, columns of the target).  The block
+operations run on the kernels: ``mult`` and ``mult_in_place`` on K4,
+``dot`` and ``mat_project`` on K3 (``orthog.gram``), ``mat_mult`` on the
+operator's SpMV (a window of one vector: ``mult``, K1 / K2 for DIA) or
+its block product (``mult_block``: K5 for DIA, K6 a row for CSR).
 """
 
 from __future__ import annotations
@@ -22,10 +31,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..mat.linop import LinearOperator, apply_by_parts
 from ..ops.bv import panel_dots, panel_update
 from ..ops.rotate import rotate
 from ..sys.device import resolve_device
+from ..sys.dtypes import as_torch_dtype
 from . import orthog as _orth
+
+
+class OrthogType(enum.Enum):
+    CGS = "cgs"  # one K3 dots and one K3 update a sweep
+    MGS = "mgs"  # the same kernels one basis vector at a time
 
 
 class OrthogRefine(enum.Enum):
@@ -50,7 +66,7 @@ class BV:
         if array is not None:
             self.array = array
         else:
-            self.array = torch.zeros((m + nc, n), dtype=dtype,
+            self.array = torch.zeros((m + nc, n), dtype=as_torch_dtype(dtype),
                                      device=resolve_device(device))
         self.dtype = self.array.dtype
         self.device = self.array.device
@@ -59,10 +75,24 @@ class BV:
         self.matrix = None  # B inner-product LinearOperator
         self.indef = False
         self.omega: Optional[np.ndarray] = None  # (nc + m,) signature
+        self.orthog_type = OrthogType.CGS
         self.orthog_refine = OrthogRefine.IFNEEDED
         self.orthog_block = OrthogBlockType.CHOL
 
     # -- basic ------------------------------------------------------------
+    def copy(self) -> "BV":
+        """A BV with its own copy of the vectors (and of the signature): an
+        in-place method on either leaves the other as it was."""
+        other = BV(self.n, self.m, self.dtype, self.nc,
+                   array=self.array.clone())
+        other.l, other.k = self.l, self.k
+        other.matrix, other.indef = self.matrix, self.indef
+        other.omega = None if self.omega is None else self.omega.copy()
+        other.orthog_type = self.orthog_type
+        other.orthog_refine = self.orthog_refine
+        other.orthog_block = self.orthog_block
+        return other
+
     def set_active_columns(self, l: int, k: int) -> None:
         if not 0 <= l <= k <= self.m:
             raise ValueError(f"active window [{l}, {k}) outside [0, {self.m}]")
@@ -82,7 +112,7 @@ class BV:
 
     def _tensor(self, v) -> torch.Tensor:
         if not torch.is_tensor(v):
-            v = torch.from_numpy(np.ascontiguousarray(v))
+            v = torch.from_numpy(np.require(v, requirements="CW"))
         return v.to(self.device, self.dtype)
 
     # -- column access (logical index excludes constraints) ---------------
@@ -95,16 +125,31 @@ class BV:
     def set_column(self, j: int, v) -> None:
         self.array[self._phys(j)] = self._tensor(v)
 
+    def insert_vec(self, j: int, v) -> None:
+        self.set_column(j, v)
+
+    def insert_vecs(self, s: int, W) -> None:
+        """Vectors s, s + 1, ... = the columns of W, (n, k)."""
+        W = self._columns(W, "insert_vecs")
+        self.array[self._phys(s): self._phys(s) + W.shape[1]] = W.T
+
+    def _columns(self, W, what: str) -> torch.Tensor:
+        W = self._tensor(W)
+        if W.dim() != 2 or W.shape[0] != self.n:
+            raise ValueError(f"BV.{what}: takes an (n, k) = ({self.n}, k) "
+                             f"block of columns, got {tuple(W.shape)}")
+        return W
+
     def insert_constraints(self, C) -> int:
-        """Prepend constraint vectors (the rows of C, (c, n)); they are
+        """Prepend constraint vectors, the columns of C, (n, c); they are
         orthonormalized and take part in every orthogonalization but are
         never touched by solvers.  Returns the constraint count."""
-        C = self._tensor(C)
-        Q, _ = _orth.cholqr2(C, self._ip_mult())
+        C = self._columns(C, "insert_constraints")
+        Q, _ = _orth.cholqr2(C.T.contiguous(), self._ip_mult())
         self.array = torch.cat([Q, self.array])
-        self.nc += C.shape[0]
+        self.nc += C.shape[1]
         if self.omega is not None:
-            self.omega = np.concatenate([np.ones(C.shape[0]), self.omega])
+            self.omega = np.concatenate([np.ones(C.shape[1]), self.omega])
         return self.nc
 
     def set_random(self, seed: int = 0, j: Optional[int] = None) -> None:
@@ -121,6 +166,28 @@ class BV:
             if self.dtype.is_complex:
                 v = v + 1j * rng.standard_normal(self.n)
             self.set_column(j, v)
+
+    def resize(self, m_new: int) -> None:
+        """m_new vectors: the leading ones kept, new ones zero; the active
+        window clamped to it."""
+        rows = m_new + self.nc
+        if rows <= self.array.shape[0]:
+            self.array = self.array[:rows].clone()
+        else:
+            self.array = torch.cat([self.array, self.array.new_zeros(
+                (rows - self.array.shape[0], self.n))])
+        if self.omega is not None:
+            self.omega = np.concatenate([self.omega[:rows], np.ones(
+                max(0, rows - len(self.omega)))])
+        self.m = m_new
+        self.k = min(self.k, m_new)
+        self.l = min(self.l, self.k)
+
+    def _window(self) -> torch.Tensor:
+        return self.array[self._phys(self.l): self._phys(self.k)]
+
+    def _upto_k(self) -> torch.Tensor:
+        return self.array[self._phys(0): self._phys(self.k)]
 
     # -- block linear algebra ---------------------------------------------
     def mult_vec(self, q) -> torch.Tensor:
@@ -139,6 +206,36 @@ class BV:
         rotate(Q[:, s:e].contiguous(), Vact,
                out=self.array[self._phys(s): self._phys(e)])
 
+    def mult(self, alpha, beta, X: "BV", Q) -> None:
+        """V[l:k] = beta V[l:k] + alpha X Q[:, l:k] over the active window,
+        X's first rows-of-Q vectors combined by Q on kernel K4, then one
+        pass over the window."""
+        Q = self._tensor(Q)
+        upd = rotate((alpha * Q[:, self.l: self.k]).contiguous(),
+                     X.array[X._phys(0): X._phys(Q.shape[0])])
+        win = self._window()
+        torch.add(upd, win, alpha=beta, out=win)
+
+    def mat_mult(self, A, out: Optional["BV"] = None) -> "BV":
+        """Y = A V over the active window, into ``out`` (a new BV with no
+        constraints when None), which takes the same window.  A window of
+        one vector is one ``A.mult`` (K1 / K2 for DIA, K6 for CSR), a wider
+        one ``A.mult_block`` (K5 for DIA, K6 a row for CSR)."""
+        Y = _apply_rows(A, self._window())
+        if out is None:
+            out = BV(self.n, self.m, self.dtype, device=self.device)
+        out.array[out._phys(self.l): out._phys(self.k)] = Y
+        out.set_active_columns(self.l, self.k)
+        return out
+
+    def dot(self, Y: "BV") -> torch.Tensor:
+        """M = Y^H B X, (k_Y, k_X), over vectors 0..k-1 of Y and of this
+        BV (X), on K3; B is this BV's metric."""
+        X = self._upto_k()
+        if self.matrix is not None:
+            X = _apply_rows(self.matrix, X)
+        return _orth.gram(Y._upto_k(), X)
+
     def dot_vec(self, y) -> torch.Tensor:
         """c = V B y over the active vectors; one K3 sweep."""
         y = self._tensor(y)
@@ -156,6 +253,14 @@ class BV:
 
     def scale_column(self, j: int, alpha) -> None:
         self.array[self._phys(j)] *= alpha
+
+    def scale(self, alpha) -> None:
+        self._window().mul_(alpha)
+
+    def norms(self) -> torch.Tensor:
+        """The 2-norms of the active window's vectors (no B metric), in one
+        reduction over the rows."""
+        return torch.linalg.vector_norm(self._window(), dim=1)
 
     # -- orthogonalization -------------------------------------------------
     def orthogonalize_vec(self, v):
@@ -187,7 +292,9 @@ class BV:
 
     def _orth_against(self, j: int, v: torch.Tensor):
         passes = 1 if self.orthog_refine == OrthogRefine.NEVER else 2
-        v_new, c, nb, na = _orth.orthogonalize_vec(
+        orth = _orth.mgs_vec if self.orthog_type == OrthogType.MGS \
+            else _orth.orthogonalize_vec
+        v_new, c, nb, na = orth(
             self.array[: self._phys(j)], v, self._ip_mult(), passes=passes,
             omega=self.omega[: self._phys(j)] if self.indef else None)
         # one host read: the coefficients and both norms
@@ -220,10 +327,30 @@ class BV:
         self.array[sl] = Q
         return R
 
+    # -- projections --------------------------------------------------------
+    def mat_project(self, A, W: Optional["BV"] = None) -> torch.Tensor:
+        """M = W^H A V, (k_W, k_V), over vectors 0..k-1 of W (this BV when
+        None) and of V; A None is the identity.  A V on A's SpMV or block
+        product, the Gram on K3."""
+        W = self if W is None else W
+        AV = self._upto_k() if A is None else _apply_rows(A, self._upto_k())
+        return _orth.gram(W._upto_k(), AV)
+
     def to_numpy(self) -> np.ndarray:
         """The logical vectors as the COLUMNS of an (n, m) host array (the
         reference's layout)."""
         return self.array[self.nc:].cpu().numpy().T
+
+
+def _apply_rows(A, X: torch.Tensor) -> torch.Tensor:
+    """A applied to each row of X: one ``A.mult`` for a single row, else
+    ``A.mult_block``; complex rows of a real operator as their real and
+    imaginary parts."""
+    if X.shape[0] == 0:
+        return X.new_zeros((0, A.shape[0]))
+    if X.shape[0] == 1:
+        return apply_by_parts(A.mult, X[0], A.dtype)[None]
+    return apply_by_parts(LinearOperator.block_of(A), X, A.dtype)
 
 
 def biorthogonalize_column(V: BV, W: BV, j: int) -> torch.Tensor:

@@ -25,6 +25,8 @@ counterpart: the caller slices.  A block X is (k, n), its rows the vectors.
     modified Gram-Schmidt and TSQR (:func:`tsqr`: one QR on one rank; on a
     row mesh the two-stage TSQR with one all-gather of the small R
     factors).
+  * :func:`mgs_vec` is modified Gram-Schmidt (the BV's ``OrthogType.MGS``):
+    the same K3 sweeps one basis row at a time.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def _safe_sqrt(nsq: torch.Tensor) -> torch.Tensor:
 def gram(V: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """G[k, m] = <V[k], W[m]> for row blocks V (K, n), W (b, n), on K3 in
     panels of at most 8 rows of W."""
+    if V.shape[0] == 0 or W.shape[0] == 0:
+        return V.new_zeros((V.shape[0], W.shape[0]))
     if W.shape[0] <= _PANEL:
         return panel_dots(V, W)
     return torch.cat([panel_dots(V, W[i: i + _PANEL])
@@ -91,6 +95,30 @@ def orthogonalize_vec(V: torch.Tensor, w: torch.Tensor,
     w = panel_update(V, h(c), wp)[0]
     Bw = w if Bmult is None else Bmult(w)
     return w, c_total[:, 0], norm_before, _safe_sqrt(torch.vdot(w, Bw).real)
+
+
+def mgs_vec(V: torch.Tensor, w: torch.Tensor,
+            Bmult: Optional[Callable] = None, passes: int = 2,
+            omega: Optional[np.ndarray] = None):
+    """Orthogonalize w against the rows of V by modified Gram-Schmidt:
+    ``passes`` sweeps, each one K3 dots and one K3 update a row of V, in
+    order, on the w the rows before left.  Same arguments and returns as
+    :func:`orthogonalize_vec` (c_total sums each row's coefficients over
+    the sweeps)."""
+    Bw = w if Bmult is None else Bmult(w)
+    norm_before = _safe_sqrt(torch.vdot(w, Bw).real)
+    c_total = torch.zeros(V.shape[0], dtype=w.dtype, device=w.device)
+    wp = w[None]
+    for _ in range(passes if V.shape[0] else 0):
+        for i in range(V.shape[0]):
+            Vi = V[i: i + 1]
+            c = panel_dots(Vi, wp if Bmult is None else Bmult(wp[0])[None])
+            c_total[i] += c[0, 0]
+            wp = panel_update(Vi, c if omega is None else c * float(omega[i]),
+                              wp)
+    w = wp[0]
+    Bw = w if Bmult is None else Bmult(w)
+    return w, c_total, norm_before, _safe_sqrt(torch.vdot(w, Bw).real)
 
 
 # ---------------------------------------------------------------------------
@@ -208,3 +236,4 @@ def tsqr(X: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, np.ndarray]:
     Q2, R = torch.linalg.qr(Rall.reshape(mesh.world * k, k))
     Q2i = Q2[mesh.rank * k: (mesh.rank + 1) * k].contiguous()
     return rotate(Q2i, Ql.mT.contiguous()), R.cpu().numpy()
+

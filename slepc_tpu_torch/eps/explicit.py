@@ -121,7 +121,7 @@ class _ExplicitRestartKrylov(EPSSolver):
             V.set_matrix(Bip)
         nc = 0
         if eps.deflation_space is not None:
-            nc = V.insert_constraints(eps.deflation_space.T)
+            nc = V.insert_constraints(eps.deflation_space)
         v0 = start_vector(np.random.default_rng(0), n, dtype)
         if eps.initial_space is not None:
             v0 = np.asarray(eps.initial_space[:, 0])

@@ -234,7 +234,7 @@ class KrylovSchur(EPSSolver):
             V.set_matrix(Bip, indef=indefinite)
         nc = 0
         if eps.deflation_space is not None:
-            nc = V.insert_constraints(eps.deflation_space.T)
+            nc = V.insert_constraints(eps.deflation_space)
         if eps.initial_space is not None:
             v0 = eps.initial_space[:, 0]
         else:  # the reference's start vector, so both walk one trajectory

@@ -43,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bv.bv import BV
+from .bv.bv import BV, OrthogType
 from .fn import fn as _fn
 from .ksp.ksp import KSP
 from .lme.lme import LME
@@ -284,6 +284,7 @@ def bv_from_slepc_tpu(jbv, device=None) -> BV:
     arr = torch.from_numpy(np.ascontiguousarray(np.asarray(jbv.array).T))
     bv = BV(jbv.n, jbv.m, nc=jbv.nc, array=arr.to(resolve_device(device)))
     bv.set_active_columns(jbv.l, jbv.k)
+    bv.orthog_type = OrthogType(jbv.orthog_type.value)
     if jbv.matrix is not None:
         bv.set_matrix(operator_from_slepc_tpu(jbv.matrix, device=device))
     return bv

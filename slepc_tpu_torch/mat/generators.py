@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..sys.device import resolve_device
-from .linop import AIJOperator, DenseOperator, DIAOperator, as_torch_dtype
+from ..sys.dtypes import as_numpy_dtype, as_torch_dtype
+from .linop import AIJOperator, DenseOperator, DIAOperator
 
 
 def _neighbor(cond: torch.Tensor, dtype) -> torch.Tensor:
@@ -83,6 +84,14 @@ def laplacian_3d(nx: int, ny: int | None = None, nz: int | None = None,
     return DIAOperator((-nx * ny, -nx, -1, 0, 1, nx, nx * ny), diags)
 
 
+def laplacian_3d_device(nx: int, ny: int | None = None, nz: int | None = None,
+                        dtype=np.float64, device=None) -> DIAOperator:
+    """The 7-point 3-D Laplacian with its diagonals made on the device (the
+    reference's name for that route; :func:`laplacian_3d` builds them there
+    already)."""
+    return laplacian_3d(nx, ny, nz, dtype=dtype, device=device)
+
+
 def laplacian_1d_eigs(n: int, k: int | None = None) -> np.ndarray:
     """Closed-form eigenvalues of laplacian_1d, ascending."""
     j = np.arange(1, n + 1)
@@ -140,9 +149,8 @@ def random_sparse(n: int, m: int | None = None, density: float = 0.01,
 
     m = n if m is None else m
     rng = np.random.default_rng(seed)
-    np_dtype = torch.empty((), dtype=as_torch_dtype(dtype)).numpy().dtype
     A = sp.random(n, m, density=density, random_state=rng,
-                  dtype=np.float64).astype(np_dtype)
+                  dtype=np.float64).astype(as_numpy_dtype(dtype))
     if symmetric:
         A = (A + A.T) * 0.5
     return AIJOperator.from_scipy(sp.csr_matrix(A), device=device)
@@ -198,4 +206,5 @@ def from_complex_dia(offsets, diags, dtype=torch.float64,
         out[roffs.index(2 * o - 1), 1::2] = im
         out[roffs.index(2 * o), 1::2] = re
     device = resolve_device(device)
-    return DIAOperator(roffs, torch.from_numpy(out).to(device, dtype))
+    return DIAOperator(roffs, torch.from_numpy(out).to(device,
+                                                       as_torch_dtype(dtype)))

@@ -37,6 +37,7 @@ import torch
 from ..ops.csr import CSR_BUDGET, csr_plan, csr_spmv, row_of_entry
 from ..ops.dia import dia_spmm, dia_spmv
 from ..sys.device import resolve_device
+from ..sys.dtypes import as_torch_dtype
 
 
 def _place(data, device) -> torch.Tensor:
@@ -57,13 +58,6 @@ def apply_by_parts(fn, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if x.is_complex() and not dtype.is_complex:
         return torch.complex(fn(x.real.contiguous()), fn(x.imag.contiguous()))
     return fn(x)
-
-
-def as_torch_dtype(dtype) -> Optional[torch.dtype]:
-    """A torch dtype from a torch or numpy dtype (None stays None)."""
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
 class LinearOperator:

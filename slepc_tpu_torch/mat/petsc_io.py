@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..sys.dtypes import as_numpy_dtype
+
 MAT_CLASSID = 1211216
 VEC_CLASSID = 1211214
 
@@ -28,7 +30,7 @@ def read_petsc_matrix(path: str, dtype=np.float64):
         nrows, ncols, nnz = (int(x) for x in header[1:4])
         rowlens = np.fromfile(f, dtype=">i4", count=nrows).astype(np.int64)
         colidx = np.fromfile(f, dtype=">i4", count=nnz).astype(np.int64)
-        if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        if np.issubdtype(as_numpy_dtype(dtype), np.complexfloating):
             raw = np.fromfile(f, dtype=">f8", count=2 * nnz)
             vals = raw[0::2] + 1j * raw[1::2]
         else:

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..sys.device import resolve_device
+from ..sys.dtypes import as_torch_dtype
 from . import _build
 
 launches = {"stream_sum_f32": 0, "stream_sum_f64": 0}
@@ -77,6 +78,7 @@ def stream_bandwidth(nd: int, n: int, dtype=torch.float64, device=None,
     if device.type != "cuda":
         raise RuntimeError("stream_bandwidth measures a CUDA card; on the "
                            "CPU there is no kernel to time")
+    dtype = as_torch_dtype(dtype)
     d = torch.ones((nd, n), dtype=dtype, device=device)
     x = torch.ones(n, dtype=dtype, device=device)
     y = torch.empty_like(x)

@@ -157,6 +157,22 @@ class HaloDIAOperator(SlabOperator):
             self._adj = HaloDIAOperator(adj.offsets, adj.diags, self.mesh)
         return self._adj.mult(x)
 
+    def rmult(self, x: torch.Tensor) -> torch.Tensor:
+        """The adjoint apply (the reference's name): :meth:`mult_h`."""
+        return self.mult_h(x)
+
+    def to_dense(self) -> torch.Tensor:
+        """The global (n, n) matrix on every rank, its diagonals gathered
+        from the ranks (one all-gather); for small test sizes."""
+        d = self.mesh.gather_rows(self.interior(self.diags), self.n_global)
+        n = self.n_global
+        A = torch.zeros((n, n), dtype=self.dtype, device=self.device)
+        for k, off in enumerate(self.offsets):
+            rows = torch.arange(max(0, -off), min(n, n - off),
+                                device=self.device)
+            A[rows, rows + off] = d[k, rows]
+        return A
+
 
 def dia_spmv_halo(diags: torch.Tensor, x: torch.Tensor, *, offsets: tuple,
                   mesh: RowMesh) -> torch.Tensor:

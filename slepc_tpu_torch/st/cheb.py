@@ -49,6 +49,11 @@ class ChebAmplifyOperator:
     def device(self):
         return self.base.device
 
+    @property
+    def nnz(self):
+        """Flop accounting: one apply streams the base ``degree`` times."""
+        return int(getattr(self.base, "nnz", 0)) * max(self.degree, 1)
+
     def _recurrence(self, apply, x: torch.Tensor) -> torch.Tensor:
         d = self.degree
         if d <= 0:

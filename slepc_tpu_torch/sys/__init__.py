@@ -2,6 +2,7 @@ from .options import (Options, apply_module_options, get_global_options,
                       set_global_options)
 from .sort import SortCriterion, Which, sort_eigenvalues
 from .events import log_event_end_sync
+from .mesh import get_mesh, set_mesh
 from .monitor import Monitor, ConvMonitor
 
 __all__ = [
@@ -13,6 +14,8 @@ __all__ = [
     "log_event_end_sync",
     "Which",
     "SortCriterion",
+    "get_mesh",
+    "set_mesh",
     "Monitor",
     "ConvMonitor",
 ]

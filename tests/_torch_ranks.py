@@ -131,6 +131,21 @@ def case_halo_spmm(mesh):
     return {"Y": _np(_rows(H, Y)), **out}
 
 
+def case_halo_adjoint(mesh):
+    """HaloDIAOperator's adjoint apply (``rmult``) and gathered ``to_dense``
+    on a non-symmetric DIA operator."""
+    rng = np.random.default_rng(2)
+    n = 300
+    d = rng.standard_normal((3, n))
+    A = stt.DIAOperator((-2, 0, 1), d, device=DEV)
+    H = _halo(mesh, A)
+    x = torch.from_numpy(rng.standard_normal(n))
+    xs = H.local_rows(x) if mesh is not None else x
+    if mesh is None:
+        return {"yh": _np(A.mult_h(x)), "dense": _np(A.to_dense())}
+    return {"yh": _np(_rows(H, H.rmult(xs))), "dense": _np(H.to_dense())}
+
+
 def case_padded_f32(mesh):
     A = stt.laplacian_2d(64, 64, dtype=torch.float32, device=DEV)
     op = A if mesh is None else stt.HaloDIAOperator.from_dia(A, mesh)

@@ -172,7 +172,7 @@ def test_bv_columns_constraints_and_orthonormalization(metric):
     assert tbv.array.shape == (m, n) and (tbv.matrix is not None) == metric
     C = np.random.default_rng(5).standard_normal((n, 2))
     assert jbv.insert_constraints(jnp.asarray(C)) == \
-        tbv.insert_constraints(C.T) == 2
+        tbv.insert_constraints(C) == 2
     assert tbv.array.shape == (m + 2, n) and tbv.nc == 2
     for j in range(3):
         cj, nj, lj = jbv.orthonormalize_column(j, replace_lindep=True)
@@ -399,3 +399,194 @@ def test_panel_sweeps_in_row_chunks_match_plain(K, b):
         assert calls == [(1, *c) for c in chunks] + [(0, *c) for c in chunks]
     assert torch.allclose(U, U_ref, rtol=0, atol=1e-12)
     assert torch.allclose(D, D_ref, rtol=0, atol=1e-11)
+
+
+# ---- BV's block operations against slepc_tpu.BV ----------------------------
+# The same seeded numpy data through both classes; each result read in the
+# reference's column shapes.  Cases: float64 and complex128, no metric and a
+# diagonal SPD B, no constraints and two, the window [1, 5) of 6 vectors.
+# Tolerance 1e-12 relative to the largest entry of the reference's result.
+
+from slepc_tpu.bv.bv import OrthogType as JOrthogType
+from slepc_tpu.mat.linop import DiagonalOperator as JDiagonal
+from slepc_tpu_torch.bv.bv import OrthogType
+
+BV_CASES = [(dt, metric, nc) for dt in (np.float64, np.complex128)
+            for metric in (False, True) for nc in (0, 2)]
+BV_IDS = [f"{np.dtype(dt).name}-{'B' if metric else 'I'}-nc{nc}"
+          for dt, metric, nc in BV_CASES]
+
+
+def _rand(rng, shape, dtype):
+    x = rng.standard_normal(shape)
+    if np.issubdtype(dtype, np.complexfloating):
+        x = x + 1j * rng.standard_normal(shape)
+    return x.astype(dtype)
+
+
+def _rel(port, ref):
+    port = port.cpu().numpy() if torch.is_tensor(port) else np.asarray(port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    return float(np.abs(port - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def _bv_case(dtype, metric, nc, n=70, m=6, seed=11, window=(1, 5)):
+    """(jbv, tbv, jB, tB): the same vectors, constraints and metric."""
+    rng = np.random.default_rng(seed)
+    jbv = JBV(n, m, dtype=dtype)
+    jbv.array = jnp.asarray(_rand(rng, (n, m), dtype))
+    tbv = BV(n, m, dtype=dtype, device="cpu")
+    tbv.insert_vecs(0, np.asarray(jbv.array))
+    jB = tB = None
+    if metric:
+        d = 1.0 + rng.random(n)
+        jB, tB = JDiagonal(d), tst.DiagonalOperator(d, device="cpu")
+        jbv.set_matrix(jB)
+        tbv.set_matrix(tB)
+    if nc:
+        C = _rand(rng, (n, nc), dtype)
+        assert jbv.insert_constraints(jnp.asarray(C)) == \
+            tbv.insert_constraints(C) == nc
+    jbv.set_active_columns(*window)
+    tbv.set_active_columns(*window)
+    return jbv, tbv, jB, tB
+
+
+def _operators(dtype, n=70, seed=12):
+    """A DIA and a CSR operator of each package on the same matrix."""
+    rng = np.random.default_rng(seed)
+    d = _rand(rng, (3, n), dtype)
+    d[0, 0] = d[2, -1] = 0  # the entries outside the matrix
+    jA = jst.DIAOperator((-1, 0, 1), d)
+    tA = tst.DIAOperator((-1, 0, 1), d, device="cpu")
+    S = jA.to_scipy().tocsr()
+    return [(jA, tA), (jst.from_scipy(S), tst.from_scipy(S, device="cpu"))]
+
+
+@pytest.mark.parametrize("dtype,metric,nc", BV_CASES, ids=BV_IDS)
+def test_bv_copy_insert_scale_resize_match_reference(dtype, metric, nc):
+    jbv, tbv, _, _ = _bv_case(dtype, metric, nc)
+    assert tbv.dtype == (torch.float64 if dtype == np.float64
+                         else torch.complex128)
+    # copy shares nothing mutable: scaling the copy leaves the original
+    jc, tc = jbv.copy(), tbv.copy()
+    assert (tc.l, tc.k, tc.nc) == (jc.l, jc.k, jc.nc)
+    assert tc.matrix is tbv.matrix and tc.array is not tbv.array
+    tc.scale(3.0)
+    jc.scale(3.0)
+    assert _rel(tc.to_numpy(), jc.to_numpy()) < 1e-12
+    assert _rel(tbv.to_numpy(), jbv.to_numpy()) < 1e-12
+    rng = np.random.default_rng(13)
+    v = _rand(rng, 70, dtype)
+    W = _rand(rng, (70, 2), dtype)
+    jbv.insert_vec(0, jnp.asarray(v))
+    tbv.insert_vec(0, v)
+    jbv.insert_vecs(2, jnp.asarray(W))
+    tbv.insert_vecs(2, W)
+    assert _rel(tbv.to_numpy(), jbv.to_numpy()) < 1e-12
+    alpha = 0.5 - 0.25j if dtype == np.complex128 else -1.5
+    jbv.scale(alpha)
+    tbv.scale(alpha)
+    assert _rel(tbv.to_numpy(), jbv.to_numpy()) < 1e-12
+    assert _rel(tbv.norms(), jbv.norms()) < 1e-12
+    for m_new in (8, 3):
+        jbv.resize(m_new)
+        tbv.resize(m_new)
+        assert (tbv.m, tbv.l, tbv.k) == (jbv.m, jbv.l, jbv.k)
+        assert _rel(tbv.to_numpy(), jbv.to_numpy()) < 1e-12
+        assert tbv.array.shape == (nc + m_new, 70)
+
+
+@pytest.mark.parametrize("dtype,metric,nc", BV_CASES, ids=BV_IDS)
+def test_bv_mult_and_dot_match_reference(dtype, metric, nc):
+    jbv, tbv, _, _ = _bv_case(dtype, metric, nc)
+    jX, tX, _, _ = _bv_case(dtype, False, 0, m=7, seed=21, window=(0, 7))
+    rng = np.random.default_rng(14)
+    Q = _rand(rng, (7, 6), dtype)
+    alpha, beta = (2.0 - 1j, 0.5j) if dtype == np.complex128 else (2.0, 0.5)
+    jbv.mult(alpha, beta, jX, jnp.asarray(Q))
+    tbv.mult(alpha, beta, tX, Q)
+    assert _rel(tbv.to_numpy(), jbv.to_numpy()) < 1e-12
+    # Y^H B X over vectors 0..k-1, (k_Y, k_X)
+    assert _rel(tbv.dot(tX), jbv.dot(jX)) < 1e-12
+    assert _rel(tX.dot(tbv), jX.dot(jbv)) < 1e-12
+    assert _rel(tbv.dot(tbv), jbv.dot(jbv)) < 1e-12
+    # MGS (the same K3 sweeps a row at a time) against the reference's MGS
+    for bv_ in (jbv, tbv):
+        bv_.orthog_type = (JOrthogType if bv_ is jbv else OrthogType).MGS
+    for j in range(3):
+        cj, nj, lj = jbv.orthonormalize_column(j)
+        ct, nt, lt = tbv.orthonormalize_column(j)
+        assert lj == lt and abs(nt - nj) < 1e-12 * abs(nj)
+        if j:
+            assert _rel(ct[:j], np.asarray(cj)[:j]) < 1e-11
+    assert _rel(tbv.to_numpy(), jbv.to_numpy()) < 1e-12
+
+
+@pytest.mark.parametrize("dtype,metric,nc", BV_CASES, ids=BV_IDS)
+def test_bv_mat_mult_and_mat_project_match_reference(dtype, metric, nc):
+    jbv, tbv, _, _ = _bv_case(dtype, metric, nc)
+    jW, tW, _, _ = _bv_case(dtype, False, 0, m=4, seed=31, window=(0, 4))
+    for jA, tA in _operators(dtype):
+        jY, tY = jbv.mat_mult(jA), tbv.mat_mult(tA)
+        assert (tY.l, tY.k, tY.nc) == (jY.l, jY.k, jY.nc) == (1, 5, 0)
+        assert _rel(tY.to_numpy(), jY.to_numpy()) < 1e-12
+        # a window of one vector: the operator's SpMV, not its block product
+        jbv.set_active_columns(2, 3)
+        tbv.set_active_columns(2, 3)
+        assert _rel(tbv.mat_mult(tA).to_numpy(),
+                    jbv.mat_mult(jA).to_numpy()) < 1e-12
+        jbv.set_active_columns(1, 5)
+        tbv.set_active_columns(1, 5)
+        assert _rel(tbv.mat_project(tA, tW), jbv.mat_project(jA, jW)) < 1e-12
+        assert _rel(tbv.mat_project(tA), jbv.mat_project(jA)) < 1e-12
+    assert _rel(tbv.mat_project(None, tW), jbv.mat_project(None, jW)) < 1e-12
+    # a real operator on a complex basis goes by parts
+    if dtype == np.complex128:
+        jL, tL = _operators(np.float64)[0]
+        assert _rel(tbv.mat_mult(tL).to_numpy(),
+                    jbv.mat_mult(jL).to_numpy()) < 1e-12
+
+
+@pytest.mark.parametrize("dtype,metric", [(dt, mt) for dt in (np.float64,
+                                                                np.complex128)
+                                          for mt in (False, True)])
+def test_bv_insert_constraints_matches_reference(dtype, metric):
+    """Constraints are the reference's (n, c) columns: the same constrained
+    basis, and a transposed C raises instead of passing as c = n."""
+    jbv, tbv, _, _ = _bv_case(dtype, metric, 2)
+    A = np.asarray(jbv.array)
+    Tp = tbv.array.numpy().T
+    sign = np.sum(Tp.conj() * A, axis=0)
+    sign = sign / np.abs(sign)
+    assert np.abs(Tp * sign - A).max() < 1e-12
+    for j in range(4):
+        cj, nj, _ = jbv.orthonormalize_column(j)
+        ct, nt, _ = tbv.orthonormalize_column(j)
+        assert abs(nt - nj) < 1e-12 * abs(nj)
+    # the first four vectors, orthonormalized against the constraints
+    assert _rel(tbv.to_numpy()[:, :4] * sign[2:6],
+                np.asarray(jbv.array)[:, 2:6]) < 1e-11
+    C = _rand(np.random.default_rng(0), (70, 2), dtype)
+    with pytest.raises(ValueError, match=r"\(n, k\)"):
+        tbv.insert_constraints(C.T)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_mgs_matches_reference(dtype):
+    """MGS (``orthog.mgs_vec``, the K3 sweeps a basis row at a time) against
+    the reference's masked MGS on the same vectors."""
+    from slepc_tpu.bv.bv import _mgs_orth
+
+    rng = np.random.default_rng(15)
+    n, m, j = 60, 7, 5
+    V = np.linalg.qr(_rand(rng, (n, m), dtype))[0]
+    w = _rand(rng, n, dtype)
+    mask = (np.arange(m) < j).astype(np.float64)
+    tV, tw = torch.from_numpy(V.T.copy()), torch.from_numpy(w)
+    wt, ct, nbt, nat = torth.mgs_vec(tV[:j], tw, passes=2)
+    wj, cj, nbj, naj = _mgs_orth(jnp.asarray(V), jnp.asarray(mask),
+                                 jnp.asarray(w), None, None, 2)
+    assert _rel(wt, wj) < 1e-12 and _rel(ct, np.asarray(cj)[:j]) < 1e-12
+    assert abs(float(nat) - float(np.real(naj))) < 1e-12 * abs(float(nbt))

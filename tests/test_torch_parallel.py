@@ -25,7 +25,8 @@ from slepc_tpu.sys import mesh as jmesh
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_ranks as ranks  # noqa: E402
 
-CASES = ("spmv_shard", "halo_spmv", "halo_spmm", "padded_f32", "ring",
+CASES = ("spmv_shard", "halo_spmv", "halo_spmm", "halo_adjoint",
+         "padded_f32", "ring",
          "tsqr", "bv_tsqr", "task_ciss", "markov_nhep", "svd_shard",
          "svd_dense")
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
@@ -51,6 +52,24 @@ def row_mesh():
 
 def teardown_module():
     jax.clear_caches()
+
+
+def test_halo_rmult_and_to_dense_match(ranked, one_rank):
+    """HaloDIAOperator.rmult is the adjoint apply and to_dense the global
+    matrix on every rank, as the one-rank operator's mult_h and to_dense
+    (and the reference's to_dense of the same diagonals)."""
+    from slepc_tpu.parallel import HaloDIAOperator
+
+    r, one = ranked["halo_adjoint"], one_rank["halo_adjoint"]
+    np.testing.assert_allclose(r["yh"], one["yh"], rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(r["dense"], one["dense"])
+    rng = np.random.default_rng(2)
+    d = rng.standard_normal((3, 300))
+    x = rng.standard_normal(300)
+    np.testing.assert_array_equal(r["dense"], np.asarray(
+        HaloDIAOperator((-2, 0, 1), d, Mesh(np.asarray(jax.devices()[:1]),
+                                            ("rows",))).to_dense()))
+    np.testing.assert_allclose(r["yh"], one["dense"].T @ x, atol=1e-12)
 
 
 def test_sharded_spmv_matches(ranked, row_mesh):
