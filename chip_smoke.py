@@ -325,7 +325,17 @@ Phases (each failing check raises; the script then exits non-zero):
      each held against the same call on the CPU to 1e-12 relative, the
      kernel each must launch (K4 for mult, K3 for dot and mat_project)
      read around the call; then each method's wall, the median of 20
-     CUDA-event timings, beside the card's name and power limit.
+     CUDA-event timings, beside the card's name and power limit;
+ 22. the array rule: on phase 7's grid (1,060,800 rows), the public calls
+     given numpy arrays on card operators -- DIAOperator.mult / mult_h
+     (K2), mult_block of 4 rows (K5), AIJOperator.mult on the grid's CSR
+     (K6), a c128 DIA mult (the gauge-transformed grid, K2c),
+     DirectSolver.solve on a tridiagonal DIA (the tridiag_device backend)
+     and KSP(method="cg").solve (K2) -- each answer a CUDA tensor, the
+     kernel's launch counter moved, and the answer held against the same
+     call with CPU tensors to 1e-12 relative; each call's wall (host to
+     card copy included) and the phase's, beside the card's name and
+     power limit.
 
 Phase 1 also times K5 at b = 1, 2, 4, 8 beside b single K1/K2 calls on the
 same block and beside cuSPARSE on the (n, b) block, K3's three sweeps at
@@ -392,8 +402,9 @@ K3c, K4 / K4c; K2, K5, K3, K4; K5, K3, K4) and of phase 17a, 17b and 17c
 (K2, K3, K4; K2c, K3c, K4c; K6, K3, K4) and of phase 18a, 18b and 18c
 (K2, K3c, K4c; K2, K6, K3c, K4c; K2, K3c, K4c), of phase 19a, 19b and
 19c (K2, K3, K4; the same in rank 0; K5, K6, K3, K4 in rank 0), of
-each phase-20 script (in its process) and of phase 21's checked calls in
-f64 and in c128 (K2, K5, K6, K3, K4 and their complex instantiations);
+each phase-20 script (in its process), of phase 21's checked calls in
+f64 and in c128 (K2, K5, K6, K3, K4 and their complex instantiations)
+and of phase 22's numpy calls (K2, K5, K6, K2c);
 K7's launches are read
 around its yardstick measurement in phase 1.  Every kernel of each path
 must have launched.  The JSON kernel table's ``launches_p13`` /
@@ -6094,6 +6105,77 @@ def phase21(dev, smi_line):
     return total, walls
 
 
+P22_TOL = 1e-12
+
+
+def phase22(dev, smi_line):
+    """The array rule on the card (see the module docstring, phase 22).
+    Returns the launches of the checked numpy calls and their walls."""
+    t0 = time.perf_counter()
+    print(f"phase 22: numpy operands on card operators, {SINVERT_GRID} "
+          f"grid, against the same calls with CPU tensors (tol "
+          f"{P22_TOL:.0e})", flush=True)
+    from slepc_tpu_torch.ksp.direct import DirectSolver
+    from slepc_tpu_torch.ksp.ksp import KSP
+
+    A = stt.laplacian_3d(*SINVERT_GRID, dtype=torch.float64, device=dev)
+    Ac = stt.DIAOperator(A.offsets, A.diags.cpu())
+    S = Ac.to_scipy()
+    M, Mc = stt.from_scipy(S, device=dev), stt.from_scipy(S, device="cpu")
+    G = gauge_dia(A, torch.complex128)
+    Gc = stt.DIAOperator(G.offsets, G.diags.cpu())
+    n = A.shape[0]
+    t = np.stack([np.r_[0.0, -np.ones(n - 1)], np.full(n, 4.0),
+                  np.r_[-np.ones(n - 1), 0.0]])
+    T = stt.DIAOperator((-1, 0, 1), t, device=dev)
+    Tc = stt.DIAOperator((-1, 0, 1), t, device="cpu")
+    ds, dsc = DirectSolver(T), DirectSolver(Tc)
+    check(ds.backend == dsc.backend == "tridiag_device",
+          f"phase 22: DirectSolver took {ds.backend} / {dsc.backend}")
+    ksp, kspc = (KSP(op, method="cg", rtol=1e-14) for op in (T, Tc))
+    rng = np.random.default_rng(22)
+    x, X = rng.standard_normal(n), rng.standard_normal((4, n))
+    xc = x + 1j * rng.standard_normal(n)
+    t_build = time.perf_counter() - t0
+    stt.reset_launch_counts()
+    walls, errs, used = {}, {}, {}
+    for name, card, cpu, key, v in [
+            ("DIA mult", A.mult, Ac.mult, "dia_spmv_f64", x),
+            ("DIA mult_h", A.mult_h, Ac.mult_h, "dia_spmv_f64", x),
+            ("DIA mult_block (4 rows)", A.mult_block, Ac.mult_block,
+             "dia_spmm_f64", X),
+            ("AIJ mult", M.mult, Mc.mult, "csr_spmv_f64", x),
+            ("c128 DIA mult", G.mult, Gc.mult, "dia_spmv_c128", xc),
+            ("DirectSolver.solve", ds.solve, dsc.solve, None, x),
+            ("KSP cg solve", ksp.solve, kspc.solve, "dia_spmv_f64", x)]:
+        before = stt.launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = card(v)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t1
+        after = stt.launch_counts()
+        used[name] = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+        check(torch.is_tensor(y) and y.is_cuda,
+              f"phase 22 {name}: the answer is not a CUDA tensor")
+        if key is not None:
+            check(used[name].get(key, 0) > 0, f"phase 22 {name}: {key} did "
+                  f"not launch ({used[name]})")
+        ref = cpu(torch.from_numpy(v))
+        errs[name] = p21_rel(y, ref)
+        check(errs[name] <= P22_TOL, f"phase 22 {name}: relative error "
+              f"{errs[name]:.3e} > {P22_TOL:.0e}")
+    counts = stt.launch_counts()
+    for name in walls:
+        print(f"    {name:<24} {walls[name] * 1e3:9.3f} ms  err "
+              f"{errs[name]:.2e}  launches {used[name]}", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"  ({smi_line}); operators and arrays {t_build:.2f} s; phase 22 "
+          f"wall {wall:.3f} s", flush=True)
+    return counts, walls, wall
+
+
 def kernel_resources(log):
     """Registers and spills of every compiled kernel (nvcc -Xptxas -v)."""
     names = (("panel_kernelI([df])Li(\\d)ELi(\\d)ELb([01])ELb([01])E",
@@ -6361,6 +6443,9 @@ def main():
     p20 = phase20(dev)
     # phase 21: the surface (BV's block operations), read from zero
     p21, walls_21 = phase21(dev, smi_line)
+    # phase 22: the array rule (numpy operands on card operators), read
+    # from zero
+    p22, walls_22, wall_22 = phase22(dev, smi_line)
     if args.profile:
         profile_solve("phase 17a toar", lambda: pep_run(
             "profiled 17a toar", stt.PEP(list(damped_quadratic(dev)),
@@ -6415,7 +6500,7 @@ def main():
     paths = (stream_path, dia_path, aij_path, blk_path, small_path, sinv_path,
              p8r, plain_path, nhep_path, small_nhep_path) + complex_paths \
         + p13_paths + p14_paths + p15_paths + p16_paths + p17_paths \
-        + p18_paths + p19_paths + (p20, p21)
+        + p18_paths + p19_paths + (p20, p21, p22)
     counts = {k: sum(p[k] for p in paths) for k in dia_path}
     missing = [k for k in KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -6493,7 +6578,9 @@ def main():
           + "; ".join(f"{t} " + ", ".join(f"{m} {w:.4f}" for m, w in
                                           ws.items())
                       for t, ws in walls_21.items())
-          + f" on {smi_line}", flush=True)
+          + "; numpy operands (ms) "
+          + ", ".join(f"{m} {w * 1e3:.3f}" for m, w in walls_22.items())
+          + f", phase 22 {wall_22:.3f} s on {smi_line}", flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (limit "
           f"1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

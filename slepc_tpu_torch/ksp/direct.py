@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..mat.linop import (AIJOperator, DenseOperator, DIAOperator,
-                          LinearOperator, apply_by_parts)
+                          LinearOperator, apply_by_parts, as_operand)
 from ..sys.events import log_event
 from .tridiag_device import (btridiag_inertia, btridiag_of_operator,
                              btridiag_pivots, btridiag_solve,
@@ -36,8 +36,9 @@ from .tridiag_device import (btridiag_inertia, btridiag_of_operator,
 
 
 class DirectSolver:
-    """Factorize once, solve many times.  ``solve`` takes and returns an
-    (n,) or (n, k) tensor on the operator's device."""
+    """Factorize once, solve many times.  ``solve`` takes an (n,) or (n, k)
+    tensor or numpy array (the array rule, ``mat/linop.py`` ``as_operand``)
+    and returns a tensor on the operator's device."""
 
     def __init__(self, A: LinearOperator, backend: str = "auto"):
         self.A = A
@@ -138,6 +139,9 @@ class DirectSolver:
         return x.astype(b_np.dtype, copy=False)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(b):
+            b = as_operand(b, "DirectSolver.solve", self.dtype, self.device,
+                           self.n, axis=0, ndims=(1, 2))
         if not self._factored:
             self._factor()
         if b.is_complex() and not self.dtype.is_complex:
@@ -166,6 +170,9 @@ class DirectSolver:
 
     def solve_h(self, b: torch.Tensor) -> torch.Tensor:
         """Solve A^H x = b."""
+        if not torch.is_tensor(b):
+            b = as_operand(b, "DirectSolver.solve_h", self.dtype, self.device,
+                           self.n, axis=0, ndims=(1, 2))
         if not self._factored:
             self._factor()
         if self.backend in ("ldl", "tridiag_device", "btridiag_device"):

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..mat.linop import as_operand
 from ..sys.mesh import allreduce, vector_norm
 
 
@@ -30,8 +31,15 @@ def cg_fixed(mult: Callable, b: torch.Tensor, iters: int,
     ``mult``: v -> A v on tensors shaped like ``b``; ``Minv``: optional SPD
     preconditioner application.  Returns x with ||b - A x|| <= ~rtol ||b||
     once the budget allows (updates masked after convergence).  x, r and p
-    are updated in place.
+    are updated in place.  A numpy ``b`` (or ``x0``) goes to the device
+    of the other when that is a tensor, else to the default device (the
+    array rule, ``mat/linop.py`` ``as_operand``).
     """
+    if not torch.is_tensor(b):
+        dev = x0.device if torch.is_tensor(x0) else None
+        b = as_operand(b, "cg_fixed", None, dev)
+    if x0 is not None and not torch.is_tensor(x0):
+        x0 = as_operand(x0, "cg_fixed", b.dtype, b.device, b.shape[0])
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
@@ -61,8 +69,11 @@ def minres_fixed(mult: Callable, b: torch.Tensor, iters: int,
 
     Standard Paige-Saunders recurrence (Lanczos + Givens on the
     tridiagonal); covers interior-shift (A - sigma I) solves where CG breaks
-    down.  ``mult``: v -> A v on tensors shaped like ``b``.
+    down.  ``mult``: v -> A v on tensors shaped like ``b``; a numpy ``b``
+    goes to the default device.
     """
+    if not torch.is_tensor(b):
+        b = as_operand(b, "minres_fixed")
     x = torch.zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..mat.linop import (AIJOperator, DenseOperator, DIAOperator,
-                         LinearOperator)
+                         LinearOperator, as_operand)
 from ..ops.csr import row_of_entry
 from ..sys.events import log_event
 from .direct import DirectSolver
@@ -52,6 +52,19 @@ def _jacobi_precond(A: LinearOperator) -> Optional[Callable]:
     return lambda x: dinv * x if x.dim() == 1 else dinv[:, None] * x
 
 
+def _operands(where, b, x0):
+    """b and x0 of a free iterative solver under the array rule: a numpy
+    one goes to the device of the other when that is a tensor, else to
+    :func:`resolve_device`'s."""
+    like = b if torch.is_tensor(b) else x0
+    dev = like.device if torch.is_tensor(like) else None
+    if not torch.is_tensor(b):
+        b = as_operand(b, where, None, dev, ndims=(1,))
+    if x0 is not None and not torch.is_tensor(x0):
+        x0 = as_operand(x0, where, b.dtype, b.device, b.shape[0])
+    return b, x0
+
+
 def _stop_norm(b: torch.Tensor, rtol: float, atol: float) -> float:
     return max(rtol * float(torch.linalg.vector_norm(b)), atol)
 
@@ -59,6 +72,8 @@ def _stop_norm(b: torch.Tensor, rtol: float, atol: float) -> float:
 def cg(mult, b, x0=None, rtol=1e-10, atol=0.0, maxiter=1000, M=None):
     """Preconditioned conjugate gradients; stops at
     ||r|| <= max(rtol ||b||, atol) or after ``maxiter`` steps."""
+    if not (torch.is_tensor(b) and (x0 is None or torch.is_tensor(x0))):
+        b, x0 = _operands("cg", b, x0)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - mult(x) if x0 is not None else b.clone()
     z = M(r) if M is not None else r
@@ -83,6 +98,8 @@ def minres(mult, b, x0=None, rtol=1e-10, atol=0.0, maxiter=1000):
     """MINRES (Paige-Saunders) on a symmetric, possibly indefinite
     operator; |eta| is the residual norm, tested against the stopping
     rule each step."""
+    if not (torch.is_tensor(b) and (x0 is None or torch.is_tensor(x0))):
+        b, x0 = _operands("minres", b, x0)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - mult(x) if x0 is not None else b
     beta = float(torch.linalg.vector_norm(r))
@@ -119,6 +136,8 @@ def minres(mult, b, x0=None, rtol=1e-10, atol=0.0, maxiter=1000):
 
 def bicgstab(mult, b, x0=None, rtol=1e-10, atol=0.0, maxiter=1000, M=None):
     """Preconditioned BiCGStab (van der Vorst), same stopping rule."""
+    if not (torch.is_tensor(b) and (x0 is None or torch.is_tensor(x0))):
+        b, x0 = _operands("bicgstab", b, x0)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - mult(x) if x0 is not None else b.clone()
     rhat = r.clone()
@@ -154,6 +173,8 @@ def gmres(mult, b, x0=None, rtol=1e-10, atol=0.0, maxiter=1000, M=None,
     """Left-preconditioned restarted GMRES(restart) with modified
     Gram-Schmidt; the small least-squares problem is solved on the host.
     ``maxiter`` counts restarts, as in the reference's call."""
+    if not (torch.is_tensor(b) and (x0 is None or torch.is_tensor(x0))):
+        b, x0 = _operands("gmres", b, x0)
     prec = M if M is not None else (lambda t: t)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     stop = _stop_norm(b, rtol, atol)
@@ -228,7 +249,14 @@ class KSP:
         self._bordered = None
 
     def solve(self, b: torch.Tensor, x0=None) -> torch.Tensor:
-        """Solve A x = b; b may be (n,) or (n, k)."""
+        """Solve A x = b; b may be (n,) or (n, k), a tensor or a numpy
+        array (the array rule: it goes to the operator's device)."""
+        if not torch.is_tensor(b):
+            b = as_operand(b, "KSP.solve", self.A.dtype, self.A.device,
+                           self.A.shape[0], axis=0, ndims=(1, 2))
+        if x0 is not None and not torch.is_tensor(x0):
+            x0 = as_operand(x0, "KSP.solve", b.dtype, b.device,
+                            self.A.shape[1], axis=0, ndims=(b.dim(),))
         with log_event(f"KSP_Solve_{self.method}"):
             return self._solve_inner(b, x0)
 
@@ -236,6 +264,9 @@ class KSP:
         """Solve A^H x = b (direct factorizations only)."""
         if self._direct is None:
             raise ValueError("solve_h needs method='direct'")
+        if not torch.is_tensor(b):
+            b = as_operand(b, "KSP.solve_h", self.A.dtype, self.A.device,
+                           self.A.shape[1], axis=0, ndims=(1, 2))
         return self._direct.solve_h(b)
 
     def set_nullspace(self, N) -> "KSP":
@@ -323,4 +354,7 @@ def _is_directable(A: LinearOperator) -> bool:
 
 
 def solve_linear(A: LinearOperator, b, method: str = "auto", **kw):
+    if not torch.is_tensor(b):
+        b = as_operand(b, "solve_linear", A.dtype, A.device, A.shape[0],
+                       axis=0, ndims=(1, 2))
     return KSP(A, method=method, **kw).solve(b)

@@ -38,6 +38,24 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..mat.linop import as_operand
+
+
+def _operands(where: str, rhs=None, *tensors):
+    """The array rule for the free functions here: the matrix arguments
+    ``tensors`` (numpy or tensors) on the device of the first one that is
+    a tensor (else the default device), in their own dtypes, and ``rhs`` in
+    the first one's dtype (complex when rhs is) on that device."""
+    dev = next((t.device for t in tensors if torch.is_tensor(t)), None)
+    out = [t if torch.is_tensor(t) else as_operand(
+        t, where, None, dev, ndims=(np.ndim(t),)) for t in tensors]
+    if rhs is not None and not torch.is_tensor(rhs):
+        blocks = out[0].dim() == 3  # (m, b, b): rhs is one (m b,) vector
+        rhs = as_operand(rhs, where, out[0].dtype, out[0].device,
+                         out[0].shape[0] * (out[0].shape[1] if blocks else 1),
+                         axis=0, ndims=(1,) if blocks else (1, 2))
+    return rhs, out
+
 
 def _tiny(dtype) -> float:
     return float(torch.finfo(dtype).tiny)
@@ -82,7 +100,10 @@ def _shifted(a: torch.Tensor, b: torch.Tensor, sigma):
 def tridiag_pivots(a: torch.Tensor, b: torch.Tensor, sigma) -> torch.Tensor:
     """LDL^T pivots d of (T - sigma I), T = tridiag(b, a, b).
 
-    a: (n,) diagonal; b: (n-1,) off-diagonal.  Returns (n,) pivots."""
+    a: (n,) diagonal; b: (n-1,) off-diagonal (tensors or numpy arrays:
+    the array rule).  Returns (n,) pivots."""
+    if not (torch.is_tensor(a) and torch.is_tensor(b)):
+        _, (a, b) = _operands("tridiag_pivots", None, a, b)
     p, q = _mobius_scan(*_shifted(a, b, sigma))
     tiny = _tiny(a.dtype)
     return p / torch.where(q.abs() > tiny, q, torch.full_like(q, tiny))
@@ -95,6 +116,8 @@ def tridiag_inertia(a: torch.Tensor, b: torch.Tensor, sigma) -> torch.Tensor:
     Sign-exact: uses only the signs of the normalized prefix entries.  A
     zero pivot (sigma hits an eigenvalue of a leading minor) counts as
     negative, the standard Sturm convention."""
+    if not (torch.is_tensor(a) and torch.is_tensor(b)):
+        _, (a, b) = _operands("tridiag_inertia", None, a, b)
     p, q = _mobius_scan(*_shifted(a, b, sigma))
     return ((p > 0) != (q > 0)).sum()
 
@@ -131,7 +154,12 @@ def tridiag_solve(a: torch.Tensor, b: torch.Tensor, sigma,
     sweeps carry more roundoff than sequential substitution; one step
     restores it).  rhs may be (n,) or (n, k).  ``pivots``: the result of
     :func:`tridiag_pivots` for the same (a, b, sigma), to factor once and
-    solve many times."""
+    solve many times.  Numpy arguments follow the array rule: they go to
+    the device of the first tensor among them (else the default device)
+    and rhs takes a's dtype."""
+    if not (torch.is_tensor(a) and torch.is_tensor(b)
+            and torch.is_tensor(rhs)):
+        rhs, (a, b) = _operands("tridiag_solve", rhs, a, b)
     d = tridiag_pivots(a, b, sigma) if pivots is None else pivots
     tiny = _tiny(a.dtype)
     dsafe = torch.where(d.abs() > tiny, d, torch.full_like(d, tiny))
@@ -163,7 +191,10 @@ def btridiag_pivots(Ab: torch.Tensor, Bb: torch.Tensor, sigma) -> torch.Tensor:
     """Block pivots D_i of (T - sigma I).
 
     Ab: (m, b, b) symmetric diagonal blocks; Bb: (m-1, b, b) with
-    T[i+1, i] block = Bb[i] (sub-diagonal).  Returns (m, b, b)."""
+    T[i+1, i] block = Bb[i] (sub-diagonal); tensors or numpy arrays (the
+    array rule).  Returns (m, b, b)."""
+    if not (torch.is_tensor(Ab) and torch.is_tensor(Bb)):
+        _, (Ab, Bb) = _operands("btridiag_pivots", None, Ab, Bb)
     m, b, _ = Ab.shape
     Ash = Ab - sigma * torch.eye(b, dtype=Ab.dtype, device=Ab.device)
     D = torch.empty_like(Ab)
@@ -177,6 +208,8 @@ def btridiag_pivots(Ab: torch.Tensor, Bb: torch.Tensor, sigma) -> torch.Tensor:
 def btridiag_inertia(Ab, Bb, sigma, pivots=None) -> torch.Tensor:
     """#eigenvalues of T strictly below sigma via the block Sturm count:
     the negative eigenvalues of each D_i, summed (a 0-d tensor)."""
+    if not (torch.is_tensor(Ab) and torch.is_tensor(Bb)):
+        _, (Ab, Bb) = _operands("btridiag_inertia", None, Ab, Bb)
     D = btridiag_pivots(Ab, Bb, sigma) if pivots is None else pivots
     w = torch.linalg.eigvalsh(0.5 * (D + D.mT))  # (m, b)
     return (w < 0).sum()
@@ -186,7 +219,11 @@ def btridiag_solve(Ab, Bb, sigma, rhs, refine: int = 1, pivots=None):
     """x = (T - sigma I)^{-1} rhs; rhs (n,) with n = m*b.
 
     Block LDL^T: forward substitution loop, block-diagonal solve, backward
-    loop; one refinement step restores sequential-level accuracy."""
+    loop; one refinement step restores sequential-level accuracy.  Numpy
+    arguments follow the array rule, as in :func:`tridiag_solve`."""
+    if not (torch.is_tensor(Ab) and torch.is_tensor(Bb)
+            and torch.is_tensor(rhs)):
+        rhs, (Ab, Bb) = _operands("btridiag_solve", rhs, Ab, Bb)
     m, b, _ = Ab.shape
     D = btridiag_pivots(Ab, Bb, sigma) if pivots is None else pivots
     # L sub-blocks: L_i = B_i D_i^{-1}  (i = 0..m-2)
@@ -294,6 +331,8 @@ class TridiagLDLDevice:
     pivots are computed once, at the first solve."""
 
     def __init__(self, a: torch.Tensor, b: torch.Tensor, sigma: float = 0.0):
+        if not (torch.is_tensor(a) and torch.is_tensor(b)):
+            _, (a, b) = _operands("TridiagLDLDevice", None, a, b)
         self.a, self.b = a, b
         self.sigma = float(sigma)
         self.n = int(a.shape[0])
@@ -309,6 +348,8 @@ class TridiagLDLDevice:
         return neg, 0, self.n - neg
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(rhs):
+            rhs, _ = _operands("TridiagLDLDevice.solve", rhs, self.a)
         if self._pivots is None:
             self._pivots = tridiag_pivots(self.a, self.b, self.sigma)
         return tridiag_solve(self.a, self.b, self.sigma,

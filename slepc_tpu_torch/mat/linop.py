@@ -24,7 +24,9 @@ Formats:
     Pallas kernel.
 
 A CUDA tensor goes to a kernel or raises; only a tensor on the CPU takes a
-kernel's plain PyTorch version.
+kernel's plain PyTorch version.  Every public product also takes a numpy
+array, as the reference's do (:func:`as_operand`, the array rule): it goes
+to the operator's device and then takes the tensor's path.
 """
 
 from __future__ import annotations
@@ -49,6 +51,50 @@ def _place(data, device) -> torch.Tensor:
         return data if device is None else data.to(resolve_device(device))
     return torch.from_numpy(np.ascontiguousarray(data)).to(
         resolve_device(device))
+
+
+def operand_dtype(dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
+    """The element type a numpy operand takes on an operator of ``dtype``:
+    the operator's precision (its kernel takes one element type), complex
+    when either is complex (a real operator applies to a complex vector by
+    parts)."""
+    if x_dtype.is_complex and not dtype.is_complex:
+        return torch.complex128 if dtype == torch.float64 else torch.complex64
+    return dtype
+
+
+def as_operand(x, where: str, dtype: Optional[torch.dtype] = None,
+               device=None, n: Optional[int] = None, axis: int = -1,
+               ndims: Tuple[int, ...] = (1,)) -> torch.Tensor:
+    """The array rule: the vector or block argument ``x`` of the public
+    method ``where`` (e.g. ``"DIAOperator.mult"``) as a tensor.
+
+    A tensor is returned as it is; its dtype, device and length stay the
+    callee's to check, so a CUDA tensor a kernel does not take still
+    raises.  A numpy array with ``ndims`` dimensions and ``n`` entries
+    along ``axis`` goes to ``device`` (the operator's; None:
+    :func:`resolve_device`) in ``operand_dtype(dtype, ...)`` (``dtype``
+    None keeps the array's), one copy.  Anything else raises a
+    ``TypeError`` or ``ValueError`` naming ``where``.  Callers test
+    ``torch.is_tensor(x)`` before calling, so a tensor pays that one
+    check."""
+    if torch.is_tensor(x):
+        return x
+    if not isinstance(x, np.ndarray) or x.dtype.kind not in "biufc":
+        raise TypeError(f"{where}: takes a tensor or a numpy array of "
+                        f"numbers, not {type(x).__name__}"
+                        + (f" of {x.dtype}" if isinstance(x, np.ndarray)
+                           else ""))
+    if x.ndim not in ndims or (n is not None and x.shape[axis] != n):
+        raise ValueError(
+            f"{where}: an array of shape {x.shape}; it takes "
+            f"{' or '.join(map(str, ndims))}-d arrays"
+            + (f" with {n} entries along axis {axis}" if n is not None
+               else ""))
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(device=resolve_device(device),
+                dtype=t.dtype if dtype is None else operand_dtype(dtype,
+                                                                  t.dtype))
 
 
 def apply_by_parts(fn, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -116,6 +162,9 @@ class LinearOperator:
         """A applied to each row of the (b, n) block X: one ``mult`` per
         row, into a new (b, m) tensor (the reference's ``jax.vmap(op.mult)``
         role, ks_jit.py:930-931)."""
+        if not torch.is_tensor(X):
+            X = as_operand(X, f"{type(self).__name__}.mult_block", self.dtype,
+                           self.device, self.shape[1], ndims=(2,))
         Y = torch.empty((X.shape[0], self.shape[0]), dtype=X.dtype,
                         device=X.device)
         for m in range(X.shape[0]):
@@ -200,11 +249,17 @@ class DenseOperator(LinearOperator):
         self.device = self.A.device
 
     def mult(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "DenseOperator.mult", self.dtype, self.device,
+                           self.shape[1])
         if self.row_shard is not None:
             return self.row_shard(x)
         return apply_by_parts(lambda v: self.A @ v, x, self.dtype)
 
     def mult_h(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "DenseOperator.mult_h", self.dtype, self.device,
+                           self.shape[0])
         if self.row_shard_h is not None:
             return self.row_shard_h(x)
         return apply_by_parts(lambda v: self.A.mH @ v, x, self.dtype)
@@ -229,6 +284,11 @@ class IdentityOperator(LinearOperator):
         return self.n
 
     def mult(self, x):
+        """x itself; a numpy x comes back as a tensor on the device, in its
+        own dtype (the reference returns x as it was given)."""
+        if not torch.is_tensor(x):
+            x = as_operand(x, "IdentityOperator.mult", None, self.device,
+                           self.n)
         return x
 
     mult_h = mult
@@ -282,6 +342,9 @@ class DIAOperator(LinearOperator):
                              f"entries, the operator {self.shape[1]} columns")
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = as_operand(x, "DIAOperator.mult", self.dtype, self.device,
+                           self.shape[1])
         self._check_len(x, "mult")
         if self.row_shard is not None:
             return self.row_shard(x)
@@ -292,6 +355,9 @@ class DIAOperator(LinearOperator):
         """Kernel K5 (K5c for complex diagonals): the diagonals are read
         once for every chunk of at most ``SPMM_MAX_B`` (8) rows of X; a
         block of any height, on every device."""
+        if not torch.is_tensor(X):
+            X = as_operand(X, "DIAOperator.mult_block", self.dtype,
+                           self.device, self.shape[1], ndims=(2,))
         self._check_len(X, "mult_block")
         if self.row_shard_block is not None:
             return self.row_shard_block(X)
@@ -318,6 +384,9 @@ class DIAOperator(LinearOperator):
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
         """A^H x on the same kernel as ``mult`` (K1/K2, K1c/K2c), over the
         adjoint's diagonals (:meth:`adjoint`)."""
+        if not torch.is_tensor(x):
+            x = as_operand(x, "DIAOperator.mult_h", self.dtype, self.device,
+                           self.shape[0])
         self._check_len(x, "mult_h")
         return self.adjoint().mult(x)
 
@@ -396,6 +465,9 @@ class AIJOperator(LinearOperator):
         return self._plan
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = as_operand(x, "AIJOperator.mult", self.dtype, self.device,
+                           self.shape[1])
         if self.row_shard is not None:
             return self.row_shard(x)
         return apply_by_parts(
@@ -404,6 +476,9 @@ class AIJOperator(LinearOperator):
             x, self.dtype)
 
     def mult_h(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = as_operand(x, "AIJOperator.mult_h", self.dtype, self.device,
+                           self.shape[0])
         return self.adjoint().mult(x)
 
     def adjoint(self) -> "AIJOperator":
@@ -482,11 +557,17 @@ class ShellOperator(LinearOperator):
         return self._nnz if self._nnz is not None else self.shape[0] * self.shape[1]
 
     def mult(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, f"{type(self).__name__}.mult", self.dtype,
+                           self.device, self.shape[1])
         return self._matvec(x)
 
     def mult_h(self, x):
         if self._rmatvec is None:
             raise ValueError("ShellOperator has no rmatvec")
+        if not torch.is_tensor(x):
+            x = as_operand(x, f"{type(self).__name__}.mult_h", self.dtype,
+                           self.device, self.shape[0])
         return self._rmatvec(x)
 
 
@@ -503,9 +584,15 @@ class ScaledOperator(LinearOperator):
         return self.op.nnz
 
     def mult(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "ScaledOperator.mult", self.op.dtype,
+                           self.device, self.shape[1])
         return self.alpha * self.op.mult(x)
 
     def mult_h(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "ScaledOperator.mult_h", self.op.dtype,
+                           self.device, self.shape[0])
         return self.alpha.conjugate() * self.op.mult_h(x)
 
     def explicit(self):
@@ -552,9 +639,15 @@ class SumOperator(LinearOperator):
         return y
 
     def mult(self, x):
+        if not torch.is_tensor(x):  # one copy for all the terms
+            x = as_operand(x, "SumOperator.mult", self.dtype, self.device,
+                           self.shape[1])
         return self._sum(x, adjoint=False)
 
     def mult_h(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "SumOperator.mult_h", self.dtype, self.device,
+                           self.shape[0])
         return self._sum(x, adjoint=True)
 
     def explicit(self):
@@ -586,11 +679,17 @@ class ProductOperator(LinearOperator):
         return sum(o.nnz for o in self.ops)
 
     def mult(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "ProductOperator.mult", self.ops[-1].dtype,
+                           self.device, self.shape[1])
         for o in reversed(self.ops):
             x = o.mult(x)
         return x
 
     def mult_h(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "ProductOperator.mult_h", self.ops[0].dtype,
+                           self.device, self.shape[0])
         for o in self.ops:
             x = o.mult_h(x)
         return x
@@ -608,9 +707,15 @@ class AdjointOperator(LinearOperator):
         return self.op.nnz
 
     def mult(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "AdjointOperator.mult", self.dtype, self.device,
+                           self.shape[1])
         return self.op.mult_h(x)
 
     def mult_h(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "AdjointOperator.mult_h", self.dtype,
+                           self.device, self.shape[0])
         return self.op.mult(x)
 
     @property
@@ -633,9 +738,15 @@ class DiagonalOperator(LinearOperator):
         return self.shape[0]
 
     def mult(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "DiagonalOperator.mult", self.dtype,
+                           self.device, self.n)
         return self.d * x
 
     def mult_h(self, x):
+        if not torch.is_tensor(x):
+            x = as_operand(x, "DiagonalOperator.mult_h", self.dtype,
+                           self.device, self.n)
         return self.d.conj() * x
 
     def explicit(self):

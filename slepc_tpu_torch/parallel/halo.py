@@ -31,7 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..mat.linop import DIAOperator, LinearOperator
+from ..mat.linop import DIAOperator, LinearOperator, as_operand
 from ..sys.mesh import RowMesh, get_mesh
 
 
@@ -106,10 +106,33 @@ class SlabOperator(LinearOperator):
         return X
 
     # ---- products ----------------------------------------------------------
+    def _shard(self, x, where: str, ndims) -> torch.Tensor:
+        """The array rule on a rank: a numpy x is this rank's shard, either
+        its slab row(s) or its own nloc rows, which go between zero
+        halos."""
+        t = as_operand(x, where, self.dtype, self.device, ndims=ndims)
+        if t.shape[-1] == self.shape[1]:
+            return t
+        if t.shape[-1] != self.nloc:
+            raise ValueError(
+                f"{where}: an array of {t.shape[-1]} entries; this rank "
+                f"takes its {self.nloc} rows or its {self.shape[1]}-long "
+                f"slab")
+        out = torch.zeros(t.shape[:-1] + (self.shape[1],), dtype=t.dtype,
+                          device=t.device)
+        out[..., self.h: self.h + self.nloc] = t
+        return out
+
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        """y's slab row (its halos zero) from x's: a tensor slab row, or a
+        numpy shard (:meth:`_shard`)."""
+        if not torch.is_tensor(x):
+            x = self._shard(x, f"{type(self).__name__}.mult", (1,))
         return _with_halos(self.mesh, x, self.h, self.slab.mult)
 
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(X):
+            X = self._shard(X, f"{type(self).__name__}.mult_block", (2,))
         return _with_halos(self.mesh, X, self.h,
                            LinearOperator.block_of(self.slab))
 
@@ -174,11 +197,24 @@ class HaloDIAOperator(SlabOperator):
         return A
 
 
+def _slab_operands(where: str, diags, x, ndims):
+    if not torch.is_tensor(diags):
+        diags = as_operand(diags, where, None,
+                           x.device if torch.is_tensor(x) else None,
+                           ndims=(2,))
+    if not torch.is_tensor(x):
+        x = as_operand(x, where, diags.dtype, diags.device, diags.shape[1],
+                       ndims=ndims)
+    return diags, x
+
+
 def dia_spmv_halo(diags: torch.Tensor, x: torch.Tensor, *, offsets: tuple,
                   mesh: RowMesh) -> torch.Tensor:
     """One halo exchange and K1 / K2 on the slab: ``diags`` are the rank's
     slab diagonals (zero on the halo rows), ``x`` its slab row with zero
-    halos (filled here and zeroed again); returns y's slab row."""
+    halos (filled here and zeroed again); returns y's slab row.  Numpy
+    arguments follow the array rule (on diags' device)."""
+    diags, x = _slab_operands("dia_spmv_halo", diags, x, (1,))
     return _with_halos(mesh, x, _halo_width(offsets),
                        DIAOperator(offsets, diags).mult)
 
@@ -187,5 +223,6 @@ def dia_spmm_halo(diags: torch.Tensor, X: torch.Tensor, *, offsets: tuple,
                   mesh: RowMesh) -> torch.Tensor:
     """The block form: one exchange ships the boundary rows of all b rows of
     X (b, slab), then K5 on the slab."""
+    diags, X = _slab_operands("dia_spmm_halo", diags, X, (2,))
     return _with_halos(mesh, X, _halo_width(offsets),
                        DIAOperator(offsets, diags).mult_block)

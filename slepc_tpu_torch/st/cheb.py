@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mat.linop import AIJOperator, DIAOperator, LinearOperator
+from ..mat.linop import AIJOperator, DIAOperator, LinearOperator, as_operand
 from ..ops.csr import csr_spmv
 
 
@@ -71,6 +71,9 @@ class ChebAmplifyOperator:
         return tk
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = as_operand(x, "ChebAmplifyOperator.mult", self.dtype,
+                           self.device, self.shape[1])
         return self._recurrence(self.base.mult, x)
 
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
@@ -78,6 +81,9 @@ class ChebAmplifyOperator:
         and in-place passes as :meth:`mult`, on whole blocks over the base's
         ``mult_block`` (kernel K5 for a DIA base; one ``mult`` per row for a
         base that has none)."""
+        if not torch.is_tensor(X):
+            X = as_operand(X, "ChebAmplifyOperator.mult_block", self.dtype,
+                           self.device, self.shape[1], ndims=(2,))
         return self._recurrence(LinearOperator.block_of(self.base), X)
 
 

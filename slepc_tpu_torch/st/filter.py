@@ -24,7 +24,7 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
-from ..mat.linop import LinearOperator
+from ..mat.linop import LinearOperator, as_operand
 from .st import ST
 
 
@@ -160,6 +160,9 @@ class FilterOperator(LinearOperator):
         return y
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = as_operand(x, "FilterOperator.mult", self.dtype, self.device,
+                           self.shape[1])
         return self._recurrence(self.base.mult, x)
 
     mult_h = mult  # p(A) of a Hermitian A
@@ -167,6 +170,9 @@ class FilterOperator(LinearOperator):
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
         """p(A) on each row of the (b, n) block X: the same recurrence on
         the base's ``mult_block``."""
+        if not torch.is_tensor(X):
+            X = as_operand(X, "FilterOperator.mult_block", self.dtype,
+                           self.device, self.shape[1], ndims=(2,))
         return self._recurrence(LinearOperator.block_of(self.base), X)
 
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..ksp.iterative_jit import cg_fixed, minres_fixed
-from ..mat.linop import DIAOperator, LinearOperator
+from ..mat.linop import DIAOperator, LinearOperator, as_operand
 from .st import ST
 
 
@@ -115,6 +115,9 @@ class SinvertCGOperator(LinearOperator):
         return cg_fixed(self.Sop.mult, b, self.iters, Minv=Minv)
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_tensor(x):
+            x = as_operand(x, "SinvertCGOperator.mult", self.dtype,
+                           self.device, self.shape[1])
         if self.dhalf is None:
             return self._solve(x)
         return self._solve(x * self.dhalf) * self.dhalf

@@ -32,7 +32,7 @@ import torch
 from ..ksp.ksp import KSP, _jacobi_precond
 from ..mat.linop import (AIJOperator, DenseOperator, DIAOperator,
                          IdentityOperator, LinearOperator, ShellOperator,
-                         SumOperator, _with_coeffs)
+                         SumOperator, _with_coeffs, as_operand)
 
 
 class ST:
@@ -152,7 +152,11 @@ class ST:
         return self._op
 
     def apply(self, x):
-        return self.op().mult(x)
+        op = self.op()
+        if not torch.is_tensor(x):
+            x = as_operand(x, f"{type(self).__name__}.apply", op.dtype,
+                           op.device, op.shape[1])
+        return op.mult(x)
 
     def _compute_operator(self) -> LinearOperator:
         raise NotImplementedError

@@ -131,6 +131,62 @@ def case_halo_spmm(mesh):
     return {"Y": _np(_rows(H, Y)), **out}
 
 
+def case_halo_numpy(mesh):
+    """The array rule on a rank: every product of the partitioned operators
+    takes the rank's numpy shard, its slab row(s) or its own rows, and
+    answers as it does for the same tensor slab; the gathered products
+    against the global operator's."""
+    if mesh is None:
+        return {}
+    from slepc_tpu_torch.parallel import dia_spmm_halo
+
+    rng = np.random.default_rng(3)
+    n = 1600
+    d = rng.standard_normal((3, n))
+    d[0, :40] = d[2, -1] = 0.0  # entries outside the matrix
+    A = stt.DIAOperator((-40, 0, 1), d, device=DEV)
+    H = stt.HaloDIAOperator.from_dia(A, mesh)
+    G = stt.parallel.ShardedGELLPaddedOperator(
+        stt.from_scipy(A.to_scipy(), device=DEV), mesh)
+    x = rng.standard_normal(n)
+    X = rng.standard_normal((3, n))
+    lo, hi = H.lo, H.hi
+
+    def slab(op, v):
+        return op.local_rows(torch.from_numpy(v)).to(DEV)
+
+    names, errs, kinds = [], [], []
+    for name, fn, t_in, np_ins, want in [
+            ("mult", H.mult, slab(H, x), [x[lo:hi]], A.mult),
+            ("mult_h", H.mult_h, slab(H, x), [x[lo:hi]], A.mult_h),
+            ("rmult", H.rmult, slab(H, x), [x[lo:hi]], A.mult_h),
+            ("mult_block", H.mult_block, slab(H, X), [X[:, lo:hi]],
+             A.mult_block),
+            ("dia_spmv_halo", lambda v: stt.dia_spmv_halo(
+                H.diags, v, offsets=H.offsets, mesh=mesh), slab(H, x), [],
+             A.mult),
+            ("dia_spmm_halo", lambda v: dia_spmm_halo(
+                H.diags, v, offsets=H.offsets, mesh=mesh), slab(H, X), [],
+             A.mult_block),
+            ("gell_mult_h", G.mult_h, slab(G, x), [x[lo:hi]], A.mult_h)]:
+        y_t = fn(t_in.clone())
+        full = x if t_in.dim() == 1 else X
+        ref = _np(want(torch.from_numpy(full).to(DEV)))
+        got = _np(mesh.gather_rows(y_t[..., H.h: H.h + H.nloc], n)
+                  if name != "gell_mult_h" else G.gather(y_t))
+        names.append(name + ":tensor")
+        errs.append(float(np.abs(got - ref).max()))
+        kinds.append(True)
+        # the slab row as numpy, and (for the operators) the rank's rows
+        for v in [_np(t_in)] + np_ins:
+            y = fn(v)
+            names.append(f"{name}:numpy{v.shape[-1]}")
+            errs.append(float((y - y_t).abs().max()))
+            kinds.append(torch.is_tensor(y) and y.device == y_t.device)
+    return {"names": np.array(names), "errs": np.array(errs),
+            "tensors": np.array(kinds)}
+
+
 def case_halo_adjoint(mesh):
     """HaloDIAOperator's adjoint apply (``rmult``) and gathered ``to_dense``
     on a non-symmetric DIA operator."""

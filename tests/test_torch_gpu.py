@@ -1737,3 +1737,51 @@ def test_row_partition_on_the_card(cuda, tmp_path, backend, world):
         assert got[c]["k_" + key] > 0, (c, key)
     if backend == "gloo":
         assert got["eps_f64"]["n_halo_stage_s"] > 0
+
+
+def test_numpy_operands_run_the_kernels_on_the_card(cuda):
+    """The array rule on the card: a numpy vector or block given to a card
+    operator goes to the card and runs its kernel (K2, K2c, K5, K6 and the
+    tridiag_device solve), the answer a CUDA tensor equal to the CPU
+    tensors' call; a CUDA tensor the kernel does not take still raises."""
+    from slepc_tpu_torch.ksp.direct import DirectSolver
+
+    rng = np.random.default_rng(4)
+    n = 3001
+    d = rng.standard_normal((3, n))
+    dc = d + 1j * rng.standard_normal((3, n))
+    x, X = rng.standard_normal(n), rng.standard_normal((4, n))
+    csr = stt.laplacian_2d(30, 31, device="cpu").to_scipy() \
+        + 0.1 * np.eye(930)[::-1]
+    calls = [
+        ("dia_spmv_f64", lambda dev: stt.DIAOperator((-1, 0, 1), d,
+                                                      device=dev).mult, x),
+        ("dia_spmv_f64", lambda dev: stt.DIAOperator((-1, 0, 1), d,
+                                                      device=dev).mult_h, x),
+        ("dia_spmm_f64", lambda dev: stt.DIAOperator(
+            (-1, 0, 1), d, device=dev).mult_block, X),
+        ("dia_spmv_c128", lambda dev: stt.DIAOperator(
+            (-1, 0, 1), dc, device=dev).mult, x + 1j * x[::-1]),
+        ("csr_spmv_f64", lambda dev: stt.from_scipy(csr, device=dev).mult,
+         x[:930]),
+    ]
+    for key, make, v in calls:
+        before = stt.launch_counts()[key]
+        y = make(cuda)(v)
+        assert y.is_cuda and stt.launch_counts()[key] > before, key
+        ref = make("cpu")(torch.from_numpy(v))
+        assert float((y.cpu() - ref).abs().max()) <= 1e-12 * float(
+            ref.abs().max()), key
+    t = np.stack([np.r_[0.0, -np.ones(n - 1)], np.full(n, 4.0),
+                  np.r_[-np.ones(n - 1), 0.0]])
+    ds = DirectSolver(stt.DIAOperator((-1, 0, 1), t, device=cuda))
+    assert ds.backend == "tridiag_device"
+    y = ds.solve(x)
+    assert y.is_cuda
+    ref = DirectSolver(stt.DIAOperator((-1, 0, 1), t, device="cpu")).solve(
+        torch.from_numpy(x))
+    assert float((y.cpu() - ref).abs().max()) <= 1e-12 * float(
+        ref.abs().max())
+    with pytest.raises(ValueError):  # no fallback for a CUDA tensor
+        stt.DIAOperator((-1, 0, 1), d, device=cuda).mult(
+            torch.from_numpy(x).to(cuda, torch.float32))

@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_ranks as ranks  # noqa: E402
 
 CASES = ("spmv_shard", "halo_spmv", "halo_spmm", "halo_adjoint",
+         "halo_numpy",
          "padded_f32", "ring",
          "tsqr", "bv_tsqr", "task_ciss", "markov_nhep", "svd_shard",
          "svd_dense")
@@ -110,9 +111,16 @@ def test_halo_spmv_matches_and_avoids_allgather(ranked, one_rank,
 
 
 def test_halo_spmm_one_exchange_a_block(ranked, one_rank):
+    """The twin of tests/test_round2.py::test_halo_block_mult_single_exchange:
+    a block of 5 rows is one halo exchange (read from RowMesh.counters; the
+    reference reads two collective-permutes off the HLO) and its product is
+    A X to 1e-12."""
     r = ranked["halo_spmm"]
     np.testing.assert_allclose(r["Y"], one_rank["halo_spmm"]["Y"],
                                atol=1e-12)
+    X = np.random.default_rng(1).standard_normal((5, 1600))
+    np.testing.assert_allclose(
+        r["Y"], (jst.laplacian_2d(40, 40).to_scipy() @ X.T).T, atol=1e-12)
     assert r["n_halo"] == 1 and r["n_allgather"] == 0
     assert bool(r["fn_equal"])
 
@@ -132,6 +140,22 @@ def test_sharded_pallas_dia_spmv(ranked, row_mesh):
     np.testing.assert_allclose(r["y"], op.unpad(op.mult2d(op.pad2d(x))),
                                rtol=1e-5, atol=1e-5)
     assert r["n_halo"] == 2 and r["n_allgather"] == 0
+
+
+def test_halo_takes_numpy_shards(ranked):
+    """The array rule on the partition: HaloDIAOperator's mult, mult_h,
+    rmult and mult_block, the module's dia_spmv_halo / dia_spmm_halo and
+    ShardedGELLPaddedOperator.mult_h take a rank's numpy shard (its slab
+    row, or its own rows between zero halos) and give the tensor slab's
+    answer, as a tensor on the rank's device; the gathered tensor products
+    are the global operator's."""
+    r = ranked["halo_numpy"]
+    names = [str(s) for s in r["names"]]
+    assert len(names) == 7 * 2 + 5
+    for name, err, is_t in zip(names, r["errs"], r["tensors"]):
+        assert is_t, name
+        assert err <= (1e-12 if name.endswith(":tensor") else 0.0), \
+            (name, err)
 
 
 def test_two_rank_reduction_and_exchange(ranked):
