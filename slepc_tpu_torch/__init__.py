@@ -71,7 +71,8 @@ raises; only a tensor on the CPU takes the kernel's plain PyTorch version.
 __version__ = "0.1.0"
 
 from .sys.options import Options, set_global_options, get_global_options
-from .sys.events import log_begin, log_view, log_reset, log_event
+from .sys.events import (log_begin, log_end, log_event, log_reset,
+                         log_spans, log_view)
 from .sys.sort import Which, SortCriterion
 from .sys.device import set_default_device
 from .sys.mesh import (RowMesh, get_mesh, set_mesh, make_row_mesh,
@@ -112,6 +113,8 @@ __all__ = [
     "set_global_options",
     "get_global_options",
     "log_begin",
+    "log_end",
+    "log_spans",
     "log_view",
     "log_reset",
     "log_event",

@@ -51,6 +51,7 @@ from ..mat.linop import LinearOperator, apply_by_parts
 from ..ops.rotate import rotate
 from ..st.filter import STFilter
 from ..st.st import ST, STCayley, STPrecond, STShift, STSinvert
+from ..sys.events import log_event
 from ..sys.monitor import ConvMonitor, Monitor, monitor_all, monitor_first
 from ..sys.options import Options, get_global_options
 from ..sys.sort import SortCriterion, Which
@@ -544,44 +545,48 @@ class EPS:
         return self
 
     def solve(self):
-        """Run the configured solver (reference: EPSSolve, epssolve.c:119)."""
-        cls = self._solvers.get(self.solver_name)
-        if cls is None:
-            raise EPSError(f"unknown EPS solver {self.solver_name!r}; "
-                           f"available: {sorted(self._solvers)}")
-        if not self._setup_done:
-            self.setup()
-        self.its = 0
-        self.nconv = 0
-        self.expansions = 0
-        self.matvecs = 0
-        self.reason = EPSConvergedReason.ITERATING
-        self._left_eigenvectors = None
-        cls().solve(self)
-        if self.two_sided and self.nconv > 0 \
-                and self._left_eigenvectors is None:
-            self._solve_left()
-        if self.reason == EPSConvergedReason.ITERATING:
-            self.reason = (EPSConvergedReason.CONVERGED_TOL
-                           if self.nconv >= self.nev else EPSConvergedReason.DIVERGED_ITS)
-        # best-first ordering of converged pairs
-        if self.nconv > 1 and self._eigenvectors is not None:
-            perm = self.sort_criterion().argsort(self.eigenvalues[: self.nconv])
-            self.eigenvalues[: self.nconv] = self.eigenvalues[perm]
-            self.errests[: self.nconv] = self.errests[perm]
-            idx = torch.from_numpy(perm).to(self._eigenvectors.device)
-            self._eigenvectors = self._eigenvectors[idx]
-            if self._left_eigenvectors is not None:
-                self._left_eigenvectors = self._left_eigenvectors[idx]
-        if self._reason_view_on_solve:
-            verb = "CONVERGED" if self.reason.value > 0 else "DIVERGED"
-            print(f"EPS solve {verb}: {self.nconv} eigenpairs, reason "
-                  f"{self.reason.name}, iterations {self.its}")
-        if self._view_on_solve:
-            self.view()
-        if self._error_view_on_solve:
-            self.error_view()
-        return self
+        """Run the configured solver (reference: EPSSolve, epssolve.c:119),
+        inside the span ``EPS_Solve`` (sys/events.py)."""
+        with log_event("EPS_Solve"):
+            cls = self._solvers.get(self.solver_name)
+            if cls is None:
+                raise EPSError(f"unknown EPS solver {self.solver_name!r}; "
+                               f"available: {sorted(self._solvers)}")
+            if not self._setup_done:
+                self.setup()
+            self.its = 0
+            self.nconv = 0
+            self.expansions = 0
+            self.matvecs = 0
+            self.reason = EPSConvergedReason.ITERATING
+            self._left_eigenvectors = None
+            cls().solve(self)
+            if self.two_sided and self.nconv > 0 \
+                    and self._left_eigenvectors is None:
+                self._solve_left()
+            if self.reason == EPSConvergedReason.ITERATING:
+                self.reason = (EPSConvergedReason.CONVERGED_TOL
+                               if self.nconv >= self.nev
+                               else EPSConvergedReason.DIVERGED_ITS)
+            # best-first ordering of converged pairs
+            if self.nconv > 1 and self._eigenvectors is not None:
+                perm = self.sort_criterion().argsort(
+                    self.eigenvalues[: self.nconv])
+                self.eigenvalues[: self.nconv] = self.eigenvalues[perm]
+                self.errests[: self.nconv] = self.errests[perm]
+                idx = torch.from_numpy(perm).to(self._eigenvectors.device)
+                self._eigenvectors = self._eigenvectors[idx]
+                if self._left_eigenvectors is not None:
+                    self._left_eigenvectors = self._left_eigenvectors[idx]
+            if self._reason_view_on_solve:
+                verb = "CONVERGED" if self.reason.value > 0 else "DIVERGED"
+                print(f"EPS solve {verb}: {self.nconv} eigenpairs, reason "
+                      f"{self.reason.name}, iterations {self.its}")
+            if self._view_on_solve:
+                self.view()
+            if self._error_view_on_solve:
+                self.error_view()
+            return self
 
     def _solve_left(self):
         """Two-sided without the coupled variant: the left eigenvectors

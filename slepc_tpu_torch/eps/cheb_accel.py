@@ -50,6 +50,7 @@ import torch
 from ..ops.bv import panel_dots
 from ..ops.rotate import rotate
 from ..st.cheb import ChebAmplifyOperator, cheb_value, gershgorin_upper
+from ..sys.events import log_event
 from ..sys.mesh import (allreduce, any_rank, combine_norms, reduces_over_op,
                         vector_norm)
 from .base import EPSError
@@ -274,12 +275,13 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
     if lo0 is None and probe:
         t0 = time.perf_counter()
         ncv_p = min(ncv, 32)
-        Vp = torch.zeros((ncv_p + 1, n), dtype=dtype, device=dev)
-        Vp[0] = v0
-        Hp = np.zeros((ncv_p + 1, ncv_p), dtype=_np_dtype(dtype))
-        o = ks_hep_cycle(op, Vp, Hp, 0, 1e-30, gen, ncv=ncv_p,
-                         which="smallest")
-        th = o[4]  # ascending Ritz values; th[0] > lambda_1
+        with log_event("EPS_ChebProbe", cols=ncv_p):
+            Vp = torch.zeros((ncv_p + 1, n), dtype=dtype, device=dev)
+            Vp[0] = v0
+            Hp = np.zeros((ncv_p + 1, ncv_p), dtype=_np_dtype(dtype))
+            o = ks_hep_cycle(op, Vp, Hp, 0, 1e-30, gen, ncv=ncv_p,
+                             which="smallest")
+            th = o[4]  # ascending Ritz values; th[0] > lambda_1
         lo0 = float(th[0] + 2e-3 * max(th[-1] - th[0], 1e-30))
         stats["probe_s"] = time.perf_counter() - t0
         stats["cols"] += ncv_p
@@ -344,12 +346,13 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
                 time.perf_counter() - t_start > budget_s):
             log("cheb: wall budget hit")
             break
-        o = cyc(bop, V, H, j0, cur_tol_b)
+        newcols = ncv - j0 * block  # j0 is in block units if block > 1
+        with log_event("EPS_KSCycle", cols=newcols):
+            o = cyc(bop, V, H, j0, cur_tol_b)
         top = np.abs(np.asarray(o[4])).max()
         if not np.isfinite(top) or top > _MAX_GROWTH:
             raise _window_fault(bop, top, "the filtered Ritz values reach")
         V, H = o[0], o[1]
-        newcols = ncv - j0 * block  # j0 is in block units if block > 1
         j0 = int(o[2])
         # monotone lock watermark: the projected eigh on the huge-range
         # filtered H can wiggle a locked row's errest past tol_b and
@@ -448,42 +451,42 @@ def ks_cheb_smallest(op, nev: int, tol: float, ncv: int = 48,
         if tail_ref is None or k2 > tail_ref[1]:
             tail_ref = (stats["cycles"], k2)
         if stall >= 3 or (exhausted and k2 < m_t) or slow_tail:
-            lamA = _rayleigh_diag(op, V, max(k2, 0))
-            lamA_np = lamA[:max(k2, 1)]
-            # NaN guard: a poisoned basis row must not poison the
-            # controller — drop non-finite Rayleigh quotients; with none
-            # left, fall back to the k2=0 growth path
-            finite = np.isfinite(lamA_np)
-            if not finite.all():
-                lamA_np = lamA_np[finite]
-                if lamA_np.size == 0:
-                    lamA_np = np.asarray([0.0])
-            if slow_tail and k2 >= 2 and lamA_np.size >= 2:
-                lam_s = np.sort(lamA_np)
-                lo_new = float(lam_s[-1]
-                               * ((m_t + 2) / k2) ** 0.8 * 1.1)
-                lo_new = max(lo_new, float(lam_s[-1]) * 1.05)
-                lo_new = min(lo_new, hi / 4.0)
-                lo_new = _clamp_window_exp(lo_new, float(lam_s[0]), hi,
-                                           degree)
-                tag = "retighten"
-            else:
-                lo_new = _next_lo(lamA_np, min(k2, lamA_np.size), m_t,
-                                  lo, hi, degree)
-                tag = "adapt"
-            if not np.isfinite(lo_new) or lo_new <= 0:
-                lo_new = lo  # keep the last good window
-            log(f"cheb: {tag} lo {lo:.4e} -> {lo_new:.4e} (k2={k2})")
-            H = _set_window(lo_new, lamA_np, k2)
-            # blocked: restart at the last complete locked block; rows past
-            # it stay Ritz vectors and re-enter through the starting block
-            j0 = k2 // block
+            with log_event("EPS_ChebAdapt"):
+                lamA = _rayleigh_diag(op, V, max(k2, 0))
+                lamA_np = lamA[:max(k2, 1)]
+                # NaN guard: a poisoned basis row must not poison the
+                # controller — drop non-finite Rayleigh quotients; with none
+                # left, fall back to the k2=0 growth path
+                finite = np.isfinite(lamA_np)
+                if not finite.all():
+                    lamA_np = lamA_np[finite]
+                    if lamA_np.size == 0:
+                        lamA_np = np.asarray([0.0])
+                if slow_tail and k2 >= 2 and lamA_np.size >= 2:
+                    lam_s = np.sort(lamA_np)
+                    lo_new = float(lam_s[-1]
+                                   * ((m_t + 2) / k2) ** 0.8 * 1.1)
+                    lo_new = max(lo_new, float(lam_s[-1]) * 1.05)
+                    lo_new = min(lo_new, hi / 4.0)
+                    lo_new = _clamp_window_exp(lo_new, float(lam_s[0]), hi,
+                                               degree)
+                    tag = "retighten"
+                else:
+                    lo_new = _next_lo(lamA_np, min(k2, lamA_np.size), m_t,
+                                      lo, hi, degree)
+                    tag = "adapt"
+                if not np.isfinite(lo_new) or lo_new <= 0:
+                    lo_new = lo  # keep the last good window
+                log(f"cheb: {tag} lo {lo:.4e} -> {lo_new:.4e} (k2={k2})")
+                H = _set_window(lo_new, lamA_np, k2)
+                # blocked: restart at the last complete locked block; rows past
+                # it stay Ritz vectors and re-enter through the starting block
+                j0 = k2 // block
             stats["adaptations"] += 1
             stall = 0
             k2_prev = -1
             tail_ref = (stats["cycles"], k2)
 
-    stats["wall_s"] = time.perf_counter() - t_start
     stats["lo"] = lo
     stats["hi"] = hi
     stats["degree"] = degree
@@ -523,53 +526,56 @@ def _certify(op, Vbox, kc: int, nev: int, tol: float, hi: float, stats,
     ``orthonormalize``: CholQR2 the leading kc rows first (a semi-orthogonal
     basis from the partial extension), then release the basis.
     Returns (tau ascending, rel resid, X rows, nconv-leading)."""
-    t_cert0 = time.perf_counter()
-    stats["certs"] += 1
-    V = Vbox[0]
-    if orthonormalize:
-        Vq = _orthonormalize_rows(V, k=kc)
+    with log_event("EPS_ChebCertify") as span:
+        t_cert0 = time.perf_counter()
+        stats["certs"] += 1
+        V = Vbox[0]
+        if orthonormalize:
+            Vq = _orthonormalize_rows(V, k=kc)
+            del V
+            if drop:
+                Vbox[0] = None
+            V = Vq
+        tau_np, res, X = _rr_refine(op, V, kc)
         del V
         if drop:
             Vbox[0] = None
-        V = Vq
-    tau_np, res, X = _rr_refine(op, V, kc)
-    del V
-    if drop:
-        Vbox[0] = None
-    rel = res / np.maximum(np.abs(tau_np), 1e-300)
-    nwant = min(nev, kc)
-    nok = int(np.sum(np.cumprod(rel[:nwant] <= tol)))
-    log(f"cheb: certify k={kc}: nconv={nok}/{nev} "
-        f"(max rel resid of wanted {rel[:nwant].max():.2e})")
-    polish_rounds = 0
-    kpol = min(nev + 6, kc)
-    while (nok < nwant and polish_rounds < 4
-           and float(tau_np[0]) > 0
-           and np.all(np.isfinite(rel[:nwant]))
-           and rel[:nwant].max() < 1e-3):
-        kap = max(float(hi) / max(float(tau_np[0]), 1e-300), 1.0)
-        p_iters = int(np.clip(11.0 * np.sqrt(kap), 200, 3000))
-        log(f"cheb: MINRES polish round {polish_rounds + 1} "
-            f"(iters={p_iters}, rows={kpol}/{kc})...")
-        X = _cg_polish(op, X, tau_np, k=kpol, iters=p_iters)
-        X = _orthonormalize_rows(X, k=kc)
-        tau_np, res, X = _rr_refine(op, X, kc)
         rel = res / np.maximum(np.abs(tau_np), 1e-300)
+        nwant = min(nev, kc)
         nok = int(np.sum(np.cumprod(rel[:nwant] <= tol)))
-        polish_rounds += 1
-        stats["polish_rounds"] = stats.get("polish_rounds", 0) + 1
-        worst = np.argsort(rel[:nwant])[-3:][::-1]
-        log(f"cheb: after polish: nconv={nok}/{nev} "
-            f"(max rel resid {rel[:nwant].max():.2e}; worst rows "
-            f"{worst.tolist()} = "
-            f"{[float(f'{rel[w]:.2e}') for w in worst]})")
-    stats["cert_s"] = stats.get("cert_s", 0.0) + (time.perf_counter()
-                                                  - t_cert0)
-    stats["cert_nok"] = nok
-    if polish_rounds > 0:
-        stats["polish_ok"] = bool(nok >= nwant)
-        if nok < nwant:
-            log(f"cheb: POLISH FAILED to reach tol: nconv={nok}/{nwant}, "
-                f"max rel resid {rel[:nwant].max():.2e} — returning "
-                f"best-effort eigenpairs")
+        log(f"cheb: certify k={kc}: nconv={nok}/{nev} "
+            f"(max rel resid of wanted {rel[:nwant].max():.2e})")
+        polish_rounds = 0
+        kpol = min(nev + 6, kc)
+        while (nok < nwant and polish_rounds < 4
+               and float(tau_np[0]) > 0
+               and np.all(np.isfinite(rel[:nwant]))
+               and rel[:nwant].max() < 1e-3):
+            kap = max(float(hi) / max(float(tau_np[0]), 1e-300), 1.0)
+            p_iters = int(np.clip(11.0 * np.sqrt(kap), 200, 3000))
+            log(f"cheb: MINRES polish round {polish_rounds + 1} "
+                f"(iters={p_iters}, rows={kpol}/{kc})...")
+            X = _cg_polish(op, X, tau_np, k=kpol, iters=p_iters)
+            X = _orthonormalize_rows(X, k=kc)
+            tau_np, res, X = _rr_refine(op, X, kc)
+            rel = res / np.maximum(np.abs(tau_np), 1e-300)
+            nok = int(np.sum(np.cumprod(rel[:nwant] <= tol)))
+            polish_rounds += 1
+            stats["polish_rounds"] = stats.get("polish_rounds", 0) + 1
+            worst = np.argsort(rel[:nwant])[-3:][::-1]
+            log(f"cheb: after polish: nconv={nok}/{nev} "
+                f"(max rel resid {rel[:nwant].max():.2e}; worst rows "
+                f"{worst.tolist()} = "
+                f"{[float(f'{rel[w]:.2e}') for w in worst]})")
+        stats["cert_s"] = stats.get("cert_s", 0.0) + (time.perf_counter()
+                                                      - t_cert0)
+        stats["cert_nok"] = nok
+        if polish_rounds > 0:
+            stats["polish_ok"] = bool(nok >= nwant)
+            if nok < nwant:
+                log(f"cheb: POLISH FAILED to reach tol: nconv={nok}/{nwant}, "
+                    f"max rel resid {rel[:nwant].max():.2e} — returning "
+                    f"best-effort eigenpairs")
+        if span is not None:
+            span["polish_rounds"] = polish_rounds
     return tau_np, rel, X, nok

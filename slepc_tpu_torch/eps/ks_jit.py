@@ -91,11 +91,30 @@ def _mat(M, V):
     return torch.from_numpy(np.ascontiguousarray(M)).to(V.device, V.dtype)
 
 
-def _orth_sweeps(Vact, w, passes: int):
+def _sweep_bytes(Vact, b: int, writes: bool) -> int:
+    """Bytes of one K3 sweep of b rows against the rows of Vact, as the
+    ``bytes`` count of a ``BV_Orthogonalize`` span has them: the basis rows
+    and the b rows read once, and the b output rows written once (an update;
+    the dots write only their small coefficients)."""
+    rows = Vact.shape[0] + (2 * b if writes else b)
+    return rows * Vact.shape[1] * Vact.element_size()
+
+
+def _rotate_bytes(Q, V) -> int:
+    """Bytes of one K4 call out = Q^T V (Q a host or device matrix): the
+    rows of V read once and the Q.shape[1] output rows written once."""
+    return (V.shape[0] + Q.shape[1]) * V.shape[1] * V.element_size()
+
+
+def _orth_sweeps(Vact, w, passes: int, span=None):
     """CGS with ``passes`` sweeps against the rows of Vact: dots, then
     (passes - 1) fused update+dots, then the last update -- three basis
     reads per CGS2 column (bvorthog.c:91-132 single-reduction semantics).
-    Returns (w orthogonalized, summed coefficients)."""
+    Their bytes go to ``span``'s count.  Returns (w orthogonalized, summed
+    coefficients)."""
+    if span is not None:  # logging on
+        span["bytes"] += (_sweep_bytes(Vact, 1, False)
+                          + passes * _sweep_bytes(Vact, 1, True))
     wp = w[None]
     c = allreduce(panel_dots(Vact, wp))
     c_tot = c.clone()
@@ -198,39 +217,51 @@ def _hep_extend_body(op, V, H, j0: int, jend: int, gen, *, ncv: int,
         lo = max(j - 1, 0)
         Vloc = V[lo: j + 1]  # the local rows v_{j-1}, v_j
         c_np = np.zeros(j + 1, H.dtype)
-        if monitor is not None:
-            w, cl = _orth_sweeps(Vloc, w, 2)
-            host = _host(cl, vector_norm(w))
-            c_np[lo:], beta = host[:-1], float(host[-1].real)
-            if monitor.need_full(H, j, j0, c_np[j], beta):
-                w, cf = _orth_sweeps(V[: j + 1], w, passes)
-                host = _host(cf, vector_norm(w))
-                c_np += host[:-1]
+        # the column's sweeps and host reads (bytes: _sweep_bytes)
+        with log_event("BV_Orthogonalize", bytes=0) as span:
+            if monitor is not None:
+                w, cl = _orth_sweeps(Vloc, w, 2, span)
+                host = _host(cl, vector_norm(w))
+                c_np[lo:], beta = host[:-1], float(host[-1].real)
+                if monitor.need_full(H, j, j0, c_np[j], beta):
+                    w, cf = _orth_sweeps(V[: j + 1], w, passes, span)
+                    host = _host(cf, vector_norm(w))
+                    c_np += host[:-1]
+                    beta = float(host[-1].real)
+            elif selective:
+                # local rows, then the locked rows below them, twice
+                # (reference ks_jit.py:529-553)
+                nsl = min(nsel, nlock, max(j - 1, 0))
+                cl_tot = torch.zeros(j + 1 - lo, dtype=V.dtype,
+                                     device=V.device)
+                cs_tot = torch.zeros(nsl, dtype=V.dtype, device=V.device)
+                for _ in range(2):
+                    if span is not None:
+                        span["bytes"] += (_sweep_bytes(Vloc, 1, False)
+                                          + _sweep_bytes(Vloc, 1, True))
+                    cl = allreduce(panel_dots(Vloc, w[None]))
+                    w = panel_update(Vloc, cl, w[None])[0]
+                    cl_tot += cl[:, 0]
+                    if nsl:
+                        if span is not None:
+                            span["bytes"] += (
+                                _sweep_bytes(V[:nsl], 1, False)
+                                + _sweep_bytes(V[:nsl], 1, True))
+                        cs = allreduce(panel_dots(V[:nsl], w[None]))
+                        w = panel_update(V[:nsl], cs, w[None])[0]
+                        cs_tot += cs[:, 0]
+                host = _host(cl_tot, cs_tot, vector_norm(w))
+                c_np[lo:] = host[: j + 1 - lo]
+                c_np[:nsl] += host[j + 1 - lo: -1]
                 beta = float(host[-1].real)
-        elif selective:
-            # local rows, then the locked rows below them, twice
-            # (reference ks_jit.py:529-553)
-            nsl = min(nsel, nlock, max(j - 1, 0))
-            cl_tot = torch.zeros(j + 1 - lo, dtype=V.dtype, device=V.device)
-            cs_tot = torch.zeros(nsl, dtype=V.dtype, device=V.device)
-            for _ in range(2):
-                cl = allreduce(panel_dots(Vloc, w[None]))
-                w = panel_update(Vloc, cl, w[None])[0]
-                cl_tot += cl[:, 0]
-                if nsl:
-                    cs = allreduce(panel_dots(V[:nsl], w[None]))
-                    w = panel_update(V[:nsl], cs, w[None])[0]
-                    cs_tot += cs[:, 0]
-            host = _host(cl_tot, cs_tot, vector_norm(w))
-            c_np[lo:] = host[: j + 1 - lo]
-            c_np[:nsl] += host[j + 1 - lo: -1]
-            beta = float(host[-1].real)
-        else:
-            local = reorth_period > 1 and j % reorth_period != 0 and j != j0
-            w, ct = _orth_sweeps(Vloc if local else V[: j + 1], w,
-                                 2 if local else passes)
-            host = _host(ct, vector_norm(w))
-            c_np[lo if local else 0:], beta = host[:-1], float(host[-1].real)
+            else:
+                local = (reorth_period > 1 and j % reorth_period != 0
+                         and j != j0)
+                w, ct = _orth_sweeps(Vloc if local else V[: j + 1], w,
+                                     2 if local else passes, span)
+                host = _host(ct, vector_norm(w))
+                c_np[lo if local else 0:] = host[:-1]
+                beta = float(host[-1].real)
         _finish_column(V, H, j, w, c_np, beta, gen, eps_mach)
     return V, H
 
@@ -239,7 +270,8 @@ def _projected_solve(H, ncv: int, which: str):
     beta = float(abs(H[ncv, ncv - 1]))
     S = H[:ncv, :ncv]
     S = 0.5 * (S + S.conj().T)
-    theta, Q = np.linalg.eigh(S)  # LAPACK, ascending (the eigh_small role)
+    with log_event("DS_Solve", flops=9.0 * ncv ** 3):
+        theta, Q = np.linalg.eigh(S)  # LAPACK, ascending (eigh_small role)
     if which == "largest":
         theta, Q = theta[::-1], Q[:, ::-1]
     elif which == "largest_magnitude":
@@ -261,8 +293,12 @@ def _hep_rotate_body(V, Q: np.ndarray, kl: int, *, ncv: int, nres: int = 1):
     """Restart rotation V[:P] = Q^T V[:ncv] (kernel K4, in place: a block
     reads all ncv rows of its columns before it stores any) and the
     residual-row move V[kl:kl+nres] = V[ncv:ncv+nres] (nres = b rows in the
-    blocked cycle)."""
-    rotate(_mat(Q, V), V[:ncv], out=V[: Q.shape[1]])
+    blocked cycle); the rotation is the span ``BV_MultInPlace`` (bytes:
+    :func:`_rotate_bytes`)."""
+    with log_event("BV_MultInPlace") as span:
+        if span is not None:
+            span["bytes"] = _rotate_bytes(Q, V[:ncv])
+        rotate(_mat(Q, V), V[:ncv], out=V[: Q.shape[1]])
     V[kl: kl + nres].copy_(V[ncv: ncv + nres])
     return V
 
@@ -407,32 +443,53 @@ def _block_step(op_blk, V, H, p: int, b: int, gen, eps_mach: float) -> None:
     m = (p + 1) * b
     Vact = V[:m]
     Wb = op_blk(V[p * b: m])
-    C1 = allreduce(panel_dots(Vact, Wb))
-    Wb, C2 = panel_update_dots(Vact, C1, Wb)
-    Wb = panel_update(Vact, allreduce(C2), Wb)
-    host = _host(C1 + C2, allreduce(panel_dots(Wb, Wb)))
-    C, G = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
-    inv1, half1 = _svqb(G, eps_mach)
-    X = rotate(_mat(inv1.T, V), Wb)
-    P = allreduce(panel_dots(Vact, X))
-    X = panel_update(Vact, P, X)
-    host = _host(P, allreduce(panel_dots(X, X)))
-    P, G1 = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
-    lam1, U1 = _gram_eigh(G1)
-    dead = lam1 < 1e-2  # live directions of X have norms near 1
-    if dead.any():
-        # complex normals from the seeded generator for a complex basis;
-        # the refill X += R z^H along each dead direction z of G1
-        R = clear_halos(torch.randn((int(dead.sum()), V.shape[1]),
-                                    generator=gen, dtype=V.dtype,
-                                    device=V.device))
-        R /= vector_norm(R, dim=1)[:, None]
-        X += rotate(_mat(U1[:, dead].conj().T, V), R)
-        for _ in range(2):
-            X = panel_update(Vact, allreduce(panel_dots(Vact, X)), X)
-        G1 = _host(allreduce(panel_dots(X, X))).reshape(b, b)
-    inv2, half2 = _svqb(G1, eps_mach)
-    rotate(_mat(inv2.T, V), X, out=V[m: m + b])
+    # BCGS2 + SVQB^2 of the block product (bytes: _sweep_bytes and
+    # _rotate_bytes of each K3 and K4 call)
+    with log_event("BV_Orthogonalize", bytes=0) as span:
+        # BCGS2: dots, update+dots, update; then Wb's Gram
+        if span is not None:
+            span["bytes"] += (_sweep_bytes(Vact, b, False)
+                              + 2 * _sweep_bytes(Vact, b, True)
+                              + _sweep_bytes(Wb, b, False))
+        C1 = allreduce(panel_dots(Vact, Wb))
+        Wb, C2 = panel_update_dots(Vact, C1, Wb)
+        Wb = panel_update(Vact, allreduce(C2), Wb)
+        host = _host(C1 + C2, allreduce(panel_dots(Wb, Wb)))
+        C, G = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
+        inv1, half1 = _svqb(G, eps_mach)
+        # X = inv1 Wb, one more CGS pass, X's Gram
+        if span is not None:
+            span["bytes"] += (_rotate_bytes(inv1.T, Wb)
+                              + _sweep_bytes(Vact, b, False)
+                              + _sweep_bytes(Vact, b, True)
+                              + _sweep_bytes(Wb, b, False))
+        X = rotate(_mat(inv1.T, V), Wb)
+        P = allreduce(panel_dots(Vact, X))
+        X = panel_update(Vact, P, X)
+        host = _host(P, allreduce(panel_dots(X, X)))
+        P, G1 = host[: m * b].reshape(m, b), host[m * b:].reshape(b, b)
+        lam1, U1 = _gram_eigh(G1)
+        dead = lam1 < 1e-2  # live directions of X have norms near 1
+        if dead.any():
+            # complex normals from the seeded generator for a complex basis;
+            # the refill X += R z^H along each dead direction z of G1
+            R = clear_halos(torch.randn((int(dead.sum()), V.shape[1]),
+                                        generator=gen, dtype=V.dtype,
+                                        device=V.device))
+            R /= vector_norm(R, dim=1)[:, None]
+            if span is not None:
+                span["bytes"] += (_rotate_bytes(U1[:, dead].conj().T, R)
+                                  + 2 * (_sweep_bytes(Vact, b, False)
+                                         + _sweep_bytes(Vact, b, True))
+                                  + _sweep_bytes(X, b, False))
+            X += rotate(_mat(U1[:, dead].conj().T, V), R)
+            for _ in range(2):
+                X = panel_update(Vact, allreduce(panel_dots(Vact, X)), X)
+            G1 = _host(allreduce(panel_dots(X, X))).reshape(b, b)
+        inv2, half2 = _svqb(G1, eps_mach)
+        if span is not None:
+            span["bytes"] += _rotate_bytes(inv2.T, X)
+        rotate(_mat(inv2.T, V), X, out=V[m: m + b])
     H[:, p * b: m] = 0
     H[:m, p * b: m] = C + P @ half1.T
     # Wb = (half1 half2) X2 + ..., so H[m + r, p*b + i] = <X2[r], Wb[i]> =

@@ -26,6 +26,7 @@ import torch
 
 from ..mat.linop import AIJOperator, DIAOperator, LinearOperator, as_operand
 from ..ops.csr import csr_spmv
+from ..sys.events import log_event
 
 
 class ChebAmplifyOperator:
@@ -55,19 +56,23 @@ class ChebAmplifyOperator:
         return int(getattr(self.base, "nnz", 0)) * max(self.degree, 1)
 
     def _recurrence(self, apply, x: torch.Tensor) -> torch.Tensor:
+        """The ``degree`` steps on x, (n,) or a (b, n) block, inside the
+        span ``ST_ChebApply`` (counts: ``degree``, and ``rows`` 1 or b)."""
         d = self.degree
         if d <= 0:
             return x
         a = 2.0 / (self.hi - self.lo)
         b = (self.hi + self.lo) / (self.hi - self.lo)
-        # t1 = L(x) = b x - a A x
-        t1 = apply(x).mul_(-a).add_(x, alpha=b)
-        tm1, tk = x, t1
-        for _ in range(1, d):
-            # t_{k+1} = 2 L(t_k) - t_{k-1} = 2b t_k - 2a A t_k - t_{k-1}
-            nxt = apply(tk).mul_(-2.0 * a).add_(tk, alpha=2.0 * b) \
-                .sub_(tm1)
-            tm1, tk = tk, nxt
+        with log_event("ST_ChebApply", degree=d,
+                       rows=x.shape[0] if x.dim() == 2 else 1):
+            # t1 = L(x) = b x - a A x
+            t1 = apply(x).mul_(-a).add_(x, alpha=b)
+            tm1, tk = x, t1
+            for _ in range(1, d):
+                # t_{k+1} = 2 L(t_k) - t_{k-1} = 2b t_k - 2a A t_k - t_{k-1}
+                nxt = apply(tk).mul_(-2.0 * a).add_(tk, alpha=2.0 * b) \
+                    .sub_(tm1)
+                tm1, tk = tk, nxt
         return tk
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
