@@ -444,7 +444,10 @@ from slepc_tpu_torch.ops.bv import (fused_update_dots, panel_dots,
 from slepc_tpu_torch.eps.base import op_mult_block
 from slepc_tpu_torch.eps.cheb_accel import ks_cheb_smallest
 from slepc_tpu_torch.eps.ks_jit import ks_hep_cycle, ks_hep_cycle_blocked
-from slepc_tpu_torch.ops.dia import (SPMM_TILE, dia_spmm, dia_spmm_ref,
+from slepc_tpu_torch.ops.dia import (SPMM_TILE, dia_cheb_step,
+                                     dia_cheb_step_block,
+                                     dia_cheb_step_block_ref,
+                                     dia_cheb_step_ref, dia_spmm, dia_spmm_ref,
                                      dia_spmv, dia_spmv_ref, plan_spmm)
 from slepc_tpu_torch.ops.rotate import plan_rotate, rotate, rotate_ref
 from slepc_tpu_torch.ops.stream import (stream_bandwidth, stream_sum,
@@ -489,6 +492,11 @@ KERNELS = {
     "rotate_c128": ("K4c", SRC + "rotate.cu", "slepc_tpu/ops/rotate_pallas.py:100"),
     "csr_spmv_c64": ("K6c", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
     "csr_spmv_c128": ("K6c", SRC + "csr_spmv.cu", "slepc_tpu/ops/ell_pallas.py:197"),
+    # the fused Chebyshev step: K2's / K5's design with the recurrence as
+    # the epilogue, in place of the XLA elementwise ops around the SpMV
+    # (f32: timed in phase 1, on no solve's path)
+    "dia_cheb_f64": ("K2 step", SRC + "dia_spmv.cu", "slepc_tpu/st/cheb.py:92"),
+    "dia_cheb_block_f64": ("K5 step", SRC + "dia_spmv.cu", "slepc_tpu/st/cheb.py:92"),
 }
 # Each kernel's time before its last redesign, same script and shapes
 # (PERF.md's kernel table: the real kernels as read before the redesign of
@@ -577,6 +585,35 @@ def spmv_errors(offsets, diags, x):
     y_ref = dia_spmv_ref(offsets, diags, x)
     err = float((dia_spmv(offsets, diags, x) - y_ref).abs().max())
     return err, err / float(y_ref.abs().max())
+
+
+# a filter window on the flagship Laplacian (its spectrum in (0, 12)): the
+# step's coefficients, alpha = -2a and beta = 2b after step 1's -a and b
+CHEB_A, CHEB_B = 2.0 / (12.0 - 0.3), (12.0 + 0.3) / (12.0 - 0.3)
+
+
+def cheb_errors(offsets, diags, t, p, step, step_ref):
+    """(max abs, max relative to the terms' scale |alpha| |A| |t| + |beta|
+    |t| + |p|) error of a fused Chebyshev step against its plain version,
+    at step 1 (no p) and at a later step; t and p must come back
+    unchanged."""
+    t0, p0 = t.clone(), p.clone()
+    worst_abs = worst_rel = 0.0
+    for q, alpha, beta in ((None, -CHEB_A, CHEB_B),
+                           (p, -2 * CHEB_A, 2 * CHEB_B)):
+        err = (step(offsets, diags, t, q, alpha, beta)
+               - step_ref(offsets, diags, t, q, alpha, beta)).abs()
+        absd, abst = diags.abs(), t.abs()
+        prod = dia_spmv_ref(offsets, absd, abst) if t.dim() == 1 \
+            else dia_spmm_ref(offsets, absd, abst)
+        scale = abs(alpha) * prod + abs(beta) * abst
+        if q is not None:
+            scale += q.abs()
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_rel = max(worst_rel, float((err / scale).max()))
+    check(torch.equal(t, t0) and torch.equal(p, p0),
+          "the fused step wrote to its inputs")
+    return worst_abs, worst_rel
 
 
 def panel_errors(V, W, C):
@@ -734,6 +771,33 @@ def phase1(dev, table):
         record(table, name, worst_abs, worst_rel, tol, ms, plain, nbytes,
                2 * lap.nnz, dt)  # library time: phase1_csr, on the CSR
         del diags, x
+
+        # the fused Chebyshev step (K2's design) at a later step, beside
+        # K2 and the three passes it replaces
+        name = f"dia_cheb_{TAG[dt]}"
+        worst_abs = worst_rel = 0.0
+        for i, diags in enumerate((lap.diags.to(dt), rnd.to(dt))):
+            t = torch.randn(diags.shape[1], generator=gen, dtype=dt,
+                            device=dev)
+            p = torch.randn(diags.shape[1], generator=gen, dtype=dt,
+                            device=dev)
+            err, rel = cheb_errors(lap.offsets, diags, t, p, dia_cheb_step,
+                                   dia_cheb_step_ref)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            if i == 0:
+                ms = cuda_ms(lambda: dia_cheb_step(
+                    lap.offsets, diags, t, p, -2 * CHEB_A, 2 * CHEB_B))
+                plain = cuda_ms(lambda: dia_cheb_step_ref(
+                    lap.offsets, diags, t, p, -2 * CHEB_A, 2 * CHEB_B))
+                unfused = cuda_ms(lambda: dia_spmv(lap.offsets, diags, t)
+                                  .mul_(-2 * CHEB_A).add_(t, alpha=2 * CHEB_B)
+                                  .sub_(p))
+        print(f"  {name}: K2 and the three passes {unfused:.4f} ms",
+              flush=True)
+        record(table, name, worst_abs, worst_rel, tol, ms, plain,
+               (len(lap.offsets) + 3) * n * t.element_size(),
+               2 * lap.nnz + 4 * n, dt)
+        del diags, t, p
     del lap, rnd
 
     K, b = 49, 1
@@ -817,8 +881,9 @@ def phase1_planning(dev):
 
 
 def phase1_block(dev, table):
-    """K5 at b = 1, 2, 4, 8 against its plain version and b K1/K2 calls;
-    returns its times {(dtype, b): ms} (cuSPARSE beside them: phase1_csr)."""
+    """K5 at b = 1, 2, 4, 8 against its plain version and b K1/K2 calls,
+    and the fused block step at b = 4 against its plain version; returns
+    K5's times {(dtype, b): ms} (cuSPARSE beside them: phase1_csr)."""
     print("phase 1: K5 (block DIA SpMM) vs plain PyTorch on the flagship "
           "operator, beside b single K1/K2 calls; K3 at b = 4", flush=True)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -860,7 +925,26 @@ def phase1_block(dev, table):
                       f"{nbytes / 1e9:.3f} GB -> {nbytes / ms / 1e6:.1f} GB/s",
                       flush=True)
             del Y, Y_ref
-        del V, diags
+
+        # the fused block step (K5's design) at b = 4, X and P slices of the
+        # taller basis, beside K5 and the three passes it replaces
+        b, name = 4, f"dia_cheb_block_{TAG[dt]}"
+        X, P = V[3:3 + b], V[8:8 + b]
+        err, rel = cheb_errors(lap.offsets, diags, X, P, dia_cheb_step_block,
+                               dia_cheb_step_block_ref)
+        later = (-2 * CHEB_A, 2 * CHEB_B)
+        ms = cuda_ms(lambda: dia_cheb_step_block(lap.offsets, diags, X, P,
+                                                 *later))
+        plain = cuda_ms(lambda: dia_cheb_step_block_ref(lap.offsets, diags,
+                                                        X, P, *later))
+        unfused = cuda_ms(lambda: dia_spmm(lap.offsets, diags, X)
+                          .mul_(later[0]).add_(X, alpha=later[1]).sub_(P))
+        print(f"  {name} b={b}: K5 and the three passes {unfused:.4f} ms",
+              flush=True)
+        record(table, name, err, rel, 1e-14 if dt == torch.float64 else 2e-6,
+               ms, plain, (nd + 3 * b) * n * X.element_size(),
+               (2 * lap.nnz + 4 * n) * b, dt)
+        del V, X, P, diags
     del lap
     torch.cuda.empty_cache()
 
@@ -1184,7 +1268,16 @@ def phase3(dev):
     torch.cuda.synchronize()
     print(f"  operator built on the card in {time.perf_counter() - t0:.3f} s; "
           f"n={A.shape[0]}", flush=True)
-    return flagship_solve(A, "phase 3", "dia_spmv")[0]
+    wall, delta, st = flagship_solve(A, "phase 3", "dia_spmv")
+    # every filter step is one fused launch (K2's design); the probe's 32
+    # columns are plain products
+    want = 450 * (st["cols"] - 32)
+    print(f"  fused steps {delta['dia_cheb_f64']} (degree x filtered columns "
+          f"= {want}); K2 launches {delta['dia_spmv_f64']}", flush=True)
+    check(delta["dia_cheb_f64"] == want,
+          f"phase 3: the fused step ran {delta['dia_cheb_f64']} times, "
+          f"not {want}")
+    return wall
 
 
 def phase5(dev):
@@ -1192,15 +1285,19 @@ def phase5(dev):
           "cheb_block = 4 (the blocked filtered cycle on K5)", flush=True)
     A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
     b, degree, ncv_probe = 4, 450, 32
-    wall, delta, st = flagship_solve(A, "phase 5", "dia_spmm", cheb_block=b)
-    # every filtered column went through K5: each block step is one filtered
-    # block apply = degree K5 launches, and the probe's 32 columns are plain
+    wall, delta, st = flagship_solve(A, "phase 5", "dia_cheb_block",
+                                     cheb_block=b)
+    # every filtered column went through the fused block step (K5's
+    # design): each block step is one filtered block apply = degree
+    # launches, and the probe's 32 columns are plain
     want = degree * (st["cols"] - ncv_probe) // b
-    print(f"  K5 launches {delta['dia_spmm_f64']} (degree x filtered "
-          f"columns / b = {want}); K2 launches {delta['dia_spmv_f64']} "
+    print(f"  fused block steps {delta['dia_cheb_block_f64']} (degree x "
+          f"filtered columns / b = {want}); K5 launches "
+          f"{delta['dia_spmm_f64']}; K2 launches {delta['dia_spmv_f64']} "
           f"(probe, window adaptations, certification, polish)", flush=True)
-    check(delta["dia_spmm_f64"] == want,
-          f"phase 5: K5 ran {delta['dia_spmm_f64']} times, not {want}")
+    check(delta["dia_cheb_block_f64"] == want,
+          f"phase 5: the fused block step ran {delta['dia_cheb_block_f64']} "
+          f"times, not {want}")
     return wall
 
 
@@ -6484,7 +6581,7 @@ def main():
             A, "profiled phase 4", "csr_spmv")[0])
         A = stt.laplacian_3d(*FLAGSHIP, dtype=torch.float64, device=dev)
         profile_solve("phase 5", lambda: flagship_solve(
-            A, "profiled phase 5", "dia_spmm", cheb_block=4)[0])
+            A, "profiled phase 5", "dia_cheb_block", cheb_block=4)[0])
         G = gauge_dia(A, torch.complex128)
         del A
         profile_solve("phase 12d c128 blocked cycle", lambda: plain_solve(

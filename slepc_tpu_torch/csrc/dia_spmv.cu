@@ -27,6 +27,31 @@
 // 2^20-row, 3-diagonal c128 non-Hermitian deployment against 151 MB for
 // its 7-diagonal, 2^21-row real form.  A complex multiply-add is 8 flops
 // per 16 bytes of diagonal and x (c128), far under the FP64 ridge.
+//
+// The fused Chebyshev step (K2's and K5's designs with an epilogue):
+//   y = alpha A t + beta t - p   (step 1 of a filter: no p)
+// for one vector (dia_spmv_kernel<T, true>: K2's kernel, CHEB on) or a
+// block (dia_cheb_block_kernel), in place of a product and three vector
+// passes (scale, add, subtract) of the filter's three-term recurrence
+// (st/cheb.py).  It replaces no TPU kernel:
+// the reference's recurrence is XLA's elementwise ops around the SpMV
+// (slepc_tpu/st/cheb.py _apply).  Bound: bytes.  A step reads the diagonals,
+// t and p once and writes y once, (nd + 3) * n * sizeof(T) for a vector
+// (10 n-vectors on the f64 flagship, against 17 for K2 and the passes) and
+// (nd + 3b) * n * sizeof(T) for a block.  t's own entry comes from the
+// value the product already loaded (the offset-0 diagonal's, or K5's staged
+// window), so t is read once.  Per element the arithmetic is the passes'
+// order: the sum over the diagonals in their given order, times alpha, plus
+// beta t, minus p; the compiler may contract a product and a sum into one
+// FMA.  Real types only (float, double): a complex vector on a real
+// operator goes by parts, and the filter on a complex operator keeps the
+// passes.  p is loaded before the sum over the diagonals, so its loads
+// are in flight beside the diagonals' rather than after them.  On the f64
+// flagship (H100 80GB HBM3, 700 W) a step takes 0.2785 ms, 89% of its
+// bound, against 0.4868 for K2 and the passes (0.2834 with p loaded at
+// the store), and a block step at b = 4 0.6315 ms (74%) against 1.4003
+// (0.6745); K5's design at b = 1 took 0.2870 ms for the one-vector step
+// against K2's 0.2831, so that keeps K2's.
 #include "common.cuh"
 
 namespace {
@@ -39,34 +64,72 @@ struct DiaOffsets {
   int64_t off[kMaxDiags];
 };
 
-template <typename T>
+// K2 (CHEB false): y = A x.  CHEB: the fused Chebyshev step on K2's
+// design, y = alpha A x + beta x - p (p == nullptr: step 1, no p); k0 is
+// the index of the offset-0 diagonal, whose load of x[i] gives x's own
+// entry (-1: none, x[i] is read on its own); the diagonals and p are read
+// once, streamed (ldcs), and p before the sum.  K2's loads are unchanged.
+template <typename T, bool CHEB>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const T* __restrict__ diags, int64_t ld, DiaOffsets offs,
-                int nd, const T* __restrict__ x, T* __restrict__ y, int64_t n) {
+                int nd, const T* __restrict__ x, T* __restrict__ y, int64_t n,
+                int k0, const T* __restrict__ p, T alpha, T beta) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     T acc = T(0);
+    [[maybe_unused]] T xi = T(0), pi = T(0);
+    if constexpr (CHEB) {
+      if (p != nullptr) pi = slepc::ldcs(p + i);
+    }
     for (int k = 0; k < nd; ++k) {
       const int64_t j = i + offs.off[k];
-      if (j >= 0 && j < n) acc += diags[k * ld + i] * x[j];
+      if (j >= 0 && j < n) {
+        if constexpr (CHEB) {
+          const T v = x[j];
+          if (k == k0) xi = v;
+          acc += slepc::ldcs(diags + k * ld + i) * v;
+        } else {
+          acc += diags[k * ld + i] * x[j];
+        }
+      }
     }
-    y[i] = acc;
+    if constexpr (CHEB) {
+      if (k0 < 0) xi = x[i];
+      T out = acc * alpha;
+      out = out + beta * xi;
+      if (p != nullptr) out = out - pi;
+      y[i] = out;
+    } else {
+      y[i] = acc;
+    }
   }
 }
 
-template <typename T>
+// K2's launch; CHEB: the fused step's (p, alpha, beta unread otherwise).
+template <typename T, bool CHEB = false>
 cudaError_t launch(const void* diags, int64_t ld, const int64_t* offsets,
                    int nd, const void* x, void* y, int64_t n,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const void* p = nullptr,
+                   double alpha = 0.0, double beta = 0.0) {
   DiaOffsets offs;
-  for (int k = 0; k < nd; ++k) offs.off[k] = offsets[k];
+  int k0 = -1;
+  for (int k = 0; k < nd; ++k) {
+    offs.off[k] = offsets[k];
+    if (offsets[k] == 0 && k0 < 0) k0 = k;
+  }
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 16384) blocks = 16384;
   if (blocks < 1) blocks = 1;
-  dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  T a = T(0), b = T(0);
+  if constexpr (CHEB) {
+    a = static_cast<T>(alpha);
+    b = static_cast<T>(beta);
+  }
+  dia_spmv_kernel<T, CHEB><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             stream>>>(
       static_cast<const T*>(diags), ld, offs, nd, static_cast<const T*>(x),
-      static_cast<T*>(y), n);
+      static_cast<T*>(y), n, k0, static_cast<const T*>(p), a, b);
   return cudaGetLastError();
 }
 
@@ -103,7 +166,7 @@ cudaError_t launch(const void* diags, int64_t ld, const int64_t* offsets,
 // warp is 32 consecutive elements whatever the alignment, and holds b x
 // RPT sums in registers; a diagonal value is read once for all b rows, and
 // the sums run over the diagonals in their given order.  No atomics.  The
-// one store of each Y element is where an epilogue would go.  Two other
+// one store of each Y element carries the fused step's epilogue.  Two other
 // designs measured slower at b = 4, f64 (PERF.md's findings): staging the
 // diagonals and the far windows too, so that all of a tile's loads are
 // cp.async (0.727 ms: two blocks an SM, each waiting on its copies), and
@@ -143,12 +206,18 @@ __host__ __device__ inline int spmm_width(int tile, int halo) {
   return (tile + 2 * halo + vw - 1 + vw - 1) / vw * vw;
 }
 
-template <typename T, int BT>
-__global__ void __launch_bounds__(kSpmmThreads)
-dia_spmm_kernel(const T* __restrict__ diags, int64_t ld, SpmmOffsets offs,
-                int nd, const T* __restrict__ X, int64_t ldx,
-                T* __restrict__ Y, int64_t ldy, int b, int64_t n, int tile,
-                int halo, int vec) {
+// K5's block body; CHEB: the fused Chebyshev step's epilogue at the one
+// store of each Y element, Y = alpha A X + beta X - P (P == nullptr: no P),
+// X's own entry taken from the staged window (from X when nothing is
+// staged), P read once, coalesced, with its row stride ldp, into
+// registers before the sum over the diagonals (6% faster at b = 4, f64,
+// than loading it at the store).
+template <typename T, int BT, bool CHEB>
+__device__ __forceinline__ void
+spmm_tile(const T* __restrict__ diags, int64_t ld, const SpmmOffsets& offs,
+          int nd, const T* __restrict__ X, int64_t ldx, T* __restrict__ Y,
+          int64_t ldy, int b, int64_t n, int tile, int halo, int vec,
+          const T* __restrict__ P, int64_t ldp, T alpha, T beta) {
   constexpr int RPT = spmm_rpt<T>();
   constexpr int VW = RPT;  // elements in 16 bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -190,6 +259,15 @@ dia_spmm_kernel(const T* __restrict__ diags, int64_t ld, SpmmOffsets offs,
 #pragma unroll
       for (int m = 0; m < BT; ++m) acc[m][r] = T(0);
     }
+    T pv[CHEB ? BT : 1][RPT];
+    if constexpr (CHEB) {
+#pragma unroll
+      for (int m = 0; m < BT; ++m)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          pv[m][r] = (P != nullptr && m < b && row[r] < n)
+                         ? slepc::ldcs(P + m * ldp + row[r]) : T(0);
+    }
     for (int k = 0; k < nd; ++k) {
       const int64_t off = offs.off[k];
       T d[RPT];
@@ -220,36 +298,87 @@ dia_spmm_kernel(const T* __restrict__ diags, int64_t ld, SpmmOffsets offs,
       if (m < b)
 #pragma unroll
         for (int r = 0; r < RPT; ++r)
-          if (row[r] < n) Y[m * ldy + row[r]] = acc[m][r];
+          if (row[r] < n) {
+            T out = acc[m][r];
+            if constexpr (CHEB) {
+              const T t = offs.near ? win[m * W + (row[r] - ws)]
+                                    : slepc::ldg(X + m * ldx + row[r]);
+              out = out * alpha;
+              out = out + beta * t;
+              if (P != nullptr) out = out - pv[m][r];
+            }
+            Y[m * ldy + row[r]] = out;
+          }
   }
 }
 
 template <typename T, int BT>
+__global__ void __launch_bounds__(kSpmmThreads)
+dia_spmm_kernel(const T* __restrict__ diags, int64_t ld, SpmmOffsets offs,
+                int nd, const T* __restrict__ X, int64_t ldx,
+                T* __restrict__ Y, int64_t ldy, int b, int64_t n, int tile,
+                int halo, int vec) {
+  spmm_tile<T, BT, false>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile,
+                          halo, vec, nullptr, 0, T(0), T(0));
+}
+
+template <typename T, int BT>
+__global__ void __launch_bounds__(kSpmmThreads)
+dia_cheb_block_kernel(const T* __restrict__ diags, int64_t ld,
+                      SpmmOffsets offs, int nd, const T* __restrict__ X,
+                      int64_t ldx, const T* __restrict__ P, int64_t ldp,
+                      T alpha, T beta, T* __restrict__ Y, int64_t ldy, int b,
+                      int64_t n, int tile, int halo, int vec) {
+  spmm_tile<T, BT, true>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile,
+                         halo, vec, P, ldp, alpha, beta);
+}
+
+// The fused step's epilogue arguments (unread by K5's product).
+struct ChebStep {
+  const void* P;
+  int64_t ldp;
+  double alpha, beta;
+};
+
+template <typename T, int BT, bool CHEB>
 cudaError_t launch_block_bt(const void* diags, int64_t ld,
                             const SpmmOffsets& offs, int nd, const void* X,
                             int64_t ldx, void* Y, int64_t ldy, int b, int64_t n,
-                            int tile, int halo, cudaStream_t stream) {
+                            int tile, int halo, const ChebStep& cs,
+                            cudaStream_t stream) {
   const size_t smem = offs.near
       ? static_cast<size_t>(b) * spmm_width<T>(tile, halo) * sizeof(T) : 0;
-  cudaError_t err = slepc::allow_smem(dia_spmm_kernel<T, BT>, smem);
+  cudaError_t err;
+  if constexpr (CHEB)
+    err = slepc::allow_smem(dia_cheb_block_kernel<T, BT>, smem);
+  else
+    err = slepc::allow_smem(dia_spmm_kernel<T, BT>, smem);
   if (err != cudaSuccess) return err;
   constexpr int vw = spmm_rpt<T>();
   const int vec = reinterpret_cast<uintptr_t>(X) % 16 == 0 && ldx % vw == 0;
   // a c128 element is one 16-byte copy and load: X must be aligned to it
   if (!vec && sizeof(T) == 16) return cudaErrorInvalidValue;
   const int64_t blocks = (n + tile - 1) / tile;
-  dia_spmm_kernel<T, BT><<<static_cast<unsigned>(blocks), kSpmmThreads, smem,
-                           stream>>>(
-      static_cast<const T*>(diags), ld, offs, nd, static_cast<const T*>(X), ldx,
-      static_cast<T*>(Y), ldy, b, n, tile, halo, vec);
+  if constexpr (CHEB)
+    dia_cheb_block_kernel<T, BT><<<static_cast<unsigned>(blocks),
+                                   kSpmmThreads, smem, stream>>>(
+        static_cast<const T*>(diags), ld, offs, nd, static_cast<const T*>(X),
+        ldx, static_cast<const T*>(cs.P), cs.ldp, static_cast<T>(cs.alpha),
+        static_cast<T>(cs.beta), static_cast<T*>(Y), ldy, b, n, tile, halo,
+        vec);
+  else
+    dia_spmm_kernel<T, BT><<<static_cast<unsigned>(blocks), kSpmmThreads, smem,
+                             stream>>>(
+        static_cast<const T*>(diags), ld, offs, nd, static_cast<const T*>(X),
+        ldx, static_cast<T*>(Y), ldy, b, n, tile, halo, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CHEB = false>
 cudaError_t launch_block(const void* diags, int64_t ld, const int64_t* offsets,
                          const int* where, int nd, const void* X, int64_t ldx,
                          void* Y, int64_t ldy, int b, int64_t n, int tile,
-                         int halo, cudaStream_t stream) {
+                         int halo, const ChebStep& cs, cudaStream_t stream) {
   if (tile % (kSpmmThreads * spmm_rpt<T>()) != 0 || halo < 0)
     return cudaErrorInvalidValue;
   SpmmOffsets offs;
@@ -265,12 +394,12 @@ cudaError_t launch_block(const void* diags, int64_t ld, const int64_t* offsets,
     }
   }
   if (b <= 1)
-    return launch_block_bt<T, 1>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, stream);
+    return launch_block_bt<T, 1, CHEB>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, cs, stream);
   if (b <= 2)
-    return launch_block_bt<T, 2>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, stream);
+    return launch_block_bt<T, 2, CHEB>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, cs, stream);
   if (b <= 4)
-    return launch_block_bt<T, 4>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, stream);
-  return launch_block_bt<T, 8>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, stream);
+    return launch_block_bt<T, 4, CHEB>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, cs, stream);
+  return launch_block_bt<T, 8, CHEB>(diags, ld, offs, nd, X, ldx, Y, ldy, b, n, tile, halo, cs, stream);
 }
 
 }  // namespace
@@ -324,17 +453,60 @@ extern "C" int slepc_dia_spmm(int dtype, const void* diags, int64_t ld,
   if (nd < 1 || nd > kMaxDiags || n < 1 || b < 1 || b > kMaxB || tile < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ChebStep none{nullptr, 0, 0.0, 0.0};
   if (dtype == slepc::kF32)
     return launch_block<float>(diags, ld, offsets, where, nd, X, ldx, Y, ldy, b,
-                               n, tile, halo, s);
+                               n, tile, halo, none, s);
   if (dtype == slepc::kF64)
     return launch_block<double>(diags, ld, offsets, where, nd, X, ldx, Y, ldy,
-                                b, n, tile, halo, s);
+                                b, n, tile, halo, none, s);
   if (dtype == slepc::kC64)
     return launch_block<slepc::c64>(diags, ld, offsets, where, nd, X, ldx, Y,
-                                    ldy, b, n, tile, halo, s);
+                                    ldy, b, n, tile, halo, none, s);
   if (dtype == slepc::kC128)
     return launch_block<slepc::c128>(diags, ld, offsets, where, nd, X, ldx, Y,
-                                     ldy, b, n, tile, halo, s);
+                                     ldy, b, n, tile, halo, none, s);
+  return cudaErrorInvalidValue;
+}
+
+// The fused Chebyshev step on one vector: y = alpha A t + beta t - p, with
+// t, p and y (n,) device arrays (p may be null: step 1); f32 and f64.
+extern "C" int slepc_dia_cheb_step(int dtype, const void* diags, int64_t ld,
+                                   const int64_t* offsets, int nd,
+                                   const void* t, const void* p, double alpha,
+                                   double beta, void* y, int64_t n,
+                                   void* stream) {
+  if (nd < 1 || nd > kMaxDiags || n < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == slepc::kF32)
+    return launch<float, true>(diags, ld, offsets, nd, t, y, n, s, p, alpha,
+                               beta);
+  if (dtype == slepc::kF64)
+    return launch<double, true>(diags, ld, offsets, nd, t, y, n, s, p, alpha,
+                                beta);
+  return cudaErrorInvalidValue;
+}
+
+// The fused Chebyshev step on a block: Y = alpha A X + beta X - P for the b
+// rows of X (row stride ldx), P (ldp; may be null: step 1) and Y (ldy), on
+// K5's plan (where, tile, halo as for slepc_dia_spmm); f32 and f64.
+extern "C" int slepc_dia_cheb_step_block(int dtype, const void* diags,
+                                         int64_t ld, const int64_t* offsets,
+                                         const int* where, int nd,
+                                         const void* X, int64_t ldx,
+                                         const void* P, int64_t ldp,
+                                         double alpha, double beta, void* Y,
+                                         int64_t ldy, int b, int64_t n,
+                                         int tile, int halo, void* stream) {
+  if (nd < 1 || nd > kMaxDiags || n < 1 || b < 1 || b > kMaxB || tile < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ChebStep cs{P, ldp, alpha, beta};
+  if (dtype == slepc::kF32)
+    return launch_block<float, true>(diags, ld, offsets, where, nd, X, ldx, Y,
+                                     ldy, b, n, tile, halo, cs, s);
+  if (dtype == slepc::kF64)
+    return launch_block<double, true>(diags, ld, offsets, where, nd, X, ldx, Y,
+                                      ldy, b, n, tile, halo, cs, s);
   return cudaErrorInvalidValue;
 }

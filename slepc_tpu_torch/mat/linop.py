@@ -10,7 +10,9 @@ Formats:
     matrices; ``mult`` is the DIA kernel K1/K2 (K1c/K2c for complex64 /
     complex128 diagonals), ``mult_h`` the same kernel on the adjoint's
     diagonals (built once, on the device) and ``mult_block`` the block
-    kernel K5 (K5c for complex diagonals; ``ops/dia.py``).
+    kernel K5 (K5c for complex diagonals; ``ops/dia.py``); ``cheb_step`` /
+    ``cheb_step_block`` are a Chebyshev filter's step fused into K2's /
+    K5's design.
   * :class:`AIJOperator` — general sparsity as plain CSR on the device;
     ``mult`` is the CSR kernel K6 (``ops/csr.py``).  The reference's padded
     ELL and hybrid diagonal/gather packs are TPU layouts and are not ported;
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import CSR_BUDGET, csr_plan, csr_spmv, row_of_entry
-from ..ops.dia import dia_spmm, dia_spmv
+from ..ops.dia import dia_cheb_step, dia_cheb_step_block, dia_spmm, dia_spmv
 from ..sys.device import resolve_device
 from ..sys.dtypes import as_torch_dtype
 
@@ -106,6 +108,14 @@ def apply_by_parts(fn, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return fn(x)
 
 
+def cheb_passes(y: torch.Tensor, t: torch.Tensor, p, alpha: float,
+                beta: float) -> torch.Tensor:
+    """A Chebyshev step's three vector passes on the product y = A t, in
+    place: y = alpha y + beta t - p (p None: no subtraction)."""
+    y.mul_(alpha).add_(t, alpha=beta)
+    return y if p is None else y.sub_(p)
+
+
 class LinearOperator:
     """Abstract operator A: R^n -> R^m on one device.
 
@@ -170,6 +180,19 @@ class LinearOperator:
         for m in range(X.shape[0]):
             Y[m] = self.mult(X[m])
         return Y
+
+    def cheb_step(self, t: torch.Tensor, p, alpha: float,
+                  beta: float) -> torch.Tensor:
+        """One step of a Chebyshev filter's recurrence (``st/cheb.py``),
+        y = alpha A t + beta t - p (p None: step 1), a new tensor: the
+        product, then the three passes (:func:`cheb_passes`)."""
+        return cheb_passes(self.mult(t), t, p, alpha, beta)
+
+    def cheb_step_block(self, T: torch.Tensor, P, alpha: float,
+                        beta: float) -> torch.Tensor:
+        """:meth:`cheb_step` on the rows of a (b, n) block, with the block
+        product."""
+        return cheb_passes(self.mult_block(T), T, P, alpha, beta)
 
     def __call__(self, x):
         return self.mult(x)
@@ -363,6 +386,33 @@ class DIAOperator(LinearOperator):
             return self.row_shard_block(X)
         return apply_by_parts(lambda V: dia_spmm(self.offsets, self.diags, V),
                               X, self.dtype)
+
+    def _fuses(self, t: torch.Tensor, shard) -> bool:
+        """Whether a Chebyshev step on t takes the fused kernel: a real
+        operator, t of its own dtype (no split by parts) and rows not
+        partitioned."""
+        return shard is None and not self.dtype.is_complex \
+            and t.dtype == self.dtype
+
+    def cheb_step(self, t: torch.Tensor, p, alpha: float,
+                  beta: float) -> torch.Tensor:
+        """One launch of the fused step (``ops/dia.py`` ``dia_cheb_step``,
+        K2's design) where t allows it (:meth:`_fuses`), else ``mult`` and
+        the three passes."""
+        self._check_len(t, "cheb_step")
+        if self._fuses(t, self.row_shard):
+            return dia_cheb_step(self.offsets, self.diags, t, p, alpha, beta)
+        return super().cheb_step(t, p, alpha, beta)
+
+    def cheb_step_block(self, T: torch.Tensor, P, alpha: float,
+                        beta: float) -> torch.Tensor:
+        """The fused block step (``dia_cheb_step_block``, K5's design)
+        where T allows it, else ``mult_block`` and the three passes."""
+        self._check_len(T, "cheb_step_block")
+        if self._fuses(T, self.row_shard_block):
+            return dia_cheb_step_block(self.offsets, self.diags, T, P, alpha,
+                                       beta)
+        return super().cheb_step_block(T, P, alpha, beta)
 
     def adjoint(self) -> "DIAOperator":
         """A^H as a DIAOperator, built on A's device at the first call and

@@ -40,6 +40,7 @@ build_log = ""         # compiler output of that compile (-Xptxas -v report)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "slepc_csr_spmv": (_I, [_I, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P,
                             _I64, _I, _P, _P, _P]),
@@ -53,6 +54,12 @@ _SIGNATURES = {
                             _I64, _I, _I, _P]),
     "slepc_dia_spmm_smem": (_I64, [_I, _I, _I, _I]),
     "slepc_dia_spmm_max_b": (_I, []),
+    "slepc_dia_cheb_step": (_I, [_I, _P, _I64, ctypes.POINTER(_I64), _I, _P,
+                                 _P, _D, _D, _P, _I64, _P]),
+    "slepc_dia_cheb_step_block": (_I, [_I, _P, _I64, ctypes.POINTER(_I64),
+                                       ctypes.POINTER(_I), _I, _P, _I64, _P,
+                                       _I64, _D, _D, _P, _I64, _I, _I64, _I,
+                                       _I, _P]),
     "slepc_error_string": (ctypes.c_char_p, [_I]),
     "slepc_panel": (_I, [_I, _I, _I, _P, _I64, _I, _P, _I64, _I, _P, _P, _I64,
                          _P, _I, _I, _I, _P, _I64, _P]),

@@ -16,6 +16,13 @@ complex instantiation K5c, in native complex arithmetic.
 window of X each block stages in shared memory (near diagonals), or device
 memory (far ones).
 
+:func:`dia_cheb_step` and :func:`dia_cheb_step_block` are one step of the
+Chebyshev filter's three-term recurrence, ``y = alpha A t + beta t - p``
+(step 1: no p), in one launch of K2's / K5's design with the step as the
+epilogue of the product (float32 / float64); their plain versions are the
+product followed by three in-place passes (scale, add, subtract), the
+filter's step on any other operator (``mat/linop.py`` ``cheb_passes``).
+
 Each wrapper runs its plain version (``*_ref``) for a tensor on the CPU,
 launches the CUDA kernel for a tensor on a CUDA device, and raises for
 anything else.
@@ -33,7 +40,9 @@ from . import _build
 
 launches = {"dia_spmv_f32": 0, "dia_spmv_f64": 0, "dia_spmv_c64": 0,
             "dia_spmv_c128": 0, "dia_spmm_f32": 0, "dia_spmm_f64": 0,
-            "dia_spmm_c64": 0, "dia_spmm_c128": 0}
+            "dia_spmm_c64": 0, "dia_spmm_c128": 0, "dia_cheb_f32": 0,
+            "dia_cheb_f64": 0, "dia_cheb_block_f32": 0,
+            "dia_cheb_block_f64": 0}
 
 # K5: rows a block owns (the real ones the best of the tile sweep of
 # ``chip_smoke.py --profile``, PERF.md; the complex ones not swept: c64 as
@@ -118,6 +127,26 @@ def dia_spmm_ref(offsets: Sequence[int], diags: torch.Tensor,
     return Y
 
 
+def _passes_ref(y, t, p, alpha, beta):
+    y.mul_(alpha).add_(t, alpha=beta)
+    return y if p is None else y.sub_(p)
+
+
+def dia_cheb_step_ref(offsets: Sequence[int], diags: torch.Tensor,
+                      t: torch.Tensor, p, alpha: float,
+                      beta: float) -> torch.Tensor:
+    """Plain version of :func:`dia_cheb_step`: the product, then the
+    three passes."""
+    return _passes_ref(dia_spmv_ref(offsets, diags, t), t, p, alpha, beta)
+
+
+def dia_cheb_step_block_ref(offsets: Sequence[int], diags: torch.Tensor,
+                            T: torch.Tensor, P, alpha: float,
+                            beta: float) -> torch.Tensor:
+    """Plain version of :func:`dia_cheb_step_block`."""
+    return _passes_ref(dia_spmm_ref(offsets, diags, T), T, P, alpha, beta)
+
+
 def _check(name, offsets, diags, x, dim):
     n = x.shape[-1]
     if x.dim() != dim or diags.dim() != 2 or diags.shape[0] != len(offsets) \
@@ -157,6 +186,19 @@ def dia_spmv(offsets: Sequence[int], diags: torch.Tensor,
     return y
 
 
+def _chunks(offsets, b, n, dtype, tile):
+    """K5's launches for a block of b rows: (first row, rows, plan, the
+    plan's ``where`` as a C array) for each chunk of at most
+    ``SPMM_MAX_B`` rows."""
+    plans = {}
+    for i in range(0, b, SPMM_MAX_B):
+        m = min(SPMM_MAX_B, b - i)
+        if m not in plans:
+            plan = plan_spmm(offsets, n, m, dtype, tile)
+            plans[m] = (plan, (ctypes.c_int * len(offsets))(*plan.where))
+        yield (i, m) + plans[m]
+
+
 def dia_spmm(offsets: Sequence[int], diags: torch.Tensor,
              X: torch.Tensor, tile: int | None = None) -> torch.Tensor:
     """Y = (A X[m] for each row m): a new (b, n) tensor for X (b, n), b any
@@ -176,17 +218,77 @@ def dia_spmm(offsets: Sequence[int], diags: torch.Tensor,
                            f"{lib.slepc_dia_spmm_max_b()} rows, SPMM_MAX_B "
                            f"says {SPMM_MAX_B}")
     Y = torch.empty((b, n), dtype=X.dtype, device=X.device)
-    plans = {}
-    for i in range(0, b, SPMM_MAX_B):
-        m = min(SPMM_MAX_B, b - i)
-        if m not in plans:
-            plan = plan_spmm(offsets, n, m, X.dtype, tile)
-            plans[m] = (plan, (ctypes.c_int * len(offsets))(*plan.where))
-        plan, where = plans[m]
+    for i, m, plan, where in _chunks(offsets, b, n, X.dtype, tile):
         rc = lib.slepc_dia_spmm(code, diags.data_ptr(), diags.stride(0), offs,
                                 where, len(offsets), X[i].data_ptr(),
                                 X.stride(0), Y[i].data_ptr(), n, m, n,
                                 plan.tile, plan.halo, _build.stream_handle(X))
         _build.check(rc, "dia_spmm")
         launches["dia_spmm_" + _build.SUFFIX[code]] += 1
+    return Y
+
+
+def _check_step(name, offsets, diags, t, p, dim):
+    _check(name, offsets, diags, t, dim)
+    if p is not None and (p.shape != t.shape or p.dtype != t.dtype
+                          or p.device != t.device):
+        raise ValueError(f"{name}: p {tuple(p.shape)} {p.dtype} does not "
+                         f"match t {tuple(t.shape)} {t.dtype} on {t.device}")
+    if t.device.type == "cuda" and t.dtype not in (torch.float32,
+                                                   torch.float64):
+        raise ValueError(f"{name}: the fused step takes float32 and float64, "
+                         f"not {t.dtype}")
+
+
+def dia_cheb_step(offsets: Sequence[int], diags: torch.Tensor,
+                  t: torch.Tensor, p, alpha: float,
+                  beta: float) -> torch.Tensor:
+    """One Chebyshev step, y = alpha A t + beta t - p, a new (n,) tensor
+    (p None: step 1, no p); neither t nor p is written.  On the card one
+    launch of K2's design with the step as its epilogue (float32 /
+    float64), t's own entry taken from the offset-0 diagonal's load."""
+    _check_step("dia_cheb_step", offsets, diags, t, p, 1)
+    if t.device.type == "cpu":
+        return dia_cheb_step_ref(offsets, diags, t, p, alpha, beta)
+    code, lib, offs = _kernel_args("dia_cheb_step", offsets, diags, t)
+    if p is not None and p.stride(-1) != 1:
+        raise ValueError("dia_cheb_step: p must be contiguous")
+    y = torch.empty_like(t)
+    rc = lib.slepc_dia_cheb_step(
+        code, diags.data_ptr(), diags.stride(0), offs, len(offsets),
+        t.data_ptr(), None if p is None else p.data_ptr(), float(alpha),
+        float(beta), y.data_ptr(), t.shape[0], _build.stream_handle(t))
+    _build.check(rc, "dia_cheb_step")
+    launches["dia_cheb_" + _build.SUFFIX[code]] += 1
+    return y
+
+
+def dia_cheb_step_block(offsets: Sequence[int], diags: torch.Tensor,
+                        T: torch.Tensor, P, alpha: float, beta: float,
+                        tile: int | None = None) -> torch.Tensor:
+    """:func:`dia_cheb_step` on the b rows of T (b, n), P (b, n) or None:
+    a new (b, n) tensor.  On the card K5's design with the step at its one
+    store of each element (float32 / float64), on K5's plan
+    (:func:`plan_spmm`) in launches of at most ``SPMM_MAX_B`` rows; the
+    rows of T and P must each be contiguous, their strides may be anything
+    (slices of a taller basis are taken as they are)."""
+    _check_step("dia_cheb_step_block", offsets, diags, T, P, 2)
+    if T.device.type == "cpu":
+        return dia_cheb_step_block_ref(offsets, diags, T, P, alpha, beta)
+    b, n = T.shape
+    code, lib, offs = _kernel_args("dia_cheb_step_block", offsets, diags, T)
+    if P is not None and P.stride(-1) != 1:
+        raise ValueError("dia_cheb_step_block: the rows of P must be "
+                         "contiguous")
+    Y = torch.empty((b, n), dtype=T.dtype, device=T.device)
+    for i, m, plan, where in _chunks(offsets, b, n, T.dtype, tile):
+        rc = lib.slepc_dia_cheb_step_block(
+            code, diags.data_ptr(), diags.stride(0), offs, where,
+            len(offsets), T[i].data_ptr(), T.stride(0),
+            None if P is None else P[i].data_ptr(),
+            0 if P is None else P.stride(0), float(alpha), float(beta),
+            Y[i].data_ptr(), n, m, n, plan.tile, plan.halo,
+            _build.stream_handle(T))
+        _build.check(rc, "dia_cheb_step_block")
+        launches["dia_cheb_block_" + _build.SUFFIX[code]] += 1
     return Y

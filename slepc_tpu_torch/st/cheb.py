@@ -12,11 +12,12 @@ applies unchanged, and every eigenvector of A is an eigenvector of every
 p(A): the window can move between restarts while converged rows stay
 locked.
 
-One filtered apply is ``degree`` SpMVs of the base operator, chained by the
-three-term Chebyshev recurrence in a Python loop (each SpMV is the DIA
-or CSR kernel on the card, each recurrence step three in-place vector
-updates).  ``mult_block`` runs the same recurrence on a (b, n) block, with
-the block SpMV (kernel K5 for a DIA base) per step.
+One filtered apply is ``degree`` steps of the three-term Chebyshev
+recurrence in a Python loop, each the base's ``cheb_step`` (``mult_block``:
+``cheb_step_block`` on a (b, n) block).  A DIA base fuses the step into one
+launch of K2's / K5's design where its input allows; any other base runs
+it as its product (the CSR kernel, a shell's callback, ...) and three
+in-place vector passes (``mat/linop.py``).
 """
 
 from __future__ import annotations
@@ -24,13 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..mat.linop import AIJOperator, DIAOperator, LinearOperator, as_operand
+from ..mat.linop import AIJOperator, DIAOperator, as_operand
 from ..ops.csr import csr_spmv
 from ..sys.events import log_event
 
 
 class ChebAmplifyOperator:
-    """B = T_degree((hi + lo - 2 A)/(hi - lo)) over any ``mult`` operator."""
+    """B = T_degree((hi + lo - 2 A)/(hi - lo)) over any LinearOperator."""
 
     def __init__(self, base, lo: float, hi: float, degree: int):
         self.base = base
@@ -55,9 +56,10 @@ class ChebAmplifyOperator:
         """Flop accounting: one apply streams the base ``degree`` times."""
         return int(getattr(self.base, "nnz", 0)) * max(self.degree, 1)
 
-    def _recurrence(self, apply, x: torch.Tensor) -> torch.Tensor:
+    def _recurrence(self, step, x: torch.Tensor) -> torch.Tensor:
         """The ``degree`` steps on x, (n,) or a (b, n) block, inside the
-        span ``ST_ChebApply`` (counts: ``degree``, and ``rows`` 1 or b)."""
+        span ``ST_ChebApply`` (counts: ``degree``, and ``rows`` 1 or b);
+        ``step(t, p, alpha, beta)`` is alpha A t + beta t - p."""
         d = self.degree
         if d <= 0:
             return x
@@ -66,30 +68,29 @@ class ChebAmplifyOperator:
         with log_event("ST_ChebApply", degree=d,
                        rows=x.shape[0] if x.dim() == 2 else 1):
             # t1 = L(x) = b x - a A x
-            t1 = apply(x).mul_(-a).add_(x, alpha=b)
+            t1 = step(x, None, -a, b)
             tm1, tk = x, t1
             for _ in range(1, d):
                 # t_{k+1} = 2 L(t_k) - t_{k-1} = 2b t_k - 2a A t_k - t_{k-1}
-                nxt = apply(tk).mul_(-2.0 * a).add_(tk, alpha=2.0 * b) \
-                    .sub_(tm1)
+                nxt = step(tk, tm1, -2.0 * a, 2.0 * b)
                 tm1, tk = tk, nxt
         return tk
 
     def mult(self, x: torch.Tensor) -> torch.Tensor:
+        """B x: each step the base's ``cheb_step``."""
         if not torch.is_tensor(x):
             x = as_operand(x, "ChebAmplifyOperator.mult", self.dtype,
                            self.device, self.shape[1])
-        return self._recurrence(self.base.mult, x)
+        return self._recurrence(self.base.cheb_step, x)
 
     def mult_block(self, X: torch.Tensor) -> torch.Tensor:
         """B applied to each row of the (b, n) block X: the same recurrence
-        and in-place passes as :meth:`mult`, on whole blocks over the base's
-        ``mult_block`` (kernel K5 for a DIA base; one ``mult`` per row for a
-        base that has none)."""
+        as :meth:`mult` on whole blocks, each step the base's
+        ``cheb_step_block``."""
         if not torch.is_tensor(X):
             X = as_operand(X, "ChebAmplifyOperator.mult_block", self.dtype,
                            self.device, self.shape[1], ndims=(2,))
-        return self._recurrence(LinearOperator.block_of(self.base), X)
+        return self._recurrence(self.base.cheb_step_block, X)
 
 
 def cheb_value(lam, lo, hi, degree: int):

@@ -1,8 +1,13 @@
 """The Chebyshev amplifier and the whole EPS slice of slepc_tpu_torch against
 slepc_tpu.
 
-* ChebAmplifyOperator apply: the same operator, window and vector through
-  both packages, relative 1e-12.
+* ChebAmplifyOperator apply: the same operator, window and vector (or a
+  (3, n) block, the reference's ``jax.vmap`` of its ``mult``) through both
+  packages, relative 1e-12.
+* The filter's step: a DIA base takes ``cheb_step`` / ``cheb_step_block``
+  (the fused kernel's plain version on the CPU), bitwise equal to the
+  product and three passes; an AIJ base, a complex vector on a real DIA
+  and a shell base keep the passes.
 * The Chebyshev-amplified EPS (-eps_cheb_degree 60) on laplacian_2d(60, 60),
   f64, nev=8, ncv=24 (the tests/test_round5.py:407-433 case): both packages
   agree with the closed-form spectrum and with each other to 1e-10, and the
@@ -13,6 +18,7 @@ slepc_tpu.
 Each JAX reference runs once per module, in a fixture.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +28,8 @@ import slepc_tpu as jst
 from slepc_tpu.st.cheb import ChebAmplifyOperator as JCheb
 import slepc_tpu_torch as tst
 from slepc_tpu_torch import interop
+from slepc_tpu_torch.mat import linop
+from slepc_tpu_torch.ops import dia
 from slepc_tpu_torch.st.cheb import ChebAmplifyOperator, gershgorin_upper
 
 CHEB_OPTS = "-eps_cheb_degree 60"
@@ -50,14 +58,133 @@ def jax_plain():
 
 
 def test_amplifier_apply_matches_reference():
+    _apply_matches_reference("mult")
+
+
+def test_amplifier_apply_block_matches_reference():
+    _apply_matches_reference("mult_block")
+
+
+def _apply_matches_reference(form):
     A = jst.laplacian_2d(30, 28)
     top = interop.dia_from_slepc_tpu(A, device="cpu")
     lo, hi, deg = 0.05, gershgorin_upper(top), 60
     assert hi == 8.0
-    x = np.random.default_rng(4).standard_normal(A.shape[0])
-    yj = np.asarray(JCheb(A, lo, hi, deg).mult(jnp.asarray(x)))
-    yt = ChebAmplifyOperator(top, lo, hi, deg).mult(torch.from_numpy(x)).numpy()
+    rng = np.random.default_rng(4)
+    if form == "mult":
+        x = rng.standard_normal(A.shape[0])
+        yj = np.asarray(JCheb(A, lo, hi, deg).mult(jnp.asarray(x)))
+    else:
+        x = rng.standard_normal((3, A.shape[0]))
+        yj = np.asarray(jax.vmap(JCheb(A, lo, hi, deg).mult)(jnp.asarray(x)))
+    yt = getattr(ChebAmplifyOperator(top, lo, hi, deg), form)(
+        torch.from_numpy(x)).numpy()
     assert np.abs(yt - yj).max() / np.abs(yj).max() < 1e-12
+
+
+def _three_passes(apply, x, lo, hi, deg):
+    """The filter as the recurrence ran before its step was fused: the
+    product, then mul_, add_ and sub_ in place."""
+    a, b = 2.0 / (hi - lo), (hi + lo) / (hi - lo)
+    tm1, tk = x, apply(x).mul_(-a).add_(x, alpha=b)
+    for _ in range(1, deg):
+        tm1, tk = tk, apply(tk).mul_(-2.0 * a).add_(tk, alpha=2.0 * b) \
+            .sub_(tm1)
+    return tk
+
+
+@pytest.fixture
+def fused_calls(monkeypatch):
+    """Counts of the calls DIAOperator makes to the fused steps."""
+    calls = {"dia_cheb_step": 0, "dia_cheb_step_block": 0}
+
+    def counted(name):
+        fn = getattr(dia, name)
+
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(linop, name, counted(name))
+    return calls
+
+
+@pytest.mark.parametrize("form,dtype", [("mult", torch.float64),
+                                        ("mult_block", torch.float64),
+                                        ("mult", torch.float32),
+                                        ("mult_block", torch.float32)])
+def test_amplifier_takes_the_fused_step_on_a_dia_base(fused_calls, form,
+                                                     dtype):
+    A = tst.laplacian_3d(9, 10, 11, dtype=dtype, device="cpu")
+    lo, hi, deg = 0.3, gershgorin_upper(A), 25
+    shape = (A.shape[0],) if form == "mult" else (4, A.shape[0])
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(shape)) \
+        .to(dtype)
+    x0 = x.clone()
+    y = getattr(ChebAmplifyOperator(A, lo, hi, deg), form)(x)
+    name = "dia_cheb_step" if form == "mult" else "dia_cheb_step_block"
+    assert fused_calls[name] == deg
+    assert sum(fused_calls.values()) == deg
+    apply = A.mult if form == "mult" else A.mult_block
+    assert torch.equal(y, _three_passes(apply, x, lo, hi, deg))
+    assert torch.equal(x, x0)  # the input is not written
+
+
+def test_fused_step_plain_versions_are_the_passes():
+    offsets = (-7, -1, 0, 1, 7)
+    rng = np.random.default_rng(6)
+    d = torch.from_numpy(rng.standard_normal((5, 50)))
+    T = torch.from_numpy(rng.standard_normal((3, 50)))
+    P = torch.from_numpy(rng.standard_normal((3, 50)))
+    T0, P0 = T.clone(), P.clone()
+    for p in (None, P):
+        y = dia.dia_cheb_step(offsets, d, T[1], None if p is None else p[1],
+                              -0.7, 1.3)
+        want = dia.dia_spmv_ref(offsets, d, T[1]).mul_(-0.7).add_(T[1],
+                                                                  alpha=1.3)
+        assert torch.equal(y, want if p is None else want.sub_(p[1]))
+        Y = dia.dia_cheb_step_block(offsets, d, T, p, -0.7, 1.3)
+        assert torch.equal(Y[1], y)
+    assert torch.equal(T, T0) and torch.equal(P, P0)
+    with pytest.raises(ValueError, match="does not match"):
+        dia.dia_cheb_step(offsets, d, T[1], P[1, :49], -0.7, 1.3)
+    with pytest.raises(ValueError, match="does not match"):
+        dia.dia_cheb_step_block(offsets, d, T, P[:2], -0.7, 1.3)
+
+
+def _shell(A):
+    return tst.ShellOperator(A.shape, A.dtype, A.mult, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["aij", "complex_x", "shell", "row_shard"])
+def test_amplifier_keeps_the_passes_elsewhere(fused_calls, case):
+    A = tst.laplacian_2d(16, 16, device="cpu")  # n = 256: no ragged tail
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        A.shape[0]))
+    if case == "aij":
+        base = tst.from_scipy(A.to_scipy(), device="cpu")
+    elif case == "shell":
+        base = _shell(A)
+    elif case == "row_shard":
+        # a row-partitioned DIA operator (sys/mesh.py sets these hooks to
+        # its ranks' products); plain products stand in for them here
+        base = tst.DIAOperator(A.offsets, A.diags)
+        base.row_shard = lambda v: dia.dia_spmv_ref(A.offsets, A.diags, v)
+        base.row_shard_block = lambda V: dia.dia_spmm_ref(A.offsets, A.diags,
+                                                          V)
+    else:
+        base = A
+        x = torch.complex(x, torch.from_numpy(
+            np.random.default_rng(8).standard_normal(A.shape[0])))
+    lo, hi, deg = 0.2, 8.0, 15
+    op = ChebAmplifyOperator(base, lo, hi, deg)
+    y = op.mult(x)
+    Y = op.mult_block(torch.stack([x, 2 * x]))
+    assert sum(fused_calls.values()) == 0
+    assert torch.equal(y, _three_passes(base.mult, x, lo, hi, deg))
+    assert torch.equal(Y[0], y)
 
 
 def test_cheb_eps_slice_matches_reference_and_closed_form(jax_cheb):

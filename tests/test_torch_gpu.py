@@ -362,6 +362,138 @@ def test_dia_block_kernel_rejects_what_it_does_not_take(cuda):
     assert dia.launches == before
 
 
+# ---- the fused Chebyshev step (K2's and K5's designs with an epilogue) ----
+
+# (alpha, beta) of a filter's first step (-a, b) and of a later one
+# (-2a, 2b); a later step subtracts p = t_{k-1}
+CHEB_COEFFS = {"first": (-0.61, 1.37), "later": (-1.22, 2.74)}
+
+
+def _cheb_scale(offsets, d, t, p, alpha, beta):
+    """max of |alpha| |A| |t| + |beta| |t| + |p|: the size of the terms."""
+    spmv = dia.dia_spmv_ref if t.dim() == 1 else dia.dia_spmm_ref
+    s = abs(alpha) * spmv(offsets, d.abs(), t.abs()) + abs(beta) * t.abs()
+    return (s if p is None else s + p.abs()).max()
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("step", ["first", "later"])
+@pytest.mark.parametrize("n,offsets", [
+    (1, (0,)), (7, (-9, -1, 0, 1, 9)), (1000, (-200, -1, 1, 200)),
+    (45_013, (-45_000, -200, -1, 0, 1, 200, 45_000))])
+def test_dia_cheb_step_matches_plain(cuda, dtype, tol, step, n, offsets):
+    # y = alpha A t + beta t - p in one launch against the product and the
+    # three passes: offsets past the ends (n = 7), no offset-0 diagonal
+    # (t's own entry read on its own), the flagship's offsets
+    alpha, beta = CHEB_COEFFS[step]
+    d = _rand((len(offsets), n), dtype, cuda, 0)
+    t = _rand((n,), dtype, cuda, 1)
+    p = None if step == "first" else _rand((n,), dtype, cuda, 2)
+    kept = [v.clone() for v in (t, p) if v is not None]
+    before = dict(dia.launches)
+    y = dia.dia_cheb_step(offsets, d, t, p, alpha, beta)
+    ref = dia.dia_cheb_step_ref(offsets, d, t, p, alpha, beta)
+    torch.cuda.synchronize()
+    scale = _cheb_scale(offsets, d, t, p, alpha, beta)
+    assert float((y - ref).abs().max() / scale) <= 4 * tol
+    key = "dia_cheb_f64" if dtype == torch.float64 else "dia_cheb_f32"
+    assert dia.launches == {**before, key: before[key] + 1}
+    # neither input is written; the same bits every time
+    assert all(torch.equal(a, b) for a, b in zip(kept, (t, p)))
+    assert torch.equal(dia.dia_cheb_step(offsets, d, t, p, alpha, beta), y)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("step", ["first", "later"])
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 11])
+@pytest.mark.parametrize("layout", ["aligned", "odd_stride", "odd_base",
+                                    "odd_n", "far_only"])
+def test_dia_cheb_step_block_near_and_far(cuda, dtype, tol, step, b, layout):
+    # K5's design with the step at its store: offsets inside the staged
+    # window, beyond it and past +-n (far_only: no window at all, X's own
+    # entries read from device memory); X and P row slices of two taller
+    # bases with their own row strides (aligned, odd, an odd base); an odd
+    # n; b = 11 in two launches (8 + 3)
+    alpha, beta = CHEB_COEFFS[step]
+    n = 20_001 if layout == "odd_n" else 20_000
+    offsets = (-19_000, -15_000, 15_000, 19_000) if layout == "far_only" \
+        else (-30_000, -3000, -700, -5, -1, 0, 1, 5, 700, 3000, 30_000)
+    tile = 1024
+    d = _rand((len(offsets), n), dtype, cuda, 2)
+    width = n + {"aligned": 8, "odd_stride": 3, "odd_base": 8, "odd_n": 5,
+                 "far_only": 8}[layout]
+    start = 1 if layout == "odd_base" else 0
+    V = _rand((b + 3, width), dtype, cuda, 3)
+    Q = _rand((b + 5, width + 2), dtype, cuda, 4)
+    X = V[2:2 + b, start:start + n]
+    P = None if step == "first" else Q[1:1 + b, start:start + n]
+    if layout == "far_only":
+        assert dia.NEAR not in dia.plan_spmm(offsets, n, min(b, 8), dtype,
+                                             tile).where
+    V0, Q0 = V.clone(), Q.clone()
+    key = "dia_cheb_block_" + ("f64" if dtype == torch.float64 else "f32")
+    before = dict(dia.launches)
+    Y = dia.dia_cheb_step_block(offsets, d, X, P, alpha, beta, tile=tile)
+    ref = dia.dia_cheb_step_block_ref(offsets, d, X, P, alpha, beta)
+    torch.cuda.synchronize()
+    assert dia.launches == {**before, key: before[key] + -(-b // 8)}
+    assert Y.shape == (b, n)
+    scale = _cheb_scale(offsets, d, X, P, alpha, beta)
+    assert float((Y - ref).abs().max() / scale) <= 4 * tol
+    # row m is the one-vector fused step on X[m], P[m]
+    Y1 = torch.stack([dia.dia_cheb_step(
+        offsets, d, X[m].contiguous(),
+        None if P is None else P[m].contiguous(), alpha, beta)
+        for m in range(b)])
+    assert float((Y - Y1).abs().max() / scale) <= 4 * tol
+    assert torch.equal(V, V0) and torch.equal(Q, Q0)
+    for _ in range(2):  # bitwise repeatable
+        assert torch.equal(dia.dia_cheb_step_block(offsets, d, X, P, alpha,
+                                                   beta, tile=tile), Y)
+
+
+def test_dia_cheb_step_rejects_what_it_does_not_take(cuda):
+    offsets = (-1, 0, 1)
+    d = torch.ones((3, 50), dtype=torch.float64, device=cuda)
+    X = torch.ones((4, 50), dtype=torch.float64, device=cuda)
+    before = dict(dia.launches)
+    with pytest.raises(ValueError, match="does not match"):
+        dia.dia_cheb_step(offsets, d, X[0], X[0, :49], -1.0, 2.0)
+    with pytest.raises(ValueError, match="does not match"):
+        dia.dia_cheb_step_block(offsets, d, X, X[:3], -1.0, 2.0)
+    with pytest.raises(ValueError, match="float32 and float64"):
+        dia.dia_cheb_step(offsets, d.to(torch.complex128),
+                          X[0].to(torch.complex128), None, -1.0, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        dia.dia_cheb_step(offsets, d, X[0], torch.ones(
+            (100,), dtype=torch.float64, device=cuda)[::2], -1.0, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        dia.dia_cheb_step_block(offsets, d, X, torch.ones(
+            (4, 100), dtype=torch.float64, device=cuda)[:, ::2], -1.0, 2.0)
+    assert dia.launches == before
+
+
+@pytest.mark.parametrize("form", ["mult", "mult_block"])
+def test_cheb_amplifier_on_the_card_matches_the_cpu(cuda, form):
+    """One whole ChebAmplifyOperator(DIAOperator, lo, hi, 450) apply on the
+    card, every step one fused launch, against the same apply on the CPU
+    (the product and three passes)."""
+    from slepc_tpu_torch.st.cheb import gershgorin_upper
+
+    A = stt.laplacian_3d(40, 45, 46, device="cpu")
+    Ac = stt.DIAOperator(A.offsets, A.diags.to(cuda))
+    lo, hi, deg = 0.05, gershgorin_upper(A), 450
+    shape = (A.shape[0],) if form == "mult" else (4, A.shape[0])
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(shape))
+    before = dict(dia.launches)
+    y = getattr(stt.ChebAmplifyOperator(Ac, lo, hi, deg), form)(x.to(cuda))
+    torch.cuda.synchronize()
+    key = "dia_cheb_f64" if form == "mult" else "dia_cheb_block_f64"
+    assert dia.launches == {**before, key: before[key] + deg}
+    ref = getattr(stt.ChebAmplifyOperator(A, lo, hi, deg), form)(x)
+    assert float((y.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
 def _csr(lengths, ncols, seed):
     rng = np.random.default_rng(seed)
     rowptr = np.zeros(len(lengths) + 1, np.int64)
